@@ -1,0 +1,426 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one CUDA card and check it.
+
+    python3 chip_smoke.py [--seed 0] [--frames 8]
+
+Phases (any failure exits non-zero and prints no result line):
+  1. device: the card's name and power limit (nvidia-smi), name and count;
+  2. build: both DepthConvBlock kernels from ssgvc_tpu_torch/csrc, one nvcc
+     each, started together; prints registers, shared memory and spills;
+  3. kernels: each kernel at every shape the main path gives it, against
+     its plain PyTorch version on the same bf16 inputs (relative Frobenius
+     error <= 1e-2), timed with CUDA events, beside its bound;
+  4. main path: the performance-variant P-frame codec at full width
+     (ch_d 256, ch_y 128, ch_z 128, ch_recon 320), bf16 compute, packed io,
+     1088x1920 frames, a GOP of --frames P-frames carrying the DPB, weights
+     drawn from --seed; every launch counted (19 single + 5 chained on the
+     frame after the I-frame, 18 + 5 on the others);
+  5. streaming: StreamingDMC (raw io) on the same weights, first 3 frames
+     and starting DPB, against the packed-io GOP;
+  6. cross-check: the same weights at 128x128 through the CPU port in fp32
+     (plain versions) and the card in bf16 (kernels).
+
+The line before the last is one JSON object {"kernels": [...]}; the last is
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+import time
+import traceback
+
+import numpy as np
+
+H100_BF16_FLOPS = 989e12     # dense tensor-core peak, H100 SXM data sheet
+H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
+REL_TOL = 1e-2               # kernel vs plain, relative Frobenius error
+H, W = 1088, 1920
+QP = 32
+DEVICE = "cuda"
+
+# (rows, cols, C, shortcut, launches per P-frame, sites)
+SINGLE_SHAPES = [
+    (136, 240, 256, False, 5, "encoder.conv2_0, mask_sft.conv2_0..2, "
+     "decoder.conv_0 (+ feature_adaptor_i after an I-frame)"),
+    (136, 240, 320, False, 4, "recon_generation_net.conv_0..3"),
+    (68, 120, 128, False, 3, "hyper_encoder.conv_0, hyper_decoder.conv_1."
+     "conv, hyper_decoder.conv_2"),
+    (34, 60, 128, True, 2, "hyper_encoder.conv_1.conv, "
+     "hyper_decoder.conv_0.conv"),
+    (17, 30, 128, True, 1, "hyper_encoder.conv_2.conv"),
+    (68, 120, 256, True, 1, "temporal_prior_encoder.conv"),
+    (68, 120, 384, False, 2, "y_spatial_prior.conv_0..1"),
+]
+# (rows, cols, C, blocks, q_last, launches per P-frame, sites)
+CHAIN_SHAPES = [
+    (136, 240, 256, 2, False, 2, "feature_extractor.conv1_0..1, "
+     "decoder.conv_1..2"),
+    (136, 240, 256, 2, True, 1, "encoder.conv2_1..2 (q_last=quant_step)"),
+    (136, 240, 256, 4, False, 1, "feature_extractor.conv2_0..3"),
+    (68, 120, 384, 3, False, 1, "y_prior_fusion.conv_0..2"),
+]
+
+
+def fail(msg: str) -> None:
+    raise RuntimeError(msg)
+
+
+def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
+    """Mean device time of fn over reps launches, by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def block_params(torch, c, rng, device):
+    """Torch-layout fp32 params of one block, lecun-like, small non-zero
+    rezero tails (dc_3, ffn_2)."""
+    def t(shape, std):
+        return torch.tensor(rng.standard_normal(shape) * std,
+                            dtype=torch.float32, device=device)
+    return (t((c, c, 1, 1), c ** -0.5), t((c,), 0.1),
+            t((c, 1, 3, 3), 1 / 3), t((c,), 0.1),
+            t((c, c, 1, 1), 0.3 * c ** -0.5), t((c,), 0.1),
+            t((4 * c, c, 1, 1), c ** -0.5), t((4 * c,), 0.1),
+            t((c, 2 * c, 1, 1), 0.3 * (2 * c) ** -0.5), t((c,), 0.1))
+
+
+def bound_ms(h, w, c, n) -> float:
+    """Least time on an H100 SXM: the larger of the block products at the
+    bf16 tensor-core peak and the bytes (x read once, y written once, the
+    bf16 weights read once) at the HBM rate. Always the products here."""
+    flops = n * h * w * (16 * c * c + 18 * c)
+    nbytes = 2 * (2 * h * w * c) + n * 2 * (8 * c * c + 17 * c)
+    return 1e3 * max(flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S)
+
+
+def phase_device(torch):
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else \
+        "nvidia-smi unavailable"
+    print(card)
+    name = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    print(f"device: {name}, count {count}, torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}")
+    return card, name, count
+
+
+def phase_build():
+    from ssgvc_tpu_torch.ops import _build
+
+    t0 = time.time()
+    logs = _build.build(["dcb", "dcb_chain"])
+    print(f"build: {time.time() - t0:.1f} s")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if any(k in line for k in ("registers", "spill", "smem",
+                                       "Compiling entry")):
+                print(f"  [{name}] {line.strip()}")
+
+
+def phase_kernels(torch, seed, card):
+    from ssgvc_tpu_torch.ops import dcb as dcb_ops
+    from ssgvc_tpu_torch.ops import dcb_chain as chain_ops
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    bf16 = torch.bfloat16
+
+    def run_shape(h, w, c, n, shortcut, with_q):
+        x = torch.tensor(rng.standard_normal((1, h, w, c)), dtype=bf16,
+                         device=dev)
+        q = (torch.linspace(0.5, 1.5, c, device=dev).to(bf16) if with_q
+             else None)
+        blocks = [block_params(torch, c, rng, dev) for _ in range(n)]
+        packed = [dcb_ops.pack_params(p, bf16) for p in blocks]
+        if n == 1:
+            kern = lambda: dcb_ops.dcb_cuda(x, packed[0], q, shortcut)
+            plain = lambda: dcb_ops.dcb_plain(x, blocks[0], q, shortcut)
+        else:
+            kern = lambda: chain_ops.dcb_chain_cuda(x, packed, q)
+            plain = lambda: chain_ops.dcb_chain_plain(x, blocks, q)
+        out = kern()
+        torch.cuda.synchronize()
+        ref = plain()
+        diff = (out.float() - ref.float())
+        rel = float(torch.linalg.vector_norm(diff)
+                    / torch.linalg.vector_norm(ref.float()))
+        max_err = float(diff.abs().max())
+        if not torch.isfinite(out.float()).all():
+            fail(f"kernel output not finite at {(h, w, c, n)}")
+        if rel > REL_TOL:
+            fail(f"kernel disagrees with plain at {(h, w, c, n)}: "
+                 f"rel {rel:.3g} > {REL_TOL}")
+        return dict(kernel_ms=cuda_ms(torch, kern, 20),
+                    plain_ms=cuda_ms(torch, plain, 5),
+                    bound_us=1e3 * bound_ms(h, w, c, n),
+                    rel_err=rel, max_err=max_err)
+
+    entries = []
+    for name, shapes, source, replaces in (
+            ("dcb", SINGLE_SHAPES, "ssgvc_tpu_torch/csrc/dcb.cu",
+             "ssgvc_tpu/ops/pallas_dcb.py:68"),
+            ("dcb_chain", CHAIN_SHAPES, "ssgvc_tpu_torch/csrc/dcb_chain.cu",
+             "ssgvc_tpu/ops/pallas_dcb_chain.py:61")):
+        rows = []
+        for shape in shapes:
+            if name == "dcb":
+                h, w, c, shortcut, per_frame, sites = shape
+                n, with_q = 1, False
+            else:
+                h, w, c, n, with_q, per_frame, sites = shape
+                shortcut = False
+            r = run_shape(h, w, c, n, shortcut, with_q)
+            r.update(shape=[h, w, c], blocks=n, shortcut=shortcut,
+                     q=with_q, launches_per_frame=per_frame, sites=sites)
+            rows.append(r)
+            print(f"  {name} {h}x{w}x{c} n={n} sc={int(shortcut)} "
+                  f"q={int(with_q)}: kernel {r['kernel_ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f} ms, bound {r['bound_us']:.1f} us, "
+                  f"rel {r['rel_err']:.2e}, max abs {r['max_err']:.3g} "
+                  f"[{card}]")
+        entries.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=None,
+            max_abs_err=max(r["max_err"] for r in rows),
+            ms=sum(r["kernel_ms"] * r["launches_per_frame"] for r in rows),
+            plain_ms=sum(r["plain_ms"] * r["launches_per_frame"]
+                         for r in rows),
+            bound_ms=sum(r["bound_us"] * r["launches_per_frame"]
+                         for r in rows) / 1e3,
+            bound_by="operations", library_ms=None,
+            per="P-frame: per-shape time x launches per frame, summed",
+            shapes=rows))
+    return entries
+
+
+def random_weights(torch, model, seed):
+    """A flax-layout params tree drawn from ``seed``, loaded into ``model``
+    through the weight bridge: lecun-normal kernels, the rezero tails
+    (dc_3, ffn_2) at 0.1 of that, the two prior heads that emit
+    (q_dec, scales, means) at 0.01 of it so the prior stays O(1) as in a
+    trained codec, near-one per-QP tables, small biases."""
+    from ssgvc_tpu_torch.utils.weights import (flax_from_state_dict, flatten,
+                                               load_flax_params, unflatten)
+
+    heads = {("y_prior_fusion", "conv_3"), ("y_spatial_prior", "conv_2")}
+    rng = np.random.default_rng(seed)
+    flat = {}
+    for path, tmpl in flatten(flax_from_state_dict(model.state_dict())).items():
+        leaf = path[-1]
+        if leaf == "kernel":
+            std = int(np.prod(tmpl.shape[:-1])) ** -0.5
+            if path[-2] in ("dc_3", "ffn_2"):
+                std *= 0.1
+            if tuple(path[-3:-1]) in heads:
+                std *= 0.01
+            arr = rng.standard_normal(tmpl.shape) * std
+        elif leaf.startswith("q_") or leaf == "z_gain":
+            arr = 1.0 + 0.05 * rng.standard_normal(tmpl.shape)
+        else:                                   # biases, Bitparm h/b/a
+            arr = 0.01 * rng.standard_normal(tmpl.shape)
+        flat[path] = arr.astype(np.float32)
+    load_flax_params(model, unflatten(flat))
+    return model
+
+
+def phase_main_path(torch, seed, frames_n, card):
+    from ssgvc_tpu_torch.config import DMCConfig
+    from ssgvc_tpu_torch.models.dmc import DMC
+    from ssgvc_tpu_torch.ops import dcb as dcb_ops
+    from ssgvc_tpu_torch.ops import dcb_chain as chain_ops
+    from ssgvc_tpu_torch.ops.pixel import pixel_unshuffle
+
+    cfg = DMCConfig.variant("performance", dtype="bfloat16", packed_io=True)
+    model = random_weights(torch, DMC(cfg, device=DEVICE), seed).eval()
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    bf16 = torch.bfloat16
+    frames = torch.rand((frames_n, 1, H, W, 3), generator=g, device=DEVICE
+                        ).to(bf16)
+    masks = (torch.rand((frames_n, 1, H, W, 1), generator=g, device=DEVICE)
+             > 0.8).to(bf16)
+    dpb_frame = torch.rand((1, H, W, 3), generator=g, device=DEVICE).to(bf16)
+    dpb_feature = (torch.randn((1, H // 8, W // 8, cfg.ch_d), generator=g,
+                               device=DEVICE) * 0.1).to(bf16)
+
+    def gop(count_check):
+        """The packed-io GOP loop; ingest (one unshuffle of the GOP)
+        counted."""
+        fp = pixel_unshuffle(frames.reshape(frames_n, H, W, 3), 8)
+        mp = pixel_unshuffle(masks.reshape(frames_n, H, W, 1), 8)
+        dpb = {"frame": pixel_unshuffle(dpb_frame, 8), "feature": dpb_feature}
+        bpps, outs = [], []
+        for i in range(frames_n):
+            before = (dcb_ops.launches, chain_ops.launches)
+            out = model(fp[i:i + 1], QP, dpb, after_i=(i == 0),
+                        mask=mp[i:i + 1])
+            dpb = out["dpb"]
+            bpps.append(out["bpp"])
+            if i < 3:
+                outs.append(dpb["frame"])
+            if count_check:
+                got = (dcb_ops.launches - before[0],
+                       chain_ops.launches - before[1])
+                want = (19 if i == 0 else 18, 5)
+                if got != want:
+                    fail(f"frame {i}: launches {got}, expected {want}")
+        return torch.cat(bpps), outs, dpb
+
+    with torch.no_grad():
+        gop(False)                       # warm-up: cuBLAS/cuDNN plans
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dcb_ops.launches = 0
+        chain_ops.launches = 0
+        t0 = time.perf_counter()
+        bpps, outs, dpb = gop(True)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = (dcb_ops.launches, chain_ops.launches)
+    peak = torch.cuda.max_memory_allocated()
+    want = (18 * frames_n + 1, 5 * frames_n)
+    if launches != want:
+        fail(f"GOP launches {launches}, expected {want}")
+    b = bpps.float().cpu().numpy()
+    if not (np.isfinite(b).all() and (b > 0).all()):
+        fail(f"bpp not finite and positive: {b}")
+    fr = dpb["frame"].float()
+    if not (torch.isfinite(fr).all() and fr.min() >= 0 and fr.max() <= 1):
+        fail("decoded frame not finite in [0, 1]")
+    if not torch.isfinite(dpb["feature"].float()).all():
+        fail("DPB feature not finite")
+    ms = 1e3 * elapsed / frames_n
+    print(f"main path: {frames_n} P-frames {H}x{W}, {ms:.2f} ms/frame "
+          f"({1e3 / ms:.2f} fps, ingest included, warm-up excluded), peak "
+          f"{peak / 2**20:.0f} MiB allocated, launches dcb {launches[0]} "
+          f"dcb_chain {launches[1]}, bpp {np.round(b, 4).tolist()} [{card}]")
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    return dict(launches=launches, ms_per_frame=ms, peak_bytes=peak,
+                bpps=b, outs=outs, state=state, frames=frames[:3],
+                masks=masks[:3], dpb_frame=dpb_frame)
+
+
+def phase_streaming(torch, main):
+    from ssgvc_tpu_torch.config import DMCConfig
+    from ssgvc_tpu_torch.models.dmc import DMC
+    from ssgvc_tpu_torch.models.inference_api import StreamingDMC
+    from ssgvc_tpu_torch.ops.pixel import pixel_shuffle
+
+    cfg = DMCConfig.variant("performance", dtype="bfloat16", packed_io=False)
+    model = DMC(cfg, device=DEVICE)
+    model.load_state_dict(main["state"], strict=True)
+    stream = StreamingDMC(model.eval())
+    packed = stream.init_dpb(main["dpb_frame"])
+    worst_bpp, worst_px = 0.0, 0.0
+    for i in range(3):
+        packed, bpp = stream.step(main["frames"][i], main["masks"][i], QP,
+                                  packed, after_i=(i == 0))
+        ref_bpp = float(main["bpps"][i])
+        rel = abs(float(bpp.float()) - ref_bpp) / ref_bpp
+        px = float((stream.unpack_frame(packed).float()
+                    - pixel_shuffle(main["outs"][i], 8).float()).abs().max())
+        worst_bpp, worst_px = max(worst_bpp, rel), max(worst_px, px)
+    # the 8x8 patching is a permutation: the same ops on the same values,
+    # so only bf16 rounding of equal sums taken in another order can differ
+    print(f"streaming: 3 frames raw io vs packed GOP: bpp rel {worst_bpp:.2e}"
+          f" (tol 1e-3), frame max abs {worst_px:.3g} (tol 2^-6)")
+    if worst_bpp > 1e-3 or worst_px > 2 ** -6:
+        fail("streaming (raw io) disagrees with the packed-io GOP")
+
+
+def phase_cross_check(torch, main, seed):
+    from ssgvc_tpu_torch.config import DMCConfig
+    from ssgvc_tpu_torch.models.dmc import DMC
+
+    rng = np.random.default_rng(seed + 1)
+    hw = 128
+    x = rng.uniform(0, 1, (1, hw // 8, hw // 8, 192)).astype(np.float32)
+    mask = (rng.uniform(0, 1, (1, hw // 8, hw // 8, 64)) > 0.8
+            ).astype(np.float32)
+    frame = rng.uniform(0, 1, (1, hw // 8, hw // 8, 192)).astype(np.float32)
+    feature = (rng.standard_normal((1, hw // 8, hw // 8, 256)) * 0.1
+               ).astype(np.float32)
+    results = {}
+    for dev, dtype in (("cpu", "float32"), (DEVICE, "bfloat16")):
+        cfg = DMCConfig.variant("performance", dtype=dtype, packed_io=True)
+        model = DMC(cfg, device=dev)
+        model.load_state_dict(main["state"], strict=True)
+        cast = lambda a: torch.from_numpy(a).to(dev, model.dtype)
+        outs = []
+        dpb = {"frame": cast(frame), "feature": cast(feature)}
+        with torch.no_grad():
+            for after_i in (True, False):
+                out = model(cast(x), QP, dpb, after_i=after_i,
+                            mask=cast(mask))
+                outs.append((float(out["bpp"].float()),
+                             out["dpb"]["frame"].float().cpu()))
+        results[dev] = outs
+    for i, ((b_cpu, f_cpu), (b_gpu, f_gpu)) in enumerate(
+            zip(results["cpu"], results[DEVICE])):
+        rel = abs(b_gpu - b_cpu) / b_cpu
+        mse = float(((f_gpu - f_cpu) ** 2).mean())
+        psnr = 10 * math.log10(1.0 / max(mse, 1e-20))
+        print(f"cross-check after_i={i == 0} 128x128: bpp cpu-fp32 {b_cpu:.5f} "
+              f"card-bf16 {b_gpu:.5f} (rel {rel:.2e}, tol 5e-2), frame PSNR "
+              f"between them {psnr:.1f} dB (tol >= 30)")
+        # bf16 rounds activations to 8 bits of mantissa and flips some
+        # round() decisions of the quantizer, so the two agree only loosely
+        if rel > 5e-2 or psnr < 30:
+            fail("card bf16 and CPU fp32 disagree beyond the bf16 tolerance")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--frames", type=int, default=8)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import ssgvc_tpu_torch  # noqa: F401  (fails outside the repo)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card, name, count = phase_device(torch)
+    phase_build()
+    kernels = phase_kernels(torch, args.seed, card)
+    main_path = phase_main_path(torch, args.seed, args.frames, card)
+    kernels[0]["launches"], kernels[1]["launches"] = main_path["launches"]
+    phase_streaming(torch, main_path)
+    phase_cross_check(torch, main_path, args.seed)
+    print(json.dumps({"main_path": {
+        "ms_per_frame": main_path["ms_per_frame"],
+        "peak_bytes": main_path["peak_bytes"], "card": card}}))
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": count}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except Exception:
+        traceback.print_exc()
+        print("chip_smoke: FAILED", file=sys.stderr)
+        sys.exit(1)

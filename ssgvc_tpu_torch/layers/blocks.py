@@ -1,0 +1,244 @@
+"""The codec's building blocks as ``nn.Module``s on NHWC tensors.
+
+Parameters keep PyTorch's layouts (conv ``weight`` (O, I/groups, kh, kw),
+``bias`` (O,)) under the attribute names of the JAX package's flax modules
+(``dc_0``, ``ffn_2``, ``adaptor``, ``conv2_0`` ...), so ``state_dict`` keys
+read like ``encoder.conv2_0.dc_0.weight``. Parameters are fp32; each module
+computes in its ``dtype``. Every DepthConvBlock core runs through
+``ops.dcb`` / ``ops.dcb_chain``: the hand-written kernel for a CUDA tensor,
+its plain version for a CPU tensor.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple, Union
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.dcb import dcb, pack_params, wsilu
+from ..ops.dcb_chain import dcb_chain
+from ..ops.pixel import patch_down_conv, patch_up_conv, pixel_shuffle
+
+__all__ = ["wsilu", "wsilu_chunk_add", "Conv", "PatchDownConv",
+           "PatchUpConv", "Concat1x1", "DepthConvBlock", "run_chain",
+           "SubpelConv2x", "ResidualBlockWithStride2",
+           "ResidualBlockUpsample"]
+
+
+def wsilu_chunk_add(x: torch.Tensor) -> torch.Tensor:
+    """wsilu, then the two channel halves added."""
+    x = wsilu(x)
+    x1, x2 = x.chunk(2, dim=-1)
+    return x1 + x2
+
+
+def _param(shape, device) -> nn.Parameter:
+    # weights are loaded (utils/weights.py or load_state_dict), not drawn
+    return nn.Parameter(torch.zeros(shape, dtype=torch.float32, device=device))
+
+
+class Conv(nn.Module):
+    """A conv on NHWC tensors; 1x1 stride-1 convs run as a matmul."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 1,
+                 stride: int = 1, padding: int = 0, groups: int = 1, *,
+                 dtype: torch.dtype = torch.float32, device="cuda"):
+        super().__init__()
+        self.weight = _param((out_ch, in_ch // groups, kernel_size,
+                              kernel_size), device)
+        self.bias = _param((out_ch,), device)
+        self.stride, self.padding, self.groups = stride, padding, groups
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        x = x.to(dt)
+        w, b = self.weight.to(dt), self.bias.to(dt)
+        if w.shape[-1] == 1 and self.stride == 1 and self.groups == 1:
+            return F.linear(x, w[:, :, 0, 0], b)
+        y = F.conv2d(x.permute(0, 3, 1, 2), w, b, self.stride, self.padding,
+                     groups=self.groups)
+        return y.permute(0, 2, 3, 1).contiguous()
+
+
+class PatchDownConv(nn.Module):
+    """pixel_unshuffle(r) + 1x1 conv; weight (O, C*r*r, 1, 1)."""
+
+    def __init__(self, in_ch: int, out_ch: int, r: int, *,
+                 dtype: torch.dtype = torch.float32, device="cuda"):
+        super().__init__()
+        self.weight = _param((out_ch, in_ch * r * r, 1, 1), device)
+        self.bias = _param((out_ch,), device)
+        self.r, self.dtype = r, dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return patch_down_conv(x.to(self.dtype), self.weight, self.bias,
+                               self.r)
+
+
+class PatchUpConv(nn.Module):
+    """1x1 conv + pixel_shuffle(r); weight (C*r*r, I, 1, 1); ``out_ch`` is
+    the channel count after the shuffle."""
+
+    def __init__(self, in_ch: int, out_ch: int, r: int, *,
+                 dtype: torch.dtype = torch.float32, device="cuda"):
+        super().__init__()
+        self.weight = _param((out_ch * r * r, in_ch, 1, 1), device)
+        self.bias = _param((out_ch * r * r,), device)
+        self.r, self.dtype = r, dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return patch_up_conv(x.to(self.dtype), self.weight, self.bias, self.r)
+
+
+class Concat1x1(nn.Module):
+    """1x1 conv over an implicit channel concat of ``parts``, in tuple
+    order: one weight (O, sum_ch, 1, 1), one matmul per part, the concat
+    never materialized."""
+
+    def __init__(self, in_chs: Sequence[int], out_ch: int, *,
+                 dtype: torch.dtype = torch.float32, device="cuda"):
+        super().__init__()
+        self.weight = _param((out_ch, sum(in_chs), 1, 1), device)
+        self.bias = _param((out_ch,), device)
+        self.dtype = dtype
+
+    def forward(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        dt = self.dtype
+        w = self.weight[:, :, 0, 0].to(dt)
+        out = None
+        off = 0
+        for p in parts:
+            term = F.linear(p.to(dt), w[:, off:off + p.shape[-1]])
+            out = term if out is None else out + term
+            off += p.shape[-1]
+        return out + self.bias.to(dt)
+
+
+InCh = Union[None, int, Tuple[int, ...]]
+
+
+class DepthConvBlock(nn.Module):
+    """x -> [adaptor] -> (dc(x) + x) -> (ffn(.) + .) [+ x] [* quant_step].
+
+    ``in_ch``: None or ``out_ch`` (no adaptor), another int (1x1 adaptor),
+    a tuple of part widths (the input is a tuple: a Concat1x1 adaptor, or a
+    plain concat when the widths sum to ``out_ch``), or the raw frame's
+    channels with ``patch_in`` > 0 (pixel_unshuffle + 1x1 adaptor).
+    """
+
+    def __init__(self, out_ch: int, in_ch: InCh = None,
+                 shortcut: bool = False, patch_in: int = 0, *,
+                 dtype: torch.dtype = torch.float32, device="cuda"):
+        super().__init__()
+        c = out_ch
+        kw = dict(dtype=dtype, device=device)
+        self.shortcut, self.dtype = shortcut, dtype
+        self.tuple_input = isinstance(in_ch, (tuple, list))
+        if self.tuple_input and sum(in_ch) != c:
+            self.adaptor = Concat1x1(in_ch, c, **kw)
+        elif patch_in:
+            self.adaptor = PatchDownConv(in_ch, c, patch_in, **kw)
+        elif isinstance(in_ch, int) and in_ch != c:
+            self.adaptor = Conv(in_ch, c, **kw)
+        else:
+            self.adaptor = None
+        self.dc_0 = Conv(c, c, **kw)
+        self.dc_2 = Conv(c, c, 3, padding=1, groups=c, **kw)
+        self.dc_3 = Conv(c, c, **kw)
+        self.ffn_0 = Conv(c, 4 * c, **kw)
+        self.ffn_2 = Conv(2 * c, c, **kw)
+        self._packed = None
+        self._packed_key = None
+
+    def core_params(self) -> Tuple[torch.Tensor, ...]:
+        return (self.dc_0.weight, self.dc_0.bias, self.dc_2.weight,
+                self.dc_2.bias, self.dc_3.weight, self.dc_3.bias,
+                self.ffn_0.weight, self.ffn_0.bias, self.ffn_2.weight,
+                self.ffn_2.bias)
+
+    def packed(self, x: torch.Tensor) -> Optional[torch.Tensor]:
+        """The kernel's packed weights for ``x``'s dtype, rebuilt only when a
+        parameter changed (in place or by a move); None on the CPU."""
+        if x.device.type == "cpu":
+            return None
+        params = self.core_params()
+        key = (x.dtype, x.device,
+               tuple((p.data_ptr(), p._version) for p in params))
+        if key != self._packed_key:
+            self._packed = pack_params(params, x.dtype)
+            self._packed_key = key
+        return self._packed
+
+    def adapt(self, x) -> torch.Tensor:
+        if self.adaptor is not None:
+            x = self.adaptor(x)
+        elif self.tuple_input:
+            x = torch.cat([p.to(self.dtype) for p in x], dim=-1)
+        return x.to(self.dtype).contiguous()
+
+    def forward(self, x, quant_step: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        x = self.adapt(x)
+        return dcb(x, self.core_params(), quant_step, self.shortcut,
+                   packed=self.packed(x))
+
+
+def run_chain(x: torch.Tensor, blocks: Sequence[DepthConvBlock],
+              q_last: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Adaptor-free, shortcut-free blocks back to back through
+    ``ops.dcb_chain`` (one kernel launch on the card), ``q_last``
+    multiplying the last output."""
+    for b in blocks:
+        if b.adaptor is not None or b.shortcut or b.tuple_input:
+            raise ValueError("a chain takes adaptor-free, shortcut-free "
+                             "blocks")
+    x = x.to(blocks[0].dtype).contiguous()
+    packed = None if x.device.type == "cpu" else [b.packed(x) for b in blocks]
+    return dcb_chain(x, [b.core_params() for b in blocks], q_last,
+                     packed=packed)
+
+
+class SubpelConv2x(nn.Module):
+    """conv -> pixel_shuffle(2)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 1,
+                 padding: int = 0, *, dtype: torch.dtype = torch.float32,
+                 device="cuda"):
+        super().__init__()
+        self.conv_0 = Conv(in_ch, out_ch * 4, kernel_size, padding=padding,
+                           dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return pixel_shuffle(self.conv_0(x), 2)
+
+
+class ResidualBlockWithStride2(nn.Module):
+    """2x2 stride-2 conv, then a shortcut DepthConvBlock."""
+
+    def __init__(self, in_ch: int, out_ch: int, *,
+                 dtype: torch.dtype = torch.float32, device="cuda"):
+        super().__init__()
+        self.down = Conv(in_ch, out_ch, 2, stride=2, dtype=dtype,
+                         device=device)
+        self.conv = DepthConvBlock(out_ch, shortcut=True, dtype=dtype,
+                                   device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(self.down(x))
+
+
+class ResidualBlockUpsample(nn.Module):
+    """Subpel 2x upsample, then a shortcut DepthConvBlock."""
+
+    def __init__(self, in_ch: int, out_ch: int, *,
+                 dtype: torch.dtype = torch.float32, device="cuda"):
+        super().__init__()
+        self.up = SubpelConv2x(in_ch, out_ch, 1, dtype=dtype, device=device)
+        self.conv = DepthConvBlock(out_ch, shortcut=True, dtype=dtype,
+                                   device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(self.up(x))

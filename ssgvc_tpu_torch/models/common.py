@@ -1,0 +1,105 @@
+"""Shared codec math: checkerboard masks, masked quantization, the 2-pass
+checkerboard prior of the P-frame codec, padding and bpp. NHWC throughout.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..layers.quant import noise_quant, ste_round
+
+
+def checkerboard_masks_2x(channel: int, height: int, width: int,
+                          dtype=torch.float32, device="cuda"
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two complementary (1, H, W, C) masks: the ((1,0),(0,1)) checker on
+    the first channel half, inverted on the second; mask_1 swaps them."""
+    if channel % 2:
+        raise ValueError(f"channel={channel} must be even")
+    hh = torch.arange(height, device=device).reshape(1, height, 1, 1)
+    ww = torch.arange(width, device=device).reshape(1, 1, width, 1)
+    cc = torch.arange(channel, device=device).reshape(1, 1, 1, channel)
+    checker = (hh % 2 + ww % 2) % 2 == 0
+    mask_0 = torch.where(cc < channel // 2, checker, ~checker).to(dtype)
+    return mask_0, (1.0 - mask_0).to(dtype)
+
+
+class MaskedQuant(NamedTuple):
+    y_res: torch.Tensor
+    y_q_hat: torch.Tensor         # straight-through twin (reconstruction)
+    y_q_hat_write: torch.Tensor   # noise twin (bit estimate)
+    y_hat: torch.Tensor
+    scales_hat: torch.Tensor
+
+
+def process_with_mask(y, scales, means, mask,
+                      generator: Optional[torch.Generator],
+                      train: bool) -> MaskedQuant:
+    scales_hat = scales * mask
+    means_hat = means * mask
+    y_res = (y - means_hat) * mask
+    y_q_hat = ste_round(y_res) * mask
+    y_q_hat_write = noise_quant(y_res, generator, train) * mask
+    y_hat = y_q_hat + means_hat
+    return MaskedQuant(y_res, y_q_hat, y_q_hat_write, y_hat, scales_hat)
+
+
+def get_padding_size(height: int, width: int, p: int = 64) -> Tuple[int, int]:
+    new_h = (height + p - 1) // p * p
+    new_w = (width + p - 1) // p * p
+    return new_w - width, new_h - height   # (pad_right, pad_bottom)
+
+
+def pad_for_y(y: torch.Tensor, p: int = 4) -> torch.Tensor:
+    """Replicate-pad bottom/right to a multiple of p (NHWC)."""
+    _, h, w, _ = y.shape
+    pad_r, pad_b = get_padding_size(h, w, p)
+    if pad_r == 0 and pad_b == 0:
+        return y
+    out = F.pad(y.permute(0, 3, 1, 2), (0, pad_r, 0, pad_b), mode="replicate")
+    return out.permute(0, 2, 3, 1).contiguous()
+
+
+class PriorOut(NamedTuple):
+    y_res: torch.Tensor
+    y_q_hat: torch.Tensor
+    y_q_hat_write: torch.Tensor
+    y_hat: torch.Tensor
+    scales_hat: torch.Tensor
+
+
+def compress_prior_2x(y: torch.Tensor, common_params: torch.Tensor,
+                      spatial_prior: Callable,
+                      generator: Optional[torch.Generator],
+                      train: bool) -> PriorOut:
+    """Two-pass checkerboard prior of the P-frame codec.
+
+    ``common_params`` stacks (q_dec, scales, means) on channels; q_dec is
+    clamped at 0.5 and folded into y as a reciprocal before quantization."""
+    q_dec, scales, means = common_params.chunk(3, dim=-1)
+    q_dec = torch.clamp(q_dec, min=0.5)
+    y = y * (1.0 / q_dec)
+
+    c, h, w = y.shape[-1], y.shape[1], y.shape[2]
+    mask_0, mask_1 = checkerboard_masks_2x(c, h, w, dtype=y.dtype,
+                                           device=y.device)
+    p0 = process_with_mask(y, scales, means, mask_0, generator, train)
+    # tuple input: the prior's first block consumes the concat implicitly
+    scales1, means1 = spatial_prior((p0.y_hat, common_params)).chunk(2, -1)
+    p1 = process_with_mask(y, scales1, means1, mask_1, generator, train)
+
+    return PriorOut(
+        y_res=p0.y_res + p1.y_res,
+        y_q_hat=p0.y_q_hat + p1.y_q_hat,
+        y_q_hat_write=p0.y_q_hat_write + p1.y_q_hat_write,
+        y_hat=(p0.y_hat + p1.y_hat) * q_dec,
+        scales_hat=p0.scales_hat + p1.scales_hat,
+    )
+
+
+def bpp_from_bits(bits: torch.Tensor, pixel_num: int) -> torch.Tensor:
+    """Sum bits over (H, W, C), divide by source pixels -> per-sample bpp."""
+    return bits.sum(dim=(1, 2, 3)) / pixel_num

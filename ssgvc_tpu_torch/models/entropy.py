@@ -1,0 +1,135 @@
+"""Differentiable entropy estimators. All of it runs in fp32, whatever the
+dtype of the conv stacks.
+
+  * ``BitEstimator``: per-QP factorized CDF over the hyper latent z
+    (4 stacked ``Bitparm`` layers, params (QP, C), rows picked per QP);
+  * ``gaussian_bits``: zero-mean Gaussian bits for y, erf-based, hardened
+    against NaN/inf and clipped;
+  * ``gaussian_bits_cdf``: the CDF-difference variant.
+
+Both Gaussian estimates use :func:`erf32`, the fp32 erf of the XLA
+lowering the JAX package runs on (clamp at +-3.7439, then a rational
+polynomial by fused multiply-adds). Where both CDF terms are close to 1 the
+bits come from the difference of two erf values a few ulp apart, so an erf
+more accurate than the reference's gives another rate for tail symbols
+(22.4 against 29.9 bits for y=3, sigma=0.49); this one matches the JAX
+package bit for bit.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+_LOG2_RECIP = 1.0 / math.log(2.0)
+_ROOT2_RECIP = 1.0 / math.sqrt(2.0)
+
+
+_ERF_CLAMP = 3.7439212799072266
+_ERF_NUM = (0.00022905065270606428, 0.0034082909114658833,
+            0.050955694168806076, 0.18520832061767578, 1.1283791065216064)
+_ERF_DEN = (-1.1791603071742429e-07, 2.354796561121475e-05,
+            0.0010179625824093819, 0.01407046988606453, 0.11098504811525345,
+            0.4974692463874817, 1.0)
+
+
+def _fma32(a: torch.Tensor, b: torch.Tensor, c: float) -> torch.Tensor:
+    """fp32 a*b + c with one rounding (the fp64 product of two fp32 values
+    is exact)."""
+    return (a.double() * b.double() + c).float()
+
+
+def erf32(x: torch.Tensor) -> torch.Tensor:
+    """erf in fp32, as XLA lowers it."""
+    x = torch.clamp(x.float(), -_ERF_CLAMP, _ERF_CLAMP)
+    x2 = x * x
+    num = torch.full_like(x2, _ERF_NUM[0])
+    for c in _ERF_NUM[1:]:
+        num = _fma32(num, x2, c)
+    den = torch.full_like(x2, _ERF_DEN[0])
+    for c in _ERF_DEN[1:]:
+        den = _fma32(den, x2, c)
+    return x * num / den
+
+
+def probs_to_bits(probs: torch.Tensor) -> torch.Tensor:
+    """-log2(p + 1e-5), clamped at 0."""
+    bits = -torch.log(probs + 1e-5) * _LOG2_RECIP
+    return torch.clamp(bits, min=0.0)
+
+
+def gaussian_bits(y: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+    """Hardened erf-based zero-mean Gaussian bit estimate."""
+    y = torch.nan_to_num(y.float(), nan=0.0, posinf=1e4, neginf=-1e4)
+    sigma = torch.nan_to_num(sigma.float(), nan=1e-5, posinf=1e10,
+                             neginf=1e-5)
+    sigma = torch.clamp(sigma, 1e-5, 1e10)
+    inv_sigma = 1.0 / sigma
+    z_hi = torch.clamp((y + 0.5) * inv_sigma, -12.0, 12.0)
+    z_lo = torch.clamp((y - 0.5) * inv_sigma, -12.0, 12.0)
+    probs = 0.5 * (erf32(z_hi * _ROOT2_RECIP) - erf32(z_lo * _ROOT2_RECIP))
+    probs = torch.nan_to_num(probs, nan=0.0, posinf=0.0, neginf=0.0)
+    probs = torch.clamp(probs, min=1e-9)
+    return -torch.log2(probs)
+
+
+def gaussian_bits_cdf(y: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+    """Normal CDF difference, then probs_to_bits."""
+    y = y.float()
+    sigma = torch.clamp(sigma.float(), 1e-5, 1e10)
+
+    def cdf(v):
+        return 0.5 * (1.0 + erf32(v / (sigma * math.sqrt(2.0))))
+
+    return probs_to_bits(cdf(y + 0.5) - cdf(y - 0.5))
+
+
+class Bitparm(nn.Module):
+    """One factorized-CDF layer: x*softplus(h)+b (+ tanh(x)*tanh(a) unless
+    final); params (qp_num, channel), ``index`` picks the row."""
+
+    def __init__(self, qp_num: int, channel: int, final: bool = False, *,
+                 device="cuda"):
+        super().__init__()
+        shape = (qp_num, channel)
+        self.h = nn.Parameter(torch.zeros(shape, device=device))
+        self.b = nn.Parameter(torch.zeros(shape, device=device))
+        self.a = (None if final
+                  else nn.Parameter(torch.zeros(shape, device=device)))
+
+    def forward(self, x: torch.Tensor, index) -> torch.Tensor:
+        row = lambda p: p[index].float().reshape(1, 1, 1, -1)
+        x = x * F.softplus(row(self.h)) + row(self.b)
+        if self.a is None:
+            return x
+        return x + torch.tanh(x) * torch.tanh(row(self.a))
+
+
+class BitEstimator(nn.Module):
+    """Per-QP factorized CDF for z: sigmoid of 4 stacked Bitparm layers."""
+
+    def __init__(self, qp_num: int, channel: int, *, device="cuda"):
+        super().__init__()
+        self.f1 = Bitparm(qp_num, channel, device=device)
+        self.f2 = Bitparm(qp_num, channel, device=device)
+        self.f3 = Bitparm(qp_num, channel, device=device)
+        self.f4 = Bitparm(qp_num, channel, final=True, device=device)
+
+    def get_logits_cdf(self, x: torch.Tensor, index) -> torch.Tensor:
+        return self.f4(self.f3(self.f2(self.f1(x, index), index), index),
+                       index)
+
+    def get_cdf(self, x: torch.Tensor, index) -> torch.Tensor:
+        return torch.sigmoid(self.get_logits_cdf(x, index))
+
+    def forward(self, x: torch.Tensor, index) -> torch.Tensor:
+        return self.get_cdf(x, index)
+
+    def bits(self, z: torch.Tensor, index) -> torch.Tensor:
+        """-log2(CDF(z+.5) - CDF(z-.5)) via probs_to_bits."""
+        z = z.float()
+        return probs_to_bits(self.get_cdf(z + 0.5, index)
+                             - self.get_cdf(z - 0.5, index))

@@ -1,0 +1,106 @@
+"""The port's DepthConvBlock kernels against their plain versions, on the
+card (marked ``gpu``; skipped where no CUDA device is present).
+
+This file imports neither JAX nor the JAX package, so it also runs on a
+machine without them:
+``python -m pytest tests/test_torch_kernels_gpu.py -m gpu -q --noconftest``.
+
+Tolerance: both sides round at the same points in bf16 and accumulate in
+fp32, in another order; the relative Frobenius error of the output must be
+at most 1e-2 (one bf16 rounding is 2^-8 ~ 3.9e-3 relative per element).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ssgvc_tpu_torch.ops import dcb as dcb_ops
+from ssgvc_tpu_torch.ops import dcb_chain as chain_ops
+
+REL_TOL = 1e-2
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def block_params(c, rng, device):
+    """Torch-layout fp32 params of one block at a lecun-like scale, with the
+    rezero tails (dc_3, ffn_2) small but non-zero."""
+    def t(shape, std):
+        return torch.tensor(rng.standard_normal(shape) * std,
+                            dtype=torch.float32, device=device)
+    return (t((c, c, 1, 1), c ** -0.5), t((c,), 0.1),
+            t((c, 1, 3, 3), 1 / 3), t((c,), 0.1),
+            t((c, c, 1, 1), 0.3 * c ** -0.5), t((c,), 0.1),
+            t((4 * c, c, 1, 1), c ** -0.5), t((4 * c,), 0.1),
+            t((c, 2 * c, 1, 1), 0.3 * (2 * c) ** -0.5), t((c,), 0.1))
+
+
+def rel_err(out, ref):
+    out, ref = out.float(), ref.float()
+    return float(torch.linalg.vector_norm(out - ref)
+                 / torch.linalg.vector_norm(ref))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,w,c,shortcut,with_q", [
+    (12, 16, 128, False, False), (17, 30, 128, True, True),
+    (20, 24, 320, False, True), (9, 13, 384, True, False),
+    (16, 24, 256, False, False)])
+def test_dcb_kernel_matches_plain(h, w, c, shortcut, with_q):
+    dev = _card()
+    rng = np.random.default_rng(c + h)
+    x = torch.tensor(rng.standard_normal((1, h, w, c)), dtype=torch.bfloat16,
+                     device=dev)
+    q = (torch.linspace(0.5, 1.5, c, device=dev).to(torch.bfloat16)
+         if with_q else None)
+    p = block_params(c, rng, dev)
+    before = dcb_ops.launches
+    out = dcb_ops.dcb(x, p, q, shortcut)
+    torch.cuda.synchronize()
+    assert dcb_ops.launches == before + 1
+    ref = dcb_ops.dcb_plain(x, p, q, shortcut)
+    assert out.shape == x.shape and out.dtype == torch.bfloat16
+    assert torch.isfinite(out.float()).all()
+    assert rel_err(out, ref) <= REL_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,h,w,c,with_q", [
+    (2, 24, 16, 256, False), (4, 20, 28, 256, True), (3, 17, 30, 384, False),
+    (2, 9, 11, 128, True)])
+def test_dcb_chain_kernel_matches_plain(n, h, w, c, with_q):
+    dev = _card()
+    rng = np.random.default_rng(n * 100 + c)
+    x = torch.tensor(rng.standard_normal((1, h, w, c)), dtype=torch.bfloat16,
+                     device=dev)
+    q = (torch.linspace(0.5, 1.5, c, device=dev).to(torch.bfloat16)
+         if with_q else None)
+    blocks = [block_params(c, rng, dev) for _ in range(n)]
+    before = chain_ops.launches
+    out = chain_ops.dcb_chain(x, blocks, q)
+    torch.cuda.synchronize()
+    assert chain_ops.launches == before + len(chain_ops.plan_segments(c, n))
+    ref = chain_ops.dcb_chain_plain(x, blocks, q)
+    assert torch.isfinite(out.float()).all()
+    assert rel_err(out, ref) <= REL_TOL
+
+
+@pytest.mark.gpu
+def test_kernel_refuses_what_it_does_not_take():
+    dev = _card()
+    rng = np.random.default_rng(0)
+    p = block_params(128, rng, dev)
+    x = torch.zeros((2, 8, 8, 128), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):
+        dcb_ops.dcb(x, p)                            # B=2
+    with pytest.raises(TypeError):
+        dcb_ops.dcb(x[:1].float(), p)                # fp32 on the card
+    with pytest.raises(ValueError):
+        dcb_ops.dcb(torch.zeros((1, 8, 8, 64), dtype=torch.bfloat16,
+                                device=dev), block_params(64, rng, dev))
