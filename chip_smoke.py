@@ -1,15 +1,24 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one CUDA card and check it.
 
-    python3 chip_smoke.py [--seed 0] [--frames 8]
+    python3 chip_smoke.py [--seed 0] [--frames 8] [--prev-port DIR]
 
 Phases (any failure exits non-zero and prints no result line):
   1. device: the card's name and power limit (nvidia-smi), name and count;
   2. build: both DepthConvBlock kernels from ssgvc_tpu_torch/csrc, one nvcc
-     each, started together; prints registers, shared memory and spills;
+     each, started together; prints registers, shared memory and spills,
+     and the chain kernel's wgmma (HGMMA) and bulk-copy (UBLKCP)
+     instructions from cuobjdump;
   3. kernels: each kernel at every shape the main path gives it, against
      its plain PyTorch version on the same bf16 inputs (relative Frobenius
-     error <= 1e-2), timed with CUDA events, beside its bound;
+     error <= 1e-2), timed with CUDA events, beside its bound; each chain
+     also beside N launches of the single-block kernel on the same blocks
+     (seq_ms), timed in turns (chain, seq, seq, chain). With --prev-port DIR
+     (another checkout's ssgvc_tpu_torch/, e.g. the parent commit's unpacked
+     by git archive into a git-ignored directory) that checkout's chain is
+     built and timed in the same turns (prev, chain, seq, seq, chain, prev)
+     as prev_ms, through its layers.blocks.run_chain on DepthConvBlocks
+     holding the same weights, as its main path calls it;
   4. main path: the performance-variant P-frame codec at full width
      (ch_d 256, ch_y 128, ch_z 128, ch_recon 320), bf16 compute, packed io,
      1088x1920 frames, a GOP of --frames P-frames carrying the DPB, weights
@@ -33,6 +42,7 @@ import subprocess
 import sys
 import time
 import traceback
+from pathlib import Path
 
 import numpy as np
 
@@ -124,6 +134,8 @@ def phase_device(torch):
 
 def phase_build():
     from ssgvc_tpu_torch.ops import _build
+    from ssgvc_tpu_torch.ops import dcb as dcb_ops
+    from ssgvc_tpu_torch.ops import dcb_chain as chain_ops
 
     t0 = time.time()
     logs = _build.build(["dcb", "dcb_chain"])
@@ -133,9 +145,39 @@ def phase_build():
             if any(k in line for k in ("registers", "spill", "smem",
                                        "Compiling entry")):
                 print(f"  [{name}] {line.strip()}")
+    print("  [dcb_chain] dynamic shared memory, any N: " + ", ".join(
+        f"C={c} {chain_ops.smem_bytes(c)} B" for c in dcb_ops.KERNEL_CHANNELS))
+    cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(_build._lib_path("dcb_chain"))],
+                          capture_output=True, text=True, timeout=120).stdout
+    hgmma = [ln.split(";")[0].strip() for ln in sass.splitlines()
+             if "HGMMA" in ln]
+    print(f"  [dcb_chain] SASS: {len(hgmma)} HGMMA, "
+          f"{sass.count('UBLKCP')} UBLKCP (bulk copy), e.g. "
+          f"{hgmma[0] if hgmma else 'none'}")
+    if not hgmma or "UBLKCP" not in sass:
+        fail("chain kernel issues no wgmma or no bulk copy")
 
 
-def phase_kernels(torch, seed, card):
+def load_prev_port(path):
+    """Another checkout's port package, imported as ``prev_port``; its
+    kernels build into its own ``_build/``. Returns its layers.blocks
+    module."""
+    import importlib
+    import importlib.util
+
+    root = Path(path).resolve()
+    spec = importlib.util.spec_from_file_location(
+        "prev_port", root / "__init__.py",
+        submodule_search_locations=[str(root)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["prev_port"] = mod
+    spec.loader.exec_module(mod)
+    return importlib.import_module("prev_port.layers.blocks")
+
+
+def phase_kernels(torch, seed, card, prev=None):
     from ssgvc_tpu_torch.ops import dcb as dcb_ops
     from ssgvc_tpu_torch.ops import dcb_chain as chain_ops
 
@@ -143,35 +185,78 @@ def phase_kernels(torch, seed, card):
     rng = np.random.default_rng(seed)
     bf16 = torch.bfloat16
 
-    def run_shape(h, w, c, n, shortcut, with_q):
+    def check(what, out, ref):
+        diff = (out.float() - ref.float())
+        rel = float(torch.linalg.vector_norm(diff)
+                    / torch.linalg.vector_norm(ref.float()))
+        if not torch.isfinite(out.float()).all():
+            fail(f"{what}: output not finite")
+        if rel > REL_TOL:
+            fail(f"{what} disagrees with plain: rel {rel:.3g} > {REL_TOL}")
+        return rel, float(diff.abs().max())
+
+    def inputs(h, w, c, n, with_q):
         x = torch.tensor(rng.standard_normal((1, h, w, c)), dtype=bf16,
                          device=dev)
         q = (torch.linspace(0.5, 1.5, c, device=dev).to(bf16) if with_q
              else None)
-        blocks = [block_params(torch, c, rng, dev) for _ in range(n)]
-        packed = [dcb_ops.pack_params(p, bf16) for p in blocks]
-        if n == 1:
-            kern = lambda: dcb_ops.dcb_cuda(x, packed[0], q, shortcut)
-            plain = lambda: dcb_ops.dcb_plain(x, blocks[0], q, shortcut)
-        else:
-            kern = lambda: chain_ops.dcb_chain_cuda(x, packed, q)
-            plain = lambda: chain_ops.dcb_chain_plain(x, blocks, q)
+        return x, q, [block_params(torch, c, rng, dev) for _ in range(n)]
+
+    def run_single(h, w, c, shortcut):
+        x, _, blocks = inputs(h, w, c, 1, False)
+        packed = dcb_ops.pack_params(blocks[0], bf16)
+        kern = lambda: dcb_ops.dcb_cuda(x, packed, None, shortcut)
+        plain = lambda: dcb_ops.dcb_plain(x, blocks[0], None, shortcut)
         out = kern()
         torch.cuda.synchronize()
-        ref = plain()
-        diff = (out.float() - ref.float())
-        rel = float(torch.linalg.vector_norm(diff)
-                    / torch.linalg.vector_norm(ref.float()))
-        max_err = float(diff.abs().max())
-        if not torch.isfinite(out.float()).all():
-            fail(f"kernel output not finite at {(h, w, c, n)}")
-        if rel > REL_TOL:
-            fail(f"kernel disagrees with plain at {(h, w, c, n)}: "
-                 f"rel {rel:.3g} > {REL_TOL}")
+        rel, max_err = check(f"dcb at {(h, w, c)}", out, plain())
         return dict(kernel_ms=cuda_ms(torch, kern, 20),
                     plain_ms=cuda_ms(torch, plain, 5),
-                    bound_us=1e3 * bound_ms(h, w, c, n),
+                    bound_us=1e3 * bound_ms(h, w, c, 1),
                     rel_err=rel, max_err=max_err)
+
+    def run_chain(h, w, c, n, with_q):
+        x, q, blocks = inputs(h, w, c, n, with_q)
+        # packed once, outside every timed loop
+        packed = chain_ops.pack_chain(blocks, bf16)
+        singles = [dcb_ops.pack_params(p, bf16) for p in blocks]
+        kern = lambda: chain_ops.dcb_chain_cuda(x, packed, q)
+        plain = lambda: chain_ops.dcb_chain_plain(x, blocks, q)
+
+        def seq():
+            y = x
+            for j, pk in enumerate(singles):
+                y = dcb_ops.dcb_cuda(y, pk, q if j == n - 1 else None)
+            return y
+
+        fns = {"kernel": kern, "seq": seq}
+        if prev is not None:
+            mods = [prev.DepthConvBlock(c, dtype=bf16, device=dev)
+                    for _ in blocks]
+            with torch.no_grad():
+                for m, params in zip(mods, blocks):
+                    for dst, src in zip(m.core_params(), params):
+                        dst.copy_(src)
+            fns["prev"] = lambda: prev.run_chain(x, mods, q)
+        ref = plain()
+        outs = {k: fn() for k, fn in fns.items()}
+        torch.cuda.synchronize()
+        rel, max_err = check(f"dcb_chain at {(h, w, c, n)}", outs["kernel"],
+                             ref)
+        for k in ("seq", "prev"):
+            if k in outs:
+                check(f"{k} at {(h, w, c, n)}", outs[k], ref)
+        order = ["kernel", "seq", "seq", "kernel"]
+        if prev is not None:
+            order = ["prev"] + order + ["prev"]
+        times = {k: [] for k in fns}
+        for k in order:
+            times[k].append(cuda_ms(torch, fns[k], 20))
+        r = {f"{k}_ms": sum(v) / len(v) for k, v in times.items()}
+        r.update(plain_ms=cuda_ms(torch, plain, 5),
+                 bound_us=1e3 * bound_ms(h, w, c, n), rel_err=rel,
+                 max_err=max_err, turns={k: times[k] for k in times})
+        return r
 
     entries = []
     for name, shapes, source, replaces in (
@@ -184,19 +269,31 @@ def phase_kernels(torch, seed, card):
             if name == "dcb":
                 h, w, c, shortcut, per_frame, sites = shape
                 n, with_q = 1, False
+                r = run_single(h, w, c, shortcut)
             else:
                 h, w, c, n, with_q, per_frame, sites = shape
                 shortcut = False
-            r = run_shape(h, w, c, n, shortcut, with_q)
+                r = run_chain(h, w, c, n, with_q)
             r.update(shape=[h, w, c], blocks=n, shortcut=shortcut,
-                     q=with_q, launches_per_frame=per_frame, sites=sites)
+                     q=with_q, launches_per_frame=per_frame, sites=sites,
+                     share=r["bound_us"] / 1e3 / r["kernel_ms"])
             rows.append(r)
-            print(f"  {name} {h}x{w}x{c} n={n} sc={int(shortcut)} "
-                  f"q={int(with_q)}: kernel {r['kernel_ms']:.4f} ms, plain "
-                  f"{r['plain_ms']:.4f} ms, bound {r['bound_us']:.1f} us, "
-                  f"rel {r['rel_err']:.2e}, max abs {r['max_err']:.3g} "
-                  f"[{card}]")
-        entries.append(dict(
+            line = (f"  {name} {h}x{w}x{c} n={n} sc={int(shortcut)} "
+                    f"q={int(with_q)}: kernel {r['kernel_ms']:.4f} ms")
+            if name == "dcb_chain":
+                line += f", seq ({n} x dcb) {r['seq_ms']:.4f} ms"
+                if "prev_ms" in r:
+                    line += f", prev {r['prev_ms']:.4f} ms"
+                # derived, not measured: by design every 8x8 tile copies its
+                # block's four matrices (8 C^2 bf16) into shared memory once
+                wbytes = math.prod(chain_ops.tile_grid(h, w)) * n * 16 * c * c
+                line += (f", weight bytes copied by design {wbytes / 1e6:.0f}"
+                         f" MB / kernel time = {wbytes / r['kernel_ms'] / 1e9:.2f}"
+                         f" TB/s (derived)")
+            print(line + f", plain {r['plain_ms']:.4f} ms, bound "
+                  f"{r['bound_us']:.1f} us (share {r['share']:.3f}), rel "
+                  f"{r['rel_err']:.2e}, max abs {r['max_err']:.3g} [{card}]")
+        entry = dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=None,
             max_abs_err=max(r["max_err"] for r in rows),
@@ -207,7 +304,11 @@ def phase_kernels(torch, seed, card):
                          for r in rows) / 1e3,
             bound_by="operations", library_ms=None,
             per="P-frame: per-shape time x launches per frame, summed",
-            shapes=rows))
+            shapes=rows)
+        for k in ("seq_ms", "prev_ms"):
+            if all(k in r for r in rows):
+                entry[k] = sum(r[k] * r["launches_per_frame"] for r in rows)
+        entries.append(entry)
     return entries
 
 
@@ -390,6 +491,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--frames", type=int, default=8)
+    ap.add_argument("--prev-port", default=None,
+                    help="another checkout's ssgvc_tpu_torch/ whose chain "
+                         "kernel is timed in turns with this one")
     args = ap.parse_args()
 
     import torch
@@ -403,7 +507,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card, name, count = phase_device(torch)
     phase_build()
-    kernels = phase_kernels(torch, args.seed, card)
+    prev = load_prev_port(args.prev_port) if args.prev_port else None
+    kernels = phase_kernels(torch, args.seed, card, prev)
     main_path = phase_main_path(torch, args.seed, args.frames, card)
     kernels[0]["launches"], kernels[1]["launches"] = main_path["launches"]
     phase_streaming(torch, main_path)

@@ -18,7 +18,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.dcb import dcb, pack_params, wsilu
-from ..ops.dcb_chain import dcb_chain
+from ..ops.dcb_chain import dcb_chain, pack_chain
 from ..ops.pixel import patch_down_conv, patch_up_conv, pixel_shuffle
 
 __all__ = ["wsilu", "wsilu_chunk_add", "Conv", "PatchDownConv",
@@ -120,6 +120,13 @@ class Concat1x1(nn.Module):
 InCh = Union[None, int, Tuple[int, ...]]
 
 
+def _pack_key(x: torch.Tensor, params: Sequence[torch.Tensor]) -> tuple:
+    """What a packed-weight cache is valid for: ``x``'s dtype and device and
+    each parameter's storage and in-place version."""
+    return (x.dtype, x.device,
+            tuple((p.data_ptr(), p._version) for p in params))
+
+
 class DepthConvBlock(nn.Module):
     """x -> [adaptor] -> (dc(x) + x) -> (ffn(.) + .) [+ x] [* quant_step].
 
@@ -152,6 +159,8 @@ class DepthConvBlock(nn.Module):
         self.ffn_2 = Conv(2 * c, c, **kw)
         self._packed = None
         self._packed_key = None
+        self._chain_packed = None     # set on the first block of a chain
+        self._chain_key = None
 
     def core_params(self) -> Tuple[torch.Tensor, ...]:
         return (self.dc_0.weight, self.dc_0.bias, self.dc_2.weight,
@@ -165,8 +174,7 @@ class DepthConvBlock(nn.Module):
         if x.device.type == "cpu":
             return None
         params = self.core_params()
-        key = (x.dtype, x.device,
-               tuple((p.data_ptr(), p._version) for p in params))
+        key = _pack_key(x, params)
         if key != self._packed_key:
             self._packed = pack_params(params, x.dtype)
             self._packed_key = key
@@ -196,9 +204,18 @@ def run_chain(x: torch.Tensor, blocks: Sequence[DepthConvBlock],
             raise ValueError("a chain takes adaptor-free, shortcut-free "
                              "blocks")
     x = x.to(blocks[0].dtype).contiguous()
-    packed = None if x.device.type == "cpu" else [b.packed(x) for b in blocks]
-    return dcb_chain(x, [b.core_params() for b in blocks], q_last,
-                     packed=packed)
+    params = [b.core_params() for b in blocks]
+    packed = None
+    if x.device.type != "cpu":
+        # the chain kernel's packed weights, cached on the chain's first
+        # block and rebuilt only when a parameter changed
+        head = blocks[0]
+        key = _pack_key(x, [p for ps in params for p in ps])
+        if key != head._chain_key:
+            head._chain_packed = pack_chain(params, x.dtype)
+            head._chain_key = key
+        packed = head._chain_packed
+    return dcb_chain(x, params, q_last, packed=packed)
 
 
 class SubpelConv2x(nn.Module):

@@ -1,10 +1,13 @@
 """The plain versions of the port's two DepthConvBlock kernels against the
-JAX package's Pallas kernels (interpret mode on the CPU), the segment
-planner, and the CPU routing. Kernel-vs-plain on the card lives in
+JAX package's Pallas kernels (interpret mode on the CPU), the planners, the
+chain kernel's weight packing and its schedule rehearsed in plain PyTorch,
+and the CPU routing. Kernel-vs-plain on the card lives in
 test_torch_kernels_gpu.py.
 
 Tolerances as the Pallas kernels' own tests: atol 2e-5 for one block, 3e-5
 for a chain (fp32, another summation order)."""
+
+import inspect
 
 import numpy as np
 import pytest
@@ -97,21 +100,21 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
                          dcb_ops.pack_params(blocks[0], torch.bfloat16))
 
 
-def test_planner_fits_every_main_path_site_in_one_launch():
-    for c in dcb_ops.KERNEL_CHANNELS:
-        assert dcb_ops.plan_tile(c, 1) == (8, 8)
-    # the chains of the main path: one segment each
-    for c, n in ((256, 2), (256, 4), (384, 3)):
-        plan = chain_ops.plan_segments(c, n)
-        assert len(plan) == 1 and plan[0][0] == n
-        assert dcb_ops.smem_bytes(c, *plan[0]) <= dcb_ops.SMEM_LIMIT
-    # a chain no tile fits whole is split, longest segment first
-    plan = chain_ops.plan_segments(384, 8)
-    assert len(plan) > 1 and sum(n for n, _, _ in plan) == 8
-    assert [n for n, _, _ in plan] == sorted((n for n, _, _ in plan),
-                                            reverse=True)
-    for n, th, tw in plan:
-        assert dcb_ops.smem_bytes(384, n, th, tw) <= dcb_ops.SMEM_LIMIT
+@pytest.mark.parametrize("kernel", ["dcb", "dcb_chain"])
+def test_planner_fits_every_main_path_site_in_one_launch(kernel):
+    if kernel == "dcb":
+        for c in dcb_ops.KERNEL_CHANNELS:
+            assert dcb_ops.plan_tile(c, 1) == (8, 8)
+        return
+    # the chains of the main path: one launch each over 8x8 tiles, the last
+    # row of tiles ragged at 68x120
+    for (h, w, c, n), grid in (((136, 240, 256, 2), (17, 30)),
+                               ((136, 240, 256, 4), (17, 30)),
+                               ((68, 120, 384, 3), (9, 15))):
+        assert chain_ops.tile_grid(h, w) == grid
+        assert chain_ops.smem_bytes(c) <= dcb_ops.SMEM_LIMIT
+        plan = chain_ops.buffer_plan(n)
+        assert len(plan) == n and plan[-1][1] == "y"
 
 
 def test_packed_params_layout():
@@ -127,3 +130,157 @@ def test_packed_params_layout():
     torch.testing.assert_close(packed[off:off + 9 * c].reshape(3, 3, c),
                                w2[:, 0].permute(1, 2, 0))
     torch.testing.assert_close(packed[-c:], bf2)
+
+
+def _np_block(c, rng):
+    """Torch-layout fp32 params of one block from numpy, lecun-like scale."""
+    def t(shape, std):
+        return torch.from_numpy((rng.standard_normal(shape) * std
+                                 ).astype(np.float32))
+    return (t((c, c, 1, 1), c ** -0.5), t((c,), 0.1),
+            t((c, 1, 3, 3), 1 / 3), t((c,), 0.1),
+            t((c, c, 1, 1), 0.3 * c ** -0.5), t((c,), 0.1),
+            t((4 * c, c, 1, 1), c ** -0.5), t((4 * c,), 0.1),
+            t((c, 2 * c, 1, 1), 0.3 * (2 * c) ** -0.5), t((c,), 0.1))
+
+
+@pytest.mark.parametrize("c", dcb_ops.KERNEL_CHANNELS)
+def test_chain_packing_round_trip(c):
+    rng = np.random.default_rng(c)
+    blocks = [_np_block(c, rng) for _ in range(2)]
+    packed = chain_ops.pack_chain(blocks, torch.float32)
+    size = dcb_ops.packed_numel(c)
+    assert packed.numel() == 2 * size
+    for j, blk in enumerate(blocks):
+        flat = packed[j * size:(j + 1) * size]
+        mats = chain_ops.unpack_block(flat, c)
+        w0, b0, w2, b2, w3, b3, wf0, bf0, wf2, bf2 = blk
+        torch.testing.assert_close(mats["w0"], w0[:, :, 0, 0], rtol=0, atol=0)
+        torch.testing.assert_close(mats["w3"], w3[:, :, 0, 0], rtol=0, atol=0)
+        torch.testing.assert_close(mats["wf0"], wf0[:, :, 0, 0], rtol=0,
+                                   atol=0)
+        torch.testing.assert_close(mats["wf2"], wf2[:, :, 0, 0], rtol=0,
+                                   atol=0)
+        # the tail (taps and biases) is the single-block kernel's
+        torch.testing.assert_close(
+            flat[8 * c * c:], dcb_ops.pack_params(blk, torch.float32)[8 * c * c:],
+            rtol=0, atol=0)
+    # one slab of the canonical layout: 8x8 core matrices, K-adjacent next
+    m = torch.arange(16 * 16, dtype=torch.float32).reshape(16, 16)
+    flat = chain_ops.canonical(m)
+    assert flat[64:72].tolist() == m[0, 8:16].tolist()
+    assert flat[8:16].tolist() == m[1, 0:8].tolist()
+    assert flat[128:136].tolist() == m[8, 0:8].tolist()
+
+
+def _emulate_chain(x, packed, n, q_last):
+    """The chain kernel's schedule, tile by tile, in plain PyTorch (fp32):
+    ping-pong buffers, 10x10 windows zero outside the frame, dc_0 on the
+    window with h masked to 0 outside it, the depthwise, then stage B,
+    every weight read slab by slab from the packed tensor in stream
+    order."""
+    _, h, w, c = x.shape
+    T, WIN = chain_ops.TILE, chain_ops.WIN
+    KC, KF, KS_A, KS_B = chain_ops.KC, chain_ops.KF, chain_ops.KS_A, chain_ops.KS_B
+    tiles_y, tiles_x = chain_ops.tile_grid(h, w)
+    nan = torch.full_like(x[0], float("nan"))
+    bufs = {"x": x[0], "y": nan.clone(), "s": nan.clone()}
+    size = dcb_ops.packed_numel(c)
+    for j, (src_name, dst_name) in enumerate(chain_ops.buffer_plan(n)):
+        src, dst = bufs[src_name], bufs[dst_name]
+        flat = packed[j * size:(j + 1) * size]
+        tail = flat[8 * c * c:]
+        dw = tail[:9 * c].reshape(3, 3, c)
+        b0, b2, b3 = (tail[k * c:(k + 1) * c] for k in (9, 10, 11))
+        bf0, bf2 = tail[12 * c:16 * c], tail[16 * c:]
+        for t in range(tiles_y * tiles_x):
+            y0, x0 = chain_ops.tile_origin(t, tiles_x)
+            win = torch.zeros(chain_ops.WIN_ROWS, c)
+            inside = torch.zeros(WIN * WIN, 1)
+            for r in range(WIN * WIN):
+                gy, gx = chain_ops.window_pixel(r, y0, x0)
+                if 0 <= gy < h and 0 <= gx < w:
+                    win[r] = src[gy, gx]
+                    inside[r] = 1.0
+            off = 0
+
+            def slab(rows, ks):
+                nonlocal off
+                m = chain_ops.decanonical(flat[off:off + rows * ks], rows, ks)
+                off += rows * ks
+                return m
+
+            hb = torch.empty(T * T, c)
+            for c0 in range(0, c, KC):
+                acc = torch.zeros(chain_ops.WIN_ROWS, KC)
+                for k0 in range(0, c, KS_A):
+                    acc += win[:, k0:k0 + KS_A] @ slab(KC, KS_A).T
+                hch = (dcb_ops.wsilu(acc[:WIN * WIN] + b0[c0:c0 + KC])
+                       * inside).reshape(WIN, WIN, KC)
+                dwc = sum(hch[dy:dy + T, dx:dx + T] * dw[dy, dx, c0:c0 + KC]
+                          for dy in range(3) for dx in range(3))
+                hb[:, c0:c0 + KC] = (dwc + b2[c0:c0 + KC]).reshape(T * T, KC)
+            pix = [(y0 + p // T, x0 + p % T) for p in range(T * T)]
+            valid = [gy < h and gx < w for gy, gx in pix]
+            xres = torch.stack([src[gy, gx] if ok else torch.zeros(c)
+                                for (gy, gx), ok in zip(pix, valid)])
+            u = torch.zeros(T * T, c)
+            for k0 in range(0, c, KS_B):
+                u += hb[:, k0:k0 + KS_B] @ slab(c, KS_B).T
+            u = u + xres + b3
+            yacc = u + bf2
+            half = KF // 2
+            for f0 in range(0, 2 * c, KF):
+                fa = torch.zeros(T * T, 2 * KF)
+                for k0 in range(0, c, KS_B):
+                    fa += u[:, k0:k0 + KS_B] @ slab(2 * KF, KS_B).T
+                parts = []
+                for g in range(2):
+                    a = fa[:, g * KF:g * KF + half]
+                    b = fa[:, g * KF + half:(g + 1) * KF]
+                    lo = f0 + g * half
+                    parts.append(dcb_ops.wsilu(a + bf0[lo:lo + half])
+                                 + dcb_ops.wsilu(b + bf0[2 * c + lo:
+                                                         2 * c + lo + half]))
+                f = torch.cat(parts, 1)
+                for k0 in range(0, KF, KS_B):
+                    yacc = yacc + f[:, k0:k0 + KS_B] @ slab(c, KS_B).T
+            assert off == 8 * c * c
+            if j == n - 1 and q_last is not None:
+                yacc = yacc * q_last
+            for p, ((gy, gx), ok) in enumerate(zip(pix, valid)):
+                if ok:
+                    dst[gy, gx] = yacc[p]
+    return bufs["y"][None]
+
+
+@pytest.mark.parametrize("with_q", [False, True])
+@pytest.mark.parametrize("n,h,w,c", [(2, 9, 11, 128), (3, 17, 30, 128),
+                                     (4, 12, 20, 256)])
+def test_chain_schedule_emulation_matches_plain(n, h, w, c, with_q):
+    rng = np.random.default_rng(n * 10 + h)
+    blocks = [_np_block(c, rng) for _ in range(n)]
+    x = torch.from_numpy(_x((1, h, w, c), n + h, 1.0))
+    q = torch.linspace(0.5, 1.5, c) if with_q else None
+    packed = chain_ops.pack_chain(blocks, torch.float32)
+    out = _emulate_chain(x, packed, n, q)
+    ref = chain_ops.dcb_chain_plain(x, blocks, q)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("c", dcb_ops.KERNEL_CHANNELS)
+def test_chain_shared_memory_fits_and_is_independent_of_n(c):
+    # the budget is a function of C alone: the kernel takes no other input
+    assert list(inspect.signature(chain_ops.smem_bytes).parameters) == ["c"]
+    # stage B's ring fills exactly the window's bytes
+    assert chain_ops.RING_B * chain_ops.KS_B == chain_ops.WIN_ROWS
+    assert chain_ops.smem_bytes(c) <= dcb_ops.SMEM_LIMIT
+
+
+def test_chain_buffer_plan_never_writes_x_and_ends_in_y():
+    for n in range(1, 9):
+        plan = chain_ops.buffer_plan(n)
+        assert plan[0][0] == "x" and plan[-1][1] == "y"
+        assert all(dst != "x" and src != dst for src, dst in plan)
+        assert all(plan[j][1] == plan[j + 1][0] for j in range(n - 1))
