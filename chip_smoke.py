@@ -6,24 +6,26 @@
 Phases (any failure exits non-zero and prints no result line):
   1. device: the card's name and power limit (nvidia-smi), name and count;
   2. build: both DepthConvBlock kernels from ssgvc_tpu_torch/csrc, one nvcc
-     each, started together; prints registers, shared memory and spills,
-     and the chain kernel's wgmma (HGMMA) and bulk-copy (UBLKCP)
-     instructions from cuobjdump;
+     each, started together; prints registers, shared memory and spill
+     bytes of every instantiation, and each library's wgmma (HGMMA) and
+     bulk-copy (UBLKCP) instructions from cuobjdump (none of either fails);
   3. kernels: each kernel at every shape the main path gives it, against
      its plain PyTorch version on the same bf16 inputs (relative Frobenius
      error <= 1e-2), timed with CUDA events, beside its bound; each chain
      also beside N launches of the single-block kernel on the same blocks
      (seq_ms), timed in turns (chain, seq, seq, chain). With --prev-port DIR
      (another checkout's ssgvc_tpu_torch/, e.g. the parent commit's unpacked
-     by git archive into a git-ignored directory) that checkout's chain is
-     built and timed in the same turns (prev, chain, seq, seq, chain, prev)
-     as prev_ms, through its layers.blocks.run_chain on DepthConvBlocks
-     holding the same weights, as its main path calls it;
+     by git archive into a git-ignored directory) that checkout's kernels
+     are built and timed in the same turns as prev_ms (prev, new, ..., new,
+     prev), through its own layers.blocks (DepthConvBlock(c, shortcut=sc)
+     and run_chain) on blocks holding the same weights, as its main path
+     calls them;
   4. main path: the performance-variant P-frame codec at full width
      (ch_d 256, ch_y 128, ch_z 128, ch_recon 320), bf16 compute, packed io,
      1088x1920 frames, a GOP of --frames P-frames carrying the DPB, weights
      drawn from --seed; every launch counted (19 single + 5 chained on the
-     frame after the I-frame, 18 + 5 on the others);
+     frame after the I-frame, 18 + 5 on the others); the GOP is timed
+     GOP_RUNS times, ms/frame their median;
   5. streaming: StreamingDMC (raw io) on the same weights, first 3 frames
      and starting DPB, against the packed-io GOP;
   6. cross-check: the same weights at 128x128 through the CPU port in fp32
@@ -38,6 +40,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -51,6 +54,7 @@ H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 REL_TOL = 1e-2               # kernel vs plain, relative Frobenius error
 H, W = 1088, 1920
 QP = 32
+GOP_RUNS = 3                 # timed GOPs; ms/frame is their median
 DEVICE = "cuda"
 
 # (rows, cols, C, shortcut, launches per P-frame, sites)
@@ -135,29 +139,42 @@ def phase_device(torch):
 def phase_build():
     from ssgvc_tpu_torch.ops import _build
     from ssgvc_tpu_torch.ops import dcb as dcb_ops
-    from ssgvc_tpu_torch.ops import dcb_chain as chain_ops
 
     t0 = time.time()
-    logs = _build.build(["dcb", "dcb_chain"])
+    names = ["dcb", "dcb_chain"]
+    logs = _build.build(names)
     print(f"build: {time.time() - t0:.1f} s")
-    for name, text in logs.items():
-        for line in text.splitlines():
-            if any(k in line for k in ("registers", "spill", "smem",
-                                       "Compiling entry")):
-                print(f"  [{name}] {line.strip()}")
-    print("  [dcb_chain] dynamic shared memory, any N: " + ", ".join(
-        f"C={c} {chain_ops.smem_bytes(c)} B" for c in dcb_ops.KERNEL_CHANNELS))
+    for name in names:
+        # ptxas -v: an entry's properties (stack, spills), then its registers
+        entry, spill = "?", ""
+        for line in logs[name].splitlines():
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                entry = m.group(1)
+            elif "spill stores" in line:
+                spill = line.strip()
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                c = re.search(r"ILi(\d+)E(?:Lb(\d)E)?", entry)
+                what = (f"C={c.group(1)}" + (f" sc={c.group(2)}"
+                                             if c.group(2) else "")
+                        if c else entry)
+                print(f"  [{name}] {what}: {spill}, {m.group(1)} registers")
+    print("  [dcb, dcb_chain] dynamic shared memory, any N: " + ", ".join(
+        f"C={c} {dcb_ops.smem_bytes(c)} B" for c in dcb_ops.KERNEL_CHANNELS))
     cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass",
-                           str(_build._lib_path("dcb_chain"))],
-                          capture_output=True, text=True, timeout=120).stdout
-    hgmma = [ln.split(";")[0].strip() for ln in sass.splitlines()
-             if "HGMMA" in ln]
-    print(f"  [dcb_chain] SASS: {len(hgmma)} HGMMA, "
-          f"{sass.count('UBLKCP')} UBLKCP (bulk copy), e.g. "
-          f"{hgmma[0] if hgmma else 'none'}")
-    if not hgmma or "UBLKCP" not in sass:
-        fail("chain kernel issues no wgmma or no bulk copy")
+    for name in names:
+        sass = subprocess.run([str(cuobjdump), "-sass",
+                               str(_build._lib_path(name))],
+                              capture_output=True, text=True,
+                              timeout=120).stdout
+        hgmma = [ln.split(";")[0].strip() for ln in sass.splitlines()
+                 if "HGMMA" in ln]
+        print(f"  [{name}] SASS: {len(hgmma)} HGMMA, "
+              f"{sass.count('UBLKCP')} UBLKCP (bulk copy), e.g. "
+              f"{hgmma[0] if hgmma else 'none'}")
+        if not hgmma or "UBLKCP" not in sass:
+            fail(f"{name} kernel issues no wgmma or no bulk copy")
 
 
 def load_prev_port(path):
@@ -202,52 +219,28 @@ def phase_kernels(torch, seed, card, prev=None):
              else None)
         return x, q, [block_params(torch, c, rng, dev) for _ in range(n)]
 
-    def run_single(h, w, c, shortcut):
-        x, _, blocks = inputs(h, w, c, 1, False)
-        packed = dcb_ops.pack_params(blocks[0], bf16)
-        kern = lambda: dcb_ops.dcb_cuda(x, packed, None, shortcut)
-        plain = lambda: dcb_ops.dcb_plain(x, blocks[0], None, shortcut)
-        out = kern()
-        torch.cuda.synchronize()
-        rel, max_err = check(f"dcb at {(h, w, c)}", out, plain())
-        return dict(kernel_ms=cuda_ms(torch, kern, 20),
-                    plain_ms=cuda_ms(torch, plain, 5),
-                    bound_us=1e3 * bound_ms(h, w, c, 1),
-                    rel_err=rel, max_err=max_err)
+    def prev_blocks(c, shortcut, blocks):
+        """The other checkout's DepthConvBlocks holding these weights."""
+        mods = [prev.DepthConvBlock(c, shortcut=shortcut, dtype=bf16,
+                                    device=dev) for _ in blocks]
+        with torch.no_grad():
+            for m, params in zip(mods, blocks):
+                for dst, src in zip(m.core_params(), params):
+                    dst.copy_(src)
+        return mods
 
-    def run_chain(h, w, c, n, with_q):
-        x, q, blocks = inputs(h, w, c, n, with_q)
-        # packed once, outside every timed loop
-        packed = chain_ops.pack_chain(blocks, bf16)
-        singles = [dcb_ops.pack_params(p, bf16) for p in blocks]
-        kern = lambda: chain_ops.dcb_chain_cuda(x, packed, q)
-        plain = lambda: chain_ops.dcb_chain_plain(x, blocks, q)
-
-        def seq():
-            y = x
-            for j, pk in enumerate(singles):
-                y = dcb_ops.dcb_cuda(y, pk, q if j == n - 1 else None)
-            return y
-
-        fns = {"kernel": kern, "seq": seq}
-        if prev is not None:
-            mods = [prev.DepthConvBlock(c, dtype=bf16, device=dev)
-                    for _ in blocks]
-            with torch.no_grad():
-                for m, params in zip(mods, blocks):
-                    for dst, src in zip(m.core_params(), params):
-                        dst.copy_(src)
-            fns["prev"] = lambda: prev.run_chain(x, mods, q)
-        ref = plain()
+    def in_turns(what, fns, middle, ref, plain, h, w, c, n):
+        """Check every variant against ref, then time them in turns:
+        (prev,) middle, reversed middle (, prev)."""
         outs = {k: fn() for k, fn in fns.items()}
         torch.cuda.synchronize()
-        rel, max_err = check(f"dcb_chain at {(h, w, c, n)}", outs["kernel"],
+        rel, max_err = check(f"{what} at {(h, w, c, n)}", outs["kernel"],
                              ref)
         for k in ("seq", "prev"):
             if k in outs:
                 check(f"{k} at {(h, w, c, n)}", outs[k], ref)
-        order = ["kernel", "seq", "seq", "kernel"]
-        if prev is not None:
+        order = middle + middle[::-1]
+        if "prev" in fns:
             order = ["prev"] + order + ["prev"]
         times = {k: [] for k in fns}
         for k in order:
@@ -257,6 +250,38 @@ def phase_kernels(torch, seed, card, prev=None):
                  bound_us=1e3 * bound_ms(h, w, c, n), rel_err=rel,
                  max_err=max_err, turns={k: times[k] for k in times})
         return r
+
+    def run_single(h, w, c, shortcut):
+        x, _, blocks = inputs(h, w, c, 1, False)
+        # packed once, outside every timed loop
+        packed = dcb_ops.pack_block(blocks[0], bf16)
+        fns = {"kernel": lambda: dcb_ops.dcb_cuda(x, packed, None, shortcut)}
+        if prev is not None:
+            mod = prev_blocks(c, shortcut, blocks)[0]
+            fns["prev"] = lambda: mod(x)
+        plain = lambda: dcb_ops.dcb_plain(x, blocks[0], None, shortcut)
+        return in_turns("dcb", fns, ["kernel"], plain(), plain, h, w, c, 1)
+
+    def run_chain(h, w, c, n, with_q):
+        x, q, blocks = inputs(h, w, c, n, with_q)
+        # packed once, outside every timed loop
+        packed = chain_ops.pack_chain(blocks, bf16)
+        singles = [dcb_ops.pack_block(p, bf16) for p in blocks]
+        plain = lambda: chain_ops.dcb_chain_plain(x, blocks, q)
+
+        def seq():
+            y = x
+            for j, pk in enumerate(singles):
+                y = dcb_ops.dcb_cuda(y, pk, q if j == n - 1 else None)
+            return y
+
+        fns = {"kernel": lambda: chain_ops.dcb_chain_cuda(x, packed, q),
+               "seq": seq}
+        if prev is not None:
+            mods = prev_blocks(c, False, blocks)
+            fns["prev"] = lambda: prev.run_chain(x, mods, q)
+        return in_turns("dcb_chain", fns, ["kernel", "seq"], plain(), plain,
+                        h, w, c, n)
 
     entries = []
     for name, shapes, source, replaces in (
@@ -282,14 +307,14 @@ def phase_kernels(torch, seed, card, prev=None):
                     f"q={int(with_q)}: kernel {r['kernel_ms']:.4f} ms")
             if name == "dcb_chain":
                 line += f", seq ({n} x dcb) {r['seq_ms']:.4f} ms"
-                if "prev_ms" in r:
-                    line += f", prev {r['prev_ms']:.4f} ms"
-                # derived, not measured: by design every 8x8 tile copies its
-                # block's four matrices (8 C^2 bf16) into shared memory once
-                wbytes = math.prod(chain_ops.tile_grid(h, w)) * n * 16 * c * c
-                line += (f", weight bytes copied by design {wbytes / 1e6:.0f}"
-                         f" MB / kernel time = {wbytes / r['kernel_ms'] / 1e9:.2f}"
-                         f" TB/s (derived)")
+            if "prev_ms" in r:
+                line += f", prev {r['prev_ms']:.4f} ms"
+            # derived, not measured: by design every 8x8 tile copies its
+            # block's four matrices (8 C^2 bf16) into shared memory once
+            wbytes = math.prod(dcb_ops.tile_grid(h, w)) * n * 16 * c * c
+            line += (f", weight bytes copied by design {wbytes / 1e6:.0f}"
+                     f" MB / kernel time = {wbytes / r['kernel_ms'] / 1e9:.2f}"
+                     f" TB/s (derived)")
             print(line + f", plain {r['plain_ms']:.4f} ms, bound "
                   f"{r['bound_us']:.1f} us (share {r['share']:.3f}), rel "
                   f"{r['rel_err']:.2e}, max abs {r['max_err']:.3g} [{card}]")
@@ -384,21 +409,27 @@ def phase_main_path(torch, seed, frames_n, card):
                     fail(f"frame {i}: launches {got}, expected {want}")
         return torch.cat(bpps), outs, dpb
 
+    want = (18 * frames_n + 1, 5 * frames_n)
+    runs = []
     with torch.no_grad():
         gop(False)                       # warm-up: cuBLAS/cuDNN plans
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        dcb_ops.launches = 0
-        chain_ops.launches = 0
-        t0 = time.perf_counter()
-        bpps, outs, dpb = gop(True)
-        torch.cuda.synchronize()
-        elapsed = time.perf_counter() - t0
-        launches = (dcb_ops.launches, chain_ops.launches)
-    peak = torch.cuda.max_memory_allocated()
-    want = (18 * frames_n + 1, 5 * frames_n)
-    if launches != want:
-        fail(f"GOP launches {launches}, expected {want}")
+        # the host clock varies from run to run: time the GOP a few times,
+        # each with the counts set to 0 just before it and read just after;
+        # peak memory is the first run's, before any run's outputs linger
+        for k in range(GOP_RUNS):
+            dcb_ops.launches = 0
+            chain_ops.launches = 0
+            t0 = time.perf_counter()
+            bpps, outs, dpb = gop(True)
+            torch.cuda.synchronize()
+            runs.append(1e3 * (time.perf_counter() - t0) / frames_n)
+            launches = (dcb_ops.launches, chain_ops.launches)
+            if launches != want:
+                fail(f"GOP launches {launches}, expected {want}")
+            if k == 0:
+                peak = torch.cuda.max_memory_allocated()
     b = bpps.float().cpu().numpy()
     if not (np.isfinite(b).all() and (b > 0).all()):
         fail(f"bpp not finite and positive: {b}")
@@ -407,13 +438,16 @@ def phase_main_path(torch, seed, frames_n, card):
         fail("decoded frame not finite in [0, 1]")
     if not torch.isfinite(dpb["feature"].float()).all():
         fail("DPB feature not finite")
-    ms = 1e3 * elapsed / frames_n
+    ms = float(np.median(runs))
     print(f"main path: {frames_n} P-frames {H}x{W}, {ms:.2f} ms/frame "
-          f"({1e3 / ms:.2f} fps, ingest included, warm-up excluded), peak "
+          f"({1e3 / ms:.2f} fps; median of {GOP_RUNS} GOPs: "
+          f"{', '.join(f'{r:.2f}' for r in runs)}; ingest included, warm-up "
+          f"excluded), peak "
           f"{peak / 2**20:.0f} MiB allocated, launches dcb {launches[0]} "
           f"dcb_chain {launches[1]}, bpp {np.round(b, 4).tolist()} [{card}]")
     state = {k: v.detach().clone() for k, v in model.state_dict().items()}
-    return dict(launches=launches, ms_per_frame=ms, peak_bytes=peak,
+    return dict(launches=launches, ms_per_frame=ms, ms_runs=runs,
+                peak_bytes=peak,
                 bpps=b, outs=outs, state=state, frames=frames[:3],
                 masks=masks[:3], dpb_frame=dpb_frame)
 
@@ -492,8 +526,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--frames", type=int, default=8)
     ap.add_argument("--prev-port", default=None,
-                    help="another checkout's ssgvc_tpu_torch/ whose chain "
-                         "kernel is timed in turns with this one")
+                    help="another checkout's ssgvc_tpu_torch/ whose "
+                         "kernels are timed in turns with this one's")
     args = ap.parse_args()
 
     import torch
@@ -508,13 +542,15 @@ def main() -> int:
     card, name, count = phase_device(torch)
     phase_build()
     prev = load_prev_port(args.prev_port) if args.prev_port else None
-    kernels = phase_kernels(torch, args.seed, card, prev)
+    with torch.no_grad():
+        kernels = phase_kernels(torch, args.seed, card, prev)
     main_path = phase_main_path(torch, args.seed, args.frames, card)
     kernels[0]["launches"], kernels[1]["launches"] = main_path["launches"]
     phase_streaming(torch, main_path)
     phase_cross_check(torch, main_path, args.seed)
     print(json.dumps({"main_path": {
         "ms_per_frame": main_path["ms_per_frame"],
+        "ms_per_frame_runs": main_path["ms_runs"],
         "peak_bytes": main_path["peak_bytes"], "card": card}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,62 +1,106 @@
-// Kernel 1: one DepthConvBlock after its adaptor, forward, B=1, bf16.
+// Kernel 1: one DepthConvBlock after its adaptor, forward, B=1, bf16 NHWC,
+// with the optional shortcut (+ x) and per-channel q (* q) of the output.
+// Runs the per-tile routine of csrc/dcb_tile.cuh (the math and rounding
+// points of ops/dcb.py).
 //
-// Replaces the TPU kernel _dcb_kernel (ssgvc_tpu/ops/pallas_dcb.py, reached
-// through _dcb_fused / pl.pallas_call). Same math and rounding points:
-// h = wsilu(x W0 + b0) zeroed outside the frame, depthwise 3x3 with zero
-// padding in h space, u = x + h W3 + b3, f = wsilu(u Wf0a + bf0a) +
-// wsilu(u Wf0b + bf0b), y = u + f Wf2 + bf2 [+ x] [* q].
+// Replaces the TPU kernel _dcb_kernel (ssgvc_tpu/ops/pallas_dcb.py:68,
+// reached through _dcb_fused / pl.pallas_call).
 //
-// Bound on an H100 SXM: 16 C^2 + 18 C operations per pixel against 4 C bytes
-// moved, so compute: a 136x240 frame at C=256 is 34.4 GFLOP, at least 35 us
+// Bound on an H100 SXM: compute. 16 C^2 + 18 C operations per pixel against
+// 4 C bytes moved: a 136x240 frame at C=256 is 34.4 GFLOP, at least 35 us
 // at 989 TFLOP/s bf16 dense, while its 33 MB of activations take 10 us at
 // 3.35 TB/s.
 //
-// What the design does about it: every product goes to the tensor cores
-// (mma.sync bf16, fp32 accumulate) and no intermediate leaves the SM, so the
-// kernel reads x once and writes y once. The TPU kernel keeps full-width row
-// tiles in ~10 MB of VMEM; an SM has 227 KB, so the tile here is 8x8 pixels
-// with a one-pixel halo on all four sides (the halo costs 100/64 of the dc_0
-// work) and both intermediates of width C or 4C are streamed in channel
-// chunks (csrc/dcb_core.cuh). Left for later: wgmma, TMA, staging the
-// weights through shared memory, more than one block per SM.
+// What the design does about it: every product runs on wgmma with both
+// operands in shared memory and no intermediate leaves the SM, so the
+// kernel reads x once (and a one-pixel halo) and writes y once. A persistent
+// grid, one 384-thread block per SM, walks the 8x8 output tiles; per tile, a
+// producer thread streams the block's canonical weight slabs by bulk copies
+// into mbarrier rings that feed two consumer warpgroups, and runs into the
+// next tile's W0 slabs while the consumers finish this tile's FFN
+// (csrc/dcb_tile.cuh). Each tile still copies the block's 8 C^2 bf16
+// weights into shared memory once. Left for later: sharing a weight slab
+// across more pixels (128-pixel tiles, or a 2-CTA cluster with multicast).
 
-#include "dcb_core.cuh"
+#include "dcb_tile.cuh"
 
-template <int C>
-__global__ void __launch_bounds__(dcb::kThreads, 1)
-dcb_kernel(const dcb::bf16* __restrict__ x, dcb::bf16* __restrict__ y,
-           const dcb::bf16* __restrict__ w, const dcb::bf16* __restrict__ q,
-           int H, int W, int th, int tw, int shortcut) {
-  dcb::run_tile<C>(x, y, w, q, H, W, 1, th, tw, shortcut != 0);
+namespace single {
+
+using namespace dcbt;
+
+template <int C, bool Shortcut>
+__global__ void __launch_bounds__(kThreads, 1)
+dcb_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
+           const bf16* __restrict__ w, const bf16* __restrict__ q, int H,
+           int W, int tiles_x, int tiles) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  Smem<C> sm(smem);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) sm.init_barriers();
+  __syncthreads();
+
+  if (warp >= kConsumers / 32) {
+    // ---------------- producer warpgroup ----------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kProducerRegs));
+    if (warp == kConsumers / 32 && lane == 0) {
+      uint32_t ntile = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x)
+        produce_tile<C>(sm, w, 0, ntile);
+    }
+    return;
+  }
+
+  // ---------------- consumer warpgroups ----------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kConsumerRegs));
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x)
+    consume_tile<C, Shortcut>(sm, x, y, w, q, H, W, (t / tiles_x) * TILE,
+                              (t % tiles_x) * TILE, tid);
 }
 
-template <int C>
-static int launch(const void* x, void* y, const void* w, const void* q, int H,
-                  int W, int th, int tw, int shortcut, int smem,
-                  cudaStream_t stream) {
-  if (th <= 0 || tw <= 0 || H <= 0 || W <= 0 ||
-      dcb::smem_bytes(C, 1, th, tw) != smem)
-    return cudaErrorInvalidValue;
+template <int C, bool Shortcut>
+int launch_kernel(const void* x, void* y, const void* w, const void* q, int H,
+                  int W, cudaStream_t stream) {
+  if (H <= 0 || W <= 0) return cudaErrorInvalidValue;
+  const int tiles_x = (W + TILE - 1) / TILE;
+  const int tiles = (H + TILE - 1) / TILE * tiles_x;
+  const int smem = smem_bytes(C);
+  auto kern = dcb_kernel<C, Shortcut>;
   cudaError_t e = cudaFuncSetAttribute(
-      dcb_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((W + tw - 1) / tw, (H + th - 1) / th);
-  dcb_kernel<C><<<grid, dcb::kThreads, smem, stream>>>(
-      static_cast<const dcb::bf16*>(x), static_cast<dcb::bf16*>(y),
-      static_cast<const dcb::bf16*>(w), static_cast<const dcb::bf16*>(q), H, W,
-      th, tw, shortcut);
+  int dev = 0, sms = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  kern<<<tiles < sms ? tiles : sms, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<bf16*>(y),
+      static_cast<const bf16*>(w), static_cast<const bf16*>(q), H, W, tiles_x,
+      tiles);
   return cudaGetLastError();
 }
 
+template <int C>
+int launch(const void* x, void* y, const void* w, const void* q, int H, int W,
+           int shortcut, cudaStream_t stream) {
+  return shortcut ? launch_kernel<C, true>(x, y, w, q, H, W, stream)
+                  : launch_kernel<C, false>(x, y, w, q, H, W, stream);
+}
+
+}  // namespace single
+
 extern "C" int ssgvc_dcb_forward(const void* x, void* y, const void* w,
-                                 const void* q, int H, int W, int C, int th,
-                                 int tw, int shortcut, int smem, void* stream) {
+                                 const void* q, int H, int W, int C,
+                                 int shortcut, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (C) {
-    case 128: return launch<128>(x, y, w, q, H, W, th, tw, shortcut, smem, s);
-    case 256: return launch<256>(x, y, w, q, H, W, th, tw, shortcut, smem, s);
-    case 320: return launch<320>(x, y, w, q, H, W, th, tw, shortcut, smem, s);
-    case 384: return launch<384>(x, y, w, q, H, W, th, tw, shortcut, smem, s);
+    case 128: return single::launch<128>(x, y, w, q, H, W, shortcut, s);
+    case 256: return single::launch<256>(x, y, w, q, H, W, shortcut, s);
+    case 320: return single::launch<320>(x, y, w, q, H, W, shortcut, s);
+    case 384: return single::launch<384>(x, y, w, q, H, W, shortcut, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+extern "C" const char* ssgvc_error_string(int e) {
+  return cudaGetErrorString(static_cast<cudaError_t>(e));
 }

@@ -1,14 +1,14 @@
-// Hopper (sm_90a) primitives for the chain kernel: mbarriers, 1-D bulk
+// Hopper (sm_90a) primitives for the DepthConvBlock kernels: mbarriers, 1-D bulk
 // copies, zero-filling 16-byte cp.async, proxy fences, named barriers and the
 // wgmma group discipline and shared-memory descriptors.
 //
 // Operand layout ("canonical", K-major, no swizzle): a tile of R rows by K
 // bf16 columns is stored as 8x8 core matrices of 128 contiguous bytes (row r
 // of a core matrix at byte 16 r). Core matrices adjacent in K lie LBO bytes
-// apart, those adjacent in rows (8-row groups) SBO bytes apart. The chain
-// kernel always uses LBO = 128 and SBO = 16 K, so element (r, k) lies at
+// apart, those adjacent in rows (8-row groups) SBO bytes apart. The
+// kernels always use LBO = 128 and SBO = 16 K, so element (r, k) lies at
 // element offset (r / 8) * 8 K + (k / 8) * 64 + (r % 8) * 8 + k % 8
-// (ops/dcb_chain.py:canonical packs the weights so).
+// (ops/dcb.py:canonical packs the weights so).
 
 #pragma once
 

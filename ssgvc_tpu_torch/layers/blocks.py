@@ -17,7 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.dcb import dcb, pack_params, wsilu
+from ..ops.dcb import dcb, pack_block, wsilu
 from ..ops.dcb_chain import dcb_chain, pack_chain
 from ..ops.pixel import patch_down_conv, patch_up_conv, pixel_shuffle
 
@@ -176,7 +176,7 @@ class DepthConvBlock(nn.Module):
         params = self.core_params()
         key = _pack_key(x, params)
         if key != self._packed_key:
-            self._packed = pack_params(params, x.dtype)
+            self._packed = pack_block(params, x.dtype)
             self._packed_key = key
         return self._packed
 

@@ -1,5 +1,7 @@
-"""One DepthConvBlock after its adaptor: the CUDA kernel ``csrc/dcb.cu`` and
-its plain PyTorch version.
+"""One DepthConvBlock after its adaptor: the CUDA kernel ``csrc/dcb.cu``, its
+plain PyTorch version, and the plain Python helpers that lay out the work of
+both DepthConvBlock kernels (tile grid, window, weight packing,
+shared-memory budget); ``ops/dcb_chain.py`` uses them too.
 
 The block (NHWC, per pixel, C channels)::
 
@@ -20,12 +22,20 @@ plain version is the conv composition of ``layers/blocks.DepthConvBlock``.
 :func:`dcb` routes by device: a CPU tensor takes :func:`dcb_plain`; a CUDA
 tensor launches the kernel or raises. The kernel takes bfloat16 activations,
 B=1 and C in :data:`KERNEL_CHANNELS`.
+
+Both kernels run one tile routine (``csrc/dcb_tile.cuh``) on 8x8 output
+tiles. A tile reads its input with a one-pixel halo (:data:`WIN` x
+:data:`WIN` pixels) and recomputes dc_0 on it. Products run on ``wgmma``
+with the weights brought into shared memory by bulk copies of slabs that
+:func:`pack_block` has laid out in wgmma's canonical operand layout, in the
+order the kernel consumes them. The single-block kernel is a persistent
+grid of one thread block per SM walking the tiles.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -36,13 +46,6 @@ from . import _build
 KERNEL_CHANNELS = (128, 256, 320, 384)
 #: Dynamic shared memory one block may use on sm_90.
 SMEM_LIMIT = 232448
-#: Output tiles (rows, cols) tried in order; the first that fits is taken.
-TILES = ((8, 8), (8, 4), (4, 8), (6, 4), (4, 6), (4, 4), (4, 2), (2, 4),
-         (2, 2))
-# row strides of the h chunk (fp32) and f chunk (bf16), and the stage-B
-# sub-tile: these must match csrc/dcb_core.cuh
-_SH, _SF, _MB = 68, 72, 64
-
 #: Kernel launches since the count was last set to 0.
 launches = 0
 
@@ -54,39 +57,150 @@ def wsilu(x: torch.Tensor) -> torch.Tensor:
     return F.silu(4.0 * x) * 0.25
 
 
-def smem_bytes(c: int, n: int, th: int, tw: int) -> int:
-    """Dynamic shared memory of one kernel block for ``n`` chained blocks on
-    a (th, tw) output tile: the halo-extended activations (bf16), the
-    depthwise output of the current block (bf16), and a work area that
-    holds either one fp32 h-chunk or the FFN's bf16 operands."""
-    sc = c + 8
-    p_in = (th + 2 * n) * (tw + 2 * n)
-    p_out = (th + 2 * n - 2) * (tw + 2 * n - 2)
-    work = max(p_in * _SH * 4, _MB * sc * 2 + _MB * _SF * 2)
-    return p_in * sc * 2 + p_out * sc * 2 + work
-
-
-def plan_tile(c: int, n: int) -> Optional[Tuple[int, int]]:
-    """The first tile of :data:`TILES` whose working set fits, or None."""
-    for th, tw in TILES:
-        if smem_bytes(c, n, th, tw) <= SMEM_LIMIT:
-            return th, tw
-    return None
-
-
 def packed_numel(c: int) -> int:
     return 8 * c * c + 17 * c
 
 
 def pack_params(params: Params, dtype: torch.dtype) -> torch.Tensor:
-    """One block's weights in the kernel's layout, rounded to ``dtype``:
-    W0 (C,C), W3 (C,C), Wf0 (4C,C), Wf2 (C,2C), each [out][in]; the
-    depthwise taps (9,C); then b0, b2, b3 (C each), bf0 (4C), bf2 (C)."""
+    """One block's weights flat, rounded to ``dtype``: W0 (C,C), W3 (C,C),
+    Wf0 (4C,C), Wf2 (C,2C), each [out][in]; the depthwise taps (9,C); then
+    b0, b2, b3 (C each), bf0 (4C), bf2 (C). :func:`pack_block` keeps its
+    tail (taps and biases) and lays the matrices out for the kernels."""
     w0, b0, w2, b2, w3, b3, wf0, bf0, wf2, bf2 = params
     c = w0.shape[0]
     with torch.no_grad():
         parts = (w0, w3, wf0, wf2, w2.reshape(c, 9).t(), b0, b2, b3, bf0, bf2)
         return torch.cat([p.reshape(-1) for p in parts]).to(dtype)
+
+
+# The kernels' per-tile layout: must match csrc/dcb_tile.cuh.
+TILE = 8            # output tile side
+WIN = TILE + 2      # input window side: the tile and a one-pixel halo
+WIN_ROWS = 128      # window pixels padded to two 64-row wgmma tiles
+KS_A = 64           # k columns of a W0 slab (stage A)
+KS_B = 32           # k columns of a W3 / Wf0 / Wf2 slab (stage B)
+KC = 64             # h channels per stage-A chunk
+KF = 64             # hidden channels per FFN chunk
+SH = KC + 4         # fp32 row stride of the h chunk
+RING_A = 4          # W0 slab slots
+RING_B = 4          # stage-B slab slots, in the window's bytes
+BARRIER_BYTES = 256
+
+
+def tile_grid(h: int, w: int) -> Tuple[int, int]:
+    """Rows and columns of 8x8 output tiles over an h x w frame; the last
+    row and column may be ragged."""
+    return -(-h // TILE), -(-w // TILE)
+
+
+def tile_origin(t: int, tiles_x: int) -> Tuple[int, int]:
+    """Frame row and column of tile ``t``'s first output pixel (tiles in
+    row-major order)."""
+    return (t // tiles_x) * TILE, (t % tiles_x) * TILE
+
+
+def window_pixel(r: int, y0: int, x0: int) -> Tuple[int, int]:
+    """Frame coordinates of window row ``r`` (0 <= r < WIN * WIN) of the
+    tile at (y0, x0): the window starts one pixel above and left of it."""
+    return y0 - 1 + r // WIN, x0 - 1 + r % WIN
+
+
+def smem_bytes(c: int) -> int:
+    """Dynamic shared memory of one thread block of either kernel, the same
+    for every N.
+
+    Stage A holds the window A tile (WIN_ROWS x C bf16), the fp32 h chunk,
+    hb (64 x C bf16) and the W0 ring. In stage B the window is dead: its
+    bytes hold the RING_B slots of W3 / Wf0 / Wf2 slabs (each at most
+    C x KS_B bf16), hb is overwritten by uc, and the h chunk's bytes hold
+    two f chunks (64 x KF bf16)."""
+    window = WIN_ROWS * c * 2
+    hchunk = max(WIN * WIN * SH * 4, 2 * TILE * TILE * KF * 2)
+    hb = TILE * TILE * c * 2
+    ring_a = RING_A * KS_A * KC * 2
+    return window + hchunk + hb + ring_a + BARRIER_BYTES
+
+
+def canonical(m: torch.Tensor) -> torch.Tensor:
+    """A (R, K) matrix, K contiguous, in wgmma's K-major no-swizzle layout:
+    8x8 core matrices of 64 contiguous elements, K-adjacent ones next to
+    each other, the 8-row groups outermost. Flat, R * K elements."""
+    r, k = m.shape
+    return m.reshape(r // 8, 8, k // 8, 8).permute(0, 2, 1, 3).reshape(-1)
+
+
+def decanonical(flat: torch.Tensor, r: int, k: int) -> torch.Tensor:
+    """Inverse of :func:`canonical`."""
+    return flat.reshape(r // 8, k // 8, 8, 8).permute(0, 2, 1, 3).reshape(r, k)
+
+
+def ffn_rows(c: int, f0: int) -> List[int]:
+    """Wf0 rows of the FFN slab for hidden chunk ``f0``: for each consumer
+    warpgroup in turn, its KF/2 columns of half a, then the same of half b,
+    so that one N=64 product gives a warpgroup matching a and b columns."""
+    half = KF // 2
+    rows = []
+    for g in range(2):
+        base = f0 + g * half
+        rows += list(range(base, base + half))
+        rows += list(range(2 * c + base, 2 * c + base + half))
+    return rows
+
+
+def slabs(c: int) -> Iterator[Tuple[str, int, int, int, int]]:
+    """The weight slabs of one block in stream order: (matrix, first row,
+    row count, first k, k count), each a (rows, k count) canonical tile.
+    Wf0 slabs take their rows through :func:`ffn_rows`."""
+    for c0 in range(0, c, KC):
+        for k0 in range(0, c, KS_A):
+            yield "w0", c0, KC, k0, KS_A
+    for k0 in range(0, c, KS_B):
+        yield "w3", 0, c, k0, KS_B
+    for f0 in range(0, 2 * c, KF):
+        for k0 in range(0, c, KS_B):
+            yield "wf0", f0, 2 * KF, k0, KS_B
+        for k0 in range(f0, f0 + KF, KS_B):
+            yield "wf2", 0, c, k0, KS_B
+
+
+def _matrices(params: Params):
+    w0, _, _, _, w3, _, wf0, _, wf2, _ = params
+    c = w0.shape[0]
+    return {"w0": w0.reshape(c, c), "w3": w3.reshape(c, c),
+            "wf0": wf0.reshape(4 * c, c), "wf2": wf2.reshape(c, 2 * c)}
+
+
+def pack_block(params: Params, dtype: torch.dtype) -> torch.Tensor:
+    """One block's weights in the kernels' layout, rounded to ``dtype``:
+    the slabs of :func:`slabs` back to back (8 C^2 elements), then the
+    depthwise taps and biases as in :func:`pack_params`."""
+    c = params[0].shape[0]
+    with torch.no_grad():
+        mats = _matrices(params)
+        parts = []
+        for name, r0, rows, k0, ks in slabs(c):
+            m = mats[name]
+            sel = (m[ffn_rows(c, r0)] if name == "wf0"
+                   else m[r0:r0 + rows])
+            parts.append(canonical(sel[:, k0:k0 + ks]))
+        flat = torch.cat(parts + [pack_params(params, dtype)[8 * c * c:]
+                                  .to(parts[0].dtype)])
+        return flat.to(dtype)
+
+
+def unpack_block(flat: torch.Tensor, c: int) -> dict:
+    """The four matrices ([out][in]) of one :func:`pack_block` tensor."""
+    mats = {"w0": flat.new_empty(c, c), "w3": flat.new_empty(c, c),
+            "wf0": flat.new_empty(4 * c, c), "wf2": flat.new_empty(c, 2 * c)}
+    off = 0
+    for name, r0, rows, k0, ks in slabs(c):
+        tile = decanonical(flat[off:off + rows * ks], rows, ks)
+        off += rows * ks
+        if name == "wf0":
+            mats[name][ffn_rows(c, r0), k0:k0 + ks] = tile
+        else:
+            mats[name][r0:r0 + rows, k0:k0 + ks] = tile
+    return mats
 
 
 def dcb_plain(x: torch.Tensor, params: Params,
@@ -137,11 +251,16 @@ def check_operand(t: torch.Tensor, x: torch.Tensor, numel: int,
             f"{t.device}")
 
 
-def _q_ptr(q: Optional[torch.Tensor], x: torch.Tensor, what: str):
+def q_operand(q: Optional[torch.Tensor], x: torch.Tensor, what: str):
+    """(q, its pointer) for a kernel, or (None, None): the kernels read q in
+    pairs of channels, so a view that starts off a 4-byte boundary is
+    copied."""
     if q is None:
         return None, None
     q = q.reshape(-1)
     check_operand(q, x, x.shape[-1], f"{what} q")
+    if q.data_ptr() % 4:
+        q = q.clone()
     return q, q.data_ptr()
 
 
@@ -150,7 +269,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.ssgvc_dcb_forward
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, vp]
+        fn.argtypes = [vp, vp, vp, vp, i, i, i, i, vp]
         fn.restype = ctypes.c_int
     return lib
 
@@ -159,20 +278,19 @@ def dcb_cuda(x: torch.Tensor, packed: torch.Tensor,
              q: Optional[torch.Tensor] = None,
              shortcut: bool = False) -> torch.Tensor:
     """Launch the kernel: x (1, H, W, C) bf16 CUDA, ``packed`` from
-    :func:`pack_params`, q (C,) or None. Returns a new (1, H, W, C)."""
+    :func:`pack_block`, q (C,) or None. Returns a new (1, H, W, C)."""
     global launches
     check_input(x, "dcb")
     _, h, w, c = x.shape
     check_operand(packed, x, packed_numel(c), "dcb weights")
-    q, q_ptr = _q_ptr(q, x, "dcb")
-    th, tw = plan_tile(c, 1)
+    q, q_ptr = q_operand(q, x, "dcb")
     lib = _lib()
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.ssgvc_dcb_forward(
             x.data_ptr(), y.data_ptr(), packed.data_ptr(), q_ptr, h, w, c,
-            th, tw, int(bool(shortcut)), smem_bytes(c, 1, th, tw), stream)
+            int(bool(shortcut)), stream)
     _build.check(lib, rc, "dcb kernel")
     launches += 1
     return y
@@ -183,9 +301,9 @@ def dcb(x: torch.Tensor, params: Params, q: Optional[torch.Tensor] = None,
         packed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One block after its adaptor: the plain version for a CPU tensor, the
     kernel for a CUDA tensor. ``packed`` may carry cached
-    :func:`pack_params` output for the kernel."""
+    :func:`pack_block` output for the kernel."""
     if x.device.type == "cpu":
         return dcb_plain(x, params, q, shortcut)
     if packed is None:
-        packed = pack_params(params, x.dtype)
+        packed = pack_block(params, x.dtype)
     return dcb_cuda(x, packed, q, shortcut)

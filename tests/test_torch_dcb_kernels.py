@@ -1,7 +1,7 @@
 """The plain versions of the port's two DepthConvBlock kernels against the
 JAX package's Pallas kernels (interpret mode on the CPU), the planners, the
-chain kernel's weight packing and its schedule rehearsed in plain PyTorch,
-and the CPU routing. Kernel-vs-plain on the card lives in
+kernels' weight packing and their schedule rehearsed in plain PyTorch, and
+the CPU routing. Kernel-vs-plain on the card lives in
 test_torch_kernels_gpu.py.
 
 Tolerances as the Pallas kernels' own tests: atol 2e-5 for one block, 3e-5
@@ -97,14 +97,22 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     # the kernel entry never takes a CPU tensor: it raises, no fallback
     with pytest.raises(ValueError):
         dcb_ops.dcb_cuda(x.to(torch.bfloat16),
-                         dcb_ops.pack_params(blocks[0], torch.bfloat16))
+                         dcb_ops.pack_block(blocks[0], torch.bfloat16))
 
 
 @pytest.mark.parametrize("kernel", ["dcb", "dcb_chain"])
 def test_planner_fits_every_main_path_site_in_one_launch(kernel):
     if kernel == "dcb":
-        for c in dcb_ops.KERNEL_CHANNELS:
-            assert dcb_ops.plan_tile(c, 1) == (8, 8)
+        # every single-block site of the main path: one persistent launch
+        # over 8x8 tiles, ragged at the frame's edge
+        for (h, w, widths), grid in (((136, 240, (256, 320)), (17, 30)),
+                                     ((68, 120, (128, 256, 384)), (9, 15)),
+                                     ((34, 60, (128,)), (5, 8)),
+                                     ((17, 30, (128,)), (3, 4))):
+            assert dcb_ops.tile_grid(h, w) == grid
+            for c in widths:
+                assert c in dcb_ops.KERNEL_CHANNELS
+                assert dcb_ops.smem_bytes(c) <= dcb_ops.SMEM_LIMIT
         return
     # the chains of the main path: one launch each over 8x8 tiles, the last
     # row of tiles ragged at 68x120
@@ -173,12 +181,13 @@ def test_chain_packing_round_trip(c):
     assert flat[128:136].tolist() == m[8, 0:8].tolist()
 
 
-def _emulate_chain(x, packed, n, q_last):
-    """The chain kernel's schedule, tile by tile, in plain PyTorch (fp32):
+def _emulate_chain(x, packed, n, q_last, shortcut=False):
+    """The kernels' schedule, tile by tile, in plain PyTorch (fp32):
     ping-pong buffers, 10x10 windows zero outside the frame, dc_0 on the
     window with h masked to 0 outside it, the depthwise, then stage B,
     every weight read slab by slab from the packed tensor in stream
-    order."""
+    order. N=1 with ``shortcut`` (the block's input added to its output
+    before ``q_last``) is the single-block kernel's schedule."""
     _, h, w, c = x.shape
     T, WIN = chain_ops.TILE, chain_ops.WIN
     KC, KF, KS_A, KS_B = chain_ops.KC, chain_ops.KF, chain_ops.KS_A, chain_ops.KS_B
@@ -246,6 +255,8 @@ def _emulate_chain(x, packed, n, q_last):
                 for k0 in range(0, KF, KS_B):
                     yacc = yacc + f[:, k0:k0 + KS_B] @ slab(c, KS_B).T
             assert off == 8 * c * c
+            if shortcut:
+                yacc = yacc + xres
             if j == n - 1 and q_last is not None:
                 yacc = yacc * q_last
             for p, ((gy, gx), ok) in enumerate(zip(pix, valid)):
@@ -265,6 +276,22 @@ def test_chain_schedule_emulation_matches_plain(n, h, w, c, with_q):
     packed = chain_ops.pack_chain(blocks, torch.float32)
     out = _emulate_chain(x, packed, n, q)
     ref = chain_ops.dcb_chain_plain(x, blocks, q)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("h,w,c,shortcut,with_q", [
+    (17, 30, 128, True, True), (9, 13, 384, True, False),
+    (12, 20, 320, False, False)])
+def test_single_block_schedule_emulation_matches_plain(h, w, c, shortcut,
+                                                        with_q):
+    rng = np.random.default_rng(c + h)
+    params = _np_block(c, rng)
+    x = torch.from_numpy(_x((1, h, w, c), c + w, 1.0))
+    q = torch.linspace(0.5, 1.5, c) if with_q else None
+    out = _emulate_chain(x, dcb_ops.pack_block(params, torch.float32), 1, q,
+                         shortcut)
+    ref = dcb_ops.dcb_plain(x, params, q, shortcut)
     assert torch.isfinite(out).all()
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
 

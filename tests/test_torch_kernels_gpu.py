@@ -51,7 +51,10 @@ def rel_err(out, ref):
 @pytest.mark.parametrize("h,w,c,shortcut,with_q", [
     (12, 16, 128, False, False), (17, 30, 128, True, True),
     (20, 24, 320, False, True), (9, 13, 384, True, False),
-    (16, 24, 256, False, False)])
+    (16, 24, 256, False, False),
+    # main-path shapes: more tiles than SMs, ragged last tile row or column
+    (136, 240, 320, False, False), (68, 120, 384, False, False),
+    (68, 120, 256, True, False), (34, 60, 128, True, False)])
 def test_dcb_kernel_matches_plain(h, w, c, shortcut, with_q):
     dev = _card()
     rng = np.random.default_rng(c + h)
@@ -108,6 +111,25 @@ def test_dcb_chain_kernel_repeats_bit_for_bit():
                                    for _ in range(n)], torch.bfloat16)
     first = chain_ops.dcb_chain_cuda(x, packed)
     second = chain_ops.dcb_chain_cuda(x, packed)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+def test_dcb_kernel_repeats_bit_for_bit():
+    """Two launches on the same inputs agree exactly: the mbarrier rings
+    carry no state from one launch to the next."""
+    dev = _card()
+    rng = np.random.default_rng(8)
+    c = 256
+    # 13 x 15 tiles: more than the card's SMs, so thread blocks take
+    # several tiles each; ragged last tile row
+    x = torch.tensor(rng.standard_normal((1, 100, 120, c)),
+                     dtype=torch.bfloat16, device=dev)
+    q = torch.linspace(0.5, 1.5, c, device=dev).to(torch.bfloat16)
+    packed = dcb_ops.pack_block(block_params(c, rng, dev), torch.bfloat16)
+    first = dcb_ops.dcb_cuda(x, packed, q, shortcut=True)
+    second = dcb_ops.dcb_cuda(x, packed, q, shortcut=True)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
 
