@@ -9,27 +9,37 @@ Phases (any failure exits non-zero and prints no result line):
      each, started together; prints registers, shared memory and spill
      bytes of every instantiation, and each library's wgmma (HGMMA) and
      bulk-copy (UBLKCP) instructions from cuobjdump (none of either fails);
-  3. kernels: each kernel at every shape the main path gives it, against
-     its plain PyTorch version on the same bf16 inputs (relative Frobenius
-     error <= 1e-2), timed with CUDA events, beside its bound; each chain
-     also beside N launches of the single-block kernel on the same blocks
-     (seq_ms), timed in turns (chain, seq, seq, chain). With --prev-port DIR
-     (another checkout's ssgvc_tpu_torch/, e.g. the parent commit's unpacked
-     by git archive into a git-ignored directory) that checkout's kernels
-     are built and timed in the same turns as prev_ms (prev, new, ..., new,
-     prev), through its own layers.blocks (DepthConvBlock(c, shortcut=sc)
-     and run_chain) on blocks holding the same weights, as its main path
-     calls them;
-  4. main path: the performance-variant P-frame codec at full width
+  3. kernels: each kernel at every shape the P-frame and I-frame codecs
+     give it, against its plain PyTorch version on the same bf16 inputs
+     (relative Frobenius error <= 1e-2), timed with CUDA events, beside its
+     bound; each chain also beside N launches of the single-block kernel
+     on the same blocks (seq_ms), timed in turns (chain, seq, seq, chain).
+     With --prev-port DIR (another checkout's ssgvc_tpu_torch/, e.g. the
+     parent commit's unpacked by git archive into a git-ignored directory)
+     that checkout's kernels are built and timed in the same turns as
+     prev_ms (prev, new, ..., new, prev) at every P-frame shape, through its
+     own layers.blocks (DepthConvBlock(c, shortcut=sc) and run_chain) on
+     blocks holding the same weights, as its main path calls them;
+  4. I-frame: the DMCI intra codec at full width (enc_dec 368, N 256,
+     z_channel 128), bf16 compute, a raw 1088x1920 frame at QP 32, weights
+     drawn from --seed; 42 single-block launches and no chained one per
+     frame; timed IFRAME_RUNS times after a warm-up, ms/frame their median;
+  5. main path: the performance-variant P-frame codec at full width
      (ch_d 256, ch_y 128, ch_z 128, ch_recon 320), bf16 compute, packed io,
-     1088x1920 frames, a GOP of --frames P-frames carrying the DPB, weights
-     drawn from --seed; every launch counted (19 single + 5 chained on the
-     frame after the I-frame, 18 + 5 on the others); the GOP is timed
-     GOP_RUNS times, ms/frame their median;
-  5. streaming: StreamingDMC (raw io) on the same weights, first 3 frames
+     1088x1920 frames, a GOP of --frames P-frames carrying the DPB from the
+     decoded I-frame, weights drawn from --seed; every launch counted (19
+     single + 5 chained on the frame after the I-frame, 18 + 5 on the
+     others); the GOP is timed GOP_RUNS times, ms/frame their median;
+  6. streaming: StreamingDMC (raw io) on the same weights, first 3 frames
      and starting DPB, against the packed-io GOP;
-  6. cross-check: the same weights at 128x128 through the CPU port in fp32
-     (plain versions) and the card in bf16 (kernels).
+  7. GOP: training/evaluate.evaluate_gop_estimated on the card, the I-frame
+     codec then the raw-io P-frame codec on the same weights, an I-frame
+     and 3 P-frames from --seed, every frame's launches counted; prints
+     each frame's bpp, PSNR, ROI-PSNR and MS-SSIM (random weights: a run
+     check, not a rate-distortion result). Not timed: the host metrics run
+     inside it;
+  8. cross-check: the same weights of both codecs at 128x128 through the
+     CPU port in fp32 (plain versions) and the card in bf16 (kernels).
 
 The line before the last is one JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -55,6 +65,11 @@ REL_TOL = 1e-2               # kernel vs plain, relative Frobenius error
 H, W = 1088, 1920
 QP = 32
 GOP_RUNS = 3                 # timed GOPs; ms/frame is their median
+IFRAME_RUNS = 3              # timed I-frames; ms/frame is their median
+GOP_P_FRAMES = 3             # P-frames after the I-frame in phase 7
+# the GOP's QP offsets by frame, as the JAX package's CompressionConfig
+# default (index_map into DMCConfig.qp_shift)
+INDEX_MAP = (0, 1, 0, 2, 0, 2, 0, 2)
 DEVICE = "cuda"
 
 # (rows, cols, C, shortcut, launches per P-frame, sites)
@@ -62,14 +77,30 @@ SINGLE_SHAPES = [
     (136, 240, 256, False, 5, "encoder.conv2_0, mask_sft.conv2_0..2, "
      "decoder.conv_0 (+ feature_adaptor_i after an I-frame)"),
     (136, 240, 320, False, 4, "recon_generation_net.conv_0..3"),
-    (68, 120, 128, False, 3, "hyper_encoder.conv_0, hyper_decoder.conv_1."
-     "conv, hyper_decoder.conv_2"),
+    (68, 120, 128, False, 2, "hyper_encoder.conv_0, hyper_decoder.conv_2"),
+    (68, 120, 128, True, 1, "hyper_decoder.conv_1.conv"),
     (34, 60, 128, True, 2, "hyper_encoder.conv_1.conv, "
      "hyper_decoder.conv_0.conv"),
     (17, 30, 128, True, 1, "hyper_encoder.conv_2.conv"),
     (68, 120, 256, True, 1, "temporal_prior_encoder.conv"),
     (68, 120, 384, False, 2, "y_spatial_prior.conv_0..1"),
 ]
+# the I-frame codec's single-block sites: (rows, cols, C, shortcut,
+# launches per I-frame, sites); 42 in all, no chain
+IFRAME_SHAPES = [
+    (136, 240, 368, False, 19, "enc.enc_1 (q), enc.enc_2_0..5, "
+     "dec.dec_1_1..12 (q on dec_1_12)"),
+    (136, 240, 368, True, 1, "dec.dec_1_0.conv"),
+    (136, 240, 192, False, 1, "dec.dec_2"),
+    (68, 120, 512, False, 15, "y_prior_fusion_0..2, "
+     "y_spatial_prior_adaptor_1..3, y_spatial_prior_0..2 x 3 passes"),
+    (68, 120, 256, False, 1, "hyper_dec_2"),
+    (68, 120, 128, False, 1, "hyper_enc_0"),
+    (68, 120, 128, True, 1, "hyper_dec_1.conv"),
+    (34, 60, 128, True, 2, "hyper_enc_1.conv, hyper_dec_0.conv"),
+    (17, 30, 128, True, 1, "hyper_enc_2.conv"),
+]
+IFRAME_LAUNCHES = sum(s[4] for s in IFRAME_SHAPES)
 # (rows, cols, C, blocks, q_last, launches per P-frame, sites)
 CHAIN_SHAPES = [
     (136, 240, 256, 2, False, 2, "feature_extractor.conv1_0..1, "
@@ -115,7 +146,8 @@ def block_params(torch, c, rng, device):
 def bound_ms(h, w, c, n) -> float:
     """Least time on an H100 SXM: the larger of the block products at the
     bf16 tensor-core peak and the bytes (x read once, y written once, the
-    bf16 weights read once) at the HBM rate. Always the products here."""
+    bf16 weights read once) at the HBM rate, at the block's true C (not the
+    width the kernel computes it at). Always the products here."""
     flops = n * h * w * (16 * c * c + 18 * c)
     nbytes = 2 * (2 * h * w * c) + n * 2 * (8 * c * c + 17 * c)
     return 1e3 * max(flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S)
@@ -161,7 +193,7 @@ def phase_build():
                         if c else entry)
                 print(f"  [{name}] {what}: {spill}, {m.group(1)} registers")
     print("  [dcb, dcb_chain] dynamic shared memory, any N: " + ", ".join(
-        f"C={c} {dcb_ops.smem_bytes(c)} B" for c in dcb_ops.KERNEL_CHANNELS))
+        f"C={c} {dcb_ops.smem_bytes(c)} B" for c in dcb_ops.DCB_CHANNELS))
     cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
     for name in names:
         sass = subprocess.run([str(cuobjdump), "-sass",
@@ -251,12 +283,12 @@ def phase_kernels(torch, seed, card, prev=None):
                  max_err=max_err, turns={k: times[k] for k in times})
         return r
 
-    def run_single(h, w, c, shortcut):
+    def run_single(h, w, c, shortcut, with_prev):
         x, _, blocks = inputs(h, w, c, 1, False)
         # packed once, outside every timed loop
         packed = dcb_ops.pack_block(blocks[0], bf16)
         fns = {"kernel": lambda: dcb_ops.dcb_cuda(x, packed, None, shortcut)}
-        if prev is not None:
+        if with_prev:
             mod = prev_blocks(c, shortcut, blocks)[0]
             fns["prev"] = lambda: mod(x)
         plain = lambda: dcb_ops.dcb_plain(x, blocks[0], None, shortcut)
@@ -283,28 +315,42 @@ def phase_kernels(torch, seed, card, prev=None):
         return in_turns("dcb_chain", fns, ["kernel", "seq"], plain(), plain,
                         h, w, c, n)
 
+    def sums(rows):
+        """Per-shape numbers x launches per frame, summed."""
+        return dict(
+            ms=sum(r["kernel_ms"] * r["launches_per_frame"] for r in rows),
+            plain_ms=sum(r["plain_ms"] * r["launches_per_frame"]
+                         for r in rows),
+            bound_ms=sum(r["bound_us"] * r["launches_per_frame"]
+                         for r in rows) / 1e3,
+            max_abs_err=max(r["max_err"] for r in rows))
+
     entries = []
     for name, shapes, source, replaces in (
-            ("dcb", SINGLE_SHAPES, "ssgvc_tpu_torch/csrc/dcb.cu",
-             "ssgvc_tpu/ops/pallas_dcb.py:68"),
+            ("dcb", SINGLE_SHAPES + IFRAME_SHAPES,
+             "ssgvc_tpu_torch/csrc/dcb.cu", "ssgvc_tpu/ops/pallas_dcb.py:68"),
             ("dcb_chain", CHAIN_SHAPES, "ssgvc_tpu_torch/csrc/dcb_chain.cu",
              "ssgvc_tpu/ops/pallas_dcb_chain.py:61")):
         rows = []
-        for shape in shapes:
+        for k, shape in enumerate(shapes):
+            frame = "I" if name == "dcb" and k >= len(SINGLE_SHAPES) else "P"
             if name == "dcb":
                 h, w, c, shortcut, per_frame, sites = shape
                 n, with_q = 1, False
-                r = run_single(h, w, c, shortcut)
+                # the parent's kernel takes only the P-frame widths
+                r = run_single(h, w, c, shortcut,
+                               prev is not None and frame == "P")
             else:
                 h, w, c, n, with_q, per_frame, sites = shape
                 shortcut = False
                 r = run_chain(h, w, c, n, with_q)
             r.update(shape=[h, w, c], blocks=n, shortcut=shortcut,
-                     q=with_q, launches_per_frame=per_frame, sites=sites,
-                     share=r["bound_us"] / 1e3 / r["kernel_ms"])
+                     q=with_q, frame=frame, launches_per_frame=per_frame,
+                     sites=sites, share=r["bound_us"] / 1e3 / r["kernel_ms"])
             rows.append(r)
-            line = (f"  {name} {h}x{w}x{c} n={n} sc={int(shortcut)} "
-                    f"q={int(with_q)}: kernel {r['kernel_ms']:.4f} ms")
+            line = (f"  {name} [{frame}] {h}x{w}x{c} n={n} "
+                    f"sc={int(shortcut)} q={int(with_q)}: kernel "
+                    f"{r['kernel_ms']:.4f} ms")
             if name == "dcb_chain":
                 line += f", seq ({n} x dcb) {r['seq_ms']:.4f} ms"
             if "prev_ms" in r:
@@ -318,35 +364,41 @@ def phase_kernels(torch, seed, card, prev=None):
             print(line + f", plain {r['plain_ms']:.4f} ms, bound "
                   f"{r['bound_us']:.1f} us (share {r['share']:.3f}), rel "
                   f"{r['rel_err']:.2e}, max abs {r['max_err']:.3g} [{card}]")
+        p_rows = [r for r in rows if r["frame"] == "P"]
+        i_rows = [r for r in rows if r["frame"] == "I"]
         entry = dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=None,
-            max_abs_err=max(r["max_err"] for r in rows),
-            ms=sum(r["kernel_ms"] * r["launches_per_frame"] for r in rows),
-            plain_ms=sum(r["plain_ms"] * r["launches_per_frame"]
-                         for r in rows),
-            bound_ms=sum(r["bound_us"] * r["launches_per_frame"]
-                         for r in rows) / 1e3,
+            launches=None, **sums(p_rows),
             bound_by="operations", library_ms=None,
-            per="P-frame: per-shape time x launches per frame, summed",
+            per="P-frame: per-shape time x launches per frame, summed; "
+                "'iframe' the same per I-frame",
+            iframe=dict(launches=None, **(sums(i_rows) if i_rows else {})),
             shapes=rows)
+        # the largest error over every shape, of either codec
+        entry["max_abs_err"] = max(r["max_err"] for r in rows)
         for k in ("seq_ms", "prev_ms"):
-            if all(k in r for r in rows):
-                entry[k] = sum(r[k] * r["launches_per_frame"] for r in rows)
+            if p_rows and all(k in r for r in p_rows):
+                entry[k] = sum(r[k] * r["launches_per_frame"]
+                               for r in p_rows)
         entries.append(entry)
     return entries
 
 
-def random_weights(torch, model, seed):
+#: The prior heads that emit (q, scales, means), per codec.
+DMC_HEADS = {("y_prior_fusion", "conv_3"), ("y_spatial_prior", "conv_2")}
+DMCI_HEADS = {("y_prior_fusion_3",), ("y_spatial_prior_3",)}
+
+
+def random_weights(torch, model, seed, heads=DMC_HEADS):
     """A flax-layout params tree drawn from ``seed``, loaded into ``model``
     through the weight bridge: lecun-normal kernels, the rezero tails
-    (dc_3, ffn_2) at 0.1 of that, the two prior heads that emit
-    (q_dec, scales, means) at 0.01 of it so the prior stays O(1) as in a
-    trained codec, near-one per-QP tables, small biases."""
+    (dc_3, ffn_2) at 0.1 of that, the two prior heads (module paths in
+    ``heads``) that emit (q, scales, means) at 0.01 of it so the prior
+    stays O(1) as in a trained codec, near-one per-QP tables, small
+    biases."""
     from ssgvc_tpu_torch.utils.weights import (flax_from_state_dict, flatten,
                                                load_flax_params, unflatten)
 
-    heads = {("y_prior_fusion", "conv_3"), ("y_spatial_prior", "conv_2")}
     rng = np.random.default_rng(seed)
     flat = {}
     for path, tmpl in flatten(flax_from_state_dict(model.state_dict())).items():
@@ -355,7 +407,7 @@ def random_weights(torch, model, seed):
             std = int(np.prod(tmpl.shape[:-1])) ** -0.5
             if path[-2] in ("dc_3", "ffn_2"):
                 std *= 0.1
-            if tuple(path[-3:-1]) in heads:
+            if tuple(path[:-1]) in heads:
                 std *= 0.01
             arr = rng.standard_normal(tmpl.shape) * std
         elif leaf.startswith("q_") or leaf == "z_gain":
@@ -367,7 +419,64 @@ def random_weights(torch, model, seed):
     return model
 
 
-def phase_main_path(torch, seed, frames_n, card):
+def check_frame(torch, what, bpp, frame):
+    """bpp finite and > 0, the decoded frame finite in [0, 1]."""
+    b = bpp.float().cpu().numpy()
+    if not (np.isfinite(b).all() and (b > 0).all()):
+        fail(f"{what}: bpp not finite and positive: {b}")
+    fr = frame.float()
+    if not (torch.isfinite(fr).all() and fr.min() >= 0 and fr.max() <= 1):
+        fail(f"{what}: decoded frame not finite in [0, 1]")
+    return b
+
+
+def phase_iframe(torch, seed, card):
+    """The I-frame codec at full width on one raw 1088x1920 frame."""
+    from ssgvc_tpu_torch.config import DMCIConfig
+    from ssgvc_tpu_torch.models.dmci import DMCI
+    from ssgvc_tpu_torch.ops import dcb as dcb_ops
+    from ssgvc_tpu_torch.ops import dcb_chain as chain_ops
+
+    cfg = DMCIConfig(dtype="bfloat16")
+    model = random_weights(torch, DMCI(cfg, device=DEVICE), seed,
+                           DMCI_HEADS).eval()
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 10)
+    x = torch.rand((1, H, W, 3), generator=g, device=DEVICE)
+    want = (IFRAME_LAUNCHES, 0)
+    runs = []
+    with torch.no_grad():
+        model(x, QP)                     # warm-up: cuBLAS/cuDNN plans
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in range(IFRAME_RUNS):
+            dcb_ops.launches = 0
+            chain_ops.launches = 0
+            t0 = time.perf_counter()
+            out = model(x, QP)
+            torch.cuda.synchronize()
+            runs.append(1e3 * (time.perf_counter() - t0))
+            launches = (dcb_ops.launches, chain_ops.launches)
+            if launches != want:
+                fail(f"I-frame launches {launches}, expected {want}")
+            if k == 0:
+                peak = torch.cuda.max_memory_allocated()
+    b = check_frame(torch, "I-frame", out["bpp"], out["dpb"]["frame"])
+    ms = float(np.median(runs))
+    print(f"I-frame: DMCI enc_dec {cfg.enc_dec} N {cfg.N} z {cfg.z_channel} "
+          f"bf16 {H}x{W}, {ms:.2f} ms/frame (median of {IFRAME_RUNS}: "
+          f"{', '.join(f'{r:.2f}' for r in runs)}; warm-up excluded), peak "
+          f"{peak / 2**20:.0f} MiB allocated, launches dcb {launches[0]} "
+          f"dcb_chain {launches[1]}, bpp {float(b[0]):.4f} (y "
+          f"{float(out['bpp_y'][0]):.4f}, z {float(out['bpp_z'][0]):.4f}) "
+          f"[{card}]")
+    # on the host, so that the P-frame phase's peak memory is its own
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    return dict(launches=launches, ms_per_frame=ms, ms_runs=runs,
+                peak_bytes=peak, bpp=float(b[0]), frame=out["dpb"]["frame"],
+                state=state)
+
+
+def phase_main_path(torch, seed, frames_n, card, dpb_frame):
     from ssgvc_tpu_torch.config import DMCConfig
     from ssgvc_tpu_torch.models.dmc import DMC
     from ssgvc_tpu_torch.ops import dcb as dcb_ops
@@ -382,9 +491,10 @@ def phase_main_path(torch, seed, frames_n, card):
                         ).to(bf16)
     masks = (torch.rand((frames_n, 1, H, W, 1), generator=g, device=DEVICE)
              > 0.8).to(bf16)
-    dpb_frame = torch.rand((1, H, W, 3), generator=g, device=DEVICE).to(bf16)
-    dpb_feature = (torch.randn((1, H // 8, W // 8, cfg.ch_d), generator=g,
-                               device=DEVICE) * 0.1).to(bf16)
+    # the DPB after an I-frame: its decoded frame and a zero feature
+    dpb_frame = dpb_frame.to(bf16)
+    dpb_feature = torch.zeros((1, H // 8, W // 8, cfg.ch_d), dtype=bf16,
+                              device=DEVICE)
 
     def gop(count_check):
         """The packed-io GOP loop; ingest (one unshuffle of the GOP)
@@ -430,12 +540,7 @@ def phase_main_path(torch, seed, frames_n, card):
                 fail(f"GOP launches {launches}, expected {want}")
             if k == 0:
                 peak = torch.cuda.max_memory_allocated()
-    b = bpps.float().cpu().numpy()
-    if not (np.isfinite(b).all() and (b > 0).all()):
-        fail(f"bpp not finite and positive: {b}")
-    fr = dpb["frame"].float()
-    if not (torch.isfinite(fr).all() and fr.min() >= 0 and fr.max() <= 1):
-        fail("decoded frame not finite in [0, 1]")
+    b = check_frame(torch, "main path", bpps, dpb["frame"])
     if not torch.isfinite(dpb["feature"].float()).all():
         fail("DPB feature not finite")
     ms = float(np.median(runs))
@@ -480,9 +585,67 @@ def phase_streaming(torch, main):
         fail("streaming (raw io) disagrees with the packed-io GOP")
 
 
-def phase_cross_check(torch, main, seed):
-    from ssgvc_tpu_torch.config import DMCConfig
+def phase_gop(torch, seed, iframe, main, card):
+    """evaluate_gop_estimated on the card: the I-frame codec, then the
+    raw-io P-frame codec, launches counted per frame."""
+    from ssgvc_tpu_torch.config import DMCConfig, DMCIConfig
     from ssgvc_tpu_torch.models.dmc import DMC
+    from ssgvc_tpu_torch.models.dmci import DMCI
+    from ssgvc_tpu_torch.ops import dcb as dcb_ops
+    from ssgvc_tpu_torch.ops import dcb_chain as chain_ops
+    from ssgvc_tpu_torch.training.evaluate import evaluate_gop_estimated
+
+    dmci = DMCI(DMCIConfig(dtype="bfloat16"), device=DEVICE)
+    dmci.load_state_dict(iframe["state"], strict=True)
+    cfg = DMCConfig.variant("performance", dtype="bfloat16", packed_io=False)
+    dmc = DMC(cfg, device=DEVICE)
+    dmc.load_state_dict(main["state"], strict=True)
+    counts, start = [], []
+
+    def before(module, args):
+        start[:] = (dcb_ops.launches, chain_ops.launches)
+
+    def after(module, args, out):
+        counts.append((dcb_ops.launches - start[0],
+                       chain_ops.launches - start[1]))
+
+    for m in (dmci, dmc):
+        m.eval()
+        m.register_forward_pre_hook(before)
+        m.register_forward_hook(after)
+    rng = np.random.default_rng(seed + 2)
+    t_len = 1 + GOP_P_FRAMES
+    frames = rng.uniform(0, 1, (t_len, H, W, 3)).astype(np.float32)
+    masks = (rng.uniform(0, 1, (t_len, H, W, 1)) > 0.8).astype(np.float32)
+    dcb_ops.launches = 0
+    chain_ops.launches = 0
+    results = evaluate_gop_estimated(dmci, dmc, frames, masks, QP,
+                                     index_map=INDEX_MAP,
+                                     qp_shift=cfg.qp_shift)
+    launches = (dcb_ops.launches, chain_ops.launches)
+    want = ([(IFRAME_LAUNCHES, 0), (19, 5)]
+            + [(18, 5)] * (GOP_P_FRAMES - 1))
+    if counts != want:
+        fail(f"GOP launches per frame {counts}, expected {want}")
+    total = tuple(map(sum, zip(*want)))
+    if launches != total:
+        fail(f"GOP launches {launches}, expected {total}")
+    for t, r in enumerate(results):
+        vals = [r["bpp"], r["psnr"], r["roi_psnr"], r["msssim"]]
+        if not (np.isfinite(vals).all() and r["bpp"] > 0):
+            fail(f"GOP frame {t}: metrics not finite or bpp <= 0: {r}")
+        print(f"GOP frame {t} ({r['frame_type']}, launches dcb "
+              f"{counts[t][0]} dcb_chain {counts[t][1]}): bpp "
+              f"{r['bpp']:.4f}, PSNR {r['psnr']:.2f} dB, ROI-PSNR "
+              f"{r['roi_psnr']:.2f} dB, MS-SSIM {r['msssim']:.4f} "
+              f"(random weights: a run check) [{card}]")
+    return dict(launches=launches, per_frame=counts, results=results)
+
+
+def phase_cross_check(torch, main, iframe, seed):
+    from ssgvc_tpu_torch.config import DMCConfig, DMCIConfig
+    from ssgvc_tpu_torch.models.dmc import DMC
+    from ssgvc_tpu_torch.models.dmci import DMCI
 
     rng = np.random.default_rng(seed + 1)
     hw = 128
@@ -506,19 +669,66 @@ def phase_cross_check(torch, main, seed):
                             mask=cast(mask))
                 outs.append((float(out["bpp"].float()),
                              out["dpb"]["frame"].float().cpu()))
-        results[dev] = outs
+        results[dtype] = outs
     for i, ((b_cpu, f_cpu), (b_gpu, f_gpu)) in enumerate(
-            zip(results["cpu"], results[DEVICE])):
-        rel = abs(b_gpu - b_cpu) / b_cpu
-        mse = float(((f_gpu - f_cpu) ** 2).mean())
-        psnr = 10 * math.log10(1.0 / max(mse, 1e-20))
-        print(f"cross-check after_i={i == 0} 128x128: bpp cpu-fp32 {b_cpu:.5f} "
-              f"card-bf16 {b_gpu:.5f} (rel {rel:.2e}, tol 5e-2), frame PSNR "
-              f"between them {psnr:.1f} dB (tol >= 30)")
-        # bf16 rounds activations to 8 bits of mantissa and flips some
-        # round() decisions of the quantizer, so the two agree only loosely
-        if rel > 5e-2 or psnr < 30:
-            fail("card bf16 and CPU fp32 disagree beyond the bf16 tolerance")
+            zip(results["float32"], results["bfloat16"])):
+        cross_check_pair(f"P-frame after_i={i == 0}", b_cpu, f_cpu, b_gpu,
+                         f_gpu)
+
+    # The I-frame codec: end to end, then its analysis (the latent y) and
+    # its synthesis alone on the fp32 run's y_hat. Its 4-pass prior chains
+    # the quantizer's round() decisions: bf16 flips ~0.5% of them (CPU
+    # plain versions in bf16 against fp32, 128x128), each a whole step
+    # that the random 13-block decoder spreads over a 16x16 patch, so the
+    # frames end to end agree at ~22 dB, and the tolerance there is 18 dB;
+    # the decoder alone on the same y_hat agreed at 43 dB and is held at
+    # 30 dB like the P-frame codec.
+    xi = rng.uniform(0, 1, (1, hw, hw, 3)).astype(np.float32)
+    results, taps = {}, {}
+    for dev, dtype in (("cpu", "float32"), (DEVICE, "bfloat16")):
+        model = DMCI(DMCIConfig(dtype=dtype), device=dev)
+        model.load_state_dict(iframe["state"], strict=True)
+        tap = taps[dtype] = {"model": model}
+        model.enc.register_forward_hook(
+            lambda m, a, out, tap=tap: tap.__setitem__("y", out.float().cpu()))
+        model.dec.register_forward_pre_hook(
+            lambda m, a, tap=tap: tap.__setitem__("dec_in", a))
+        with torch.no_grad():
+            out = model(torch.from_numpy(xi).to(dev), QP)
+        results[dtype] = (float(out["bpp"].float()),
+                          out["dpb"]["frame"].float().cpu())
+    cross_check_pair("I-frame", *results["float32"], *results["bfloat16"],
+                     psnr_tol=18.0)
+    y32, y16 = taps["float32"]["y"], taps["bfloat16"]["y"]
+    rel_y = float(torch.linalg.vector_norm(y16 - y32)
+                  / torch.linalg.vector_norm(y32))
+    y_hat, q_dec = taps["float32"]["dec_in"]
+    m16 = taps["bfloat16"]["model"]
+    with torch.no_grad():
+        f16 = torch.clamp(m16.dec(y_hat.to(DEVICE, m16.dtype),
+                                  q_dec.to(DEVICE, m16.dtype)), 0.0, 1.0)
+    mse = float(((f16.float().cpu() - results["float32"][1]) ** 2).mean())
+    psnr = 10 * math.log10(1.0 / max(mse, 1e-20))
+    print(f"cross-check I-frame parts 128x128: latent y rel {rel_y:.2e} "
+          f"(tol 2e-2); decoder alone on the fp32 run's y_hat, frame PSNR "
+          f"{psnr:.1f} dB (tol >= 30)")
+    if rel_y > 2e-2 or psnr < 30:
+        fail("I-frame: card bf16 and CPU fp32 disagree beyond the bf16 "
+             "tolerance in the analysis or the synthesis")
+
+
+def cross_check_pair(what, b_cpu, f_cpu, b_gpu, f_gpu, psnr_tol=30.0):
+    rel = abs(b_gpu - b_cpu) / b_cpu
+    mse = float(((f_gpu - f_cpu) ** 2).mean())
+    psnr = 10 * math.log10(1.0 / max(mse, 1e-20))
+    print(f"cross-check {what} 128x128: bpp cpu-fp32 {b_cpu:.5f} "
+          f"card-bf16 {b_gpu:.5f} (rel {rel:.2e}, tol 5e-2), frame PSNR "
+          f"between them {psnr:.1f} dB (tol >= {psnr_tol:g})")
+    # bf16 rounds activations to 8 bits of mantissa and flips some
+    # round() decisions of the quantizer, so the two agree only loosely
+    if rel > 5e-2 or psnr < psnr_tol:
+        fail(f"{what}: card bf16 and CPU fp32 disagree beyond the bf16 "
+             "tolerance")
 
 
 def main() -> int:
@@ -544,14 +754,27 @@ def main() -> int:
     prev = load_prev_port(args.prev_port) if args.prev_port else None
     with torch.no_grad():
         kernels = phase_kernels(torch, args.seed, card, prev)
-    main_path = phase_main_path(torch, args.seed, args.frames, card)
-    kernels[0]["launches"], kernels[1]["launches"] = main_path["launches"]
+    iframe = phase_iframe(torch, args.seed, card)
+    main_path = phase_main_path(torch, args.seed, args.frames, card,
+                                iframe["frame"])
+    for entry, p_count, i_count in zip(kernels, main_path["launches"],
+                                       iframe["launches"]):
+        entry["launches"] = p_count
+        entry["iframe"]["launches"] = i_count
     phase_streaming(torch, main_path)
-    phase_cross_check(torch, main_path, args.seed)
+    gop = phase_gop(torch, args.seed, iframe, main_path, card)
+    phase_cross_check(torch, main_path, iframe, args.seed)
     print(json.dumps({"main_path": {
         "ms_per_frame": main_path["ms_per_frame"],
         "ms_per_frame_runs": main_path["ms_runs"],
-        "peak_bytes": main_path["peak_bytes"], "card": card}}))
+        "peak_bytes": main_path["peak_bytes"],
+        "iframe_ms": iframe["ms_per_frame"],
+        "iframe_ms_runs": iframe["ms_runs"],
+        "iframe_peak_bytes": iframe["peak_bytes"],
+        "gop_launches_per_frame": gop["per_frame"],
+        "gop": [{k: r[k] for k in ("frame_type", "bpp", "psnr", "roi_psnr",
+                                   "msssim")} for r in gop["results"]],
+        "card": card}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

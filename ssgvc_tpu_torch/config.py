@@ -1,5 +1,5 @@
-"""Model configuration of the PyTorch port: the inter codec's DMCConfig, the
-named size profiles and their constructor.
+"""Model configuration of the PyTorch port: the intra codec's DMCIConfig,
+the inter codec's DMCConfig, the named size profiles and their constructor.
 
 The port keeps its own copy of these dataclasses so that it imports nothing
 of the JAX package; field names, defaults and presets are the same, so a
@@ -14,8 +14,10 @@ from typing import Tuple
 
 @dataclass(frozen=True)
 class DMCIConfig:
-    """Intra codec sizes (the I-frame model is not ported yet; the profile
-    table below still names its widths)."""
+    """Intra (I-frame) codec, ``models/dmci.py``: 8x8 patches of the raw
+    frame (``src`` = 3*8*8 channels), ``enc_dec`` channels in the encoder
+    and decoder blocks, ``N`` in the latent y, ``z_channel`` in the hyper
+    latent, ``qp_num`` rows in the per-QP tables."""
     patch_size: int = 8
     src: int = 3 * 8 * 8
     enc_dec: int = 368

@@ -21,6 +21,11 @@
 // (csrc/dcb_tile.cuh). Each tile still copies the block's 8 C^2 bf16
 // weights into shared memory once. Left for later: sharing a weight slab
 // across more pixels (128-pixel tiles, or a 2-CTA cluster with multicast).
+//
+// Widths: C in {128, 192, 256, 320, 368, 384, 512}. C = 368 is computed at
+// 384 with zero-padded weights (8.9% more products than its own); C = 512
+// holds a 104-row window and a 3-slot ring B to fit in shared memory
+// (csrc/dcb_tile.cuh).
 
 #include "dcb_tile.cuh"
 
@@ -94,9 +99,12 @@ extern "C" int ssgvc_dcb_forward(const void* x, void* y, const void* w,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (C) {
     case 128: return single::launch<128>(x, y, w, q, H, W, shortcut, s);
+    case 192: return single::launch<192>(x, y, w, q, H, W, shortcut, s);
     case 256: return single::launch<256>(x, y, w, q, H, W, shortcut, s);
     case 320: return single::launch<320>(x, y, w, q, H, W, shortcut, s);
+    case 368: return single::launch<368>(x, y, w, q, H, W, shortcut, s);
     case 384: return single::launch<384>(x, y, w, q, H, W, shortcut, s);
+    case 512: return single::launch<512>(x, y, w, q, H, W, shortcut, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -24,6 +24,17 @@
 //   bf16 hb; stage B gives each the tile's 64 pixels x half of the output
 //   columns, with an fp32 accumulator that carries u and then y while the 2C
 //   hidden width streams through in 64-channel chunks.
+// - A block of C channels (a multiple of 8) is computed at CP, C rounded up
+//   to a multiple of 64 (C = 368 runs at 384): ops/dcb.py:pack_block gives
+//   the padded channels zero weights and biases, so they stay exactly 0
+//   (wsilu(0) = 0) and add nothing; the frame is read and written at its
+//   real C, and the window's padded channels are zero-filled.
+// - Up to CP = 384 the window holds WIN_ROWS rows and ring B 4 slots. At
+//   CP = 512 that is over the shared-memory limit, so the window holds 104
+//   rows (13 core-matrix groups, its 100 pixels) and ring B 3 slots; stage
+//   A's second 64-row wgmma tile then reads its rows 104-127 from hb's
+//   bytes, and their results, like those of rows 100-103, belong to no
+//   pixel and are dropped.
 
 #pragma once
 
@@ -37,7 +48,7 @@ typedef __nv_bfloat16 bf16;
 // Must match ops/dcb.py.
 constexpr int TILE = 8, WIN = 10, WIN_ROWS = 128, KC = 64, KF = 64;
 constexpr int KS_A = 64, KS_B = 32;    // k columns of a W0 slab, of a ring-B slab
-constexpr int SH = KC + 4, RING_A = 4, RING_B = 4, BARRIER_BYTES = 256;
+constexpr int SH = KC + 4, RING_A = 4, BARRIER_BYTES = 256;
 // A whole producer warpgroup (not one warp) lets setmaxnreg move its
 // registers to the consumers: ptxas budgets a 288-thread block as 384
 // threads (168 registers each), which spilled the C=384 accumulators.
@@ -49,12 +60,25 @@ constexpr int HCHUNK = WIN * WIN * SH * 4 > 2 * TILE * TILE * KF * 2
                            ? WIN * WIN * SH * 4 : 2 * TILE * TILE * KF * 2;
 constexpr int SLAB_A = KC * KS_A * 2;  // bytes of one W0 slab
 
+// The plan of a block of C channels (must match ops/dcb.py:
+// padded_channels, window_rows, ring_b): the computed width, the window
+// rows held in shared memory and the ring-B slots.
+__host__ __device__ constexpr int padded(int C) {
+  return (C + KC - 1) / KC * KC;
+}
+__host__ __device__ constexpr int win_rows(int C) {
+  return padded(C) > 384 ? 104 : WIN_ROWS;
+}
+__host__ __device__ constexpr int ring_b(int C) {
+  return padded(C) > 384 ? 3 : 4;
+}
+
 // Shared memory: window (ring B in stage B) | hb (uc) | ring A | h chunk
 // (two f chunks in stage B) | mbarriers. Checked against the limit on the
 // CPU through ops/dcb.py:smem_bytes.
 __host__ __device__ constexpr int smem_bytes(int C) {
-  return WIN_ROWS * C * 2 + TILE * TILE * C * 2 + RING_A * SLAB_A + HCHUNK +
-         BARRIER_BYTES;
+  return win_rows(C) * padded(C) * 2 + TILE * TILE * padded(C) * 2 +
+         RING_A * SLAB_A + HCHUNK + BARRIER_BYTES;
 }
 
 __device__ __forceinline__ float wsilu(float v) {
@@ -158,9 +182,11 @@ __device__ __forceinline__ void ring_mma(float (&acc)[R], Ring& r, int lane,
 // stage A has read the window for the last time.
 template <int C>
 struct Smem {
-  static constexpr int SLOT_B = KS_B * C * 2;  // bytes of a ring-B slot
-  static_assert(C % 64 == 0 && RING_B * SLOT_B == WIN_ROWS * C * 2 &&
-                2 * KF * KS_B * 2 <= SLOT_B, "layout");
+  static constexpr int CP = padded(C), RB = ring_b(C), WR = win_rows(C);
+  static constexpr int SLOT_B = KS_B * CP * 2;  // bytes of a ring-B slot
+  static_assert(WR % 8 == 0 && WR >= WIN * WIN &&
+                RB * SLOT_B <= WR * CP * 2 && 2 * KF * KS_B * 2 <= SLOT_B &&
+                RB * 2 + RING_A * 2 + 1 <= BARRIER_BYTES / 8, "layout");
   unsigned char* win;      // window / ring B
   unsigned char* hb;       // hb, then uc
   unsigned char* hch_b;    // h chunk (fp32) / two f chunks
@@ -169,14 +195,13 @@ struct Smem {
 
   __device__ explicit Smem(unsigned char* smem) {
     win = smem;
-    hb = smem + WIN_ROWS * C * 2;
-    unsigned char* ring_a = hb + TILE * TILE * C * 2;
+    hb = smem + WR * CP * 2;
+    unsigned char* ring_a = hb + TILE * TILE * CP * 2;
     hch_b = ring_a + RING_A * SLAB_A;
     uint64_t* bars = reinterpret_cast<uint64_t*>(hch_b + HCHUNK);
     ra = Ring{bars, bars + RING_A, ring_a, SLAB_A, RING_A, 0};
-    rb = Ring{bars + 2 * RING_A, bars + 2 * RING_A + RING_B, win, SLOT_B,
-              RING_B, 0};
-    winfree = bars + 2 * RING_A + 2 * RING_B;
+    rb = Ring{bars + 2 * RING_A, bars + 2 * RING_A + RB, win, SLOT_B, RB, 0};
+    winfree = bars + 2 * RING_A + 2 * RB;
   }
 
   // One thread, before the thread block's first barrier.
@@ -185,7 +210,7 @@ struct Smem {
       hop::mbar_init(&ra.full[i], 1);
       hop::mbar_init(&ra.empty[i], kConsumers / 32);
     }
-    for (int i = 0; i < RING_B; ++i) {
+    for (int i = 0; i < RB; ++i) {
       hop::mbar_init(&rb.full[i], 1);
       hop::mbar_init(&rb.empty[i], kConsumers / 32);
     }
@@ -200,18 +225,19 @@ struct Smem {
 template <int C>
 __device__ __forceinline__ void produce_tile(Smem<C>& s, const bf16* w,
                                              int skip_a, uint32_t& ntile) {
-  constexpr int NA = (C / KC) * (C / KS_A);  // W0 slabs per tile
+  constexpr int CP = padded(C);
+  constexpr int NA = (CP / KC) * (CP / KS_A);  // W0 slabs per tile
   for (int i = skip_a; i < NA; ++i)
     issue(s.ra, w + (size_t)i * KC * KS_A, SLAB_A);
   hop::mbar_wait(s.winfree, ntile++ & 1);
-  const bf16* p = w + (size_t)C * C;
-  for (int k0 = 0; k0 < C; k0 += KS_B, p += KS_B * C)
-    issue(s.rb, p, KS_B * C * 2);
-  for (int f0 = 0; f0 < 2 * C; f0 += KF) {
-    for (int k0 = 0; k0 < C; k0 += KS_B, p += 2 * KF * KS_B)
+  const bf16* p = w + (size_t)CP * CP;
+  for (int k0 = 0; k0 < CP; k0 += KS_B, p += KS_B * CP)
+    issue(s.rb, p, KS_B * CP * 2);
+  for (int f0 = 0; f0 < 2 * CP; f0 += KF) {
+    for (int k0 = 0; k0 < CP; k0 += KS_B, p += 2 * KF * KS_B)
       issue(s.rb, p, 2 * KF * KS_B * 2);
-    for (int k0 = 0; k0 < KF; k0 += KS_B, p += KS_B * C)
-      issue(s.rb, p, KS_B * C * 2);
+    for (int k0 = 0; k0 < KF; k0 += KS_B, p += KS_B * CP)
+      issue(s.rb, p, KS_B * CP * 2);
   }
 }
 
@@ -219,34 +245,43 @@ __device__ __forceinline__ void produce_tile(Smem<C>& s, const bf16* w,
 // w on the 8x8 tile whose first output pixel is (ty0, tx0), reading src and
 // writing dst (H x W x C). With Shortcut the output adds src at the output
 // pixel; q, if not null, then multiplies it. Out-of-frame pixels of a
-// ragged tile are neither read nor written.
+// ragged tile, and the padded channels of a block computed at CP > C, are
+// neither read nor written.
 template <int C, bool Shortcut>
 __device__ __forceinline__ void consume_tile(Smem<C>& s, const bf16* src,
                                              bf16* dst, const bf16* w,
                                              const bf16* q, int H, int W,
                                              int ty0, int tx0, int tid) {
-  constexpr int NH = C / 2;             // output columns per warpgroup
+  constexpr int CP = padded(C);
+  constexpr int NH = CP / 2;            // output columns per warpgroup
   const int warp = tid >> 5, lane = tid & 31;
   const int wg = warp >> 2, wl = warp & 3;
   const int g = lane >> 2, t4 = lane & 3;
-  const bf16* tail = w + 8 * (size_t)C * C;
+  const bf16* tail = w + 8 * (size_t)CP * CP;
   const bf16* dw = tail;
-  const bf16* b0 = tail + 9 * C;
-  const bf16* b2 = b0 + C;
-  const bf16* b3 = b2 + C;
-  const bf16* bf0 = b3 + C;
-  const bf16* bf2 = bf0 + 4 * C;
+  const bf16* b0 = tail + 9 * CP;
+  const bf16* b2 = b0 + CP;
+  const bf16* b3 = b2 + CP;
+  const bf16* bf0 = b3 + CP;
+  const bf16* bf2 = bf0 + 4 * CP;
   float* hch = reinterpret_cast<float*>(s.hch_b);
+  // Whether accumulator element i holds a real output column: the padded
+  // columns [C, CP) are warpgroup 1's last column groups. Constant per
+  // unrolled i but for one test of wg, and always true when CP == C.
+  auto real = [&](int i) {
+    return C == CP || wg == 0 || NH + 8 * (i >> 2) + 8 <= C;
+  };
 
   // ---- window: 10x10 pixels, zero outside the frame ----
   // Not unrolled: the peeled first iterations' indices depend on tid alone,
   // so the compiler hoisted them out of the tile loop and spilled them.
 #pragma unroll 1
-  for (int i = tid; i < WIN * WIN * (C / 8); i += kConsumers) {
-    const int r = i / (C / 8), kc = i - r * (C / 8);
+  for (int i = tid; i < WIN * WIN * (CP / 8); i += kConsumers) {
+    const int r = i / (CP / 8), kc = i - r * (CP / 8);
     const int gy = ty0 - 1 + r / WIN, gx = tx0 - 1 + r % WIN;
-    const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
-    hop::cp_async16(s.win + canon(r, kc * 8, C),
+    const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W &&
+                    (C == CP || kc < C / 8);
+    hop::cp_async16(s.win + canon(r, kc * 8, CP),
                     in ? src + ((size_t)gy * W + gx) * C + kc * 8 : src, in);
   }
   hop::cp_async_wait_all();
@@ -254,13 +289,13 @@ __device__ __forceinline__ void consume_tile(Smem<C>& s, const bf16* src,
   hop::named_bar(1, kConsumers);
 
   // ---- stage A: h chunks -> hb ----
-  for (int c0 = 0; c0 < C; c0 += KC) {
+  for (int c0 = 0; c0 < CP; c0 += KC) {
     float acc[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[i] = 0.f;
-    ring_mma<64, KS_A>(acc, s.ra, lane, s.win + wg * 8 * (16 * C), 16 * C, 0,
-                       KS_A * 16, C / KS_A);
-    if (c0 + KC == C) {        // this tile's window is read for the last time
+    ring_mma<64, KS_A>(acc, s.ra, lane, s.win + wg * 8 * (16 * CP), 16 * CP,
+                       0, KS_A * 16, CP / KS_A);
+    if (c0 + KC == CP) {       // this tile's window is read for the last time
       __syncwarp();
       if (lane == 0) hop::mbar_arrive(s.winfree);
     }
@@ -299,7 +334,7 @@ __device__ __forceinline__ void consume_tile(Smem<C>& s, const bf16* src,
         const int row = (oy + tap / 3) * WIN + ox + tap % 3;
         const float4 h0 = *reinterpret_cast<const float4*>(hch + row * SH + kg * 8);
         const float4 h1 = *reinterpret_cast<const float4*>(hch + row * SH + kg * 8 + 4);
-        const uint4 wv = __ldg(reinterpret_cast<const uint4*>(dw + tap * C + c));
+        const uint4 wv = __ldg(reinterpret_cast<const uint4*>(dw + tap * CP + c));
         const uint32_t* ww = reinterpret_cast<const uint32_t*>(&wv);
         const float hv[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
 #pragma unroll
@@ -314,7 +349,7 @@ __device__ __forceinline__ void consume_tile(Smem<C>& s, const bf16* src,
       out.y = pack2(a[2], a[3]);
       out.z = pack2(a[4], a[5]);
       out.w = pack2(a[6], a[7]);
-      *reinterpret_cast<uint4*>(s.hb + canon(p, c, C)) = out;
+      *reinterpret_cast<uint4*>(s.hb + canon(p, c, CP)) = out;
     }
     hop::fence_proxy_async();
     hop::named_bar(1, kConsumers);
@@ -330,14 +365,15 @@ __device__ __forceinline__ void consume_tile(Smem<C>& s, const bf16* src,
   float yacc[NH / 2];
 #pragma unroll
   for (int i = 0; i < NH / 2; ++i) yacc[i] = 0.f;
-  ring_mma<NH, KS_B>(yacc, s.rb, lane, s.hb, 16 * C,
-                     wg * (NH / 8) * (KS_B * 16), KS_B * 16, C / KS_B);
+  ring_mma<NH, KS_B>(yacc, s.rb, lane, s.hb, 16 * CP,
+                     wg * (NH / 8) * (KS_B * 16), KS_B * 16, CP / KS_B);
 #pragma unroll
   for (int i = 0; i < NH / 2; i += 2) {
     const bool hi = (i >> 1) & 1;
     const int col = wg * NH + 8 * (i >> 2) + 2 * t4;
-    const float2 xv = (hi ? in1 : in0) ? ld2_cg(src + (hi ? px1 : px0) + col)
-                                       : make_float2(0.f, 0.f);
+    const float2 xv = (hi ? in1 : in0) && real(i)
+                          ? ld2_cg(src + (hi ? px1 : px0) + col)
+                          : make_float2(0.f, 0.f);
     const float2 b = ld2(b3 + col);
     yacc[i] += xv.x + b.x;
     yacc[i + 1] += xv.y + b.y;
@@ -348,7 +384,7 @@ __device__ __forceinline__ void consume_tile(Smem<C>& s, const bf16* src,
   for (int i = 0; i < NH / 2; i += 2) {
     const int p = 16 * wl + g + 8 * ((i >> 1) & 1);
     const int col = wg * NH + 8 * (i >> 2) + 2 * t4;
-    *reinterpret_cast<uint32_t*>(s.hb + canon(p, col, C)) =
+    *reinterpret_cast<uint32_t*>(s.hb + canon(p, col, CP)) =
         pack2(yacc[i], yacc[i + 1]);
     const float2 b = ld2(bf2 + col);
     yacc[i] += b.x;
@@ -358,19 +394,19 @@ __device__ __forceinline__ void consume_tile(Smem<C>& s, const bf16* src,
   hop::named_bar(1, kConsumers);
 
   // ---- FFN: 2C hidden channels, KF at a time ----
-  for (int f0 = 0; f0 < 2 * C; f0 += KF) {
+  for (int f0 = 0; f0 < 2 * CP; f0 += KF) {
     float fa[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) fa[i] = 0.f;
-    ring_mma<64, KS_B>(fa, s.rb, lane, s.hb, 16 * C, wg * 8 * (KS_B * 16),
-                       KS_B * 16, C / KS_B);
+    ring_mma<64, KS_B>(fa, s.rb, lane, s.hb, 16 * CP, wg * 8 * (KS_B * 16),
+                       KS_B * 16, CP / KS_B);
     // columns 0..31 of fa are half a, 32..63 the matching half b
     unsigned char* fch = s.hch_b + ((f0 / KF) & 1) * (TILE * TILE * KF * 2);
 #pragma unroll
     for (int i = 0; i < 16; i += 2) {
       const int p = 16 * wl + g + 8 * ((i >> 1) & 1);
       const int hc = 32 * wg + 8 * (i >> 2) + 2 * t4;
-      const float2 ba = ld2(bf0 + f0 + hc), bb = ld2(bf0 + 2 * C + f0 + hc);
+      const float2 ba = ld2(bf0 + f0 + hc), bb = ld2(bf0 + 2 * CP + f0 + hc);
       const float v0 = wsilu(fa[i] + ba.x) + wsilu(fa[i + 16] + bb.x);
       const float v1 = wsilu(fa[i + 1] + ba.y) + wsilu(fa[i + 17] + bb.y);
       *reinterpret_cast<uint32_t*>(fch + canon(p, hc, KF)) = pack2(v0, v1);
@@ -386,7 +422,7 @@ __device__ __forceinline__ void consume_tile(Smem<C>& s, const bf16* src,
   for (int i = 0; i < NH / 2; i += 2) {
     const bool hi = (i >> 1) & 1;
     const int col = wg * NH + 8 * (i >> 2) + 2 * t4;
-    if (hi ? in1 : in0) {
+    if ((hi ? in1 : in0) && real(i)) {
       const size_t at = (hi ? px1 : px0) + col;
       float v0 = yacc[i], v1 = yacc[i + 1];
       if constexpr (Shortcut) {

@@ -134,22 +134,26 @@ class DepthConvBlock(nn.Module):
     a tuple of part widths (the input is a tuple: a Concat1x1 adaptor, or a
     plain concat when the widths sum to ``out_ch``), or the raw frame's
     channels with ``patch_in`` > 0 (pixel_unshuffle + 1x1 adaptor).
+    ``force_adaptor`` keeps the adaptor where the widths alone would drop
+    it (a tuple summing to ``out_ch``, or ``out_ch`` itself).
     """
 
     def __init__(self, out_ch: int, in_ch: InCh = None,
-                 shortcut: bool = False, patch_in: int = 0, *,
+                 shortcut: bool = False, patch_in: int = 0,
+                 force_adaptor: bool = False, *,
                  dtype: torch.dtype = torch.float32, device="cuda"):
         super().__init__()
         c = out_ch
         kw = dict(dtype=dtype, device=device)
         self.shortcut, self.dtype = shortcut, dtype
         self.tuple_input = isinstance(in_ch, (tuple, list))
-        if self.tuple_input and sum(in_ch) != c:
+        if self.tuple_input and (sum(in_ch) != c or force_adaptor):
             self.adaptor = Concat1x1(in_ch, c, **kw)
         elif patch_in:
             self.adaptor = PatchDownConv(in_ch, c, patch_in, **kw)
-        elif isinstance(in_ch, int) and in_ch != c:
-            self.adaptor = Conv(in_ch, c, **kw)
+        elif not self.tuple_input and (in_ch not in (None, c)
+                                       or force_adaptor):
+            self.adaptor = Conv(c if in_ch is None else in_ch, c, **kw)
         else:
             self.adaptor = None
         self.dc_0 = Conv(c, c, **kw)

@@ -1,15 +1,22 @@
 """Shared codec math: checkerboard masks, masked quantization, the 2-pass
-checkerboard prior of the P-frame codec, padding and bpp. NHWC throughout.
+checkerboard prior of the P-frame codec and the 4-pass one of the I-frame
+codec, padding and bpp. NHWC throughout.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..layers.quant import noise_quant, ste_round
+
+
+def compute_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a config's ``dtype`` field ("bfloat16" or
+    "float32")."""
+    return torch.bfloat16 if name == "bfloat16" else torch.float32
 
 
 def checkerboard_masks_2x(channel: int, height: int, width: int,
@@ -25,6 +32,27 @@ def checkerboard_masks_2x(channel: int, height: int, width: int,
     checker = (hh % 2 + ww % 2) % 2 == 0
     mask_0 = torch.where(cc < channel // 2, checker, ~checker).to(dtype)
     return mask_0, (1.0 - mask_0).to(dtype)
+
+
+#: Micro pattern of each channel quarter, per pass of the 4-pass prior;
+#: pattern k lights the pixels with (h % 2, w % 2) == (k // 2, k % 2).
+MASK_4X_ORDERS = ((0, 1, 2, 3), (3, 2, 1, 0), (2, 3, 0, 1), (1, 0, 3, 2))
+
+
+def checkerboard_masks_4x(channel: int, height: int, width: int,
+                          dtype=torch.float32, device="cuda"
+                          ) -> Tuple[torch.Tensor, ...]:
+    """Four complementary (1, H, W, C) masks over channel quarters: mask i
+    lights, in quarter q, the pixels of pattern ``MASK_4X_ORDERS[i][q]``."""
+    if channel % 4:
+        raise ValueError(f"channel={channel} must be a multiple of 4")
+    hh = torch.arange(height, device=device).reshape(1, height, 1, 1)
+    ww = torch.arange(width, device=device).reshape(1, 1, width, 1)
+    quarter = torch.arange(channel, device=device) // (channel // 4)
+    pattern = (hh % 2) * 2 + ww % 2
+    orders = torch.tensor(MASK_4X_ORDERS, device=device)
+    return tuple((pattern == orders[i][quarter].reshape(1, 1, 1, channel))
+                 .to(dtype) for i in range(4))
 
 
 class MaskedQuant(NamedTuple):
@@ -97,6 +125,62 @@ def compress_prior_2x(y: torch.Tensor, common_params: torch.Tensor,
         y_q_hat_write=p0.y_q_hat_write + p1.y_q_hat_write,
         y_hat=(p0.y_hat + p1.y_hat) * q_dec,
         scales_hat=p0.scales_hat + p1.scales_hat,
+    )
+
+
+def separate_prior_image(params: torch.Tensor):
+    """The I-frame prior's split: the first 2 channels -> (q_enc, q_dec) =
+    sigmoid * 1.5 + 0.5, in [0.5, 2]; the rest -> (scales, means)."""
+    q = torch.sigmoid(params[..., :2]) * 1.5 + 0.5
+    scales, means = params[..., 2:].chunk(2, dim=-1)
+    return q[..., 0:1], q[..., 1:2], scales, means
+
+
+def compress_prior_4x(y: torch.Tensor, common_params: torch.Tensor,
+                      reduction: Callable, adaptors: Sequence[Callable],
+                      spatial_prior: Callable,
+                      generator: Optional[torch.Generator], train: bool,
+                      fm_s: Optional[torch.Tensor] = None) -> PriorOut:
+    """Four-pass checkerboard prior of the I-frame codec.
+
+    ``common_params`` carries (q_enc, q_dec, scales, means)
+    (:func:`separate_prior_image`); y is scaled by q_enc before the passes
+    and y_hat by q_dec after them. Pass i > 0 takes its scales and means
+    from ``spatial_prior(adaptors[i - 1]((y_hat so far, reduced)))``, with
+    ``reduced = reduction(common_params)``. ``fm_s`` (optional, per
+    channel) divides y and the first pass's scales and means and multiplies
+    y_hat back. The noise of every pass comes from ``generator``, in pass
+    order."""
+    q_enc, q_dec, scales, means = separate_prior_image(common_params)
+    if fm_s is not None:
+        y = y / fm_s
+        scales = scales / fm_s
+        means = means / fm_s
+    reduced = reduction(common_params)
+
+    c, h, w = y.shape[-1], y.shape[1], y.shape[2]
+    masks = checkerboard_masks_4x(c, h, w, dtype=y.dtype, device=y.device)
+    y = y * q_enc
+
+    passes = [process_with_mask(y, scales, means, masks[0], generator, train)]
+    y_hat_so_far = passes[0].y_hat
+    for i, adaptor in enumerate(adaptors):
+        scales_i, means_i = spatial_prior(
+            adaptor((y_hat_so_far, reduced))).chunk(2, dim=-1)
+        p = process_with_mask(y, scales_i, means_i, masks[i + 1], generator,
+                              train)
+        passes.append(p)
+        y_hat_so_far = y_hat_so_far + p.y_hat
+
+    y_hat = y_hat_so_far * q_dec
+    if fm_s is not None:
+        y_hat = y_hat * fm_s
+    return PriorOut(
+        y_res=sum(p.y_res for p in passes),
+        y_q_hat=sum(p.y_q_hat for p in passes),
+        y_q_hat_write=sum(p.y_q_hat_write for p in passes),
+        y_hat=y_hat,
+        scales_hat=sum(p.scales_hat for p in passes),
     )
 
 

@@ -27,12 +27,8 @@ from ..layers.blocks import (Conv, DepthConvBlock, PatchDownConv,
                              ResidualBlockWithStride2, SubpelConv2x,
                              run_chain)
 from ..layers.quant import noise_quant, ste_round
-from .common import bpp_from_bits, compress_prior_2x
+from .common import bpp_from_bits, compress_prior_2x, compute_dtype
 from .entropy import BitEstimator, gaussian_bits
-
-
-def _dtype(name: str) -> torch.dtype:
-    return torch.bfloat16 if name == "bfloat16" else torch.float32
 
 
 class FeatureExtractor(nn.Module):
@@ -221,7 +217,7 @@ class DMC(nn.Module):
             raise RuntimeError("DMC: no CUDA device is available; pass "
                                "device='cpu' to run the plain versions")
         self.cfg = cfg
-        self.dtype = _dtype(cfg.dtype)
+        self.dtype = compute_dtype(cfg.dtype)
         kw = dict(dtype=self.dtype, device=device)
         c = cfg
         d = c.ch_d

@@ -21,7 +21,7 @@ plain version is the conv composition of ``layers/blocks.DepthConvBlock``.
 
 :func:`dcb` routes by device: a CPU tensor takes :func:`dcb_plain`; a CUDA
 tensor launches the kernel or raises. The kernel takes bfloat16 activations,
-B=1 and C in :data:`KERNEL_CHANNELS`.
+B=1 and C in :data:`DCB_CHANNELS`.
 
 Both kernels run one tile routine (``csrc/dcb_tile.cuh``) on 8x8 output
 tiles. A tile reads its input with a one-pixel halo (:data:`WIN` x
@@ -30,6 +30,12 @@ with the weights brought into shared memory by bulk copies of slabs that
 :func:`pack_block` has laid out in wgmma's canonical operand layout, in the
 order the kernel consumes them. The single-block kernel is a persistent
 grid of one thread block per SM walking the tiles.
+
+A block is computed at :func:`padded_channels` (C rounded up to a multiple
+of 64: 368 runs at 384). :func:`pack_block` gives the padded channels zero
+weights and biases, so they stay exactly 0 and add nothing; the kernel
+reads and writes the frame at its real C. At C=512 the window and ring B
+are cut to fit in shared memory (:func:`window_rows`, :func:`ring_b`).
 """
 
 from __future__ import annotations
@@ -42,8 +48,9 @@ import torch.nn.functional as F
 
 from . import _build
 
-#: Channel widths the kernels are instantiated for (the main path's).
-KERNEL_CHANNELS = (128, 256, 320, 384)
+#: Channel widths the single-block kernel is instantiated for (every
+#: single-block site of the P-frame and I-frame codecs).
+DCB_CHANNELS = (128, 192, 256, 320, 368, 384, 512)
 #: Dynamic shared memory one block may use on sm_90.
 SMEM_LIMIT = 232448
 #: Kernel launches since the count was last set to 0.
@@ -58,7 +65,10 @@ def wsilu(x: torch.Tensor) -> torch.Tensor:
 
 
 def packed_numel(c: int) -> int:
-    return 8 * c * c + 17 * c
+    """Elements of one block's :func:`pack_block` tensor (at the computed
+    width)."""
+    cp = padded_channels(c)
+    return 8 * cp * cp + 17 * cp
 
 
 def pack_params(params: Params, dtype: torch.dtype) -> torch.Tensor:
@@ -77,6 +87,7 @@ def pack_params(params: Params, dtype: torch.dtype) -> torch.Tensor:
 TILE = 8            # output tile side
 WIN = TILE + 2      # input window side: the tile and a one-pixel halo
 WIN_ROWS = 128      # window pixels padded to two 64-row wgmma tiles
+WIDE_WIN_ROWS = 104  # window rows held at C=512: 13 core-matrix groups
 KS_A = 64           # k columns of a W0 slab (stage A)
 KS_B = 32           # k columns of a W3 / Wf0 / Wf2 slab (stage B)
 KC = 64             # h channels per stage-A chunk
@@ -84,6 +95,7 @@ KF = 64             # hidden channels per FFN chunk
 SH = KC + 4         # fp32 row stride of the h chunk
 RING_A = 4          # W0 slab slots
 RING_B = 4          # stage-B slab slots, in the window's bytes
+WIDE_RING_B = 3     # the same at C=512
 BARRIER_BYTES = 256
 
 
@@ -105,18 +117,38 @@ def window_pixel(r: int, y0: int, x0: int) -> Tuple[int, int]:
     return y0 - 1 + r // WIN, x0 - 1 + r % WIN
 
 
+def padded_channels(c: int) -> int:
+    """The width a block of ``c`` channels is computed at: ``c`` rounded up
+    to a multiple of :data:`KC`."""
+    return -(-c // KC) * KC
+
+
+def window_rows(c: int) -> int:
+    """Window rows held in shared memory: two 64-row wgmma tiles, or at a
+    computed width over 384, :data:`WIDE_WIN_ROWS` (the 100 window pixels;
+    stage A's second tile then reads its rows 104-127 from hb's bytes, and
+    their results are dropped)."""
+    return WIN_ROWS if padded_channels(c) <= 384 else WIDE_WIN_ROWS
+
+
+def ring_b(c: int) -> int:
+    """Stage-B slab slots, held in the window's bytes."""
+    return RING_B if padded_channels(c) <= 384 else WIDE_RING_B
+
+
 def smem_bytes(c: int) -> int:
     """Dynamic shared memory of one thread block of either kernel, the same
     for every N.
 
-    Stage A holds the window A tile (WIN_ROWS x C bf16), the fp32 h chunk,
-    hb (64 x C bf16) and the W0 ring. In stage B the window is dead: its
-    bytes hold the RING_B slots of W3 / Wf0 / Wf2 slabs (each at most
-    C x KS_B bf16), hb is overwritten by uc, and the h chunk's bytes hold
-    two f chunks (64 x KF bf16)."""
-    window = WIN_ROWS * c * 2
+    Stage A holds the window A tile (:func:`window_rows` x CP bf16), the
+    fp32 h chunk, hb (64 x CP bf16) and the W0 ring. In stage B the window
+    is dead: its bytes hold the :func:`ring_b` slots of W3 / Wf0 / Wf2
+    slabs (each at most CP x KS_B bf16), hb is overwritten by uc, and the h
+    chunk's bytes hold two f chunks (64 x KF bf16)."""
+    cp = padded_channels(c)
+    window = window_rows(c) * cp * 2
     hchunk = max(WIN * WIN * SH * 4, 2 * TILE * TILE * KF * 2)
-    hb = TILE * TILE * c * 2
+    hb = TILE * TILE * cp * 2
     ring_a = RING_A * KS_A * KC * 2
     return window + hchunk + hb + ring_a + BARRIER_BYTES
 
@@ -170,10 +202,35 @@ def _matrices(params: Params):
             "wf0": wf0.reshape(4 * c, c), "wf2": wf2.reshape(c, 2 * c)}
 
 
+def pad_params(params: Params, cp: int) -> Params:
+    """One block's params widened from C to ``cp`` channels with zeros, as
+    the kernels compute it: every padded weight and bias is 0, and the 4C
+    hidden rows of Wf0 keep their two halves apart (half a at rows
+    [0, 2C), half b at [2 cp, 2 cp + 2C)), so the padded channels of h, u,
+    f and y stay exactly 0."""
+    w0, b0, w2, b2, w3, b3, wf0, bf0, wf2, bf2 = params
+    c = w0.shape[0]
+    p = cp - c
+    if p == 0:
+        return params
+    with torch.no_grad():
+        halves = lambda t: torch.cat([F.pad(h, (0, 0) * (t.dim() - 1)
+                                            + (0, 2 * p))
+                                      for h in t.split(2 * c)])
+        wf0 = halves(F.pad(wf0, (0, 0, 0, 0, 0, p)))
+        return (F.pad(w0, (0, 0, 0, 0, 0, p, 0, p)), F.pad(b0, (0, p)),
+                F.pad(w2, (0, 0, 0, 0, 0, 0, 0, p)), F.pad(b2, (0, p)),
+                F.pad(w3, (0, 0, 0, 0, 0, p, 0, p)), F.pad(b3, (0, p)),
+                wf0, halves(bf0),
+                F.pad(wf2, (0, 0, 0, 0, 0, 2 * p, 0, p)), F.pad(bf2, (0, p)))
+
+
 def pack_block(params: Params, dtype: torch.dtype) -> torch.Tensor:
-    """One block's weights in the kernels' layout, rounded to ``dtype``:
-    the slabs of :func:`slabs` back to back (8 C^2 elements), then the
-    depthwise taps and biases as in :func:`pack_params`."""
+    """One block's weights in the kernels' layout, rounded to ``dtype``, at
+    the computed width CP (:func:`pad_params`): the slabs of :func:`slabs`
+    back to back (8 CP^2 elements), then the depthwise taps and biases as
+    in :func:`pack_params`."""
+    params = pad_params(params, padded_channels(params[0].shape[0]))
     c = params[0].shape[0]
     with torch.no_grad():
         mats = _matrices(params)
@@ -189,7 +246,9 @@ def pack_block(params: Params, dtype: torch.dtype) -> torch.Tensor:
 
 
 def unpack_block(flat: torch.Tensor, c: int) -> dict:
-    """The four matrices ([out][in]) of one :func:`pack_block` tensor."""
+    """The four matrices ([out][in]) of one :func:`pack_block` tensor of a
+    block of ``c`` channels, at its computed width."""
+    c = padded_channels(c)
     mats = {"w0": flat.new_empty(c, c), "w3": flat.new_empty(c, c),
             "wf0": flat.new_empty(4 * c, c), "wf2": flat.new_empty(c, 2 * c)}
     off = 0
@@ -227,7 +286,10 @@ def dcb_plain(x: torch.Tensor, params: Params,
     return y.to(cdt)
 
 
-def check_input(x: torch.Tensor, what: str) -> None:
+def check_input(x: torch.Tensor, what: str,
+                channels: Tuple[int, ...]) -> None:
+    """Raise unless ``x`` is what a kernel instantiated for ``channels``
+    takes."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: kernel needs a CUDA tensor, got {x.device}")
     if x.dtype != torch.bfloat16:
@@ -235,8 +297,8 @@ def check_input(x: torch.Tensor, what: str) -> None:
     if x.dim() != 4 or x.shape[0] != 1:
         raise ValueError(f"{what}: kernel takes (1, H, W, C), got "
                          f"{tuple(x.shape)}")
-    if x.shape[-1] not in KERNEL_CHANNELS:
-        raise ValueError(f"{what}: C={x.shape[-1]} not in {KERNEL_CHANNELS}")
+    if x.shape[-1] not in channels:
+        raise ValueError(f"{what}: C={x.shape[-1]} not in {channels}")
     if not x.is_contiguous():
         raise ValueError(f"{what}: input must be contiguous NHWC")
 
@@ -280,7 +342,7 @@ def dcb_cuda(x: torch.Tensor, packed: torch.Tensor,
     """Launch the kernel: x (1, H, W, C) bf16 CUDA, ``packed`` from
     :func:`pack_block`, q (C,) or None. Returns a new (1, H, W, C)."""
     global launches
-    check_input(x, "dcb")
+    check_input(x, "dcb", DCB_CHANNELS)
     _, h, w, c = x.shape
     check_operand(packed, x, packed_numel(c), "dcb weights")
     q, q_ptr = q_operand(q, x, "dcb")

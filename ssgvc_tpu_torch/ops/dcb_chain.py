@@ -36,6 +36,9 @@ from .dcb import (KC, KF, KS_A, KS_B, RING_B, TILE, WIN,  # noqa: F401
                   WIN_ROWS, canonical, decanonical, smem_bytes, tile_grid,
                   tile_origin, unpack_block, window_pixel)
 
+#: Channel widths the chain kernel is instantiated for (the P-frame
+#: codec's chains).
+CHAIN_CHANNELS = (128, 256, 320, 384)
 #: Kernel launches since the count was last set to 0.
 launches = 0
 
@@ -77,7 +80,7 @@ def dcb_chain_cuda(x: torch.Tensor, packed: torch.Tensor,
     """One launch for the whole chain: x (1, H, W, C) bf16 CUDA, ``packed``
     from :func:`pack_chain` (N blocks), q_last (C,) or None."""
     global launches
-    check_input(x, "dcb_chain")
+    check_input(x, "dcb_chain", CHAIN_CHANNELS)
     _, h, w, c = x.shape
     n = packed.numel() // packed_numel(c)
     if n < 1:

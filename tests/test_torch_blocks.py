@@ -74,6 +74,20 @@ def test_depth_conv_block_matches_jax(c, widths, patch_in, shortcut, with_q):
     np.testing.assert_allclose(out, ref, atol=ATOL)
 
 
+@pytest.mark.parametrize("c,widths", [(16, (8, 8)), (16, (16,))])
+def test_depth_conv_block_force_adaptor_matches_jax(c, widths):
+    # force_adaptor keeps the adaptor where the widths alone would drop it:
+    # a tuple summing to C (Concat1x1), or C itself (1x1 conv)
+    inputs = [_x((1, 6, 7, w), 20 + i) for i, w in enumerate(widths)]
+    in_ch = widths if len(widths) > 1 else widths[0]
+    jmod = jb.DepthConvBlock(c, force_adaptor=True)
+    tmod = tb.DepthConvBlock(c, in_ch=in_ch, force_adaptor=True,
+                             device="cpu")
+    assert tmod.adaptor is not None
+    out, ref = _run(jmod, tmod, inputs)
+    np.testing.assert_allclose(out, ref, atol=ATOL)
+
+
 def test_subpel_conv2x_matches_jax():
     out, ref = _run(jb.SubpelConv2x(8, 3, padding=1),
                     tb.SubpelConv2x(16, 8, 3, padding=1, device="cpu"),

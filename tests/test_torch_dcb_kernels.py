@@ -103,15 +103,17 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
 @pytest.mark.parametrize("kernel", ["dcb", "dcb_chain"])
 def test_planner_fits_every_main_path_site_in_one_launch(kernel):
     if kernel == "dcb":
-        # every single-block site of the main path: one persistent launch
-        # over 8x8 tiles, ragged at the frame's edge
-        for (h, w, widths), grid in (((136, 240, (256, 320)), (17, 30)),
-                                     ((68, 120, (128, 256, 384)), (9, 15)),
+        # every single-block site of the P-frame and I-frame codecs: one
+        # persistent launch over 8x8 tiles, ragged at the frame's edge
+        for (h, w, widths), grid in (((136, 240, (192, 256, 320, 368)),
+                                      (17, 30)),
+                                     ((68, 120, (128, 256, 384, 512)),
+                                      (9, 15)),
                                      ((34, 60, (128,)), (5, 8)),
                                      ((17, 30, (128,)), (3, 4))):
             assert dcb_ops.tile_grid(h, w) == grid
             for c in widths:
-                assert c in dcb_ops.KERNEL_CHANNELS
+                assert c in dcb_ops.DCB_CHANNELS
                 assert dcb_ops.smem_bytes(c) <= dcb_ops.SMEM_LIMIT
         return
     # the chains of the main path: one launch each over 8x8 tiles, the last
@@ -152,7 +154,7 @@ def _np_block(c, rng):
             t((c, 2 * c, 1, 1), 0.3 * (2 * c) ** -0.5), t((c,), 0.1))
 
 
-@pytest.mark.parametrize("c", dcb_ops.KERNEL_CHANNELS)
+@pytest.mark.parametrize("c", chain_ops.CHAIN_CHANNELS)
 def test_chain_packing_round_trip(c):
     rng = np.random.default_rng(c)
     blocks = [_np_block(c, rng) for _ in range(2)]
@@ -187,8 +189,12 @@ def _emulate_chain(x, packed, n, q_last, shortcut=False):
     window with h masked to 0 outside it, the depthwise, then stage B,
     every weight read slab by slab from the packed tensor in stream
     order. N=1 with ``shortcut`` (the block's input added to its output
-    before ``q_last``) is the single-block kernel's schedule."""
+    before ``q_last``) is the single-block kernel's schedule. The block is
+    computed at the padded width CP, the frame read and written at C; the
+    window holds ``window_rows(c)`` rows, and the rest of stage A's two
+    64-row tiles (hb's bytes at C=512) is garbage, here NaN."""
     _, h, w, c = x.shape
+    cp = dcb_ops.padded_channels(c)
     T, WIN = chain_ops.TILE, chain_ops.WIN
     KC, KF, KS_A, KS_B = chain_ops.KC, chain_ops.KF, chain_ops.KS_A, chain_ops.KS_B
     tiles_y, tiles_x = chain_ops.tile_grid(h, w)
@@ -198,18 +204,19 @@ def _emulate_chain(x, packed, n, q_last, shortcut=False):
     for j, (src_name, dst_name) in enumerate(chain_ops.buffer_plan(n)):
         src, dst = bufs[src_name], bufs[dst_name]
         flat = packed[j * size:(j + 1) * size]
-        tail = flat[8 * c * c:]
-        dw = tail[:9 * c].reshape(3, 3, c)
-        b0, b2, b3 = (tail[k * c:(k + 1) * c] for k in (9, 10, 11))
-        bf0, bf2 = tail[12 * c:16 * c], tail[16 * c:]
+        tail = flat[8 * cp * cp:]
+        dw = tail[:9 * cp].reshape(3, 3, cp)
+        b0, b2, b3 = (tail[k * cp:(k + 1) * cp] for k in (9, 10, 11))
+        bf0, bf2 = tail[12 * cp:16 * cp], tail[16 * cp:]
         for t in range(tiles_y * tiles_x):
             y0, x0 = chain_ops.tile_origin(t, tiles_x)
-            win = torch.zeros(chain_ops.WIN_ROWS, c)
+            win = torch.full((2 * 64, cp), float("nan"))
+            win[:dcb_ops.window_rows(c)] = 0.0
             inside = torch.zeros(WIN * WIN, 1)
             for r in range(WIN * WIN):
                 gy, gx = chain_ops.window_pixel(r, y0, x0)
                 if 0 <= gy < h and 0 <= gx < w:
-                    win[r] = src[gy, gx]
+                    win[r, :c] = src[gy, gx]
                     inside[r] = 1.0
             off = 0
 
@@ -219,10 +226,10 @@ def _emulate_chain(x, packed, n, q_last, shortcut=False):
                 off += rows * ks
                 return m
 
-            hb = torch.empty(T * T, c)
-            for c0 in range(0, c, KC):
-                acc = torch.zeros(chain_ops.WIN_ROWS, KC)
-                for k0 in range(0, c, KS_A):
+            hb = torch.empty(T * T, cp)
+            for c0 in range(0, cp, KC):
+                acc = torch.zeros(2 * 64, KC)
+                for k0 in range(0, cp, KS_A):
                     acc += win[:, k0:k0 + KS_A] @ slab(KC, KS_A).T
                 hch = (dcb_ops.wsilu(acc[:WIN * WIN] + b0[c0:c0 + KC])
                        * inside).reshape(WIN, WIN, KC)
@@ -233,15 +240,16 @@ def _emulate_chain(x, packed, n, q_last, shortcut=False):
             valid = [gy < h and gx < w for gy, gx in pix]
             xres = torch.stack([src[gy, gx] if ok else torch.zeros(c)
                                 for (gy, gx), ok in zip(pix, valid)])
-            u = torch.zeros(T * T, c)
-            for k0 in range(0, c, KS_B):
-                u += hb[:, k0:k0 + KS_B] @ slab(c, KS_B).T
-            u = u + xres + b3
+            xres_p = torch.nn.functional.pad(xres, (0, cp - c))
+            u = torch.zeros(T * T, cp)
+            for k0 in range(0, cp, KS_B):
+                u += hb[:, k0:k0 + KS_B] @ slab(cp, KS_B).T
+            u = u + xres_p + b3
             yacc = u + bf2
             half = KF // 2
-            for f0 in range(0, 2 * c, KF):
+            for f0 in range(0, 2 * cp, KF):
                 fa = torch.zeros(T * T, 2 * KF)
-                for k0 in range(0, c, KS_B):
+                for k0 in range(0, cp, KS_B):
                     fa += u[:, k0:k0 + KS_B] @ slab(2 * KF, KS_B).T
                 parts = []
                 for g in range(2):
@@ -249,12 +257,15 @@ def _emulate_chain(x, packed, n, q_last, shortcut=False):
                     b = fa[:, g * KF + half:(g + 1) * KF]
                     lo = f0 + g * half
                     parts.append(dcb_ops.wsilu(a + bf0[lo:lo + half])
-                                 + dcb_ops.wsilu(b + bf0[2 * c + lo:
-                                                         2 * c + lo + half]))
+                                 + dcb_ops.wsilu(b + bf0[2 * cp + lo:
+                                                         2 * cp + lo + half]))
                 f = torch.cat(parts, 1)
                 for k0 in range(0, KF, KS_B):
-                    yacc = yacc + f[:, k0:k0 + KS_B] @ slab(c, KS_B).T
-            assert off == 8 * c * c
+                    yacc = yacc + f[:, k0:k0 + KS_B] @ slab(cp, KS_B).T
+            assert off == 8 * cp * cp
+            # the padded channels are exactly 0, and never stored
+            assert not yacc[:, c:].any()
+            yacc = yacc[:, :c]
             if shortcut:
                 yacc = yacc + xres
             if j == n - 1 and q_last is not None:
@@ -282,7 +293,11 @@ def test_chain_schedule_emulation_matches_plain(n, h, w, c, with_q):
 
 @pytest.mark.parametrize("h,w,c,shortcut,with_q", [
     (17, 30, 128, True, True), (9, 13, 384, True, False),
-    (12, 20, 320, False, False)])
+    (12, 20, 320, False, False),
+    # the widths of the I-frame codec: 192, 368 (computed at 384), 512
+    # (104-row window, 3-slot ring B)
+    (9, 13, 192, False, True), (11, 9, 368, True, True),
+    (9, 10, 368, False, False), (9, 11, 512, False, False)])
 def test_single_block_schedule_emulation_matches_plain(h, w, c, shortcut,
                                                         with_q):
     rng = np.random.default_rng(c + h)
@@ -296,13 +311,67 @@ def test_single_block_schedule_emulation_matches_plain(h, w, c, shortcut,
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("c", dcb_ops.KERNEL_CHANNELS)
+@pytest.mark.parametrize("c", chain_ops.CHAIN_CHANNELS)
 def test_chain_shared_memory_fits_and_is_independent_of_n(c):
     # the budget is a function of C alone: the kernel takes no other input
     assert list(inspect.signature(chain_ops.smem_bytes).parameters) == ["c"]
     # stage B's ring fills exactly the window's bytes
     assert chain_ops.RING_B * chain_ops.KS_B == chain_ops.WIN_ROWS
     assert chain_ops.smem_bytes(c) <= dcb_ops.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("kernel,c", [("dcb", c) for c in dcb_ops.DCB_CHANNELS]
+                         + [("dcb_chain", c)
+                            for c in chain_ops.CHAIN_CHANNELS])
+def test_shared_memory_fits_every_width_of_each_kernel(kernel, c):
+    cp = dcb_ops.padded_channels(c)
+    assert cp % 64 == 0 and 0 <= cp - c < 64
+    # the window holds its 100 pixels in whole core-matrix groups, and
+    # stage B's ring fits in its bytes
+    rows = dcb_ops.window_rows(c)
+    assert rows % 8 == 0 and rows >= dcb_ops.WIN * dcb_ops.WIN
+    assert dcb_ops.ring_b(c) * dcb_ops.KS_B * cp <= rows * cp
+    assert dcb_ops.smem_bytes(c) <= dcb_ops.SMEM_LIMIT
+    if kernel == "dcb_chain":
+        # the chain's widths keep the full window, whose bytes ring B fills
+        assert cp == c and rows == dcb_ops.WIN_ROWS
+        assert dcb_ops.ring_b(c) * dcb_ops.KS_B == rows
+
+
+@pytest.mark.parametrize("c", [192, 368, 512])
+def test_single_block_packing_round_trip_at_the_i_frame_widths(c):
+    """pack_block at a width of the I-frame codec: the matrices come back
+    at the computed width with the block's own in their top-left corner,
+    the two Wf0 halves apart, and zeros everywhere else."""
+    rng = np.random.default_rng(c)
+    blk = _np_block(c, rng)
+    cp = dcb_ops.padded_channels(c)
+    flat = dcb_ops.pack_block(blk, torch.float32)
+    assert flat.numel() == dcb_ops.packed_numel(c) == 8 * cp * cp + 17 * cp
+    mats = dcb_ops.unpack_block(flat, c)
+    w0, b0, w2, b2, w3, b3, wf0, bf0, wf2, bf2 = blk
+
+    def padded(m, rows, cols):
+        out = torch.zeros(rows, cols)
+        out[:m.shape[0], :m.shape[1]] = m
+        return out
+
+    wf0 = wf0[:, :, 0, 0]
+    want = {"w0": padded(w0[:, :, 0, 0], cp, cp),
+            "w3": padded(w3[:, :, 0, 0], cp, cp),
+            "wf0": torch.cat([padded(wf0[:2 * c], 2 * cp, cp),
+                              padded(wf0[2 * c:], 2 * cp, cp)]),
+            "wf2": padded(wf2[:, :, 0, 0], cp, 2 * cp)}
+    for k in want:
+        torch.testing.assert_close(mats[k], want[k], rtol=0, atol=0)
+    tail = flat[8 * cp * cp:]
+    torch.testing.assert_close(tail[:9 * cp].reshape(9, cp)[:, :c],
+                               w2.reshape(c, 9).t(), rtol=0, atol=0)
+    halves = [padded(h[None], 1, 2 * cp)[0] for h in bf0.split(2 * c)]
+    torch.testing.assert_close(tail[12 * cp:16 * cp], torch.cat(halves),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(tail[16 * cp:16 * cp + c], bf2, rtol=0, atol=0)
+    assert not tail[16 * cp + c:].any()
 
 
 def test_chain_buffer_plan_never_writes_x_and_ends_in_y():

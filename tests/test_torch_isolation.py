@@ -47,6 +47,21 @@ def test_dmc_defaults_to_the_card_and_never_falls_back():
     assert next(model.parameters()).device.type == "cpu"
 
 
+def test_dmci_defaults_to_the_card_and_never_falls_back():
+    from ssgvc_tpu_torch.config import DMCIConfig
+    from ssgvc_tpu_torch.models.dmci import DMCI
+
+    cfg = DMCIConfig(enc_dec=48, N=32, z_channel=32)
+    if torch.cuda.is_available():
+        model = DMCI(cfg)
+        assert next(model.parameters()).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            DMCI(cfg)
+    model = DMCI(cfg, device="cpu")
+    assert next(model.parameters()).device.type == "cpu"
+
+
 def test_other_variants_are_refused_until_ported():
     from ssgvc_tpu_torch.config import DMCConfig
     from ssgvc_tpu_torch.models.dmc import DMC

@@ -54,7 +54,13 @@ def rel_err(out, ref):
     (16, 24, 256, False, False),
     # main-path shapes: more tiles than SMs, ragged last tile row or column
     (136, 240, 320, False, False), (68, 120, 384, False, False),
-    (68, 120, 256, True, False), (34, 60, 128, True, False)])
+    (68, 120, 256, True, False), (34, 60, 128, True, False),
+    # the I-frame codec's widths: C=368 computed at 384, C=512 on its own
+    # shared-memory plan; main-path shapes, then small ragged ones
+    (136, 240, 368, False, False), (136, 240, 368, True, True),
+    (136, 240, 192, False, False), (68, 120, 512, False, False),
+    (9, 13, 192, True, True), (11, 9, 368, False, True),
+    (17, 30, 512, True, True)])
 def test_dcb_kernel_matches_plain(h, w, c, shortcut, with_q):
     dev = _card()
     rng = np.random.default_rng(c + h)
@@ -147,3 +153,10 @@ def test_kernel_refuses_what_it_does_not_take():
     with pytest.raises(ValueError):
         dcb_ops.dcb(torch.zeros((1, 8, 8, 64), dtype=torch.bfloat16,
                                 device=dev), block_params(64, rng, dev))
+    with pytest.raises(ValueError):                  # a width off the list
+        dcb_ops.dcb(torch.zeros((1, 8, 8, 200), dtype=torch.bfloat16,
+                                device=dev), block_params(200, rng, dev))
+    with pytest.raises(ValueError):                  # the chain's list
+        chain_ops.dcb_chain(torch.zeros((1, 8, 8, 368), dtype=torch.bfloat16,
+                                        device=dev),
+                            [block_params(368, rng, dev)])

@@ -32,3 +32,15 @@ def jax_dmc_params(model, packed_io, ch_d, hw=64, seed=0):
     p = model.init(jax.random.PRNGKey(seed), x, jnp.int32(3), dpb,
                    after_i=jnp.array(True), mask=m, train=False)["params"]
     return perturbed(p, seed=seed + 1)
+
+
+DMCI_RD_TINY = dict(enc_dec=48, N=32, z_channel=32)
+DMCI_FULL = dict(enc_dec=368, N=256, z_channel=128)
+
+
+def jax_dmci_params(model, hw=64, seed=0):
+    """JAX DMCI params, perturbed, as a numpy tree."""
+    x = jnp.zeros((1, hw, hw, 3))
+    p = model.init(jax.random.PRNGKey(seed), x, jnp.int32(3),
+                   train=False)["params"]
+    return perturbed(p, seed=seed + 1)
