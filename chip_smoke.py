@@ -29,7 +29,10 @@ Phases (any failure exits non-zero and prints no result line):
      1088x1920 frames, a GOP of --frames P-frames carrying the DPB from the
      decoded I-frame, weights drawn from --seed; every launch counted (19
      single + 5 chained on the frame after the I-frame, 18 + 5 on the
-     others); the GOP is timed GOP_RUNS times, ms/frame their median;
+     others); the GOP is timed GOP_RUNS times, ms/frame their median,
+     with the time by which the host had queued each GOP beside it; with
+     --prev-port also the other checkout's DMC (its own models.dmc) on the
+     same weights, PREV_ROUNDS rounds of (prev, new, new, prev) GOPs;
   6. streaming: StreamingDMC (raw io) on the same weights, first 3 frames
      and starting DPB, against the packed-io GOP;
   7. GOP: training/evaluate.evaluate_gop_estimated on the card, the I-frame
@@ -39,10 +42,32 @@ Phases (any failure exits non-zero and prints no result line):
      check, not a rate-distortion result). Not timed: the host metrics run
      inside it;
   8. cross-check: the same weights of both codecs at 128x128 through the
-     CPU port in fp32 (plain versions) and the card in bf16 (kernels).
+     CPU port in fp32 (plain versions) and the card in bf16 (kernels);
+  9. variants: the other four P-frame variants (plain, old, fast,
+     mask_prop) at full width, bf16, packed io, 1088x1920, weights drawn
+     from --seed, each coding a GOP of VARIANT_P_FRAMES P-frames from the
+     decoded I-frame with its launches counted (16 single + 5 chained on
+     the frame after the I-frame, 15 + 5 after), timed VARIANT_RUNS times
+     in turns with the performance variant on the same GOP (ms/frame the
+     median);
+     then each against the CPU port in fp32 at 128x128, both after_i
+     values (mask_prop also the sign of its predicted mask logits);
+ 10. coded GOP: coding.codec.VideoCodec (the real rANS coder) with the
+     full-width I-frame codec and the performance P-frame codec, bf16,
+     packed_dmc, raw 1088x1920 frames (phase 7's), I + 3 P at INDEX_MAP's
+     QPs: every frame encoded, then decoded from its stream alone, each
+     decoded frame and DPB equal (torch.equal) to the encoder's; encoder
+     and decoder launches counted per frame (I 42 / 32; P 19+5 / 12+4 after
+     the I-frame, 18+5 / 11+4 after); bytes, real beside phase 7's
+     estimated bpp, encode and decode ms with their host rANS part, peak
+     memory; after a warm-up GOP, CODED_RUNS timed ones, each frame's ms
+     their median. Then a mask_prop GOP of
+     I + 2 P through coding.session.CodingSession and an in-memory file:
+     the decoded frames and the decoder's mask chain equal the encoder's.
 
-The line before the last is one JSON object {"kernels": [...]}; the last is
-{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+The last lines are JSON objects: {"main_path": ...}, {"variants": ...},
+{"coded": ...}, {"kernels": [...]}, and last {"ok": true, "device":
+{"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
@@ -50,6 +75,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -65,12 +91,21 @@ REL_TOL = 1e-2               # kernel vs plain, relative Frobenius error
 H, W = 1088, 1920
 QP = 32
 GOP_RUNS = 3                 # timed GOPs; ms/frame is their median
+PREV_ROUNDS = 8              # --prev-port: rounds of (prev, new, new, prev)
+#                              GOPs in phase 5; ms/frame their medians
 IFRAME_RUNS = 3              # timed I-frames; ms/frame is their median
 GOP_P_FRAMES = 3             # P-frames after the I-frame in phase 7
 # the GOP's QP offsets by frame, as the JAX package's CompressionConfig
 # default (index_map into DMCConfig.qp_shift)
 INDEX_MAP = (0, 1, 0, 2, 0, 2, 0, 2)
 DEVICE = "cuda"
+VARIANTS = ("plain", "old", "fast", "mask_prop")
+VARIANT_P_FRAMES = 3         # P-frames per variant GOP in phase 9
+VARIANT_RUNS = 8             # timed GOPs per variant, in turns; ms/frame
+#                              the median
+CODED_RUNS = 3               # timed coded GOPs; ms per frame the median
+MASK_SIGN_TOL = 0.95         # mask_prop: share of predicted-logit signs
+#                              the card's bf16 must share with CPU fp32
 
 # (rows, cols, C, shortcut, launches per P-frame, sites)
 SINGLE_SHAPES = [
@@ -164,7 +199,8 @@ def phase_device(torch):
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     print(f"device: {name}, count {count}, torch {torch.__version__}, "
-          f"CUDA {torch.version.cuda}")
+          f"CUDA {torch.version.cuda}; host: {os.cpu_count()} CPUs, load "
+          f"average {', '.join(f'{x:.2f}' for x in os.getloadavg())}")
     return card, name, count
 
 
@@ -476,7 +512,10 @@ def phase_iframe(torch, seed, card):
                 state=state)
 
 
-def phase_main_path(torch, seed, frames_n, card, dpb_frame):
+def phase_main_path(torch, seed, frames_n, card, dpb_frame, prev=None):
+    """The performance-variant GOP; with ``prev`` (another checkout's
+    port) also that checkout's DMC on the same weights, timed in turns
+    with this one's (prev, new, new, prev)."""
     from ssgvc_tpu_torch.config import DMCConfig
     from ssgvc_tpu_torch.models.dmc import DMC
     from ssgvc_tpu_torch.ops import dcb as dcb_ops
@@ -496,7 +535,7 @@ def phase_main_path(torch, seed, frames_n, card, dpb_frame):
     dpb_feature = torch.zeros((1, H // 8, W // 8, cfg.ch_d), dtype=bf16,
                               device=DEVICE)
 
-    def gop(count_check):
+    def gop(count_check, m=model):
         """The packed-io GOP loop; ingest (one unshuffle of the GOP)
         counted."""
         fp = pixel_unshuffle(frames.reshape(frames_n, H, W, 3), 8)
@@ -505,8 +544,8 @@ def phase_main_path(torch, seed, frames_n, card, dpb_frame):
         bpps, outs = [], []
         for i in range(frames_n):
             before = (dcb_ops.launches, chain_ops.launches)
-            out = model(fp[i:i + 1], QP, dpb, after_i=(i == 0),
-                        mask=mp[i:i + 1])
+            out = m(fp[i:i + 1], QP, dpb, after_i=(i == 0),
+                    mask=mp[i:i + 1])
             dpb = out["dpb"]
             bpps.append(out["bpp"])
             if i < 3:
@@ -519,8 +558,18 @@ def phase_main_path(torch, seed, frames_n, card, dpb_frame):
                     fail(f"frame {i}: launches {got}, expected {want}")
         return torch.cat(bpps), outs, dpb
 
+    def timed(m=model, count_check=False):
+        """(ms/frame, ms/frame until the host had queued the whole GOP)."""
+        t0 = time.perf_counter()
+        res = gop(count_check, m)
+        t_queued = time.perf_counter()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        return (1e3 * (t1 - t0) / frames_n, 1e3 * (t_queued - t0) / frames_n,
+                res)
+
     want = (18 * frames_n + 1, 5 * frames_n)
-    runs = []
+    runs, queued = [], []
     with torch.no_grad():
         gop(False)                       # warm-up: cuBLAS/cuDNN plans
         torch.cuda.synchronize()
@@ -531,10 +580,9 @@ def phase_main_path(torch, seed, frames_n, card, dpb_frame):
         for k in range(GOP_RUNS):
             dcb_ops.launches = 0
             chain_ops.launches = 0
-            t0 = time.perf_counter()
-            bpps, outs, dpb = gop(True)
-            torch.cuda.synchronize()
-            runs.append(1e3 * (time.perf_counter() - t0) / frames_n)
+            ms, q_ms, (bpps, outs, dpb) = timed(count_check=True)
+            runs.append(ms)
+            queued.append(q_ms)
             launches = (dcb_ops.launches, chain_ops.launches)
             if launches != want:
                 fail(f"GOP launches {launches}, expected {want}")
@@ -547,14 +595,40 @@ def phase_main_path(torch, seed, frames_n, card, dpb_frame):
     print(f"main path: {frames_n} P-frames {H}x{W}, {ms:.2f} ms/frame "
           f"({1e3 / ms:.2f} fps; median of {GOP_RUNS} GOPs: "
           f"{', '.join(f'{r:.2f}' for r in runs)}; ingest included, warm-up "
-          f"excluded), peak "
+          f"excluded; the host had queued each GOP after "
+          f"{', '.join(f'{r:.2f}' for r in queued)} ms/frame), peak "
           f"{peak / 2**20:.0f} MiB allocated, launches dcb {launches[0]} "
           f"dcb_chain {launches[1]}, bpp {np.round(b, 4).tolist()} [{card}]")
     state = {k: v.detach().clone() for k, v in model.state_dict().items()}
-    return dict(launches=launches, ms_per_frame=ms, ms_runs=runs,
-                peak_bytes=peak,
-                bpps=b, outs=outs, state=state, frames=frames[:3],
-                masks=masks[:3], dpb_frame=dpb_frame)
+    result = dict(launches=launches, ms_per_frame=ms, ms_runs=runs,
+                  queued_ms_runs=queued, peak_bytes=peak, bpps=b, outs=outs,
+                  state=state, frames=frames[:3], masks=masks[:3],
+                  dpb_frame=dpb_frame)
+    if prev is not None:
+        import importlib
+
+        prev_cfg = importlib.import_module("prev_port.config")
+        prev_dmc = importlib.import_module("prev_port.models.dmc")
+        other = prev_dmc.DMC(prev_cfg.DMCConfig.variant(
+            "performance", dtype="bfloat16", packed_io=True), device=DEVICE)
+        other.load_state_dict(model.state_dict(), strict=True)
+        other.eval()
+        turns = {"prev": [], "new": []}
+        with torch.no_grad():
+            gop(False, other)            # warm-up
+            for _ in range(PREV_ROUNDS):
+                for who in ("prev", "new", "new", "prev"):
+                    turns[who].append(
+                        timed(other if who == "prev" else model)[0])
+        result["turns"] = {k: dict(ms_per_frame=float(np.median(v)),
+                                   ms_runs=v) for k, v in turns.items()}
+        new_ms, prev_ms = (result["turns"][k]["ms_per_frame"]
+                           for k in ("new", "prev"))
+        print(f"main path in turns with the other checkout's DMC (prev, new,"
+              f" new, prev) x {PREV_ROUNDS}: new {new_ms:.2f} ms/frame, prev "
+              f"{prev_ms:.2f} ({100 * (new_ms / prev_ms - 1):+.1f}%) "
+              f"[{card}]")
+    return result
 
 
 def phase_streaming(torch, main):
@@ -731,6 +805,337 @@ def cross_check_pair(what, b_cpu, f_cpu, b_gpu, f_gpu, psnr_tol=30.0):
              "tolerance")
 
 
+def phase_variants(torch, seed, card, iframe, main):
+    """The other P-frame variants at full width on a short packed-io GOP
+    from the decoded I-frame, beside the performance variant on the same
+    GOP; launches counted per frame, GOPs timed."""
+    from ssgvc_tpu_torch.config import DMCConfig
+    from ssgvc_tpu_torch.models.dmc import DMC
+    from ssgvc_tpu_torch.ops import dcb as dcb_ops
+    from ssgvc_tpu_torch.ops import dcb_chain as chain_ops
+    from ssgvc_tpu_torch.ops.pixel import pixel_unshuffle
+
+    bf16 = torch.bfloat16
+    n = VARIANT_P_FRAMES
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 20)
+    frames = pixel_unshuffle(torch.rand((n, H, W, 3), generator=g,
+                                        device=DEVICE), 8).to(bf16)
+    masks = pixel_unshuffle((torch.rand((n, H, W, 1), generator=g,
+                                        device=DEVICE) > 0.8).float(),
+                            8).to(bf16)
+    dpb0 = {"frame": pixel_unshuffle(iframe["frame"].to(bf16), 8),
+            "feature": torch.zeros((1, H // 8, W // 8, 256), dtype=bf16,
+                                   device=DEVICE)}
+    names = ("performance",) + VARIANTS
+    models, cfgs = {}, {}
+    for variant in names:
+        cfg = cfgs[variant] = DMCConfig.variant(variant, dtype="bfloat16",
+                                                packed_io=True)
+        model = DMC(cfg, device=DEVICE)
+        if variant == "performance":
+            model.load_state_dict(main["state"], strict=True)
+        else:
+            random_weights(torch, model, seed)
+        models[variant] = model.eval()
+
+    def gop(variant):
+        """The GOP; a propagated mask chain takes the GT mask at the first
+        P-frame only, as evaluate_gop_estimated does."""
+        model, cfg = models[variant], cfgs[variant]
+        dpb, carry, counts, bpps = dpb0, None, [], []
+        for i in range(n):
+            m = carry if carry is not None else masks[i:i + 1]
+            before = (dcb_ops.launches, chain_ops.launches)
+            out = model(frames[i:i + 1], QP, dpb, after_i=(i == 0), mask=m)
+            counts.append((dcb_ops.launches - before[0],
+                           chain_ops.launches - before[1]))
+            if cfg.mask_source == "propagated":
+                carry = m if i == 0 else out["mask_pred"]
+            dpb = out["dpb"]
+            bpps.append(out["bpp"])
+        return counts, torch.cat(bpps), dpb
+
+    runs = {v: [] for v in names}
+    queued = {v: [] for v in names}
+    last = {}
+    with torch.no_grad():
+        for variant in names:
+            gop(variant)                 # warm-up: cuBLAS/cuDNN plans
+        torch.cuda.synchronize()
+        # in turns, the order reversed every round, so that a drift of the
+        # shared host's load falls on every variant alike
+        for r in range(VARIANT_RUNS):
+            for variant in (names if r % 2 == 0 else names[::-1]):
+                sft = 3 if cfgs[variant].mask_mode == "sft_latent" else 0
+                want = [(16 + sft if i == 0 else 15 + sft, 5)
+                        for i in range(n)]
+                dcb_ops.launches = 0
+                chain_ops.launches = 0
+                t0 = time.perf_counter()
+                counts, bpps, dpb = gop(variant)
+                t_queued = time.perf_counter()
+                torch.cuda.synchronize()
+                runs[variant].append(1e3 * (time.perf_counter() - t0) / n)
+                queued[variant].append(1e3 * (t_queued - t0) / n)
+                launches = (dcb_ops.launches, chain_ops.launches)
+                if counts != want or launches != tuple(map(sum,
+                                                           zip(*want))):
+                    fail(f"variant {variant}: launches per frame {counts} "
+                         f"(total {launches}), expected {want}")
+                last[variant] = (counts, launches, bpps, dpb)
+    results, states = {}, {}
+    for variant in names:
+        counts, launches, bpps, dpb = last[variant]
+        b = check_frame(torch, f"variant {variant}", bpps, dpb["frame"])
+        results[variant] = dict(ms_per_frame=float(np.median(runs[variant])),
+                                ms_runs=runs[variant],
+                                queued_ms_runs=queued[variant],
+                                launches_per_frame=counts,
+                                launches=launches, bpp=b.tolist())
+        if variant != "performance":
+            states[variant] = {k: v.detach().cpu() for k, v
+                               in models[variant].state_dict().items()}
+    del models
+    perf = results["performance"]["ms_per_frame"]
+    for variant, r in results.items():
+        r["vs_performance"] = r["ms_per_frame"] / perf
+        print(f"variant {variant}: {n} P-frames {H}x{W} packed io bf16, "
+              f"{r['ms_per_frame']:.2f} ms/frame (median of {VARIANT_RUNS} "
+              f"in turns: {', '.join(f'{x:.2f}' for x in r['ms_runs'])}; "
+              f"queued by the host after "
+              f"{', '.join(f'{x:.2f}' for x in r['queued_ms_runs'])}), "
+              f"{r['vs_performance']:.3f} x performance's "
+              f"{perf:.2f}, launches per frame {r['launches_per_frame']}, "
+              f"bpp {np.round(r['bpp'], 4).tolist()} [{card}]")
+    return results, states
+
+
+def phase_variants_cross_check(torch, states, seed):
+    """Each variant's weights at 128x128 through the CPU port in fp32 and
+    the card in bf16, both after_i values; mask_prop also the signs of its
+    predicted mask logits."""
+    from ssgvc_tpu_torch.config import DMCConfig
+    from ssgvc_tpu_torch.models.dmc import DMC
+
+    rng = np.random.default_rng(seed + 3)
+    hw = 128
+    x = rng.uniform(0, 1, (1, hw // 8, hw // 8, 192)).astype(np.float32)
+    mask = (rng.uniform(0, 1, (1, hw // 8, hw // 8, 64)) > 0.8
+            ).astype(np.float32)
+    frame = rng.uniform(0, 1, (1, hw // 8, hw // 8, 192)).astype(np.float32)
+    feature = (rng.standard_normal((1, hw // 8, hw // 8, 256)) * 0.1
+               ).astype(np.float32)
+    signs = {}
+    for variant, state in states.items():
+        results = {}
+        for dev, dtype in (("cpu", "float32"), (DEVICE, "bfloat16")):
+            model = DMC(DMCConfig.variant(variant, dtype=dtype,
+                                          packed_io=True), device=dev)
+            model.load_state_dict(state, strict=True)
+            model.eval()
+            cast = lambda a: torch.from_numpy(a).to(dev, model.dtype)
+            dpb = {"frame": cast(frame), "feature": cast(feature)}
+            outs = []
+            with torch.no_grad():
+                for after_i in (True, False):
+                    out = model(cast(x), QP, dpb, after_i=after_i,
+                                mask=cast(mask))
+                    pred = out["mask_pred"]
+                    outs.append((float(out["bpp"].float()),
+                                 out["dpb"]["frame"].float().cpu(),
+                                 None if pred is None else
+                                 pred.float().cpu()))
+            results[dtype] = outs
+        for i, (cpu, card) in enumerate(zip(results["float32"],
+                                            results["bfloat16"])):
+            what = f"{variant} after_i={i == 0}"
+            cross_check_pair(what, cpu[0], cpu[1], card[0], card[1])
+            if cpu[2] is not None:
+                agree = float((torch.sign(cpu[2]) == torch.sign(card[2])
+                               ).float().mean())
+                signs[what] = agree
+                print(f"cross-check {what}: predicted mask logits share "
+                      f"their sign in {agree:.4f} of pixels (tol >= "
+                      f"{MASK_SIGN_TOL})")
+                if agree < MASK_SIGN_TOL:
+                    fail(f"{what}: the card's predicted mask disagrees in "
+                         "sign with CPU fp32")
+    return signs
+
+
+def phase_coded(torch, seed, card, iframe, main, gop, mask_prop_state):
+    """The real coder: VideoCodec on phase 7's frames, encoded and then
+    decoded from the streams alone, then a mask_prop CodingSession."""
+    import io
+
+    from ssgvc_tpu_torch.coding.codec import VideoCodec
+    from ssgvc_tpu_torch.coding.session import CodingSession
+    from ssgvc_tpu_torch.config import DMCConfig, DMCIConfig
+    from ssgvc_tpu_torch.models.dmc import DMC
+    from ssgvc_tpu_torch.models.dmci import DMCI
+    from ssgvc_tpu_torch.ops import dcb as dcb_ops
+    from ssgvc_tpu_torch.ops import dcb_chain as chain_ops
+
+    dmci = DMCI(DMCIConfig(dtype="bfloat16"), device=DEVICE)
+    dmci.load_state_dict(iframe["state"], strict=True)
+    cfg = DMCConfig.variant("performance", dtype="bfloat16")
+    dmc = DMC(cfg, device=DEVICE)
+    dmc.load_state_dict(main["state"], strict=True)
+    t0 = time.perf_counter()
+    codec = VideoCodec(dmci.eval(), dmc.eval(), packed_dmc=True)
+    setup_s = time.perf_counter() - t0
+    # phase 7's frames, masks and QPs, so its estimated bpp compares
+    rng = np.random.default_rng(seed + 2)
+    t_len = 1 + GOP_P_FRAMES
+    frames = rng.uniform(0, 1, (t_len, H, W, 3)).astype(np.float32)
+    masks = (rng.uniform(0, 1, (t_len, H, W, 1)) > 0.8).astype(np.float32)
+    qps = [QP] + [dmc.shift_qp(QP, INDEX_MAP[t % len(INDEX_MAP)])
+                  for t in range(1, t_len)]
+    dev = lambda a: torch.from_numpy(a)[None].to(DEVICE)
+    feat0 = torch.zeros((1, H // 8, W // 8, cfg.ch_d), dtype=torch.bfloat16,
+                        device=DEVICE)
+    want_enc = [(IFRAME_LAUNCHES, 0), (19, 5)] + [(18, 5)] * (t_len - 2)
+    want_dec = [(IFRAME_LAUNCHES - 10, 0), (12, 4)] + [(11, 4)] * (t_len - 2)
+
+    def counted(fn, *args, **kw):
+        before = (dcb_ops.launches, chain_ops.launches)
+        out = fn(*args, **kw)
+        return out, (dcb_ops.launches - before[0],
+                     chain_ops.launches - before[1])
+
+    def row(out, launches, side):
+        t = codec.enc_time if side == "enc" else codec.dec_time
+        r = codec.enc_rans_time if side == "enc" else codec.dec_rans_time
+        return dict(out=out, launches=launches, ms=1e3 * t, rans_ms=1e3 * r)
+
+    def run():
+        enc, dec = [], []
+        out, n = counted(codec.dmci_compress, dev(frames[0]), qps[0])
+        enc.append(row(out, n, "enc"))
+        dpb = {"frame": out["x_hat"], "feature": feat0}
+        for t in range(1, t_len):
+            out, n = counted(codec.dmc_compress, dev(frames[t]), qps[t],
+                             dpb, after_i=(t == 1), mask=dev(masks[t]))
+            enc.append(row(out, n, "enc"))
+            dpb = out["dpb"]
+        out, n = counted(codec.dmci_decompress, enc[0]["out"]["bit_stream"],
+                         H, W, qps[0])
+        dec.append(row(out, n, "dec"))
+        dpb = {"frame": out["x_hat"], "feature": feat0}
+        for t in range(1, t_len):
+            out, n = counted(codec.dmc_decompress,
+                             enc[t]["out"]["bit_stream"], H, W, qps[t], dpb,
+                             after_i=(t == 1))
+            dec.append(row(out, n, "dec"))
+            dpb = out["dpb"]
+        for t, (e, d) in enumerate(zip(enc, dec)):
+            same = torch.equal(e["out"]["x_hat"], d["out"]["x_hat"])
+            for k in ("frame", "feature"):
+                a, b = e["out"]["dpb"][k], d["out"]["dpb"][k]
+                same &= (a is None and b is None) or torch.equal(a, b)
+            if not same:
+                fail(f"coded frame {t}: the decoder's frame or DPB differs "
+                     "from the encoder's")
+        if [e["launches"] for e in enc] != want_enc or \
+                [d["launches"] for d in dec] != want_dec:
+            fail(f"coded GOP launches: encoder "
+                 f"{[e['launches'] for e in enc]} (expected {want_enc}), "
+                 f"decoder {[d['launches'] for d in dec]} (expected "
+                 f"{want_dec})")
+        return enc, dec
+
+    run()                                # warm-up, checked the same way
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for k in range(CODED_RUNS):
+        dcb_ops.launches = 0
+        chain_ops.launches = 0
+        enc, dec = run()
+        launches = (dcb_ops.launches, chain_ops.launches)
+        total = tuple(map(sum, zip(*(want_enc + want_dec))))
+        if launches != total:
+            fail(f"coded GOP launches {launches}, expected {total}")
+        if k == 0:
+            peak = torch.cuda.max_memory_allocated()
+        for r in enc + dec:              # keep the stream and the frame
+            r["out"] = {"bit_stream": r["out"].get("bit_stream"),
+                        "x_hat": r["out"]["x_hat"]}
+        if runs and [e["out"]["bit_stream"] for e in enc] != \
+                [e["out"]["bit_stream"] for e in runs[0]["enc"]]:
+            fail("coded GOP: the same frames gave other streams in another "
+                 "run")
+        runs.append({"enc": enc, "dec": dec})
+
+    def med(side, t, key):
+        """Frame t's median over the timed GOPs."""
+        return float(np.median([r[side][t][key] for r in runs]))
+
+    frames_out = []
+    for t, (e, d) in enumerate(zip(enc, dec)):
+        nbytes = len(e["out"]["bit_stream"])
+        real = nbytes * 8 / (H * W)
+        est = gop["results"][t]["bpp"]
+        check_frame(torch, f"coded frame {t}", torch.tensor([real]),
+                    d["out"]["x_hat"])
+        frames_out.append(dict(
+            type="I" if t == 0 else "P", qp=qps[t], bytes=nbytes,
+            bpp_real=real, bpp_estimated=est, enc_launches=e["launches"],
+            dec_launches=d["launches"], enc_ms=med("enc", t, "ms"),
+            enc_rans_ms=med("enc", t, "rans_ms"), dec_ms=med("dec", t, "ms"),
+            dec_rans_ms=med("dec", t, "rans_ms"),
+            enc_ms_runs=[r["enc"][t]["ms"] for r in runs],
+            dec_ms_runs=[r["dec"][t]["ms"] for r in runs]))
+        f = frames_out[-1]
+        print(f"coded frame {t} ({f['type']}, QP {f['qp']}): {nbytes} bytes"
+              f", real bpp {real:.4f} (phase 7 estimated {est:.4f}, ratio "
+              f"{real / est:.3f}); median of {CODED_RUNS} GOPs: encode "
+              f"{f['enc_ms']:.2f} ms (host rANS "
+              f"{f['enc_rans_ms']:.2f}), decode {f['dec_ms']:.2f} ms (host "
+              f"rANS {f['dec_rans_ms']:.2f}); launches encoder "
+              f"{e['launches']}, decoder {d['launches']} [{card}]")
+    print(f"coded GOP: I + {GOP_P_FRAMES} P {H}x{W}, every decoded frame and "
+          f"DPB equal to the encoder's (torch.equal), the same streams in "
+          f"all {CODED_RUNS + 1} runs, peak "
+          f"{peak / 2**20:.0f} MiB allocated, codec set-up (CDF tables) "
+          f"{setup_s:.2f} s, launches {launches} [{card}]")
+
+    # mask_prop through a CodingSession and an in-memory file
+    dmc_mp = DMC(DMCConfig.variant("mask_prop", dtype="bfloat16"),
+                 device=DEVICE)
+    dmc_mp.load_state_dict(mask_prop_state, strict=True)
+    session = CodingSession(VideoCodec(dmci, dmc_mp.eval(), packed_dmc=True))
+    buf = io.BytesIO()
+    dcb_ops.launches = 0
+    chain_ops.launches = 0
+    stats = session.encode_sequence(buf, frames[:3], QP, masks=masks[:3])
+    buf.seek(0)
+    decoded, chain = session.decode_sequence(buf, masks=masks[:3],
+                                             return_masks=True)
+    mp_launches = (dcb_ops.launches, chain_ops.launches)
+    ok = (len(decoded) == 3 and len(chain) == 2
+          and all(np.array_equal(a, b)
+                  for a, b in zip(decoded, stats["recons"]))
+          and all(np.array_equal(a, b) for a, b in zip(chain,
+                                                       stats["masks"])))
+    if not ok:
+        fail("mask_prop session: decoded frames or mask chain differ from "
+             "the encoder's")
+    if 0 in mp_launches:
+        fail(f"mask_prop session: launches {mp_launches}")
+    print(f"coded mask_prop session: I + 2 P {H}x{W} through an in-memory "
+          f"file ({buf.getbuffer().nbytes} bytes, frames "
+          f"{stats['frame_bits']} bits), decoded frames and mask chain equal "
+          f"to the encoder's, launches {mp_launches} [{card}]")
+    for f in frames_out:
+        f["enc_launches"] = list(f["enc_launches"])
+        f["dec_launches"] = list(f["dec_launches"])
+    return dict(frames=frames_out, peak_bytes=peak, launches=launches,
+                setup_s=setup_s,
+                mask_prop_session=dict(bits=stats["frame_bits"],
+                                       launches=mp_launches))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -756,7 +1161,7 @@ def main() -> int:
         kernels = phase_kernels(torch, args.seed, card, prev)
     iframe = phase_iframe(torch, args.seed, card)
     main_path = phase_main_path(torch, args.seed, args.frames, card,
-                                iframe["frame"])
+                                iframe["frame"], prev)
     for entry, p_count, i_count in zip(kernels, main_path["launches"],
                                        iframe["launches"]):
         entry["launches"] = p_count
@@ -764,9 +1169,16 @@ def main() -> int:
     phase_streaming(torch, main_path)
     gop = phase_gop(torch, args.seed, iframe, main_path, card)
     phase_cross_check(torch, main_path, iframe, args.seed)
+    variants, variant_states = phase_variants(torch, args.seed, card, iframe,
+                                              main_path)
+    signs = phase_variants_cross_check(torch, variant_states, args.seed)
+    coded = phase_coded(torch, args.seed, card, iframe, main_path, gop,
+                        variant_states["mask_prop"])
     print(json.dumps({"main_path": {
         "ms_per_frame": main_path["ms_per_frame"],
         "ms_per_frame_runs": main_path["ms_runs"],
+        "queued_ms_per_frame_runs": main_path["queued_ms_runs"],
+        "turns_with_prev": main_path.get("turns"),
         "peak_bytes": main_path["peak_bytes"],
         "iframe_ms": iframe["ms_per_frame"],
         "iframe_ms_runs": iframe["ms_runs"],
@@ -775,6 +1187,9 @@ def main() -> int:
         "gop": [{k: r[k] for k in ("frame_type", "bpp", "psnr", "roi_psnr",
                                    "msssim")} for r in gop["results"]],
         "card": card}}))
+    print(json.dumps({"variants": {**variants, "mask_sign_agreement": signs,
+                                   "card": card}}))
+    print(json.dumps({"coded": {**coded, "card": card}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

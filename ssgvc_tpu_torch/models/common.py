@@ -19,6 +19,16 @@ def compute_dtype(name: str) -> torch.dtype:
     return torch.bfloat16 if name == "bfloat16" else torch.float32
 
 
+def check_card_dtype(what: str, device, dtype: torch.dtype) -> None:
+    """Refuse a model that would run float32 on the card: the DepthConvBlock
+    kernels take bfloat16 activations only (ROADMAP K3)."""
+    if torch.device(device).type == "cuda" and dtype != torch.bfloat16:
+        raise TypeError(
+            f"{what}: the card runs bfloat16 until ROADMAP K3 (float32 "
+            f"DepthConvBlock kernels) lands; got {dtype}. Pass "
+            "dtype='bfloat16' in the config, or device='cpu' for float32")
+
+
 def checkerboard_masks_2x(channel: int, height: int, width: int,
                           dtype=torch.float32, device="cuda"
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -79,6 +89,10 @@ def get_padding_size(height: int, width: int, p: int = 64) -> Tuple[int, int]:
     new_h = (height + p - 1) // p * p
     new_w = (width + p - 1) // p * p
     return new_w - width, new_h - height   # (pad_right, pad_bottom)
+
+
+def get_downsampled_shape(height: int, width: int, p: int) -> Tuple[int, int]:
+    return (height + p - 1) // p, (width + p - 1) // p
 
 
 def pad_for_y(y: torch.Tensor, p: int = 4) -> torch.Tensor:

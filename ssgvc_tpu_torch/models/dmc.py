@@ -1,17 +1,29 @@
-"""DMC, the conditional inter (P-frame) codec, in PyTorch.
+"""DMC, the conditional inter (P-frame) codec, in PyTorch, all five
+variants of ``DMCConfig.variant``:
 
-This slice ports the ``performance`` variant (``mask_mode="sft_latent"``,
-``mask_source="gt"``, refactor op order): a mask-driven SFT (gamma, beta)
-modulates the latent y before the hyper-encoder and the checkerboard
-prior. Both ``packed_io`` values and both ``after_i`` values run. The
-other variants (plain, old, fast, mask_prop) raise until they are ported.
+  * ``performance`` (``mask_mode="sft_latent"``): a mask-driven SFT
+    (gamma, beta) modulates the latent y before the hyper-encoder and the
+    checkerboard prior;
+  * ``fast`` (``"film_hyper"``): a light FiLM of the pooled mask conditions
+    only the hyper-encoder's input;
+  * ``mask_prop`` (``"film_hyper"``, ``mask_source="propagated"``): as
+    ``fast``, but after the first P-frame the mask is predicted on the
+    decoder side (``MaskPredictor``) instead of transmitted;
+  * ``plain`` (``"none"``) and ``old`` (``"none"``, ``legacy_old``: the
+    encoder's ``conv3`` name, the legacy decoder order and the unclamped
+    CDF rate).
+
+Both ``packed_io`` values and both ``after_i`` values run. Module names are
+the JAX package's, so ``utils/weights.load_flax_params`` maps each
+variant's params tree key for key.
 
 Temporal redundancy flows through the decoded feature of the previous frame
 (the DPB) into FeatureExtractor -> (ctx, ctx_t). Every DepthConvBlock runs
 through the hand-written kernels on the card: adaptor-free runs of blocks
 (feature extractor 2 + 4, encoder tail 2 with the quant step folded in,
 decoder 2, prior fusion 3) as one chained launch each, the rest one launch
-per block. Rates are estimated, not entropy-coded.
+per block. ``forward`` estimates the rates; ``coding/codec.py`` codes
+them.
 """
 
 from __future__ import annotations
@@ -20,15 +32,18 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..config import DMCConfig
 from ..layers.blocks import (Conv, DepthConvBlock, PatchDownConv,
                              PatchUpConv, ResidualBlockUpsample,
                              ResidualBlockWithStride2, SubpelConv2x,
-                             run_chain)
+                             run_chain, wsilu)
 from ..layers.quant import noise_quant, ste_round
-from .common import bpp_from_bits, compress_prior_2x, compute_dtype
-from .entropy import BitEstimator, gaussian_bits
+from ..ops.pixel import pixel_shuffle, pixel_unshuffle
+from .common import (bpp_from_bits, check_card_dtype, compress_prior_2x,
+                     compute_dtype, pad_for_y)
+from .entropy import BitEstimator, gaussian_bits, gaussian_bits_cdf
 
 
 class FeatureExtractor(nn.Module):
@@ -56,7 +71,8 @@ class FeatureExtractor(nn.Module):
 
 class Encoder(nn.Module):
     """[unshuffle(8)] -> 1x1 -> DCB over (x, ctx) -> 2 DCB (* quant step)
-    -> 3x3 stride-2 conv to ch_y."""
+    -> 3x3 stride-2 conv to ch_y. The last block is ``conv3`` in the legacy
+    (``old``) naming, ``conv2_2`` otherwise."""
 
     def __init__(self, cfg: DMCConfig, **kw):
         super().__init__()
@@ -65,32 +81,45 @@ class Encoder(nn.Module):
                       PatchDownConv(3, d, cfg.patch_size, **kw))
         self.conv2_0 = DepthConvBlock(d, in_ch=(d, d), **kw)
         self.conv2_1 = DepthConvBlock(d, **kw)
-        self.conv2_2 = DepthConvBlock(d, **kw)
+        self.last = "conv3" if cfg.legacy_old else "conv2_2"
+        setattr(self, self.last, DepthConvBlock(d, **kw))
         self.down = Conv(d, cfg.ch_y, 3, stride=2, padding=1, **kw)
 
     def forward(self, x, ctx, quant_step):
         f = self.conv2_0((self.conv1(x), ctx))
-        f = run_chain(f, (self.conv2_1, self.conv2_2), q_last=quant_step)
+        f = run_chain(f, (self.conv2_1, getattr(self, self.last)),
+                      q_last=quant_step)
         return self.down(f)
 
 
 class Decoder(nn.Module):
-    """up -> * quant step -> DCB over (f, ctx) -> 2 DCB -> 1x1."""
+    """Refactor order: up -> * quant step -> DCB over (f, ctx) -> 2 DCB ->
+    1x1 ``proj``. Legacy order (``old``): up -> DCB over (f, ctx)
+    (``conv1_0``) -> 2 DCB (``conv1_1..2``) -> 1x1 ``conv2`` -> * quant
+    step."""
 
     def __init__(self, cfg: DMCConfig, **kw):
         super().__init__()
         d = cfg.ch_d
+        self.legacy = cfg.legacy_old
         self.recon_residual = cfg.recon_residual
         self.up = SubpelConv2x(cfg.ch_y, d, 3, padding=1, **kw)
-        self.conv_0 = DepthConvBlock(d, in_ch=(d, d), **kw)
-        self.conv_1 = DepthConvBlock(d, **kw)
-        self.conv_2 = DepthConvBlock(d, **kw)
-        self.proj = Conv(d, d, **kw)
+        self.names = (("conv1_0", "conv1_1", "conv1_2", "conv2")
+                      if self.legacy else ("conv_0", "conv_1", "conv_2",
+                                           "proj"))
+        setattr(self, self.names[0], DepthConvBlock(d, in_ch=(d, d), **kw))
+        setattr(self, self.names[1], DepthConvBlock(d, **kw))
+        setattr(self, self.names[2], DepthConvBlock(d, **kw))
+        setattr(self, self.names[3], Conv(d, d, **kw))
 
     def forward(self, x, ctx, quant_step):
-        f = self.up(x) * quant_step
-        f = self.conv_0((f, ctx))
-        f = self.proj(run_chain(f, (self.conv_1, self.conv_2)))
+        first, b1, b2, head = (getattr(self, n) for n in self.names)
+        f = self.up(x)
+        if not self.legacy:
+            f = f * quant_step
+        f = head(run_chain(first((f, ctx)), (b1, b2)))
+        if self.legacy:
+            f = f * quant_step
         return f + ctx if self.recon_residual else f
 
 
@@ -199,25 +228,74 @@ class SFT(nn.Module):
         return self.down(x * q_sft).chunk(2, dim=-1)
 
 
+class MaskFiLM(nn.Module):
+    """Light mask FiLM of ``fast`` and ``mask_prop``: 3x3 conv to ``mid``
+    -> ReLU -> 1x1 to 2*ch_y -> (gamma, beta)."""
+
+    def __init__(self, ch_y: int, mid: int = 16, **kw):
+        super().__init__()
+        self.net_0 = Conv(1, mid, 3, padding=1, **kw)
+        self.net_2 = Conv(mid, ch_y * 2, **kw)
+
+    def forward(self, m):
+        return self.net_2(F.relu(self.net_0(m))).chunk(2, dim=-1)
+
+
+def resize_bilinear(x: torch.Tensor, height: int, width: int
+                    ) -> torch.Tensor:
+    """Bilinear resize of an NHWC tensor, antialiased when it shrinks (as
+    ``jax.image.resize`` does), computed in fp32 and returned in x's
+    dtype."""
+    shrink = height < x.shape[1] or width < x.shape[2]
+    out = F.interpolate(x.float().permute(0, 3, 1, 2), size=(height, width),
+                        mode="bilinear", align_corners=False,
+                        antialias=shrink)
+    return out.permute(0, 2, 3, 1).contiguous().to(x.dtype)
+
+
+class MaskPredictor(nn.Module):
+    """Decoder-side mask propagation of ``mask_prop``: the previous mask
+    resized to the context's resolution, embedded, fused with (ctx, ctx_t),
+    mask logits predicted and resized back."""
+
+    def __init__(self, cfg: DMCConfig, **kw):
+        super().__init__()
+        d = cfg.ch_d
+        mid = d // 4
+        self.mask_embed = Conv(1, d, 3, padding=1, **kw)
+        self.net_0 = Conv(3 * d, mid, 3, padding=1, **kw)
+        self.net_2 = Conv(mid, mid, 3, padding=1, **kw)
+        self.net_4 = Conv(mid, 1, **kw)
+        self.dtype = kw["dtype"]
+
+    def forward(self, prev_mask, ctx, ctx_t):
+        hm, wm = prev_mask.shape[1], prev_mask.shape[2]
+        hf, wf = ctx.shape[1], ctx.shape[2]
+        m = self.mask_embed(resize_bilinear(prev_mask, hf, wf))
+        fused = torch.cat([m, ctx.to(self.dtype), ctx_t.to(self.dtype)],
+                          dim=-1)
+        x = wsilu(self.net_0(fused))
+        logits = self.net_4(wsilu(self.net_2(x)))
+        if (hf, wf) != (hm, wm):
+            logits = resize_bilinear(logits, hm, wm)
+        return logits
+
+
 class DMC(nn.Module):
-    """The P-frame codec. ``device`` defaults to "cuda"; pass "cpu" to run
-    the plain versions. Weights are loaded, not drawn
-    (``utils/weights.py``)."""
+    """The P-frame codec, every variant of ``DMCConfig.variant``.
+    ``device`` defaults to "cuda"; pass "cpu" to run the plain versions.
+    On the card the config's dtype must be bfloat16. Weights are loaded,
+    not drawn (``utils/weights.py``)."""
 
     def __init__(self, cfg: DMCConfig = DMCConfig(), device="cuda"):
         super().__init__()
-        if (cfg.mask_mode != "sft_latent" or cfg.mask_source != "gt"
-                or cfg.legacy_old):
-            raise NotImplementedError(
-                "the port runs the performance variant only so far "
-                f"(mask_mode={cfg.mask_mode!r}, mask_source="
-                f"{cfg.mask_source!r}, legacy_old={cfg.legacy_old})")
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("DMC: no CUDA device is available; pass "
                                "device='cpu' to run the plain versions")
         self.cfg = cfg
         self.dtype = compute_dtype(cfg.dtype)
+        check_card_dtype("DMC", device, self.dtype)
         kw = dict(dtype=self.dtype, device=device)
         c = cfg
         d = c.ch_d
@@ -236,12 +314,17 @@ class DMC(nn.Module):
         self.y_spatial_prior = SpatialPrior(c, **kw)
         self.decoder = Decoder(c, **kw)
         self.recon_generation_net = ReconGeneration(c, **kw)
-        self.mask_sft = SFT(c, **kw)
 
         def table(ch):
             return nn.Parameter(torch.ones(qp_total, ch, device=device))
 
-        self.q_sft = table(d)
+        if c.mask_mode == "sft_latent":
+            self.mask_sft = SFT(c, **kw)
+            self.q_sft = table(d)
+        elif c.mask_mode == "film_hyper":
+            self.mask_film = MaskFiLM(c.ch_y, **kw)
+        if c.mask_source == "propagated":
+            self.mask_predictor = MaskPredictor(c, **kw)
         self.q_encoder = table(d)
         self.q_decoder = table(d)
         self.q_feature = table(d)
@@ -249,9 +332,28 @@ class DMC(nn.Module):
         self.z_gain = nn.Parameter(torch.ones(c.ch_z, device=device))
         self.bit_estimator_z = BitEstimator(qp_total, c.ch_z, device=device)
 
-    def hyper_z(self, y: torch.Tensor) -> torch.Tensor:
-        """Hyper analysis with the bootstrap z gain."""
-        return self.hyper_encoder(y) * self.z_gain.to(self.dtype)
+    def shift_qp(self, qp, fa_idx):
+        """qp + qp_shift[fa_idx]: the QP of a frame at GOP position class
+        ``fa_idx``."""
+        return qp + self.cfg.qp_shift[fa_idx]
+
+    def predict_mask(self, prev_mask, ctx, ctx_t):
+        """Decoder-side mask propagation. With packed io the 1-channel mask
+        circulates pixel-unshuffled: it is shuffled back to raw resolution
+        for the predictor's resizes and its logits unshuffled again (a
+        lossless permutation either way)."""
+        c = self.cfg
+        if c.packed_io:
+            raw = pixel_shuffle(prev_mask, c.patch_size)
+            return pixel_unshuffle(self.mask_predictor(raw, ctx, ctx_t),
+                                   c.patch_size)
+        return self.mask_predictor(prev_mask, ctx, ctx_t)
+
+    def hyper_z(self, y: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """Hyper analysis of the variant's hyper input, with the bootstrap
+        z gain: one definition for the estimated and the coded path."""
+        return (self.hyper_encoder(self._hyper_input(y, mask))
+                * self.z_gain.to(self.dtype))
 
     def res_prior_param_decoder(self, z_hat, ctx_t):
         hierarchical = self.hyper_decoder(z_hat)
@@ -259,19 +361,63 @@ class DMC(nn.Module):
         h, w = temporal.shape[1], temporal.shape[2]
         return self.y_prior_fusion((hierarchical[:, :h, :w, :], temporal))
 
+    @staticmethod
+    def _mask_to_latent_res(mask, y):
+        """Average-pool the mask to y's spatial size (integer ratio), clamped
+        to [0, 1]."""
+        b, hm, wm, _ = mask.shape
+        hy, wy = y.shape[1], y.shape[2]
+        fh, fw = hm // hy, wm // wy
+        m = mask[:, :hy * fh, :wy * fw, :].reshape(b, hy, fh, wy, fw, 1)
+        return torch.clamp(m.mean(dim=(2, 4)), 0.0, 1.0)
+
+    def _hyper_input(self, y, mask):
+        """The variant's hyper-encoder input: y itself (performance, already
+        SFT-modulated), y padded to a multiple of 4 and FiLM-modulated by
+        the pooled mask (fast, mask_prop), or y padded (plain, old)."""
+        c = self.cfg
+        if c.mask_mode == "film_hyper":
+            y_pad = pad_for_y(y)
+            if c.packed_io:
+                # the channel mean of the packed mask is its 8x8 block mean
+                mask = mask.mean(dim=-1, keepdim=True)
+            m = self._mask_to_latent_res(mask, y)
+            pad_b = y_pad.shape[1] - y.shape[1]
+            pad_r = y_pad.shape[2] - y.shape[2]
+            if pad_b or pad_r:
+                m = F.pad(m, (0, 0, 0, pad_r, 0, pad_b))
+            gamma, beta = self.mask_film(m)
+            return y_pad * (1.0 + gamma) + beta
+        if c.mask_mode == "sft_latent":
+            return y
+        return pad_for_y(y)
+
+    def _split_input(self, x, mask):
+        """(x, mask) with the mask defaulted to zeros; a raw 4-channel x
+        carries the mask in channel 3."""
+        c = self.cfg
+        if not c.packed_io and x.shape[-1] > 3:
+            if mask is None:
+                mask = x[..., 3:4].contiguous()
+            x = x[..., :3].contiguous()
+        if mask is None:
+            mask_ch = c.patch_size ** 2 if c.packed_io else 1
+            mask = torch.zeros(x.shape[:3] + (mask_ch,), dtype=x.dtype,
+                               device=x.device)
+        return x, mask
+
     @torch.no_grad()
     def forward(self, x: torch.Tensor, qp, dpb: Dict[str, torch.Tensor],
                 after_i: bool = True, mask: Optional[torch.Tensor] = None,
                 train: bool = False,
                 generator: Optional[torch.Generator] = None):
-        """x: (B, H, W, 3), or (B, H/8, W/8, 192) with packed_io; mask
-        likewise with 1 or 64 channels; qp: int. Returns {'dpb': {'frame',
-        'feature'}, 'bpp', 'bpp_y', 'bpp_z', 'mask_pred'}."""
+        """x: (B, H, W, 3) (or 4 with the mask in channel 3), or (B, H/8,
+        W/8, 192) with packed_io; mask likewise with 1 or 64 channels; qp:
+        int. Returns {'dpb': {'frame', 'feature'}, 'bpp', 'bpp_y', 'bpp_z',
+        'mask_pred'}; mask_pred is the predicted mask logits (mask_prop) or
+        None."""
         c = self.cfg
-        if mask is None:
-            mask_ch = c.patch_size ** 2 if c.packed_io else 1
-            mask = torch.zeros(x.shape[:3] + (mask_ch,), dtype=x.dtype,
-                               device=x.device)
+        x, mask = self._split_input(x, mask)
 
         take = lambda t: t[qp].reshape(1, 1, 1, -1).to(self.dtype)
         q_encoder = take(self.q_encoder)
@@ -284,10 +430,17 @@ class DMC(nn.Module):
         ctx, ctx_t = self.feature_extractor(feature, q_feature)
         y = self.encoder(x, ctx, q_encoder)
 
-        gamma, beta = self.mask_sft(mask, take(self.q_sft))
-        y = y * (1.0 + gamma) + beta
+        mask_pred = None
+        if c.mask_source == "propagated":
+            # after the first P-frame the prediction replaces the mask
+            mask_pred = self.predict_mask(mask, ctx, ctx_t)
+            if not after_i:
+                mask = mask_pred
+        if c.mask_mode == "sft_latent":
+            gamma, beta = self.mask_sft(mask, take(self.q_sft))
+            y = y * (1.0 + gamma) + beta
 
-        z = self.hyper_z(y)
+        z = self.hyper_z(y, mask)
         z_hat = ste_round(z)
         z_hat_write = noise_quant(z, generator, train)
 
@@ -306,9 +459,12 @@ class DMC(nn.Module):
         scales_for_bit = (torch.clamp(prior.scales_hat,
                                       min=c.bits_sigma_floor)
                           if c.bits_sigma_floor else prior.scales_hat)
-        # the coder's symbol domain is +-127
-        y_for_bit = torch.clamp(prior.y_q_hat_write, -127.0, 127.0)
-        bits_y = gaussian_bits(y_for_bit, scales_for_bit)
+        if c.legacy_old:
+            bits_y = gaussian_bits_cdf(prior.y_q_hat_write, scales_for_bit)
+        else:
+            # the coder's symbol domain is +-127
+            y_for_bit = torch.clamp(prior.y_q_hat_write, -127.0, 127.0)
+            bits_y = gaussian_bits(y_for_bit, scales_for_bit)
         bits_z = self.bit_estimator_z.bits(z_hat_write, qp)
         bpp_y = bpp_from_bits(bits_y, pixel_num)
         bpp_z = bpp_from_bits(bits_z, pixel_num)
@@ -317,5 +473,5 @@ class DMC(nn.Module):
             "bpp": bpp_y + bpp_z,
             "bpp_y": bpp_y,
             "bpp_z": bpp_z,
-            "mask_pred": None,
+            "mask_pred": mask_pred,
         }

@@ -11,7 +11,8 @@ Every DepthConvBlock runs through the single-block kernel on the card (42
 launches per frame at the full profile); the I-frame codec has no chain
 site. The ``* quant_step`` after ``enc.enc_1`` and after ``dec.dec_1_12``
 is folded into that block's q: the same in fp32, one bf16 rounding fewer on
-the card. Rates are estimated, not entropy-coded.
+the card. ``forward`` estimates the rates; ``coding/codec.py`` codes
+them through the same ``transform_analysis`` and ``prior_params``.
 """
 
 from __future__ import annotations
@@ -26,8 +27,8 @@ from ..layers.blocks import (Conv, DepthConvBlock, ResidualBlockUpsample,
                              ResidualBlockWithStride2)
 from ..layers.quant import noise_quant, ste_round
 from ..ops.pixel import pixel_shuffle
-from .common import (bpp_from_bits, compress_prior_4x, compute_dtype,
-                     pad_for_y)
+from .common import (bpp_from_bits, check_card_dtype, compress_prior_4x,
+                     compute_dtype, pad_for_y)
 from .entropy import BitEstimator, gaussian_bits_cdf
 
 
@@ -73,8 +74,8 @@ class IntraDecoder(nn.Module):
 
 class DMCI(nn.Module):
     """The I-frame codec. ``device`` defaults to "cuda"; pass "cpu" to run
-    the plain versions. Weights are loaded, not drawn
-    (``utils/weights.py``)."""
+    the plain versions. On the card the config's dtype must be bfloat16.
+    Weights are loaded, not drawn (``utils/weights.py``)."""
 
     def __init__(self, cfg: DMCIConfig = DMCIConfig(), device="cuda"):
         super().__init__()
@@ -84,6 +85,7 @@ class DMCI(nn.Module):
                                "device='cpu' to run the plain versions")
         self.cfg = c = cfg
         self.dtype = compute_dtype(cfg.dtype)
+        check_card_dtype("DMCI", device, self.dtype)
         kw = dict(dtype=self.dtype, device=device)
         n, z = c.N, c.z_channel
         self.enc = IntraEncoder(c, **kw)
@@ -134,28 +136,36 @@ class DMCI(nn.Module):
             self.y_spatial_prior_0(x)))
         return self.y_spatial_prior_3(x)
 
+    def transform_analysis(self, x, qp):
+        """Source frame -> (y, q_dec): the analysis with q_scale_enc folded
+        into enc_1's q, and the per-QP decoder scale for ``dec``."""
+        take = lambda t: t[qp].reshape(1, 1, 1, -1).to(self.dtype)
+        return self.enc(x, take(self.q_scale_enc)), take(self.q_scale_dec)
+
+    def prior_params(self, z_hat, y_shape):
+        """z_hat -> the fused prior params, cropped to y's spatial size."""
+        params = self.y_prior_fusion(self.hyper_dec(z_hat))
+        return params[:, :y_shape[1], :y_shape[2], :]
+
     @torch.no_grad()
     def forward(self, x: torch.Tensor, qp, train: bool = False,
                 generator: Optional[torch.Generator] = None):
         """x: (B, H, W, 3) YCbCr in [0, 1]; qp: int. Returns {'dpb':
         {'frame', 'feature': None}, 'bpp', 'bpp_y', 'bpp_z'}."""
-        take = lambda t: t[qp].reshape(1, 1, 1, -1).to(self.dtype)
-        y = self.enc(x, take(self.q_scale_enc))
+        y, q_dec = self.transform_analysis(x, qp)
         # the hyper path sees y replicate-padded to a multiple of 4; its
         # prior params are cropped back to y's size
         z = self.hyper_enc(pad_for_y(y))
         z_hat = ste_round(z)
         z_hat_write = noise_quant(z, generator, train)
-        params = self.y_prior_fusion(self.hyper_dec(z_hat))
-        params = params[:, :y.shape[1], :y.shape[2], :]
+        params = self.prior_params(z_hat, y.shape)
         prior = compress_prior_4x(
             y, params, self.y_spatial_prior_reduction,
             (self.y_spatial_prior_adaptor_1, self.y_spatial_prior_adaptor_2,
              self.y_spatial_prior_adaptor_3),
             self.y_spatial_prior, generator, train)
 
-        x_hat = torch.clamp(self.dec(prior.y_hat, take(self.q_scale_dec)),
-                            0.0, 1.0)
+        x_hat = torch.clamp(self.dec(prior.y_hat, q_dec), 0.0, 1.0)
 
         pixel_num = x.shape[1] * x.shape[2]
         # no sigma floor and no symbol clamp here, unlike the P-frame codec

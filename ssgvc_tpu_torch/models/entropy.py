@@ -89,7 +89,8 @@ def gaussian_bits_cdf(y: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
 
 class Bitparm(nn.Module):
     """One factorized-CDF layer: x*softplus(h)+b (+ tanh(x)*tanh(a) unless
-    final); params (qp_num, channel), ``index`` picks the row."""
+    final); params (qp_num, channel), ``index`` picks the row (an int), or
+    one row per sample (a 1-D tensor)."""
 
     def __init__(self, qp_num: int, channel: int, final: bool = False, *,
                  device="cuda"):
@@ -101,7 +102,7 @@ class Bitparm(nn.Module):
                   else nn.Parameter(torch.zeros(shape, device=device)))
 
     def forward(self, x: torch.Tensor, index) -> torch.Tensor:
-        row = lambda p: p[index].float().reshape(1, 1, 1, -1)
+        row = lambda p: p[index].float().reshape(-1, 1, 1, p.shape[-1])
         x = x * F.softplus(row(self.h)) + row(self.b)
         if self.a is None:
             return x

@@ -1,7 +1,10 @@
-"""GOP evaluation on the estimated-rate path: the I-frame codec on frame 0,
-the P-frame codec on the rest, carrying the DPB, with per-frame bpp, PSNR,
-ROI-PSNR (inside the segmentation mask) and MS-SSIM. Rates are estimated,
-not entropy-coded; the metrics run on the host, in RGB.
+"""GOP evaluation: the I-frame codec on frame 0, the P-frame codec on the
+rest, carrying the DPB, with per-frame bpp, PSNR, ROI-PSNR (inside the
+segmentation mask) and MS-SSIM, on the estimated-rate path
+(``evaluate_gop_estimated``) or through the real coder
+(``evaluate_gop_coded``, bpp from the stream's bytes); RD curves over QPs
+(``rd_sweep``) and the Bjontegaard deltas between two curves (``bd_rate``,
+``bd_psnr``). The metrics run on the host, in RGB.
 """
 
 from __future__ import annotations
@@ -69,6 +72,63 @@ def evaluate_gop_estimated(dmci, dmc, frames, masks, qp: int,
     return results
 
 
+def evaluate_gop_coded(codec, frames, masks, qp: int,
+                       index_map: Sequence[int],
+                       qp_shift: Sequence[int]) -> List[Dict]:
+    """GOP rollout through the real coder: ``codec`` is a
+    ``coding.codec.VideoCodec``; bpp comes from the stream's bytes, and
+    every decoded frame must equal the encoder's reconstruction bit for bit
+    (AssertionError otherwise). frames / masks as for
+    ``evaluate_gop_estimated``."""
+    h, w = frames.shape[1:3]
+    pixel_num = h * w
+    dev = lambda a: torch.from_numpy(np.asarray(a, np.float32))[None].to(
+        codec.device)
+    host = lambda t: t[0].float().cpu().numpy()
+
+    def same(enc, dec, what):
+        if not torch.equal(enc, dec):
+            raise AssertionError(f"{what}: the decoder's output differs "
+                                 "from the encoder's")
+
+    results = []
+    enc = codec.dmci_compress(dev(frames[0]), qp)
+    dec = codec.dmci_decompress(enc["bit_stream"], h, w, qp)
+    same(enc["x_hat"], dec["x_hat"], "I-frame")
+    results.append(_frame_metrics(
+        "I", len(enc["bit_stream"]) * 8 / pixel_num, frames[0],
+        host(dec["x_hat"]), masks[0], enc_time=codec.enc_time,
+        dec_time=codec.dec_time))
+
+    feat0 = torch.zeros((1, h // 8, w // 8, codec.dmc.cfg.ch_d),
+                        dtype=codec.dmc.dtype, device=codec.device)
+    dpb_e = {"frame": enc["x_hat"], "feature": feat0}
+    dpb_d = {"frame": dec["x_hat"], "feature": feat0}
+    # mask_prop: both sides carry the mask chain, GT only at the first
+    # P-frame
+    propagated = codec.dmc.cfg.mask_source == "propagated"
+    m_e = m_d = None
+    for t in range(1, frames.shape[0]):
+        curr_qp = qp + qp_shift[index_map[t % len(index_map)]]
+        m = dev(masks[t])
+        out = codec.dmc_compress(dev(frames[t]), curr_qp, dpb_e,
+                                 after_i=(t == 1),
+                                 mask=m_e if m_e is not None else m)
+        dec = codec.dmc_decompress(
+            out["bit_stream"], h, w, curr_qp, dpb_d, after_i=(t == 1),
+            mask=(m_d if m_d is not None else m) if propagated else None)
+        same(out["x_hat"], dec["x_hat"], f"P-frame {t}")
+        if propagated:
+            m_e, m_d = out["mask_out"], dec["mask_out"]
+            same(m_e, m_d, f"P-frame {t} mask")
+        results.append(_frame_metrics(
+            "P", len(out["bit_stream"]) * 8 / pixel_num, frames[t],
+            host(dec["x_hat"]), masks[t], enc_time=codec.enc_time,
+            dec_time=codec.dec_time))
+        dpb_e, dpb_d = out["dpb"], dec["dpb"]
+    return results
+
+
 def _frame_metrics_fast(bpp: float, ref_ycbcr, rec_ycbcr, mask) -> Dict:
     """PSNR and ROI-PSNR only."""
     ref_rgb = ycbcr2rgb_np(np.asarray(ref_ycbcr))
@@ -94,3 +154,56 @@ def _frame_metrics(frame_type: str, bpp: float, ref_ycbcr, rec_ycbcr, mask,
         "enc_time": enc_time,
         "dec_time": dec_time,
     }
+
+
+def rd_sweep(eval_fn, qps: Sequence[int]) -> Dict[str, List[float]]:
+    """eval_fn(qp) -> per-frame results; aggregates the P-frames (all
+    frames if there is none) into an RD curve."""
+    curve = {"qp": [], "bpp": [], "psnr": [], "roi_psnr": [], "msssim": []}
+    for qp in qps:
+        results = eval_fn(qp)
+        p_frames = [r for r in results if r["frame_type"] == "P"] or results
+        curve["qp"].append(qp)
+        curve["bpp"].append(float(np.mean([r["bpp"] for r in p_frames])))
+        curve["psnr"].append(float(np.mean([r["psnr"] for r in p_frames])))
+        curve["roi_psnr"].append(
+            float(np.mean([r["roi_psnr"] for r in p_frames])))
+        ms = [r["msssim"] for r in p_frames if r["msssim"] is not None]
+        curve["msssim"].append(float(np.mean(ms)) if ms else None)
+    return curve
+
+
+def _bd_average(x_a, y_a, x_t, y_t) -> float:
+    """Mean of (fit_t - fit_a) over the overlap of the x ranges, each curve
+    a polynomial fit of y in x (cubic, or lower with fewer points)."""
+    order_a, order_t = np.argsort(x_a), np.argsort(x_t)
+    x_a, y_a = x_a[order_a], y_a[order_a]
+    x_t, y_t = x_t[order_t], y_t[order_t]
+    lo = max(x_a.min(), x_t.min())
+    hi = min(x_a.max(), x_t.max())
+    if hi <= lo:
+        return float("nan")
+    int_a = np.polyint(np.polyfit(x_a, y_a, min(3, len(x_a) - 1)))
+    int_t = np.polyint(np.polyfit(x_t, y_t, min(3, len(x_t) - 1)))
+    avg_a = (np.polyval(int_a, hi) - np.polyval(int_a, lo)) / (hi - lo)
+    avg_t = (np.polyval(int_t, hi) - np.polyval(int_t, lo)) / (hi - lo)
+    return float(avg_t - avg_a)
+
+
+def bd_rate(rate_anchor, psnr_anchor, rate_test, psnr_test) -> float:
+    """Bjontegaard delta rate (%) of the test curve against the anchor:
+    log-rate fitted in PSNR, averaged over the overlapping PSNR range."""
+    delta = _bd_average(np.asarray(psnr_anchor, np.float64),
+                        np.log(np.asarray(rate_anchor, np.float64)),
+                        np.asarray(psnr_test, np.float64),
+                        np.log(np.asarray(rate_test, np.float64)))
+    return float((np.exp(delta) - 1) * 100.0)
+
+
+def bd_psnr(rate_anchor, psnr_anchor, rate_test, psnr_test) -> float:
+    """Bjontegaard delta PSNR (dB): the test curve's mean quality gain over
+    the anchor at matched rate, over the overlapping log-rate range."""
+    return _bd_average(np.log(np.asarray(rate_anchor, np.float64)),
+                       np.asarray(psnr_anchor, np.float64),
+                       np.log(np.asarray(rate_test, np.float64)),
+                       np.asarray(psnr_test, np.float64))

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ssgvc_tpu_torch, and not
-chip_smoke.py, imports JAX, flax or the JAX package; and its entry points
-target the card unless asked for the CPU, with no fallback."""
+chip_smoke.py, imports JAX, flax or the JAX package, nor loads its native
+coder; its entry points target the card unless asked for the CPU, with no
+fallback, and refuse float32 on the card."""
 
 import ast
 from pathlib import Path
@@ -31,19 +32,38 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert not bad, bad
 
 
+def test_port_never_reaches_the_jax_packages_coder():
+    """The port's rANS coder is its own csrc/rans.cpp, built into its own
+    _build/: no port file names the JAX package's native directory or
+    library."""
+    files = [p for p in sorted((ROOT / "ssgvc_tpu_torch").rglob("*"))
+             if p.suffix in (".py", ".cpp", ".cu", ".cuh")]
+    files.append(ROOT / "chip_smoke.py")
+    bad = [f.relative_to(ROOT) for f in files
+           if any(s in f.read_text() for s in ("ssgvc_tpu/native",
+                                              "native/build", "librans.so"))]
+    assert not bad, bad
+    from ssgvc_tpu_torch.coding import rans
+    from ssgvc_tpu_torch.ops import _build
+
+    lib = Path(rans.get_lib()._name).resolve()
+    assert lib.parent == _build.BUILD_DIR.resolve(), lib
+    assert lib.name.startswith("librans-")
+
+
 def test_dmc_defaults_to_the_card_and_never_falls_back():
     from ssgvc_tpu_torch.config import DMCConfig
     from ssgvc_tpu_torch.models.dmc import DMC
 
-    cfg = DMCConfig.variant("performance", **dict(ch_d=32, ch_y=16, ch_z=16,
-                                                  ch_recon=32))
+    widths = dict(ch_d=32, ch_y=16, ch_z=16, ch_recon=32)
+    cfg = DMCConfig.variant("performance", dtype="bfloat16", **widths)
     if torch.cuda.is_available():
         model = DMC(cfg)
         assert next(model.parameters()).device.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="CUDA"):
             DMC(cfg)
-    model = DMC(cfg, device="cpu")
+    model = DMC(DMCConfig.variant("performance", **widths), device="cpu")
     assert next(model.parameters()).device.type == "cpu"
 
 
@@ -51,22 +71,43 @@ def test_dmci_defaults_to_the_card_and_never_falls_back():
     from ssgvc_tpu_torch.config import DMCIConfig
     from ssgvc_tpu_torch.models.dmci import DMCI
 
-    cfg = DMCIConfig(enc_dec=48, N=32, z_channel=32)
+    cfg = DMCIConfig(enc_dec=48, N=32, z_channel=32, dtype="bfloat16")
     if torch.cuda.is_available():
         model = DMCI(cfg)
         assert next(model.parameters()).device.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="CUDA"):
             DMCI(cfg)
-    model = DMCI(cfg, device="cpu")
+    model = DMCI(DMCIConfig(enc_dec=48, N=32, z_channel=32), device="cpu")
     assert next(model.parameters()).device.type == "cpu"
 
 
-def test_other_variants_are_refused_until_ported():
+def test_card_refuses_float32_up_front():
+    """DMC, DMCI and VideoCodec call this check at construction: float32
+    on the card raises (ROADMAP K3), bfloat16 on the card and any dtype on
+    the CPU pass. A CUDA-less host cannot build a CUDA model, so the check
+    itself is tested."""
+    from ssgvc_tpu_torch.models.common import check_card_dtype
+
+    with pytest.raises(TypeError, match="bfloat16 until ROADMAP K3"):
+        check_card_dtype("DMC", "cuda", torch.float32)
+    with pytest.raises(TypeError, match="K3"):
+        check_card_dtype("DMCI", torch.device("cuda", 0), torch.float32)
+    check_card_dtype("DMC", "cuda", torch.bfloat16)
+    check_card_dtype("DMC", "cpu", torch.float32)
+    check_card_dtype("DMC", "cpu", torch.bfloat16)
+
+
+@pytest.mark.parametrize("variant", ["performance", "plain", "old", "fast",
+                                     "mask_prop"])
+def test_every_variant_constructs_on_the_cpu(variant):
     from ssgvc_tpu_torch.config import DMCConfig
     from ssgvc_tpu_torch.models.dmc import DMC
 
-    for name in ("plain", "old", "fast", "mask_prop"):
-        with pytest.raises(NotImplementedError):
-            DMC(DMCConfig.variant(name, ch_d=16, ch_y=8, ch_z=8,
+    model = DMC(DMCConfig.variant(variant, ch_d=16, ch_y=8, ch_z=8,
                                   ch_recon=16), device="cpu")
+    names = {k.split(".")[0] for k in model.state_dict()}
+    assert ("mask_sft" in names) == (variant == "performance")
+    assert ("mask_film" in names) == (variant in ("fast", "mask_prop"))
+    assert ("mask_predictor" in names) == (variant == "mask_prop")
+    assert hasattr(model.encoder, "conv3") == (variant == "old")

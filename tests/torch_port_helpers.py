@@ -44,3 +44,22 @@ def jax_dmci_params(model, hw=64, seed=0):
     p = model.init(jax.random.PRNGKey(seed), x, jnp.int32(3),
                    train=False)["params"]
     return perturbed(p, seed=seed + 1)
+
+
+TINY = dict(ch_d=16, ch_y=8, ch_z=8, ch_recon=16)
+DMCI_TINY = dict(enc_dec=32, N=16, z_channel=8)
+
+
+def drawn_params(model, seed, heads):
+    """Weights for the port's ``model`` drawn from ``seed`` as
+    ``chip_smoke.random_weights`` draws them (lecun scale, the prior heads
+    in ``heads`` at 0.01 so the prior stays O(1); no flax init), loaded into
+    ``model``; returns the same params as a flax tree for the JAX
+    package."""
+    import torch
+
+    import chip_smoke
+    from ssgvc_tpu_torch.utils.weights import flax_from_state_dict
+
+    chip_smoke.random_weights(torch, model, seed, heads)
+    return flax_from_state_dict(model.state_dict())
