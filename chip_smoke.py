@@ -64,10 +64,36 @@ Phases (any failure exits non-zero and prints no result line):
      their median. Then a mask_prop GOP of
      I + 2 P through coding.session.CodingSession and an in-memory file:
      the decoded frames and the decoder's mask chain equal the encoder's.
+ 11. batch: both forward kernels at every training shape with B = 4
+     against their plain versions (relative Frobenius error <= 1e-2) and
+     against four B = 1 launches, bit for bit, timed beside them;
+ 12. backward kernels: each kernel of ops/dcb_grad.py (csrc/dcb_bwd.cu)
+     at every shape a training micro-step gives it, B = 4, against its
+     plain version on the same inputs, timed with CUDA events beside its
+     bound (bytes) and the library call that computes the same function,
+     where there is one; the per-micro-step sums weigh each shape's time
+     by its launches counted in phase 13 (a shape counted there and not
+     timed here fails);
+ 13. training: training.trainer.Trainer with the default TrainConfig
+     (performance variant, full profile, bf16-mixed, accumulation_steps 8,
+     clip 5.0, AdamW), fresh calibrated weights from --seed, TRAIN_STEPS
+     micro-steps on data.device_synth.synth_batch(B=4, 128x128, T=4) on the
+     card: every loss finite, the parameters unchanged through micro-step
+     7 and changed at 8, every DepthConvBlock parameter's gradient finite
+     and nonzero, every kernel's launches per micro-step counted (counts
+     set to 0 just before each micro-step, read just after), ms per
+     micro-step (CUDA events, median of steps 3-10), peak memory; then
+     validate on VAL_BATCHES batches, one train_step each of mask_prop
+     with mask_train and of constraint_opt; then the card's bf16 gop_loss
+     and gradient against the CPU port's fp32 on the same weights (full
+     width, recon_residual, 128x128, B = 2, train=False): loss within
+     5e-2, gradient cosine >= XTRAIN_COSINE to the CPU's fp32 one and >=
+     XTRAIN_KERNEL_COSINE to the CPU port's own bf16 one (the same
+     rounding points, so what is left is the card's kernels).
 
 The last lines are JSON objects: {"main_path": ...}, {"variants": ...},
-{"coded": ...}, {"kernels": [...]}, and last {"ok": true, "device":
-{"platform": "gpu", "kind": ..., "count": ...}}.
+{"coded": ...}, {"training": ...}, {"kernels": [...]}, and last {"ok":
+true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
@@ -145,6 +171,56 @@ CHAIN_SHAPES = [
     (68, 120, 384, 3, False, 1, "y_prior_fusion.conv_0..2"),
 ]
 
+# Training (phases 11-13): the default TrainConfig's batch, crop and GOP
+TRAIN_B, TRAIN_HW, TRAIN_T = 4, 128, 4
+TRAIN_STEPS = 10             # micro-steps; accumulation_steps is 8
+TRAIN_TIMED = slice(2, 10)   # ms per micro-step: the median of steps 3-10
+VAL_BATCHES = 2
+BWD_FP32_TOL = 1e-4          # backward kernel vs plain, fp32 outputs
+# Training cross-check, gradient cosine limits: the card's bf16 against
+# the CPU port's fp32, and against the CPU port's bf16 (plain versions at
+# the same rounding points: what differs is the card's kernels and the
+# order of their sums)
+XTRAIN_COSINE = 0.98
+XTRAIN_KERNEL_COSINE = 0.99
+# Launches per training micro-step (T=4: the frozen I-frame, then three
+# P-frames, the first after the I-frame; per-frame remat runs each
+# P-frame's forward twice, and each chain's backward recomputes its
+# blocks' inputs with N - 1 single-block launches: 8 per P-frame)
+TRAIN_LAUNCHES = {"dcb": IFRAME_LAUNCHES + 2 * (19 + 18 + 18) + 3 * 8,
+                  "dcb_chain": 2 * 3 * 5, "dw_fwd": 94, "gate_bwd": 94,
+                  "dw_bwd": 94, "grad_reduce": 94}
+# The shapes a micro-step's block backwards give their kernels (B = 4,
+# 128x128 crop): (rows, cols, C, q, sites); the launches at each are
+# counted in phase 13
+BWD_SHAPES = [
+    (16, 16, 256, False, "feature_adaptor_i (frame 1), encoder.conv2_0, "
+     "mask_sft.conv2_0..2, decoder.conv_0..2, feature_extractor.*, "
+     "encoder.conv2_1"),
+    (16, 16, 256, True, "encoder.conv2_2 (the chain's last, * q)"),
+    (16, 16, 320, False, "recon_generation_net.conv_0..3"),
+    (8, 8, 128, False, "hyper_encoder.conv_0, hyper_decoder.conv_1.conv, "
+     "hyper_decoder.conv_2"),
+    (4, 4, 128, False, "hyper_encoder.conv_1.conv, "
+     "hyper_decoder.conv_0.conv"),
+    (2, 2, 128, False, "hyper_encoder.conv_2.conv"),
+    (8, 8, 256, False, "temporal_prior_encoder.conv"),
+    (8, 8, 384, False, "y_spatial_prior.conv_0..1, "
+     "y_prior_fusion.conv_0..2"),
+]
+# Forward shapes of a training micro-step, B = 4: (rows, cols, C,
+# shortcut, q) for dcb (the P-frame's, then the I-frame's), (rows, cols,
+# C, N, q) for dcb_chain
+TRAIN_SINGLE = [(16, 16, 256, False, False), (16, 16, 320, False, False),
+                (8, 8, 128, False, False), (8, 8, 128, True, False),
+                (4, 4, 128, True, False), (2, 2, 128, True, False),
+                (8, 8, 256, True, False), (8, 8, 384, False, False),
+                (16, 16, 368, False, True), (16, 16, 368, True, False),
+                (16, 16, 192, False, False), (8, 8, 512, False, False),
+                (8, 8, 256, False, False)]
+TRAIN_CHAIN = [(16, 16, 256, 2, False), (16, 16, 256, 2, True),
+               (16, 16, 256, 4, False), (8, 8, 384, 3, False)]
+
 
 def fail(msg: str) -> None:
     raise RuntimeError(msg)
@@ -163,6 +239,19 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def check_close(torch, what, out, ref, tol=REL_TOL):
+    """Fail unless ``out`` is finite and within ``tol`` of ``ref`` in
+    relative Frobenius error; returns (that error, max abs error)."""
+    diff = (out.float() - ref.float())
+    rel = float(torch.linalg.vector_norm(diff)
+                / torch.linalg.vector_norm(ref.float()))
+    if not torch.isfinite(out.float()).all():
+        fail(f"{what}: output not finite")
+    if not rel <= tol:                  # NaN (a zero reference) fails too
+        fail(f"{what} disagrees with plain: rel {rel:.3g} > {tol}")
+    return rel, float(diff.abs().max())
 
 
 def block_params(torch, c, rng, device):
@@ -209,7 +298,7 @@ def phase_build():
     from ssgvc_tpu_torch.ops import dcb as dcb_ops
 
     t0 = time.time()
-    names = ["dcb", "dcb_chain"]
+    names = ["dcb", "dcb_chain", "dcb_bwd"]
     logs = _build.build(names)
     print(f"build: {time.time() - t0:.1f} s")
     for name in names:
@@ -231,7 +320,7 @@ def phase_build():
     print("  [dcb, dcb_chain] dynamic shared memory, any N: " + ", ".join(
         f"C={c} {dcb_ops.smem_bytes(c)} B" for c in dcb_ops.DCB_CHANNELS))
     cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
-    for name in names:
+    for name in ("dcb", "dcb_chain"):    # the backward kernels are SIMT
         sass = subprocess.run([str(cuobjdump), "-sass",
                                str(_build._lib_path(name))],
                               capture_output=True, text=True,
@@ -270,16 +359,6 @@ def phase_kernels(torch, seed, card, prev=None):
     rng = np.random.default_rng(seed)
     bf16 = torch.bfloat16
 
-    def check(what, out, ref):
-        diff = (out.float() - ref.float())
-        rel = float(torch.linalg.vector_norm(diff)
-                    / torch.linalg.vector_norm(ref.float()))
-        if not torch.isfinite(out.float()).all():
-            fail(f"{what}: output not finite")
-        if rel > REL_TOL:
-            fail(f"{what} disagrees with plain: rel {rel:.3g} > {REL_TOL}")
-        return rel, float(diff.abs().max())
-
     def inputs(h, w, c, n, with_q):
         x = torch.tensor(rng.standard_normal((1, h, w, c)), dtype=bf16,
                          device=dev)
@@ -302,11 +381,11 @@ def phase_kernels(torch, seed, card, prev=None):
         (prev,) middle, reversed middle (, prev)."""
         outs = {k: fn() for k, fn in fns.items()}
         torch.cuda.synchronize()
-        rel, max_err = check(f"{what} at {(h, w, c, n)}", outs["kernel"],
-                             ref)
+        rel, max_err = check_close(torch, f"{what} at {(h, w, c, n)}",
+                                   outs["kernel"], ref)
         for k in ("seq", "prev"):
             if k in outs:
-                check(f"{k} at {(h, w, c, n)}", outs[k], ref)
+                check_close(torch, f"{k} at {(h, w, c, n)}", outs[k], ref)
         order = middle + middle[::-1]
         if "prev" in fns:
             order = ["prev"] + order + ["prev"]
@@ -423,6 +502,10 @@ def phase_kernels(torch, seed, card, prev=None):
 #: The prior heads that emit (q, scales, means), per codec.
 DMC_HEADS = {("y_prior_fusion", "conv_3"), ("y_spatial_prior", "conv_2")}
 DMCI_HEADS = {("y_prior_fusion_3",), ("y_spatial_prior_3",)}
+#: The training cross-check's: also the recon head, so that with
+#: recon_residual the reconstruction is the previous frame plus a small
+#: correction, not a random head's output saturating the [0, 1] clamp
+TRAIN_HEADS = DMC_HEADS | {("recon_generation_net", "head")}
 
 
 def random_weights(torch, model, seed, heads=DMC_HEADS):
@@ -1136,6 +1219,475 @@ def phase_coded(torch, seed, card, iframe, main, gop, mask_prop_state):
                                        launches=mp_launches))
 
 
+def phase_batch(torch, seed, card):
+    """Both forward kernels at the training shapes: one launch on a batch
+    of TRAIN_B images against the plain version (REL_TOL) and against
+    TRAIN_B launches on one image each, bit for bit, both timed. Returns
+    {kernel name: [rows]}."""
+    from ssgvc_tpu_torch.ops import dcb as dcb_ops
+    from ssgvc_tpu_torch.ops import dcb_chain as chain_ops
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(seed + 40)
+    bf16 = torch.bfloat16
+    rows = {"dcb": [], "dcb_chain": []}
+    cases = ([("dcb", h, w, c, 1, sc, q) for h, w, c, sc, q in TRAIN_SINGLE]
+             + [("dcb_chain", h, w, c, n, False, q)
+                for h, w, c, n, q in TRAIN_CHAIN])
+    for name, h, w, c, n, sc, with_q in cases:
+        x = torch.tensor(rng.standard_normal((TRAIN_B, h, w, c)), dtype=bf16,
+                         device=dev)
+        q = (torch.linspace(0.5, 1.5, c, device=dev).to(bf16) if with_q
+             else None)
+        blocks = [block_params(torch, c, rng, dev) for _ in range(n)]
+        if name == "dcb":
+            packed = dcb_ops.pack_block(blocks[0], bf16)
+            run = lambda t: dcb_ops.dcb_cuda(t, packed, q, sc)
+            plain = dcb_ops.dcb_plain(x, blocks[0], q, sc)
+        else:
+            packed = chain_ops.pack_chain(blocks, bf16)
+            run = lambda t: chain_ops.dcb_chain_cuda(t, packed, q)
+            plain = chain_ops.dcb_chain_plain(x, blocks, q)
+        ones = [x[i:i + 1].contiguous() for i in range(TRAIN_B)]
+        batched = run(x)
+        single = torch.cat([run(t) for t in ones])
+        torch.cuda.synchronize()
+        rel, max_err = check_close(
+            torch, f"{name} {TRAIN_B}x{h}x{w}x{c} n={n} sc={int(sc)} "
+            f"q={int(with_q)}", batched, plain)
+        if not torch.equal(batched, single):
+            fail(f"{name} {TRAIN_B}x{h}x{w}x{c} n={n}: the batched launch "
+                 "differs from one launch per image")
+        ms = cuda_ms(torch, lambda: run(x), 20)
+        ms1 = cuda_ms(torch, lambda: [run(t) for t in ones], 20)
+        rows[name].append(dict(shape=[TRAIN_B, h, w, c], blocks=n,
+                               shortcut=sc, q=with_q, ms=ms, b1_x_b_ms=ms1,
+                               rel_err=rel, max_abs_err=max_err))
+        print(f"  batch {name} {TRAIN_B}x{h}x{w}x{c} n={n} sc={int(sc)} "
+              f"q={int(with_q)}: vs plain rel {rel:.2e} (max abs "
+              f"{max_err:.3g}), equal bit for bit to {TRAIN_B} launches of "
+              f"B=1; B={TRAIN_B} {ms:.4f} ms, {TRAIN_B} x B=1 {ms1:.4f} ms "
+              f"[{card}]")
+    return rows
+
+
+def bwd_case(torch, rng, b, h, w, c, with_q, dev):
+    """Inputs of one block backward's kernels at a shape: fp32, dy bf16."""
+    def t(*shape, std=1.0):
+        return torch.tensor(rng.standard_normal(shape) * std,
+                            dtype=torch.float32, device=dev)
+    return dict(a0=t(b, h, w, c), taps=t(9, c, std=1 / 3), b2=t(c, std=0.1),
+                df=t(b, h, w, 2 * c), p=t(b, h, w, 4 * c),
+                dy=t(b, h, w, c).to(torch.bfloat16), dg=t(b, h, w, c),
+                du=t(b, h, w, c), q=1.0 + t(c, std=0.2) if with_q else None,
+                resid=t(b, h, w, c) if with_q else None)
+
+
+def check_backward_kernels(torch, case):
+    """Each backward kernel against its plain version on ``case``; fails
+    beyond BWD_FP32_TOL (fp32 outputs) or REL_TOL (bf16 outputs). Returns
+    {kernel: max abs error of its outputs}."""
+    from ssgvc_tpu_torch.ops import dcb_grad as dg
+
+    a0, taps, b2 = case["a0"], case["taps"], case["b2"]
+    q, resid = case["q"], case["resid"]
+    b, h, w, c = a0.shape
+    errs = {}
+
+    def cmp(kernel, what, out, ref, tol=BWD_FP32_TOL):
+        _, err = check_close(torch, f"{kernel} at {(b, h, w, c)} q="
+                             f"{q is not None}: {what}", out, ref, tol)
+        errs[kernel] = max(errs.get(kernel, 0.0), err)
+
+    bf16 = torch.bfloat16
+    cmp("dw_fwd", "g", dg.dw_fwd_cuda(a0, taps, b2, bf16),
+        dg.dw_fwd_plain(a0, taps, b2, bf16), REL_TOL)
+    cols = (dg.GATE_COLS + dg.DW_COLS) * c
+    part_k = torch.zeros(dg.partial_rows(a0), cols, device=a0.device)
+    part_p = torch.zeros(1, cols, device=a0.device)
+    kern = dg.gate_bwd_cuda(case["df"], case["p"], case["dy"], q, resid,
+                            part_k, 0)
+    plain = dg.gate_bwd_plain(case["df"], case["p"], case["dy"], q, resid,
+                              part_p, 0)
+    cmp("gate_bwd", "dp", kern[0], plain[0])
+    cmp("gate_bwd", "f", kern[1], plain[1], REL_TOL)
+    if q is not None:
+        cmp("gate_bwd", "dy * q", kern[2], plain[2])
+    col = dg.GATE_COLS * c
+    da0k = dg.dw_bwd_cuda(case["dg"], a0, taps, case["du"], part_k, col)
+    da0p = dg.dw_bwd_plain(case["dg"], a0, taps, case["du"], part_p, col)
+    cmp("dw_bwd", "da0", da0k, da0p)
+    sk = dg.grad_reduce_cuda(part_k)
+    sp = dg.grad_reduce_plain(part_p)
+    cmp("grad_reduce", "the partials' sum", sk, dg.grad_reduce_plain(part_k))
+    # each kernel's partial sums, reduced, against the plain sums
+    cmp("gate_bwd", "bias and q partial sums", sk[:col], sp[:col])
+    cmp("dw_bwd", "tap and bias partial sums", sk[col:], sp[col:])
+    return errs
+
+
+def bwd_bytes(b, h, w, c, with_q):
+    """Bytes each backward kernel must move at a shape (each input read
+    once, each output written once, partials included)."""
+    m, rows = b * h * w, -(-(b * h * w) // 8)
+    gate = 4 * m * c * (2 + 4 + 4 + 1) + 2 * m * c + 4 * rows * 6 * c
+    if with_q:
+        gate += 4 * c + 2 * 4 * m * c
+    return {"dw_fwd": 4 * m * c + 2 * m * c + 40 * c,
+            "gate_bwd": gate,
+            "dw_bwd": 4 * m * c * 4 + 36 * c + 4 * rows * 12 * c,
+            "grad_reduce": 4 * rows * 18 * c + 4 * 18 * c}
+
+
+#: What each backward kernel takes the place of: the JAX package trains
+#: through XLA's autodiff of its DepthConvBlock conv composition, so these
+#: are the lines whose gradient the kernel computes (no Pallas kernel)
+BWD_REPLACES = {"dw_fwd": "ssgvc_tpu/layers/blocks.py:491",
+                "gate_bwd": "ssgvc_tpu/layers/blocks.py:504",
+                "dw_bwd": "ssgvc_tpu/layers/blocks.py:497",
+                "grad_reduce": "ssgvc_tpu/layers/blocks.py:490"}
+
+
+def bwd_key(kernel, b, h, w, c, with_q):
+    """The operand shape ``ops.dcb_grad`` counts ``kernel``'s launches by
+    (``shape_launches``) at one block backward's shape."""
+    from ssgvc_tpu_torch.ops import dcb_grad as dg
+
+    if kernel == "gate_bwd":
+        return (b, h, w, c, with_q)
+    if kernel == "grad_reduce":
+        return (-(-(b * h * w) // dg.PIX), (dg.GATE_COLS + dg.DW_COLS) * c)
+    return (b, h, w, c)
+
+
+def phase_backward_kernels(torch, seed, card):
+    """Each backward kernel at every training shape, B = TRAIN_B, against
+    its plain version; timed beside its plain version, its bound and a
+    library call, once per operand shape it counts launches by. Returns
+    {kernel: [rows]}; :func:`backward_entries` weighs them by the launches
+    a micro-step makes at each."""
+    import torch.nn.functional as F
+
+    from ssgvc_tpu_torch.ops import dcb_grad as dg
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(seed + 50)
+    names = list(BWD_REPLACES)
+    rows = {k: [] for k in names}
+    for h, w, c, with_q, sites in BWD_SHAPES:
+        case = bwd_case(torch, rng, TRAIN_B, h, w, c, with_q, dev)
+        errs = check_backward_kernels(torch, case)
+        a0, taps, b2, q = case["a0"], case["taps"], case["b2"], case["q"]
+        cols = (dg.GATE_COLS + dg.DW_COLS) * c
+        part_k = torch.zeros(dg.partial_rows(a0), cols, device=dev)
+        part_p = torch.zeros(1, cols, device=dev)
+        col = dg.GATE_COLS * c
+        gate = (case["df"], case["p"], case["dy"], q, case["resid"])
+        dw = (case["dg"], a0, taps, case["du"])
+        wdw = taps.t().reshape(c, 1, 3, 3)
+        hn = dg.wsilu(a0).permute(0, 3, 1, 2)
+        dgn = case["dg"].permute(0, 3, 1, 2)
+        fns = {
+            "dw_fwd": (lambda: dg.dw_fwd_cuda(a0, taps, b2, torch.bfloat16),
+                       lambda: dg.dw_fwd_plain(a0, taps, b2, torch.bfloat16),
+                       # the depthwise conv alone (cuDNN), without WSiLU
+                       lambda: F.conv2d(hn, wdw, b2, padding=1, groups=c)),
+            "gate_bwd": (lambda: dg.gate_bwd_cuda(*gate, part_k, 0),
+                         lambda: dg.gate_bwd_plain(*gate, part_p, 0), None),
+            "dw_bwd": (lambda: dg.dw_bwd_cuda(*dw, part_k, col),
+                       lambda: dg.dw_bwd_plain(*dw, part_p, col),
+                       # the depthwise conv's input, tap and bias gradients
+                       # in one call, without WSiLU and the b0 / b3 sums
+                       lambda: torch.ops.aten.convolution_backward(
+                           dgn, hn, wdw, [c], [1, 1], [1, 1], [1, 1], False,
+                           [0, 0], c, [True, True, True])),
+            "grad_reduce": (lambda: dg.grad_reduce_cuda(part_k),
+                            lambda: dg.grad_reduce_plain(part_k),
+                            lambda: torch.sum(part_k, 0))}
+        nbytes = bwd_bytes(TRAIN_B, h, w, c, with_q)
+        for k in names:
+            key = bwd_key(k, TRAIN_B, h, w, c, with_q)
+            if any(r["key"] == key for r in rows[k]):
+                continue            # q changes only gate_bwd's operands
+            kern, plain, lib = fns[k]
+            r = dict(key=key, shape=[TRAIN_B, h, w, c], q=with_q,
+                     sites=sites, ms=cuda_ms(torch, kern, 20),
+                     plain_ms=cuda_ms(torch, plain, 20),
+                     library_ms=cuda_ms(torch, lib, 20) if lib else None,
+                     bytes=nbytes[k],
+                     bound_ms=1e3 * nbytes[k] / H100_BYTES_PER_S,
+                     max_abs_err=errs[k])
+            rows[k].append(r)
+            lib_txt = (f", library {r['library_ms']:.4f}" if lib else "")
+            print(f"  {k} {TRAIN_B}x{h}x{w}x{c} q={int(with_q)}: kernel "
+                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f}{lib_txt}, "
+                  f"bound {1e3 * r['bound_ms']:.2f} us ({nbytes[k]} B at "
+                  f"3.35 TB/s), max abs {r['max_abs_err']:.3g} [{card}]")
+    return rows
+
+
+def backward_entries(rows, shape_counts, card):
+    """One {"kernels"} entry per backward kernel: each timed shape's
+    numbers times the launches a training micro-step made at it
+    (``shape_counts``, phase 13), summed. Fails if the micro-step launched
+    a kernel at a shape phase 12 did not time."""
+    entries = []
+    for k, rs in rows.items():
+        counted = {key: n for (name, key), n in shape_counts.items()
+                   if name == k}
+        untimed = set(counted) - {r["key"] for r in rs}
+        if untimed:
+            fail(f"{k}: a training micro-step launched it at {sorted(untimed)}"
+                 ", shapes phase 12 did not time")
+        for r in rs:
+            r["per_step"] = counted.get(r["key"], 0)
+        per = lambda key: sum(r[key] * r["per_step"] for r in rs)
+        entries.append(dict(
+            name=k, route="cuda", source="ssgvc_tpu_torch/csrc/dcb_bwd.cu",
+            replaces=BWD_REPLACES[k], launches=sum(counted.values()),
+            max_abs_err=max(r["max_abs_err"] for r in rs), ms=per("ms"),
+            plain_ms=per("plain_ms"), bound_ms=per("bound_ms"),
+            bound_by="bytes",
+            library_ms=(per("library_ms") if rs[0]["library_ms"] is not None
+                        else None),
+            per="training micro-step: per-shape time x launches per "
+                "micro-step at that shape (counted), summed", shapes=rs))
+        print(f"  {k} launches per micro-step by shape: "
+              + ", ".join(f"{r['key']} x{r['per_step']}" for r in rs)
+              + f"; {entries[-1]['ms']:.3f} ms per micro-step [{card}]")
+    return entries
+
+
+def dcb_modules(model):
+    """(name, DepthConvBlock) of every block of ``model``."""
+    from ssgvc_tpu_torch.layers.blocks import DepthConvBlock
+
+    return [(n, m) for n, m in model.named_modules()
+            if isinstance(m, DepthConvBlock)]
+
+
+def launch_counts():
+    """Every kernel's launch count: (reset, read) functions; reset also
+    clears the backward kernels' counts by shape."""
+    from ssgvc_tpu_torch.ops import dcb as dcb_ops
+    from ssgvc_tpu_torch.ops import dcb_chain as chain_ops
+    from ssgvc_tpu_torch.ops import dcb_grad as dg
+
+    def reset():
+        dcb_ops.launches = 0
+        chain_ops.launches = 0
+        for k in dg.launches:
+            dg.launches[k] = 0
+        dg.shape_launches.clear()
+
+    def read():
+        return {"dcb": dcb_ops.launches, "dcb_chain": chain_ops.launches,
+                **dg.launches}
+    return reset, read
+
+
+def phase_train(torch, seed, card):
+    """The trainer at full width on the card: TRAIN_STEPS micro-steps of
+    the default TrainConfig, then validate, then one step each of the
+    mask_train and constraint_opt modes."""
+    from ssgvc_tpu_torch.config import TrainConfig
+    from ssgvc_tpu_torch.data.device_synth import synth_batch
+    from ssgvc_tpu_torch.ops import dcb_grad as dg
+    from ssgvc_tpu_torch.training.trainer import Trainer
+
+    reset, read = launch_counts()
+    cfg = TrainConfig()
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 30)
+    batch = lambda: synth_batch(g, batch=TRAIN_B, size=TRAIN_HW,
+                                seq_len=TRAIN_T)
+    tr = Trainer(cfg, device=DEVICE)
+    first = batch()
+    t0 = time.perf_counter()
+    state = tr.init_state(torch.Generator().manual_seed(seed), first)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = dict(tr.dmc.named_parameters())
+    start = {k: p.detach().clone() for k, p in params.items()}
+    host = np.random.default_rng(seed)
+    noise = torch.Generator().manual_seed(seed)
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses, counts = [], [], []
+    for k in range(TRAIN_STEPS):
+        b = first if k == 0 else batch()
+        qp = int(host.integers(0, 64))
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        reset()
+        e0.record()
+        state, aux = tr.train_step(state, b, qp, noise)
+        e1.record()
+        e1.synchronize()
+        counts.append(read())
+        shape_counts = dict(dg.shape_launches)
+        ms.append(e0.elapsed_time(e1))
+        row = {key: float(v) for key, v in aux.items()}
+        losses.append(row)
+        if not all(math.isfinite(v) for v in row.values()):
+            fail(f"micro-step {k + 1}: a loss or metric is not finite: {row}")
+        if counts[-1] != TRAIN_LAUNCHES:
+            fail(f"micro-step {k + 1}: launches {counts[-1]}, expected "
+                 f"{TRAIN_LAUNCHES}")
+        changed = [n for n, p in params.items()
+                   if not torch.equal(p.detach(), start[n])]
+        if k + 1 < cfg.accumulation_steps and changed:
+            fail(f"micro-step {k + 1}: parameters changed before the "
+                 f"accumulation boundary: {changed[:4]}")
+        if k + 1 == cfg.accumulation_steps:
+            n_changed = len(changed)
+            tails = [n for n in params
+                     if n.endswith(("dc_3.weight", "ffn_2.weight"))]
+            if not n_changed or any(n not in changed for n in tails):
+                fail(f"micro-step {k + 1}: the update at the accumulation "
+                     f"boundary left {len(params) - n_changed} of "
+                     f"{len(params)} parameters (tails among them) as they "
+                     "were")
+        print(f"  micro-step {k + 1} (QP {qp}): loss {row['loss']:.4f}, bpp "
+              f"{row['bpp']:.4f}, PSNR {row['psnr']:.2f} dB, {ms[-1]:.1f} ms"
+              f", {len(changed)} of {len(params)} parameters changed since "
+              f"init [{card}]")
+    peak = torch.cuda.max_memory_allocated()
+    # micro-step 10's own gradient (set by its backward; no update since 8)
+    zero, bad = [], []
+    for name, m in dcb_modules(tr.dmc):
+        for pn, p in zip(("dc_0.weight", "dc_0.bias", "dc_2.weight",
+                          "dc_2.bias", "dc_3.weight", "dc_3.bias",
+                          "ffn_0.weight", "ffn_0.bias", "ffn_2.weight",
+                          "ffn_2.bias"), m.core_params()):
+            if p.grad is None or not torch.isfinite(p.grad).all():
+                bad.append(f"{name}.{pn}")
+            elif not p.grad.abs().max() > 0:
+                zero.append(f"{name}.{pn}")
+    if bad or zero:
+        fail(f"DepthConvBlock gradients not finite: {bad[:6]}; zero: "
+             f"{zero[:6]}")
+    n_dcb = len(dcb_modules(tr.dmc))
+    step_ms = float(np.median(ms[TRAIN_TIMED]))
+    print(f"training: {TRAIN_STEPS} micro-steps B={TRAIN_B} "
+          f"{TRAIN_HW}x{TRAIN_HW} T={TRAIN_T}, {step_ms:.1f} ms per "
+          f"micro-step (CUDA events, median of steps 3-10: "
+          f"{', '.join(f'{x:.1f}' for x in ms[TRAIN_TIMED])}), peak "
+          f"{peak / 2**20:.0f} MiB allocated, init + calibration "
+          f"{init_s:.1f} s, launches per micro-step {counts[-1]}, "
+          f"{10 * n_dcb} DepthConvBlock parameter gradients finite and "
+          f"nonzero [{card}]")
+
+    # validation: no graph, no backward
+    reset()
+    val = tr.validate(state, iter([batch() for _ in range(VAL_BATCHES)]),
+                      n_batches=VAL_BATCHES, seed=seed)
+    val_counts = read()
+    want = {"dcb": VAL_BATCHES * (IFRAME_LAUNCHES + 19 + 18 + 18),
+            "dcb_chain": VAL_BATCHES * 15}
+    if not (all(math.isfinite(v) for v in val.values())
+            and {k: val_counts[k] for k in want} == want
+            and not any(val_counts[k] for k in BWD_REPLACES)):
+        fail(f"validate: metrics {val}, launches {val_counts} (expected "
+             f"{want} and no backward)")
+    print(f"  validate on {VAL_BATCHES} batches: loss {val['loss']:.4f}, "
+          f"bpp {val['bpp']:.4f}, PSNR {val['psnr']:.2f} dB, launches "
+          f"{val_counts} [{card}]")
+    del tr, state, params, start
+
+    modes = {}
+    for what, kw in (("mask_prop, mask_train", dict(dmc_variant="mask_prop",
+                                                    mask_train=True)),
+                     ("constraint_opt", dict(constraint_opt=True))):
+        other = Trainer(TrainConfig(**kw), device=DEVICE)
+        b = batch()
+        st = other.init_state(torch.Generator().manual_seed(seed), b)
+        st, aux = other.train_step(st, b, QP, noise)
+        row = {key: float(v) for key, v in aux.items()}
+        grads = [p.grad for n, p in other.dmc.named_parameters()
+                 if p.grad is not None and (not kw.get("mask_train")
+                                            or "mask_predictor" in n)]
+        if not (grads and all(math.isfinite(v) for v in row.values())
+                and all(torch.isfinite(gr).all() for gr in grads)
+                and any(gr.abs().max() > 0 for gr in grads)):
+            fail(f"train_step with {what}: metrics {row}")
+        modes[what] = row
+        print(f"  train_step with {what}: loss {row['loss']:.4f}, g_mean "
+              f"{row['g_mean']:.4f}, {len(grads)} trained gradients finite "
+              f"[{card}]")
+        del other, st
+    return dict(ms_per_micro_step=step_ms, ms_runs=ms, peak_bytes=peak,
+                init_s=init_s, launches_per_micro_step=counts[-1],
+                shape_counts=shape_counts,
+                losses=losses, val=val, val_launches=val_counts, modes=modes,
+                batch=TRAIN_B, crop=TRAIN_HW, seq_len=TRAIN_T,
+                accumulation_steps=cfg.accumulation_steps)
+
+
+def train_cross_check(torch, seed, device=DEVICE, hw=TRAIN_HW, b=2, t=3):
+    """gop_loss and its gradient at full width, train=False (STE rounding:
+    no noise), on the same weights (recon_residual, TRAIN_HEADS: an
+    unsaturated reconstruction): ``device`` in bf16 against the CPU port in
+    fp32, beside the CPU port's own bf16 (plain versions) against its fp32,
+    the gap bf16 alone opens, and the card against that CPU bf16. Passes
+    when the loss agrees with fp32 within 5e-2 and the card's gradient
+    cosine is >= XTRAIN_COSINE to fp32's and >= XTRAIN_KERNEL_COSINE to
+    the CPU bf16 one. Returns the numbers."""
+    from ssgvc_tpu_torch.config import TrainConfig
+    from ssgvc_tpu_torch.data.device_synth import synth_batch
+    from ssgvc_tpu_torch.training.trainer import Trainer
+
+    data = synth_batch(torch.Generator().manual_seed(seed + 4), batch=b,
+                       size=hw, seq_len=t, device="cpu")
+    out, states = {}, None
+    for name, dev, precision in (("cpu32", "cpu", "32"),
+                                 ("cpu16", "cpu", "bf16-mixed"),
+                                 ("card", device, "bf16-mixed")):
+        t0 = time.perf_counter()
+        tr = Trainer(TrainConfig(precision=precision, recon_residual=True),
+                     device=dev)
+        if states is None:
+            random_weights(torch, tr.dmc, seed, TRAIN_HEADS)
+            random_weights(torch, tr.dmci, seed, DMCI_HEADS)
+            states = (tr.dmc.state_dict(), tr.dmci.state_dict())
+        else:
+            tr.dmc.load_state_dict(states[0], strict=True)
+            tr.dmci.load_state_dict(states[1], strict=True)
+        loss, _ = tr.gop_loss(data["frames"].to(dev), data["masks"].to(dev),
+                              QP, torch.Generator().manual_seed(seed),
+                              train=False, eval_mode=False)
+        loss.backward()
+        grad = torch.cat([p.grad.float().reshape(-1).cpu()
+                          for p in tr.dmc.parameters()])
+        out[name] = (float(loss.detach()), grad, time.perf_counter() - t0)
+
+    def gap(a, ref):
+        (la, ga, _), (lr, gr, _) = out[a], out[ref]
+        cos = torch.dot(ga, gr) / (torch.linalg.vector_norm(ga)
+                                   * torch.linalg.vector_norm(gr))
+        return dict(loss_rel=abs(la - lr) / abs(lr), grad_cosine=float(cos),
+                    grad_rel=float(torch.linalg.vector_norm(ga - gr)
+                                   / torch.linalg.vector_norm(gr)))
+
+    r = dict(card_vs_cpu32=gap("card", "cpu32"),
+             cpu16_vs_cpu32=gap("cpu16", "cpu32"),
+             card_vs_cpu16=gap("card", "cpu16"),
+             seconds={k: v[2] for k, v in out.items()})
+    c, g, k = r["card_vs_cpu32"], r["cpu16_vs_cpu32"], r["card_vs_cpu16"]
+    print(f"cross-check training {hw}x{hw} B={b} T={t} (recon_residual): "
+          f"gop_loss card-bf16 vs cpu-fp32 rel {c['loss_rel']:.2e} (tol "
+          f"5e-2), gradient cosine {c['grad_cosine']:.5f} (tol >= "
+          f"{XTRAIN_COSINE}; rel {c['grad_rel']:.3f}); card-bf16 vs cpu-bf16"
+          f" cosine {k['grad_cosine']:.5f} (tol >= {XTRAIN_KERNEL_COSINE}; "
+          f"rel {k['grad_rel']:.3f}); the CPU's own bf16 vs fp32: loss rel "
+          f"{g['loss_rel']:.2e}, cosine {g['grad_cosine']:.5f} (rel "
+          f"{g['grad_rel']:.3f}); seconds {r['seconds']}")
+    if not (c["loss_rel"] <= 5e-2 and c["grad_cosine"] >= XTRAIN_COSINE
+            and k["grad_cosine"] >= XTRAIN_KERNEL_COSINE):
+        fail("training: the card's bf16 gop_loss or gradient is too far "
+             "from the CPU port's fp32 or bf16 one")
+    return r
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1174,6 +1726,24 @@ def main() -> int:
     signs = phase_variants_cross_check(torch, variant_states, args.seed)
     coded = phase_coded(torch, args.seed, card, iframe, main_path, gop,
                         variant_states["mask_prop"])
+    with torch.no_grad():
+        batch = phase_batch(torch, args.seed, card)
+        bwd_rows = phase_backward_kernels(torch, args.seed, card)
+    training = phase_train(torch, args.seed, card)
+    counts = training["launches_per_micro_step"]
+    backward = backward_entries(bwd_rows, training.pop("shape_counts"), card)
+    for entry in kernels:
+        entry["training"] = dict(
+            launches=counts[entry["name"]],
+            per="launches per training micro-step; B=4 shapes timed "
+                "against B launches of one image each (phase 11)",
+            shapes=batch[entry["name"]])
+    for entry in backward:
+        entry["launches"] = counts[entry["name"]]
+        if not entry["launches"]:
+            fail(f"{entry['name']}: no launch in a training micro-step")
+    kernels += backward
+    training["cross_check"] = train_cross_check(torch, args.seed)
     print(json.dumps({"main_path": {
         "ms_per_frame": main_path["ms_per_frame"],
         "ms_per_frame_runs": main_path["ms_runs"],
@@ -1190,6 +1760,7 @@ def main() -> int:
     print(json.dumps({"variants": {**variants, "mask_sign_agreement": signs,
                                    "card": card}}))
     print(json.dumps({"coded": {**coded, "card": card}}))
+    print(json.dumps({"training": {**training, "card": card}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

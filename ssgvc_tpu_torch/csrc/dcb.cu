@@ -1,5 +1,6 @@
-// Kernel 1: one DepthConvBlock after its adaptor, forward, B=1, bf16 NHWC,
-// with the optional shortcut (+ x) and per-channel q (* q) of the output.
+// Kernel 1: one DepthConvBlock after its adaptor, forward, bf16 NHWC
+// (B, H, W, C), with the optional shortcut (+ x) and per-channel q (* q) of
+// the output.
 // Runs the per-tile routine of csrc/dcb_tile.cuh (the math and rounding
 // points of ops/dcb.py).
 //
@@ -19,8 +20,11 @@
 // into mbarrier rings that feed two consumer warpgroups, and runs into the
 // next tile's W0 slabs while the consumers finish this tile's FFN
 // (csrc/dcb_tile.cuh). Each tile still copies the block's 8 C^2 bf16
-// weights into shared memory once. Left for later: sharing a weight slab
-// across more pixels (128-pixel tiles, or a 2-CTA cluster with multicast).
+// weights into shared memory once. A batch is B x tiles: tile t belongs to
+// image t / tiles, and its halo reads that image alone (rows and columns -1,
+// H and W are zero padding for each image, as at B=1). Left for later:
+// sharing a weight slab across more pixels (128-pixel tiles, or a 2-CTA
+// cluster with multicast).
 //
 // Widths: C in {128, 192, 256, 320, 368, 384, 512}. C = 368 is computed at
 // 384 with zero-padded weights (8.9% more products than its own); C = 512
@@ -37,7 +41,7 @@ template <int C, bool Shortcut>
 __global__ void __launch_bounds__(kThreads, 1)
 dcb_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
            const bf16* __restrict__ w, const bf16* __restrict__ q, int H,
-           int W, int tiles_x, int tiles) {
+           int W, int tiles_x, int tiles, int total) {
   extern __shared__ __align__(128) unsigned char smem[];
   Smem<C> sm(smem);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -49,7 +53,7 @@ dcb_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kProducerRegs));
     if (warp == kConsumers / 32 && lane == 0) {
       uint32_t ntile = 0;
-      for (int t = blockIdx.x; t < tiles; t += gridDim.x)
+      for (int t = blockIdx.x; t < total; t += gridDim.x)
         produce_tile<C>(sm, w, 0, ntile);
     }
     return;
@@ -57,17 +61,21 @@ dcb_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
 
   // ---------------- consumer warpgroups ----------------
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kConsumerRegs));
-  for (int t = blockIdx.x; t < tiles; t += gridDim.x)
-    consume_tile<C, Shortcut>(sm, x, y, w, q, H, W, (t / tiles_x) * TILE,
-                              (t % tiles_x) * TILE, tid);
+  for (int t = blockIdx.x; t < total; t += gridDim.x) {
+    const int b = t / tiles, tt = t - b * tiles, y_lo = b * H;
+    consume_tile<C, Shortcut>(sm, x, y, w, q, y_lo, y_lo + H, W,
+                              y_lo + (tt / tiles_x) * TILE,
+                              (tt % tiles_x) * TILE, tid);
+  }
 }
 
 template <int C, bool Shortcut>
-int launch_kernel(const void* x, void* y, const void* w, const void* q, int H,
-                  int W, cudaStream_t stream) {
-  if (H <= 0 || W <= 0) return cudaErrorInvalidValue;
+int launch_kernel(const void* x, void* y, const void* w, const void* q, int B,
+                  int H, int W, cudaStream_t stream) {
+  if (B <= 0 || H <= 0 || W <= 0) return cudaErrorInvalidValue;
   const int tiles_x = (W + TILE - 1) / TILE;
   const int tiles = (H + TILE - 1) / TILE * tiles_x;
+  const int total = B * tiles;
   const int smem = smem_bytes(C);
   auto kern = dcb_kernel<C, Shortcut>;
   cudaError_t e = cudaFuncSetAttribute(
@@ -77,34 +85,34 @@ int launch_kernel(const void* x, void* y, const void* w, const void* q, int H,
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
-  kern<<<tiles < sms ? tiles : sms, kThreads, smem, stream>>>(
+  kern<<<total < sms ? total : sms, kThreads, smem, stream>>>(
       static_cast<const bf16*>(x), static_cast<bf16*>(y),
       static_cast<const bf16*>(w), static_cast<const bf16*>(q), H, W, tiles_x,
-      tiles);
+      tiles, total);
   return cudaGetLastError();
 }
 
 template <int C>
-int launch(const void* x, void* y, const void* w, const void* q, int H, int W,
-           int shortcut, cudaStream_t stream) {
-  return shortcut ? launch_kernel<C, true>(x, y, w, q, H, W, stream)
-                  : launch_kernel<C, false>(x, y, w, q, H, W, stream);
+int launch(const void* x, void* y, const void* w, const void* q, int B, int H,
+           int W, int shortcut, cudaStream_t stream) {
+  return shortcut ? launch_kernel<C, true>(x, y, w, q, B, H, W, stream)
+                  : launch_kernel<C, false>(x, y, w, q, B, H, W, stream);
 }
 
 }  // namespace single
 
 extern "C" int ssgvc_dcb_forward(const void* x, void* y, const void* w,
-                                 const void* q, int H, int W, int C,
+                                 const void* q, int B, int H, int W, int C,
                                  int shortcut, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (C) {
-    case 128: return single::launch<128>(x, y, w, q, H, W, shortcut, s);
-    case 192: return single::launch<192>(x, y, w, q, H, W, shortcut, s);
-    case 256: return single::launch<256>(x, y, w, q, H, W, shortcut, s);
-    case 320: return single::launch<320>(x, y, w, q, H, W, shortcut, s);
-    case 368: return single::launch<368>(x, y, w, q, H, W, shortcut, s);
-    case 384: return single::launch<384>(x, y, w, q, H, W, shortcut, s);
-    case 512: return single::launch<512>(x, y, w, q, H, W, shortcut, s);
+    case 128: return single::launch<128>(x, y, w, q, B, H, W, shortcut, s);
+    case 192: return single::launch<192>(x, y, w, q, B, H, W, shortcut, s);
+    case 256: return single::launch<256>(x, y, w, q, B, H, W, shortcut, s);
+    case 320: return single::launch<320>(x, y, w, q, B, H, W, shortcut, s);
+    case 368: return single::launch<368>(x, y, w, q, B, H, W, shortcut, s);
+    case 384: return single::launch<384>(x, y, w, q, B, H, W, shortcut, s);
+    case 512: return single::launch<512>(x, y, w, q, B, H, W, shortcut, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,0 +1,254 @@
+// The DepthConvBlock backward's own kernels: the depthwise 3x3 conv forward
+// (recompute) and backward, the WSiLU and gated-FFN derivatives, and the
+// tap, bias and q reductions. The block's matrix products (the recompute of
+// x W0, h W3 and u Wf0, and every 1x1 conv's input and weight gradient) run
+// outside them, as ops/dcb_grad.py:block_backward lays out. fp32 SIMT, NHWC
+// (B, H, W, C) with C contiguous; any C.
+//
+// The TPU package has no backward kernel: its trainer differentiates the XLA
+// conv composition of ssgvc_tpu/layers/blocks.py:DepthConvBlock and never
+// reaches the forward Pallas kernel (ssgvc_tpu/ops/pallas_dcb.py:68) in
+// training. These kernels give the port's forward kernels (csrc/dcb.cu,
+// csrc/dcb_chain.cu) a gradient.
+//
+// Bound on an H100 SXM: bytes. Each kernel does a few to a few tens of
+// operations per element it moves (the depthwise 3x3: 18 per output), far
+// under the ~20 fp32 operations per byte at which 67 TFLOP/s and 3.35 TB/s
+// meet. What the design does about it: one pass over each tensor, C on the
+// fastest thread index so that a warp's loads and stores are contiguous, and
+// every per-channel sum over the B*H*W pixels taken in two deterministic
+// steps: each thread block sums its PIX pixels in registers into its own row
+// of a partials matrix, then grad_reduce sums the rows in a fixed order. No
+// floating-point atomics, so the same inputs give the same gradients bit for
+// bit. Left for later: wider tiles per block, and fusing the partial sums
+// into the matrix products' epilogues.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace dcbg {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kThreads = 256;
+constexpr int PIX = 8;   // pixels per thread block; must match ops/dcb_grad.py
+
+__device__ __forceinline__ float sigmoid4(float v) {
+  return 1.0f / (1.0f + __expf(-4.0f * v));
+}
+
+__device__ __forceinline__ float wsilu(float v) {     // silu(4v)/4
+  return v * sigmoid4(v);
+}
+
+__device__ __forceinline__ float wsilu_grad(float v) {
+  const float s = sigmoid4(v);
+  return s + 4.0f * v * s * (1.0f - s);
+}
+
+// (a) g = dw3x3(wsilu(a0)) + b2, zero padding in h = wsilu(a0) space per
+// image (taps (9, C): taps[3 i + j] multiplies h at (y + i - 1, x + j - 1)).
+// One thread per element.
+__global__ void __launch_bounds__(kThreads)
+dw_fwd_kernel(const float* __restrict__ a0, const float* __restrict__ taps,
+              const float* __restrict__ b2, bf16* __restrict__ g, int H,
+              int W, int C, long total) {
+  for (long e = blockIdx.x * (long)blockDim.x + threadIdx.x; e < total;
+       e += (long)gridDim.x * blockDim.x) {
+    const int c = e % C;
+    const long p = e / C;
+    const int x = p % W, y = (p / W) % H;
+    const long img = p - (long)y * W - x;      // first pixel of the image
+    float acc = b2[c];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const int yy = y + i - 1;
+      if (yy < 0 || yy >= H) continue;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const int xx = x + j - 1;
+        if (xx < 0 || xx >= W) continue;
+        acc += taps[(3 * i + j) * C + c] *
+               wsilu(a0[(img + (long)yy * W + xx) * C + c]);
+      }
+    }
+    g[e] = __float2bfloat16_rn(acc);
+  }
+}
+
+// (b) From df (M, 2C) and p = u Wf0^T + bf0 (M, 4C): dp for both 2C halves
+// through wsilu', and fr = round(wsilu(p_a) + wsilu(p_b)) (M, 2C), the FFN's
+// hidden activation that the Wf2 gradient needs. From dy (M, C): with q,
+// dyq = dy * q (M, C). Partials of thread block k, row k of part (row
+// stride ld): [0, 4C) sum of dp, [4C, 5C) sum of dy (* q), [5C, 6C) with q
+// the sum of dy * resid (the q gradient's per-pixel part), else 0.
+__global__ void __launch_bounds__(kThreads)
+gate_bwd_kernel(const float* __restrict__ df, const float* __restrict__ p,
+                const bf16* __restrict__ dy, const float* __restrict__ q,
+                const float* __restrict__ resid, float* __restrict__ dp,
+                bf16* __restrict__ fr, float* __restrict__ dyq,
+                float* __restrict__ part, int ld, int C, long M) {
+  const long p0 = blockIdx.x * (long)PIX;
+  const long p1 = p0 + PIX < M ? p0 + PIX : M;
+  float* row = part + blockIdx.x * (long)ld;
+  for (int k = threadIdx.x; k < 2 * C; k += blockDim.x) {
+    float sa = 0.0f, sb = 0.0f;
+    for (long m = p0; m < p1; ++m) {
+      const float pa = p[m * 4 * C + k], pb = p[m * 4 * C + 2 * C + k];
+      const float d = df[m * 2 * C + k];
+      const float da = d * wsilu_grad(pa), db = d * wsilu_grad(pb);
+      dp[m * 4 * C + k] = da;
+      dp[m * 4 * C + 2 * C + k] = db;
+      fr[m * 2 * C + k] = __float2bfloat16_rn(wsilu(pa) + wsilu(pb));
+      sa += da;
+      sb += db;
+    }
+    row[k] = sa;
+    row[2 * C + k] = sb;
+  }
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    float s1 = 0.0f, s2 = 0.0f;
+    const float qc = q ? q[c] : 1.0f;
+    for (long m = p0; m < p1; ++m) {
+      const float d = __bfloat162float(dy[m * C + c]);
+      if (q) {
+        dyq[m * C + c] = d * qc;
+        s2 += d * resid[m * C + c];
+      }
+      s1 += d * qc;
+    }
+    row[4 * C + c] = s1;
+    row[5 * C + c] = s2;
+  }
+}
+
+// (c) From dg (M, C), the gradient of g: dh = dw3x3^T(dg), the correlation
+// with the flipped taps, zero beyond each image's edge, and da0 = dh *
+// wsilu'(a0). Partials of thread block k, row k of part: [0, 9C) the tap
+// gradient sum dg(y, x) h(y + i - 1, x + j - 1) at 3 i + j, with h =
+// wsilu(a0) recomputed at each neighbour (not stored by (a)), [9C, 10C) sum
+// of dg (b2), [10C, 11C) sum of da0 (b0), [11C, 12C) sum of du (b3).
+__global__ void __launch_bounds__(kThreads)
+dw_bwd_kernel(const float* __restrict__ dg, const float* __restrict__ a0,
+              const float* __restrict__ taps, const float* __restrict__ du,
+              float* __restrict__ da0,
+              float* __restrict__ part, int ld, int H, int W, int C, long M) {
+  const long p0 = blockIdx.x * (long)PIX;
+  const long p1 = p0 + PIX < M ? p0 + PIX : M;
+  float* row = part + blockIdx.x * (long)ld;
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    float t[9];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) t[k] = taps[k * C + c];
+    float dt[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0};
+    float s2 = 0.0f, s0 = 0.0f, s3 = 0.0f;
+    for (long m = p0; m < p1; ++m) {
+      const int x = m % W, y = (m / W) % H;
+      const long img = m - (long)y * W - x;
+      const float dgc = dg[m * C + c];
+      float dh = 0.0f;
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          // g at (y - i + 1, x - j + 1) read h here through tap 3 i + j;
+          // h at (y + i - 1, x + j - 1) fed g here through the same tap
+          const int gy = y - i + 1, gx = x - j + 1;
+          if (gy >= 0 && gy < H && gx >= 0 && gx < W)
+            dh += t[3 * i + j] * dg[(img + (long)gy * W + gx) * C + c];
+          const int hy = y + i - 1, hx = x + j - 1;
+          if (hy >= 0 && hy < H && hx >= 0 && hx < W)
+            dt[3 * i + j] +=
+                dgc * wsilu(a0[(img + (long)hy * W + hx) * C + c]);
+        }
+      }
+      const float d = dh * wsilu_grad(a0[m * C + c]);
+      da0[m * C + c] = d;
+      s2 += dgc;
+      s0 += d;
+      s3 += du[m * C + c];
+    }
+#pragma unroll
+    for (int k = 0; k < 9; ++k) row[k * C + c] = dt[k];
+    row[9 * C + c] = s2;
+    row[10 * C + c] = s0;
+    row[11 * C + c] = s3;
+  }
+}
+
+// (d) out[k] = sum over rows r of part[r][k], rows in order.
+__global__ void __launch_bounds__(kThreads)
+reduce_kernel(const float* __restrict__ part, float* __restrict__ out,
+              int rows, int K) {
+  for (int k = blockIdx.x * blockDim.x + threadIdx.x; k < K;
+       k += gridDim.x * blockDim.x) {
+    float s = 0.0f;
+    for (int r = 0; r < rows; ++r) s += part[(long)r * K + k];
+    out[k] = s;
+  }
+}
+
+inline int blocks_for(long n) {
+  const long b = (n + kThreads - 1) / kThreads;
+  return (int)(b < 4096 ? (b > 0 ? b : 1) : 4096);
+}
+
+inline int pixel_blocks(long M) { return (int)((M + PIX - 1) / PIX); }
+
+}  // namespace dcbg
+
+using namespace dcbg;
+
+extern "C" int ssgvc_dw_fwd(const void* a0, const void* taps, const void* b2,
+                            void* g, int B, int H, int W, int C,
+                            void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0) return cudaErrorInvalidValue;
+  const long total = (long)B * H * W * C;
+  dw_fwd_kernel<<<blocks_for(total), kThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a0), static_cast<const float*>(taps),
+      static_cast<const float*>(b2), static_cast<bf16*>(g), H, W, C, total);
+  return cudaGetLastError();
+}
+
+extern "C" int ssgvc_gate_bwd(const void* df, const void* p, const void* dy,
+                              const void* q, const void* resid, void* dp,
+                              void* fr, void* dyq, void* part, int ld, int C,
+                              long M, void* stream) {
+  if (C <= 0 || M <= 0) return cudaErrorInvalidValue;
+  gate_bwd_kernel<<<pixel_blocks(M), kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(df), static_cast<const float*>(p),
+      static_cast<const bf16*>(dy), static_cast<const float*>(q),
+      static_cast<const float*>(resid), static_cast<float*>(dp),
+      static_cast<bf16*>(fr), static_cast<float*>(dyq),
+      static_cast<float*>(part), ld, C, M);
+  return cudaGetLastError();
+}
+
+extern "C" int ssgvc_dw_bwd(const void* dg, const void* a0, const void* taps,
+                            const void* du, void* da0, void* part, int ld,
+                            int B, int H, int W, int C, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0) return cudaErrorInvalidValue;
+  const long M = (long)B * H * W;
+  dw_bwd_kernel<<<pixel_blocks(M), kThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(dg), static_cast<const float*>(a0),
+      static_cast<const float*>(taps), static_cast<const float*>(du),
+      static_cast<float*>(da0),
+      static_cast<float*>(part), ld, H, W, C, M);
+  return cudaGetLastError();
+}
+
+extern "C" int ssgvc_grad_reduce(const void* part, void* out, int rows, int K,
+                                 void* stream) {
+  if (rows <= 0 || K <= 0) return cudaErrorInvalidValue;
+  reduce_kernel<<<blocks_for(K), kThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(part), static_cast<float*>(out), rows, K);
+  return cudaGetLastError();
+}
+
+extern "C" const char* ssgvc_error_string(int e) {
+  return cudaGetErrorString(static_cast<cudaError_t>(e));
+}

@@ -1,6 +1,6 @@
 // Kernel 2: N adaptor-free, shortcut-free DepthConvBlocks in one persistent
-// launch, forward, B=1, bf16 NHWC; the last block's output is optionally
-// multiplied by q_last. Each block runs the per-tile routine of
+// launch, forward, bf16 NHWC (B, H, W, C); the last block's output is
+// optionally multiplied by q_last. Each block runs the per-tile routine of
 // csrc/dcb_tile.cuh (the math and rounding points of ops/dcb.py); each
 // block's output is rounded to bf16 before the next block reads it.
 //
@@ -19,7 +19,9 @@
 //   caller's y and one scratch tensor (ops/dcb_chain.py:buffer_plan), both
 //   L2-resident at the main path's sizes, so no halo of N pixels is carried:
 //   a tile reads a 10x10 window (one-pixel halo) and recomputes dc_0 on its
-//   100 pixels, at most 1/8 extra products whatever N is.
+//   100 pixels, at most 1/8 extra products whatever N is. A batch is B x
+//   tiles per block, each tile's halo inside its own image, and still one
+//   grid barrier per block.
 // - Per tile, wgmma on canonical weight slabs that one producer thread
 //   streams by bulk copies into two mbarrier rings, feeding two consumer
 //   warpgroups (csrc/dcb_tile.cuh). Between blocks the producer prefetches
@@ -41,7 +43,7 @@ template <int C>
 __global__ void __launch_bounds__(kThreads, 1)
 chain_kernel(const bf16* x, bf16* y, bf16* s, const bf16* __restrict__ w,
              const bf16* __restrict__ q, int H, int W, int n, int tiles_y,
-             int tiles_x) {
+             int tiles_x, int batch) {
   constexpr int NA = (C / KC) * (C / KS_A);  // W0 slabs per tile
   constexpr size_t BLK = 8 * (size_t)C * C + 17 * C;  // elements per block
 
@@ -51,7 +53,7 @@ chain_kernel(const bf16* x, bf16* y, bf16* s, const bf16* __restrict__ w,
   if (tid == 0) sm.init_barriers();
   __syncthreads();
 
-  const int tiles = tiles_y * tiles_x;
+  const int tiles = tiles_y * tiles_x, total = batch * tiles;
 
   if (warp >= kConsumers / 32) {
     // ---------------- producer warpgroup ----------------
@@ -62,7 +64,7 @@ chain_kernel(const bf16* x, bf16* y, bf16* s, const bf16* __restrict__ w,
     for (int j = 0; j < n; ++j) {
       const bf16* wj = w + j * BLK;
       if (issuer) {
-        for (int t = blockIdx.x; t < tiles; t += gridDim.x)
+        for (int t = blockIdx.x; t < total; t += gridDim.x)
           produce_tile<C>(sm, wj, t == (int)blockIdx.x ? pre : 0, ntile);
         pre = 0;
         if (j + 1 < n) {
@@ -84,17 +86,20 @@ chain_kernel(const bf16* x, bf16* y, bf16* s, const bf16* __restrict__ w,
     const bf16* src = j == 0 ? x : ((n - j) % 2 == 0 ? y : s);
     bf16* dst = (n - 1 - j) % 2 == 0 ? y : s;
     const bf16* qj = j == n - 1 ? q : nullptr;
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x)
-      consume_tile<C, false>(sm, src, dst, w + j * BLK, qj, H, W,
-                             (t / tiles_x) * TILE, (t % tiles_x) * TILE, tid);
+    for (int t = blockIdx.x; t < total; t += gridDim.x) {
+      const int b = t / tiles, tt = t - b * tiles, y_lo = b * H;
+      consume_tile<C, false>(sm, src, dst, w + j * BLK, qj, y_lo, y_lo + H,
+                             W, y_lo + (tt / tiles_x) * TILE,
+                             (tt % tiles_x) * TILE, tid);
+    }
     if (j + 1 < n) cg::this_grid().sync();
   }
 }
 
 template <int C>
 int launch(const void* x, void* y, void* s, const void* w, const void* q,
-           int H, int W, int n, cudaStream_t stream) {
-  if (n <= 0 || H <= 0 || W <= 0) return cudaErrorInvalidValue;
+           int B, int H, int W, int n, cudaStream_t stream) {
+  if (n <= 0 || B <= 0 || H <= 0 || W <= 0) return cudaErrorInvalidValue;
   int tiles_y = (H + TILE - 1) / TILE, tiles_x = (W + TILE - 1) / TILE;
   const int smem = smem_bytes(C);
   auto kern = chain_kernel<C>;
@@ -109,14 +114,15 @@ int launch(const void* x, void* y, void* s, const void* w, const void* q,
                                                     smem);
   if (e != cudaSuccess) return e;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  const int tiles = tiles_y * tiles_x;
-  const int grid = tiles < sms * per_sm ? tiles : sms * per_sm;
+  const int total = B * tiles_y * tiles_x;
+  const int grid = total < sms * per_sm ? total : sms * per_sm;
   const bf16* xp = static_cast<const bf16*>(x);
   bf16* yp = static_cast<bf16*>(y);
   bf16* sp = static_cast<bf16*>(s);
   const bf16* wp = static_cast<const bf16*>(w);
   const bf16* qp = static_cast<const bf16*>(q);
-  void* args[] = {&xp, &yp, &sp, &wp, &qp, &H, &W, &n, &tiles_y, &tiles_x};
+  void* args[] = {&xp, &yp, &sp, &wp, &qp, &H, &W, &n, &tiles_y, &tiles_x,
+                  &B};
   e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kern), dim3(grid),
                                   dim3(kThreads), args, smem, stream);
   if (e != cudaSuccess) return e;
@@ -126,14 +132,15 @@ int launch(const void* x, void* y, void* s, const void* w, const void* q,
 }  // namespace chain
 
 extern "C" int ssgvc_dcb_chain_forward(const void* x, void* y, void* s,
-                                       const void* w, const void* q, int H,
-                                       int W, int C, int n, void* stream) {
+                                       const void* w, const void* q, int B,
+                                       int H, int W, int C, int n,
+                                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (C) {
-    case 128: return chain::launch<128>(x, y, s, w, q, H, W, n, st);
-    case 256: return chain::launch<256>(x, y, s, w, q, H, W, n, st);
-    case 320: return chain::launch<320>(x, y, s, w, q, H, W, n, st);
-    case 384: return chain::launch<384>(x, y, s, w, q, H, W, n, st);
+    case 128: return chain::launch<128>(x, y, s, w, q, B, H, W, n, st);
+    case 256: return chain::launch<256>(x, y, s, w, q, B, H, W, n, st);
+    case 320: return chain::launch<320>(x, y, s, w, q, B, H, W, n, st);
+    case 384: return chain::launch<384>(x, y, s, w, q, B, H, W, n, st);
     default: return cudaErrorInvalidValue;
   }
 }

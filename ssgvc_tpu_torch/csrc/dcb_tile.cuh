@@ -1,6 +1,7 @@
-// One DepthConvBlock on one 8x8 output tile, forward, B=1, bf16 NHWC: the
-// per-tile routine of both kernels (csrc/dcb.cu, one block; csrc/dcb_chain.cu,
-// N blocks). Same math and rounding points as ops/dcb.py:dcb_plain:
+// One DepthConvBlock on one 8x8 output tile of one image, forward, bf16
+// NHWC: the per-tile routine of both kernels (csrc/dcb.cu, one block;
+// csrc/dcb_chain.cu, N blocks). Same math and rounding points as
+// ops/dcb.py:dcb_plain:
 // h = wsilu(x W0 + b0) zeroed outside the frame, depthwise 3x3 with zero
 // padding in h space, u = x + h W3 + b3, f = wsilu(u Wf0a + bf0a) +
 // wsilu(u Wf0b + bf0b), y = u + f Wf2 + bf2 [+ x] [* q], rounded once.
@@ -243,15 +244,20 @@ __device__ __forceinline__ void produce_tile(Smem<C>& s, const bf16* w,
 
 // Consumers (the 256 threads tid of both consumer warpgroups): the block at
 // w on the 8x8 tile whose first output pixel is (ty0, tx0), reading src and
-// writing dst (H x W x C). With Shortcut the output adds src at the output
-// pixel; q, if not null, then multiplies it. Out-of-frame pixels of a
-// ragged tile, and the padded channels of a block computed at CP > C, are
-// neither read nor written.
+// writing dst, a batch stacked as (B H) x W x C: the tile's image holds rows
+// [y_lo, y_hi), and every other row is zero padding to this tile, so its
+// halo never reads a neighbouring image. src and dst stay the batch's base
+// pointers (kernel parameters in csrc/dcb.cu, so no per-image pointer is
+// held in registers through the FFN); only the row bounds move. With
+// Shortcut the output adds src at the output pixel; q, if not null, then
+// multiplies it. Out-of-frame pixels of a ragged tile, and the padded
+// channels of a block computed at CP > C, are neither read nor written.
 template <int C, bool Shortcut>
 __device__ __forceinline__ void consume_tile(Smem<C>& s, const bf16* src,
                                              bf16* dst, const bf16* w,
-                                             const bf16* q, int H, int W,
-                                             int ty0, int tx0, int tid) {
+                                             const bf16* q, int y_lo,
+                                             int y_hi, int W, int ty0,
+                                             int tx0, int tid) {
   constexpr int CP = padded(C);
   constexpr int NH = CP / 2;            // output columns per warpgroup
   const int warp = tid >> 5, lane = tid & 31;
@@ -279,7 +285,7 @@ __device__ __forceinline__ void consume_tile(Smem<C>& s, const bf16* src,
   for (int i = tid; i < WIN * WIN * (CP / 8); i += kConsumers) {
     const int r = i / (CP / 8), kc = i - r * (CP / 8);
     const int gy = ty0 - 1 + r / WIN, gx = tx0 - 1 + r % WIN;
-    const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W &&
+    const bool in = gy >= y_lo && gy < y_hi && gx >= 0 && gx < W &&
                     (C == CP || kc < C / 8);
     hop::cp_async16(s.win + canon(r, kc * 8, CP),
                     in ? src + ((size_t)gy * W + gx) * C + kc * 8 : src, in);
@@ -305,7 +311,7 @@ __device__ __forceinline__ void consume_tile(Smem<C>& s, const bf16* src,
       const int col = 8 * (i >> 2) + 2 * t4;
       if (row < WIN * WIN) {
         const int gy = ty0 - 1 + row / WIN, gx = tx0 - 1 + row % WIN;
-        const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+        const bool in = gy >= y_lo && gy < y_hi && gx >= 0 && gx < W;
         const float2 b = ld2(b0 + c0 + col);
         float2 v;
         v.x = in ? wsilu(acc[i] + b.x) : 0.f;
@@ -361,7 +367,7 @@ __device__ __forceinline__ void consume_tile(Smem<C>& s, const bf16* src,
   // lies in the frame.
   const int gx = tx0 + g, gy = ty0 + 2 * wl;
   const size_t px0 = ((size_t)gy * W + gx) * C, px1 = px0 + (size_t)W * C;
-  const bool in0 = gx < W && gy < H, in1 = gx < W && gy + 1 < H;
+  const bool in0 = gx < W && gy < y_hi, in1 = gx < W && gy + 1 < y_hi;
   float yacc[NH / 2];
 #pragma unroll
   for (int i = 0; i < NH / 2; ++i) yacc[i] = 0.f;

@@ -5,26 +5,32 @@ Parameters keep PyTorch's layouts (conv ``weight`` (O, I/groups, kh, kw),
 (``dc_0``, ``ffn_2``, ``adaptor``, ``conv2_0`` ...), so ``state_dict`` keys
 read like ``encoder.conv2_0.dc_0.weight``. Parameters are fp32; each module
 computes in its ``dtype``. Every DepthConvBlock core runs through
-``ops.dcb`` / ``ops.dcb_chain``: the hand-written kernel for a CUDA tensor,
-its plain version for a CPU tensor.
+``ops.dcb`` / ``ops.dcb_chain`` inside the autograd Functions of
+``ops.dcb_grad``: the hand-written kernels for a CUDA tensor, forward and
+backward, their plain versions for a CPU tensor.
+
+:func:`init_` draws fresh weights as the JAX package's flax modules do
+(lecun-normal kernels, zero biases, zero residual tails).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.dcb import dcb, pack_block, wsilu
-from ..ops.dcb_chain import dcb_chain, pack_chain
+from ..ops.dcb import pack_block, wsilu
+from ..ops.dcb_chain import pack_chain
+from ..ops.dcb_grad import dcb_chain_grad, dcb_grad
 from ..ops.pixel import patch_down_conv, patch_up_conv, pixel_shuffle
 
 __all__ = ["wsilu", "wsilu_chunk_add", "Conv", "PatchDownConv",
            "PatchUpConv", "Concat1x1", "DepthConvBlock", "run_chain",
            "SubpelConv2x", "ResidualBlockWithStride2",
-           "ResidualBlockUpsample"]
+           "ResidualBlockUpsample", "lecun_normal_", "init_"]
 
 
 def wsilu_chunk_add(x: torch.Tensor) -> torch.Tensor:
@@ -35,8 +41,46 @@ def wsilu_chunk_add(x: torch.Tensor) -> torch.Tensor:
 
 
 def _param(shape, device) -> nn.Parameter:
-    # weights are loaded (utils/weights.py or load_state_dict), not drawn
+    # zeros until init_ draws them or weights are loaded (utils/weights.py)
     return nn.Parameter(torch.zeros(shape, dtype=torch.float32, device=device))
+
+
+#: flax's lecun_normal draws a normal truncated at +-2 and divides by that
+#: distribution's standard deviation, so the kept values have std sqrt(1 /
+#: fan_in).
+TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
+    """flax ``lecun_normal`` into a conv weight (O, I/groups, kh, kw): a
+    normal truncated at 2 sigma, sigma = sqrt(1 / fan_in) / TRUNC_STD,
+    fan_in = I/groups * kh * kw. Drawn on the CPU from ``generator``, so a
+    seed gives the same weights on every device."""
+    fan_in = math.prod(weight.shape[1:])
+    std = math.sqrt(1.0 / fan_in) / TRUNC_STD
+    w = torch.empty(weight.shape, dtype=torch.float32)
+    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                          generator=generator)
+    with torch.no_grad():
+        weight.copy_(w)
+
+
+def init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Fresh weights for every conv of ``module``, in place, as the flax
+    modules init them: lecun_normal kernels (zeros where the conv was built
+    with ``zero_init``: the DepthConvBlock residual tails dc_3 and ffn_2, the
+    recon_residual heads), zero biases. Other parameters (per-QP tables,
+    entropy parameters) are the models' own (``DMC.init_``)."""
+    for m in module.modules():
+        if isinstance(m, (Conv, PatchDownConv, PatchUpConv, Concat1x1)):
+            if m.zero_init:
+                with torch.no_grad():
+                    m.weight.zero_()
+            else:
+                lecun_normal_(m.weight, generator)
+            with torch.no_grad():
+                m.bias.zero_()
+    return module
 
 
 class Conv(nn.Module):
@@ -44,13 +88,14 @@ class Conv(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 1,
                  stride: int = 1, padding: int = 0, groups: int = 1, *,
-                 dtype: torch.dtype = torch.float32, device="cuda"):
+                 zero_init: bool = False, dtype: torch.dtype = torch.float32,
+                 device="cuda"):
         super().__init__()
         self.weight = _param((out_ch, in_ch // groups, kernel_size,
                               kernel_size), device)
         self.bias = _param((out_ch,), device)
         self.stride, self.padding, self.groups = stride, padding, groups
-        self.dtype = dtype
+        self.dtype, self.zero_init = dtype, zero_init
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
@@ -71,7 +116,7 @@ class PatchDownConv(nn.Module):
         super().__init__()
         self.weight = _param((out_ch, in_ch * r * r, 1, 1), device)
         self.bias = _param((out_ch,), device)
-        self.r, self.dtype = r, dtype
+        self.r, self.dtype, self.zero_init = r, dtype, False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return patch_down_conv(x.to(self.dtype), self.weight, self.bias,
@@ -83,11 +128,12 @@ class PatchUpConv(nn.Module):
     the channel count after the shuffle."""
 
     def __init__(self, in_ch: int, out_ch: int, r: int, *,
-                 dtype: torch.dtype = torch.float32, device="cuda"):
+                 zero_init: bool = False, dtype: torch.dtype = torch.float32,
+                 device="cuda"):
         super().__init__()
         self.weight = _param((out_ch * r * r, in_ch, 1, 1), device)
         self.bias = _param((out_ch * r * r,), device)
-        self.r, self.dtype = r, dtype
+        self.r, self.dtype, self.zero_init = r, dtype, zero_init
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return patch_up_conv(x.to(self.dtype), self.weight, self.bias, self.r)
@@ -103,7 +149,7 @@ class Concat1x1(nn.Module):
         super().__init__()
         self.weight = _param((out_ch, sum(in_chs), 1, 1), device)
         self.bias = _param((out_ch,), device)
-        self.dtype = dtype
+        self.dtype, self.zero_init = dtype, False
 
     def forward(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
         dt = self.dtype
@@ -158,9 +204,11 @@ class DepthConvBlock(nn.Module):
             self.adaptor = None
         self.dc_0 = Conv(c, c, **kw)
         self.dc_2 = Conv(c, c, 3, padding=1, groups=c, **kw)
-        self.dc_3 = Conv(c, c, **kw)
+        # the residual tails start at zero (flax: ReZero-style), so a fresh
+        # stack is the identity
+        self.dc_3 = Conv(c, c, zero_init=True, **kw)
         self.ffn_0 = Conv(c, 4 * c, **kw)
-        self.ffn_2 = Conv(2 * c, c, **kw)
+        self.ffn_2 = Conv(2 * c, c, zero_init=True, **kw)
         self._packed = None
         self._packed_key = None
         self._chain_packed = None     # set on the first block of a chain
@@ -194,15 +242,15 @@ class DepthConvBlock(nn.Module):
     def forward(self, x, quant_step: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
         x = self.adapt(x)
-        return dcb(x, self.core_params(), quant_step, self.shortcut,
-                   packed=self.packed(x))
+        return dcb_grad(x, self.core_params(), quant_step, self.shortcut,
+                        packed=self.packed(x))
 
 
 def run_chain(x: torch.Tensor, blocks: Sequence[DepthConvBlock],
               q_last: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Adaptor-free, shortcut-free blocks back to back through
-    ``ops.dcb_chain`` (one kernel launch on the card), ``q_last``
-    multiplying the last output."""
+    ``ops.dcb_chain`` (one kernel launch on the card, with the gradient of
+    ``ops.dcb_grad``), ``q_last`` multiplying the last output."""
     for b in blocks:
         if b.adaptor is not None or b.shortcut or b.tuple_input:
             raise ValueError("a chain takes adaptor-free, shortcut-free "
@@ -219,7 +267,7 @@ def run_chain(x: torch.Tensor, blocks: Sequence[DepthConvBlock],
             head._chain_packed = pack_chain(params, x.dtype)
             head._chain_key = key
         packed = head._chain_packed
-    return dcb_chain(x, params, q_last, packed=packed)
+    return dcb_chain_grad(x, params, q_last, packed=packed)
 
 
 class SubpelConv2x(nn.Module):

@@ -13,6 +13,29 @@ import torch.nn.functional as F
 from ..layers.quant import noise_quant, ste_round
 
 
+def qp_gain_ramp_init(rows: int, channels: int, lo: float = 0.25,
+                      hi: float = 5.0, inverse: bool = False) -> torch.Tensor:
+    """A per-QP gain table (rows, channels) at init: a geometric ramp from
+    ``lo`` (qp 0) to ``hi`` (the last row), constant across channels, or its
+    reciprocal. Higher qp gives a larger latent and more bits, as lambda(qp)
+    rises, so the variable-rate ladder exists at step 0 of a from-scratch
+    run. fp32, in the JAX package's order of operations (``jnp.linspace``:
+    start * (1 - step) + stop * step, the last row exactly ``hi``); XLA's
+    exp and fused multiply-adds put its rows up to 3 ulp from these."""
+    f32 = torch.float32
+    start = torch.log(torch.tensor(lo, dtype=f32))
+    stop = torch.log(torch.tensor(hi, dtype=f32))
+    if rows > 1:
+        step = torch.arange(rows - 1, dtype=f32) / (rows - 1)
+        line = torch.cat([start * (1 - step) + stop * step, stop[None]])
+    else:
+        line = start[None]
+    ramp = torch.exp(line)
+    if inverse:
+        ramp = 1.0 / ramp
+    return ramp[:, None].expand(rows, channels).contiguous()
+
+
 def compute_dtype(name: str) -> torch.dtype:
     """The torch dtype of a config's ``dtype`` field ("bfloat16" or
     "float32")."""

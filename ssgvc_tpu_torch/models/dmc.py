@@ -37,12 +37,12 @@ import torch.nn.functional as F
 from ..config import DMCConfig
 from ..layers.blocks import (Conv, DepthConvBlock, PatchDownConv,
                              PatchUpConv, ResidualBlockUpsample,
-                             ResidualBlockWithStride2, SubpelConv2x,
+                             ResidualBlockWithStride2, SubpelConv2x, init_,
                              run_chain, wsilu)
 from ..layers.quant import noise_quant, ste_round
 from ..ops.pixel import pixel_shuffle, pixel_unshuffle
 from .common import (bpp_from_bits, check_card_dtype, compress_prior_2x,
-                     compute_dtype, pad_for_y)
+                     compute_dtype, pad_for_y, qp_gain_ramp_init)
 from .entropy import BitEstimator, gaussian_bits, gaussian_bits_cdf
 
 
@@ -110,7 +110,10 @@ class Decoder(nn.Module):
         setattr(self, self.names[0], DepthConvBlock(d, in_ch=(d, d), **kw))
         setattr(self, self.names[1], DepthConvBlock(d, **kw))
         setattr(self, self.names[2], DepthConvBlock(d, **kw))
-        setattr(self, self.names[3], Conv(d, d, **kw))
+        # recon_residual: the projection starts at zero, so a fresh decoder
+        # emits the context it adds back
+        setattr(self, self.names[3], Conv(d, d, zero_init=self.recon_residual,
+                                          **kw))
 
     def forward(self, x, ctx, quant_step):
         first, b1, b2, head = (getattr(self, n) for n in self.names)
@@ -135,9 +138,12 @@ class ReconGeneration(nn.Module):
         self.conv_1 = DepthConvBlock(r, **kw)
         self.conv_2 = DepthConvBlock(r, **kw)
         self.conv_3 = DepthConvBlock(r, **kw)
-        self.head = (Conv(r, cfg.src, **kw) if cfg.packed_io else
-                     PatchUpConv(r, cfg.src // cfg.patch_size ** 2,
-                                 cfg.patch_size, **kw))
+        # recon_residual: a zero head, so a fresh model reconstructs the
+        # previous decoded frame
+        rr = cfg.recon_residual
+        self.head = (Conv(r, cfg.src, zero_init=rr, **kw) if cfg.packed_io
+                     else PatchUpConv(r, cfg.src // cfg.patch_size ** 2,
+                                      cfg.patch_size, zero_init=rr, **kw))
 
     def forward(self, x, quant_step, prev=None):
         f = self.conv_3(self.conv_2(self.conv_1(self.conv_0(x))))
@@ -284,8 +290,10 @@ class MaskPredictor(nn.Module):
 class DMC(nn.Module):
     """The P-frame codec, every variant of ``DMCConfig.variant``.
     ``device`` defaults to "cuda"; pass "cpu" to run the plain versions.
-    On the card the config's dtype must be bfloat16. Weights are loaded,
-    not drawn (``utils/weights.py``)."""
+    On the card the config's dtype must be bfloat16. Weights are loaded
+    (``utils/weights.py``) or drawn fresh by :meth:`init_`. ``forward``
+    builds an autograd graph unless the caller runs it under
+    ``torch.no_grad()``, as every inference path does."""
 
     def __init__(self, cfg: DMCConfig = DMCConfig(), device="cuda"):
         super().__init__()
@@ -331,6 +339,26 @@ class DMC(nn.Module):
         self.q_recon = table(c.ch_recon)
         self.z_gain = nn.Parameter(torch.ones(c.ch_z, device=device))
         self.bit_estimator_z = BitEstimator(qp_total, c.ch_z, device=device)
+
+    def init_(self, generator: torch.Generator) -> "DMC":
+        """Fresh weights as the flax module inits them, drawn on the CPU
+        from ``generator``: every conv by ``layers.blocks.init_``; q_encoder
+        and q_decoder geometric QP ramps (``qp_ramp_init``) or ones; q_sft,
+        q_feature, q_recon and z_gain ones; the bit estimator N(0, 0.01)."""
+        init_(self, generator)
+        c = self.cfg
+        rows = c.qp_num + c.extra_qp
+        with torch.no_grad():
+            for t in (self.q_feature, self.q_recon, self.z_gain,
+                      getattr(self, "q_sft", None)):
+                if t is not None:
+                    t.fill_(1.0)
+            for t, inverse in ((self.q_encoder, False),
+                               (self.q_decoder, True)):
+                t.copy_(qp_gain_ramp_init(rows, c.ch_d, inverse=inverse)
+                        if c.qp_ramp_init else torch.ones(t.shape))
+        self.bit_estimator_z.init_(generator)
+        return self
 
     def shift_qp(self, qp, fa_idx):
         """qp + qp_shift[fa_idx]: the QP of a frame at GOP position class
@@ -406,7 +434,6 @@ class DMC(nn.Module):
                                device=x.device)
         return x, mask
 
-    @torch.no_grad()
     def forward(self, x: torch.Tensor, qp, dpb: Dict[str, torch.Tensor],
                 after_i: bool = True, mask: Optional[torch.Tensor] = None,
                 train: bool = False,

@@ -24,11 +24,11 @@ import torch.nn as nn
 
 from ..config import DMCIConfig
 from ..layers.blocks import (Conv, DepthConvBlock, ResidualBlockUpsample,
-                             ResidualBlockWithStride2)
+                             ResidualBlockWithStride2, init_)
 from ..layers.quant import noise_quant, ste_round
 from ..ops.pixel import pixel_shuffle
 from .common import (bpp_from_bits, check_card_dtype, compress_prior_4x,
-                     compute_dtype, pad_for_y)
+                     compute_dtype, pad_for_y, qp_gain_ramp_init)
 from .entropy import BitEstimator, gaussian_bits_cdf
 
 
@@ -75,7 +75,9 @@ class IntraDecoder(nn.Module):
 class DMCI(nn.Module):
     """The I-frame codec. ``device`` defaults to "cuda"; pass "cpu" to run
     the plain versions. On the card the config's dtype must be bfloat16.
-    Weights are loaded, not drawn (``utils/weights.py``)."""
+    Weights are loaded (``utils/weights.py``) or drawn fresh by
+    :meth:`init_`. ``forward`` builds an autograd graph unless the caller
+    runs it under ``torch.no_grad()``, as every inference path does."""
 
     def __init__(self, cfg: DMCIConfig = DMCIConfig(), device="cuda"):
         super().__init__()
@@ -119,6 +121,23 @@ class DMCI(nn.Module):
         self.z_gain = nn.Parameter(torch.ones(z, device=device))
         self.bit_estimator_z = BitEstimator(c.qp_num, z, device=device)
 
+    def init_(self, generator: torch.Generator) -> "DMCI":
+        """Fresh weights as the flax module inits them, drawn on the CPU
+        from ``generator``: every conv by ``layers.blocks.init_``;
+        q_scale_enc and q_scale_dec geometric QP ramps (``qp_ramp_init``) or
+        ones; z_gain ones; the bit estimator N(0, 0.01)."""
+        init_(self, generator)
+        c = self.cfg
+        with torch.no_grad():
+            self.z_gain.fill_(1.0)
+            for t, inverse in ((self.q_scale_enc, False),
+                               (self.q_scale_dec, True)):
+                t.copy_(qp_gain_ramp_init(c.qp_num, c.enc_dec,
+                                          inverse=inverse)
+                        if c.qp_ramp_init else torch.ones(t.shape))
+        self.bit_estimator_z.init_(generator)
+        return self
+
     def hyper_enc(self, x):
         x = self.hyper_enc_2(self.hyper_enc_1(self.hyper_enc_0(x)))
         return x * self.z_gain.to(self.dtype)
@@ -147,7 +166,6 @@ class DMCI(nn.Module):
         params = self.y_prior_fusion(self.hyper_dec(z_hat))
         return params[:, :y_shape[1], :y_shape[2], :]
 
-    @torch.no_grad()
     def forward(self, x: torch.Tensor, qp, train: bool = False,
                 generator: Optional[torch.Generator] = None):
         """x: (B, H, W, 3) YCbCr in [0, 1]; qp: int. Returns {'dpb':

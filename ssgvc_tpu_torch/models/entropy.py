@@ -42,9 +42,12 @@ def _fma32(a: torch.Tensor, b: torch.Tensor, c: float) -> torch.Tensor:
     return (a.double() * b.double() + c).float()
 
 
-def erf32(x: torch.Tensor) -> torch.Tensor:
-    """erf in fp32, as XLA lowers it."""
-    x = torch.clamp(x.float(), -_ERF_CLAMP, _ERF_CLAMP)
+_TWO_RSQRT_PI = 2.0 / math.sqrt(math.pi)
+
+
+def _erf32_xla(x: torch.Tensor) -> torch.Tensor:
+    """XLA's lowering of fp32 erf: a clamp, then a rational polynomial."""
+    x = torch.clamp(x, -_ERF_CLAMP, _ERF_CLAMP)
     x2 = x * x
     num = torch.full_like(x2, _ERF_NUM[0])
     for c in _ERF_NUM[1:]:
@@ -53,6 +56,30 @@ def erf32(x: torch.Tensor) -> torch.Tensor:
     for c in _ERF_DEN[1:]:
         den = _fma32(den, x2, c)
     return x * num / den
+
+
+class _Erf32(torch.autograd.Function):
+    """XLA's erf forward with XLA's erf derivative, 2 / sqrt(pi) *
+    exp(-x^2), backward (not the polynomial's own, which is 0 beyond the
+    clamp)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _erf32_xla(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, = ctx.saved_tensors
+        return grad * (_TWO_RSQRT_PI * torch.exp(-(x * x)))
+
+
+def erf32(x: torch.Tensor) -> torch.Tensor:
+    """erf in fp32, as XLA lowers it, with XLA's derivative."""
+    x = x.float()
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Erf32.apply(x)
+    return _erf32_xla(x)
 
 
 def probs_to_bits(probs: torch.Tensor) -> torch.Tensor:
@@ -118,6 +145,14 @@ class BitEstimator(nn.Module):
         self.f2 = Bitparm(qp_num, channel, device=device)
         self.f3 = Bitparm(qp_num, channel, device=device)
         self.f4 = Bitparm(qp_num, channel, final=True, device=device)
+
+    def init_(self, generator: torch.Generator) -> "BitEstimator":
+        """Every layer's h, b and a drawn from N(0, 0.01) as flax inits
+        them, on the CPU from ``generator``."""
+        with torch.no_grad():
+            for p in self.parameters():
+                p.copy_(0.01 * torch.randn(p.shape, generator=generator))
+        return self
 
     def get_logits_cdf(self, x: torch.Tensor, index) -> torch.Tensor:
         return self.f4(self.f3(self.f2(self.f1(x, index), index), index),

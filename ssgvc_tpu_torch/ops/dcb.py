@@ -20,8 +20,8 @@ output is rounded once. In fp32 every rounding is the identity, so the
 plain version is the conv composition of ``layers/blocks.DepthConvBlock``.
 
 :func:`dcb` routes by device: a CPU tensor takes :func:`dcb_plain`; a CUDA
-tensor launches the kernel or raises. The kernel takes bfloat16 activations,
-B=1 and C in :data:`DCB_CHANNELS`.
+tensor launches the kernel or raises. The kernel takes bfloat16 activations
+(B, H, W, C) with C in :data:`DCB_CHANNELS`.
 
 Both kernels run one tile routine (``csrc/dcb_tile.cuh``) on 8x8 output
 tiles. A tile reads its input with a one-pixel halo (:data:`WIN` x
@@ -29,7 +29,8 @@ tiles. A tile reads its input with a one-pixel halo (:data:`WIN` x
 with the weights brought into shared memory by bulk copies of slabs that
 :func:`pack_block` has laid out in wgmma's canonical operand layout, in the
 order the kernel consumes them. The single-block kernel is a persistent
-grid of one thread block per SM walking the tiles.
+grid of one thread block per SM walking the B x tiles of a batch; a tile's
+halo never reads a neighbouring image.
 
 A block is computed at :func:`padded_channels` (C rounded up to a multiple
 of 64: 368 runs at 384). :func:`pack_block` gives the padded channels zero
@@ -294,8 +295,8 @@ def check_input(x: torch.Tensor, what: str,
         raise ValueError(f"{what}: kernel needs a CUDA tensor, got {x.device}")
     if x.dtype != torch.bfloat16:
         raise TypeError(f"{what}: kernel takes bfloat16, got {x.dtype}")
-    if x.dim() != 4 or x.shape[0] != 1:
-        raise ValueError(f"{what}: kernel takes (1, H, W, C), got "
+    if x.dim() != 4 or x.shape[0] < 1:
+        raise ValueError(f"{what}: kernel takes (B, H, W, C), got "
                          f"{tuple(x.shape)}")
     if x.shape[-1] not in channels:
         raise ValueError(f"{what}: C={x.shape[-1]} not in {channels}")
@@ -331,7 +332,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.ssgvc_dcb_forward
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, i, i, i, i, vp]
+        fn.argtypes = [vp, vp, vp, vp, i, i, i, i, i, vp]
         fn.restype = ctypes.c_int
     return lib
 
@@ -339,11 +340,11 @@ def _lib() -> ctypes.CDLL:
 def dcb_cuda(x: torch.Tensor, packed: torch.Tensor,
              q: Optional[torch.Tensor] = None,
              shortcut: bool = False) -> torch.Tensor:
-    """Launch the kernel: x (1, H, W, C) bf16 CUDA, ``packed`` from
-    :func:`pack_block`, q (C,) or None. Returns a new (1, H, W, C)."""
+    """Launch the kernel: x (B, H, W, C) bf16 CUDA, ``packed`` from
+    :func:`pack_block`, q (C,) or None. Returns a new (B, H, W, C)."""
     global launches
     check_input(x, "dcb", DCB_CHANNELS)
-    _, h, w, c = x.shape
+    b, h, w, c = x.shape
     check_operand(packed, x, packed_numel(c), "dcb weights")
     q, q_ptr = q_operand(q, x, "dcb")
     lib = _lib()
@@ -351,8 +352,8 @@ def dcb_cuda(x: torch.Tensor, packed: torch.Tensor,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.ssgvc_dcb_forward(
-            x.data_ptr(), y.data_ptr(), packed.data_ptr(), q_ptr, h, w, c,
-            int(bool(shortcut)), stream)
+            x.data_ptr(), y.data_ptr(), packed.data_ptr(), q_ptr, b, h, w,
+            c, int(bool(shortcut)), stream)
     _build.check(lib, rc, "dcb kernel")
     launches += 1
     return y

@@ -9,12 +9,12 @@ rounded to the activation dtype before the next block reads it, and an
 optional ``q_last`` multiplies the last block's output (the ``* quant_step``
 that follows the encoder's chain).
 
-The kernel is persistent: one cooperative launch per chain, whatever N.
-For each block in turn, every thread block walks its share of the 8x8
-output tiles, then the whole grid meets at a barrier, so the next block
-reads a finished activation. Activations move between the caller's output
-and one scratch tensor (:func:`buffer_plan`), both L2-resident at the main
-path's sizes. A tile reads its input with a one-pixel halo
+The kernel is persistent: one cooperative launch per chain, whatever N
+and B. For each block in turn, every thread block walks its share of the
+B x 8x8 output tiles, then the whole grid meets at a barrier, so the next
+block reads a finished activation. Activations move between the caller's
+output and one scratch tensor (:func:`buffer_plan`), both L2-resident at
+the main path's sizes. A tile reads its input with a one-pixel halo
 (:data:`WIN` x :data:`WIN` pixels) and recomputes dc_0 on it; nothing else
 is recomputed. Each tile runs the single-block kernel's tile routine
 (``csrc/dcb_tile.cuh``) on the block's slabs from :func:`pack_chain`.
@@ -70,18 +70,18 @@ def _lib() -> ctypes.CDLL:
     fn = lib.ssgvc_dcb_chain_forward
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, vp]
+        fn.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, vp]
         fn.restype = ctypes.c_int
     return lib
 
 
 def dcb_chain_cuda(x: torch.Tensor, packed: torch.Tensor,
                    q_last: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One launch for the whole chain: x (1, H, W, C) bf16 CUDA, ``packed``
+    """One launch for the whole chain: x (B, H, W, C) bf16 CUDA, ``packed``
     from :func:`pack_chain` (N blocks), q_last (C,) or None."""
     global launches
     check_input(x, "dcb_chain", CHAIN_CHANNELS)
-    _, h, w, c = x.shape
+    b, h, w, c = x.shape
     n = packed.numel() // packed_numel(c)
     if n < 1:
         raise ValueError("dcb_chain: no blocks")
@@ -94,7 +94,7 @@ def dcb_chain_cuda(x: torch.Tensor, packed: torch.Tensor,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.ssgvc_dcb_chain_forward(
             x.data_ptr(), y.data_ptr(), scratch.data_ptr(), packed.data_ptr(),
-            q_ptr, h, w, c, n, stream)
+            q_ptr, b, h, w, c, n, stream)
     _build.check(lib, rc, "dcb_chain kernel")
     launches += 1
     return y

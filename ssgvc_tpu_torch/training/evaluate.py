@@ -30,6 +30,7 @@ def _roi_psnr(ref: np.ndarray, rec: np.ndarray, mask: np.ndarray) -> float:
     return float(min(99.9, 10 * np.log10(1.0 / mse)))
 
 
+@torch.no_grad()
 def evaluate_gop_estimated(dmci, dmc, frames, masks, qp: int,
                            index_map: Sequence[int],
                            qp_shift: Sequence[int]) -> List[Dict]:

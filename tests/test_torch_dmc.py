@@ -62,8 +62,9 @@ def _compare(widths, packed_io, after_i, seed, atol=1e-4):
                                   **widths), device="cpu")
     load_flax_params(model, params)
     t = lambda a: torch.from_numpy(np.array(a))
-    out = model(t(x), QP, {"frame": t(frame), "feature": t(feature)},
-                after_i=after_i, mask=t(mask))
+    with torch.no_grad():
+        out = model(t(x), QP, {"frame": t(frame), "feature": t(feature)},
+                    after_i=after_i, mask=t(mask))
 
     for k, rtol in (("bpp", BPP_RTOL), ("bpp_y", BPP_RTOL), ("bpp_z", 1e-4)):
         np.testing.assert_allclose(out[k].numpy(), np.asarray(ref[k]),

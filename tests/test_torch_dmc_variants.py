@@ -75,8 +75,9 @@ def test_variant_matches_jax(variant, packed_io, after_i):
         DMC(DMCConfig.variant(variant, packed_io=packed_io, **RD_TINY),
             device="cpu"), params)
     t = lambda a: torch.from_numpy(np.array(a))
-    out = model(t(x), QP, {"frame": t(frame), "feature": t(feature)},
-                after_i=after_i, mask=t(mask))
+    with torch.no_grad():
+        out = model(t(x), QP, {"frame": t(frame), "feature": t(feature)},
+                    after_i=after_i, mask=t(mask))
 
     for k, rtol in (("bpp", BPP_RTOL), ("bpp_y", BPP_RTOL), ("bpp_z", 1e-4)):
         np.testing.assert_allclose(out[k].numpy(), np.asarray(ref[k]),

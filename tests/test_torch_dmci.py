@@ -79,7 +79,8 @@ def _compare(widths, hw, seed, atol):
                        train=False)
     model = DMCI(DMCIConfig(**widths), device="cpu")
     load_flax_params(model, params)
-    out = model(torch.from_numpy(x), QP)
+    with torch.no_grad():
+        out = model(torch.from_numpy(x), QP)
     assert out["dpb"]["feature"] is None
     for k, rtol in (("bpp", BPP_RTOL), ("bpp_y", BPP_RTOL), ("bpp_z", 1e-4)):
         np.testing.assert_allclose(out[k].numpy(), np.asarray(ref[k]),

@@ -32,6 +32,33 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert not bad, bad
 
 
+TRAINING_MODULES = ("ops.dcb_grad", "data.device_synth", "training.loss",
+                    "training.schedule", "training.optimizers",
+                    "training.calibrate", "training.trainer", "config")
+
+
+@pytest.mark.parametrize("module", TRAINING_MODULES)
+def test_training_modules_import_without_jax(module):
+    """Each module of the training path imports, in a fresh interpreter,
+    with JAX, flax, optax and the JAX package made unimportable."""
+    import subprocess
+    import sys
+
+    code = (
+        "import importlib, importlib.abc, sys\n"
+        f"BAD = {FORBIDDEN!r}\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path, target=None):\n"
+        "        if name.split('.')[0] in BAD:\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"importlib.import_module('ssgvc_tpu_torch.{module}')\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in BAD]\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_port_never_reaches_the_jax_packages_coder():
     """The port's rANS coder is its own csrc/rans.cpp, built into its own
     _build/: no port file names the JAX package's native directory or

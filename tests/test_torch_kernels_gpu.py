@@ -147,7 +147,9 @@ def test_kernel_refuses_what_it_does_not_take():
     p = block_params(128, rng, dev)
     x = torch.zeros((2, 8, 8, 128), dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError):
-        dcb_ops.dcb(x, p)                            # B=2
+        dcb_ops.dcb(x[0], p)                         # no batch axis
+    with pytest.raises(ValueError):
+        dcb_ops.dcb(x.transpose(1, 2), p)            # not contiguous NHWC
     with pytest.raises(TypeError):
         dcb_ops.dcb(x[:1].float(), p)                # fp32 on the card
     with pytest.raises(ValueError):
