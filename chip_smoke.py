@@ -5,9 +5,10 @@
 
 Phases (any failure exits non-zero and prints no result line):
   1. device: the card's name and power limit (nvidia-smi), name and count;
-  2. build: both DepthConvBlock kernels from ssgvc_tpu_torch/csrc, one nvcc
-     each, started together; prints registers, shared memory and spill
-     bytes of every instantiation, and each library's wgmma (HGMMA) and
+  2. build: the DepthConvBlock kernels from ssgvc_tpu_torch/csrc (dcb,
+     dcb_chain, dcb_bwd, dcb_f32), one nvcc each, started together; prints
+     registers, shared memory and spill bytes of every instantiation (one
+     per computed width CP), and the wgmma kernels' wgmma (HGMMA) and
      bulk-copy (UBLKCP) instructions from cuobjdump (none of either fails);
   3. kernels: each kernel at every shape the P-frame and I-frame codecs
      give it, against its plain PyTorch version on the same bf16 inputs
@@ -17,8 +18,9 @@ Phases (any failure exits non-zero and prints no result line):
      With --prev-port DIR (another checkout's ssgvc_tpu_torch/, e.g. the
      parent commit's unpacked by git archive into a git-ignored directory)
      that checkout's kernels are built and timed in the same turns as
-     prev_ms (prev, new, ..., new, prev) at every P-frame shape, through its
-     own layers.blocks (DepthConvBlock(c, shortcut=sc) and run_chain) on
+     prev_ms (prev, new, ..., new, prev) at every P-frame and I-frame
+     shape, through its own layers.blocks (DepthConvBlock(c,
+     shortcut=sc) and run_chain) on
      blocks holding the same weights, as its main path calls them;
   4. I-frame: the DMCI intra codec at full width (enc_dec 368, N 256,
      z_channel 128), bf16 compute, a raw 1088x1920 frame at QP 32, weights
@@ -89,11 +91,43 @@ Phases (any failure exits non-zero and prints no result line):
      width, recon_residual, 128x128, B = 2, train=False): loss within
      5e-2, gradient cosine >= XTRAIN_COSINE to the CPU's fp32 one and >=
      XTRAIN_KERNEL_COSINE to the CPU port's own bf16 one (the same
-     rounding points, so what is left is the card's kernels).
+     rounding points, so what is left is the card's kernels);
+ 14. widths: both kernels in bf16 and fp32 at every width of every profile
+     and every computed width (WIDTH_SINGLE to 512, WIDTH_CHAIN to 384), on
+     B=4 8x8 (a 64x64 crop), B=4 24x24 (a 192x192 clip) and B=1 136x240
+     frames and their hyper and prior sites (B=8 4x4, B=4 12x12, 68x120,
+     17x30: cut-off and partly filled tiles), each against its plain version (bf16 relative Frobenius 1e-2,
+     fp32 max |d| / max |ref| 1e-5 with TF32 off), one launch per call,
+     timed beside its plain version and its bound (989 TFLOP/s bf16, 67
+     TFLOP/s fp32); then the fp32 kernels at every P-frame and I-frame
+     shape as phase 3 times the bf16 ones;
+ 15. fp32 at full width: DMCIConfig() and the performance DMCConfig at
+     their default dtype, float32, on phases 4-5's weights, an I-frame and
+     FP32_P_FRAMES P-frames of 1088x1920 with packed io, launches per frame
+     on the fp32 kernels only (I 42; P 19+5, then 18+5), ms per I- and
+     P-frame, peak memory; DMC(DMCConfig()) (plain, raw io) codes a
+     P-frame; then phase 8's cross-check with the card in fp32: each frame
+     10 dB closer to the CPU's fp32 than the card's bf16 got in phase 8,
+     with the flipped round(y) counts printed;
+ 16. rd-half in bf16: I + RDHALF_P_FRAMES P-frames of 1088x1920 (the CP =
+     192 chains, C = 160 and 184 at frame size), launches per frame, ms
+     per I- and P-frame;
+ 17. the RD recipe (experiments/rd_tpu.py): rd-mid, performance, fp32,
+     RD_STEPS micro-steps of B=RD_B 64x64 T=4 device_synth clips with the
+     recipe's optimizer settings (losses finite, every DepthConvBlock
+     gradient finite and nonzero, launches on the fp32 kernels and the
+     backward kernels only), ms per micro-step, peak memory; then
+     make_batched_gop_eval + evaluate_rd_batched over RD_EVAL_CLIPS
+     192x192 clips at EVAL_QPS (s per QP) and latent_liveness /
+     liveness_collapsed on two of them;
+ 18. coded fp32: VideoCodec at rd-mid in float32, I + 2 P of 192x192,
+     every decoded frame and DPB torch.equal to the encoder's.
 
 The last lines are JSON objects: {"main_path": ...}, {"variants": ...},
-{"coded": ...}, {"training": ...}, {"kernels": [...]}, and last {"ok":
-true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+{"coded": ...}, {"training": ...}, {"cross_check": ...}, {"fp32": ...},
+{"rd_half": ...}, {"rd_recipe": ...}, {"coded_fp32": ...}, {"kernels":
+[...]}, and last {"ok": true, "device": {"platform": "gpu", "kind": ...,
+"count": ...}}.
 """
 
 from __future__ import annotations
@@ -112,8 +146,10 @@ from pathlib import Path
 import numpy as np
 
 H100_BF16_FLOPS = 989e12     # dense tensor-core peak, H100 SXM data sheet
+H100_FP32_FLOPS = 67e12      # fp32 outside the tensor cores, the same
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 REL_TOL = 1e-2               # kernel vs plain, relative Frobenius error
+F32_TOL = 1e-5               # fp32 kernel vs plain, max |d| / max |ref|
 H, W = 1088, 1920
 QP = 32
 GOP_RUNS = 3                 # timed GOPs; ms/frame is their median
@@ -188,8 +224,9 @@ XTRAIN_KERNEL_COSINE = 0.99
 # P-frame's forward twice, and each chain's backward recomputes its
 # blocks' inputs with N - 1 single-block launches: 8 per P-frame)
 TRAIN_LAUNCHES = {"dcb": IFRAME_LAUNCHES + 2 * (19 + 18 + 18) + 3 * 8,
-                  "dcb_chain": 2 * 3 * 5, "dw_fwd": 94, "gate_bwd": 94,
-                  "dw_bwd": 94, "grad_reduce": 94}
+                  "dcb_chain": 2 * 3 * 5, "dcb_f32": 0, "dcb_chain_f32": 0,
+                  "dw_fwd": 94, "gate_bwd": 94, "dw_bwd": 94,
+                  "grad_reduce": 94}
 # The shapes a micro-step's block backwards give their kernels (B = 4,
 # 128x128 crop): (rows, cols, C, q, sites); the launches at each are
 # counted in phase 13
@@ -241,6 +278,27 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def check_f32(torch, what, out, ref, tol=F32_TOL):
+    """Fail unless the fp32 ``out`` is finite and max |out - ref| / max
+    |ref| <= ``tol`` (the plain version with TF32 off: main sets both
+    flags); returns (that ratio, max abs error)."""
+    diff = (out - ref).abs()
+    rel = float(diff.max() / ref.abs().max())
+    if not torch.isfinite(out).all():
+        fail(f"{what}: output not finite")
+    if not rel <= tol:
+        fail(f"{what} disagrees with plain: max rel {rel:.3g} > {tol}")
+    return rel, float(diff.max())
+
+
+def check_kernel(torch, what, out, ref):
+    """The kernel's dtype's check: bf16 relative Frobenius (REL_TOL), fp32
+    max relative (F32_TOL)."""
+    if out.dtype == torch.float32:
+        return check_f32(torch, what, out, ref)
+    return check_close(torch, what, out, ref)
+
+
 def check_close(torch, what, out, ref, tol=REL_TOL):
     """Fail unless ``out`` is finite and within ``tol`` of ``ref`` in
     relative Frobenius error; returns (that error, max abs error)."""
@@ -267,14 +325,26 @@ def block_params(torch, c, rng, device):
             t((c, 2 * c, 1, 1), 0.3 * (2 * c) ** -0.5), t((c,), 0.1))
 
 
-def bound_ms(h, w, c, n) -> float:
-    """Least time on an H100 SXM: the larger of the block products at the
-    bf16 tensor-core peak and the bytes (x read once, y written once, the
-    bf16 weights read once) at the HBM rate, at the block's true C (not the
-    width the kernel computes it at). Always the products here."""
-    flops = n * h * w * (16 * c * c + 18 * c)
-    nbytes = 2 * (2 * h * w * c) + n * 2 * (8 * c * c + 17 * c)
-    return 1e3 * max(flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S)
+def bound_times(h, w, c, n, f32=False, b=1):
+    """(seconds for the block products at the dtype's peak, bf16 tensor
+    cores or fp32 outside them; seconds for the bytes at the HBM rate: x
+    read once, y written once, the weights read once), at the block's true
+    C (not the width the kernel computes it at), for b images."""
+    flops = n * b * h * w * (16 * c * c + 18 * c)
+    size = 4 if f32 else 2
+    nbytes = size * (2 * b * h * w * c) + n * size * (8 * c * c + 17 * c)
+    peak = H100_FP32_FLOPS if f32 else H100_BF16_FLOPS
+    return flops / peak, nbytes / H100_BYTES_PER_S
+
+
+def bound_ms(h, w, c, n, f32=False, b=1) -> float:
+    """Least time on an H100 SXM: the larger of :func:`bound_times`."""
+    return 1e3 * max(bound_times(h, w, c, n, f32, b))
+
+
+def bound_by(h, w, c, n, f32=False, b=1) -> str:
+    ops, mem = bound_times(h, w, c, n, f32, b)
+    return "operations" if ops >= mem else "bytes"
 
 
 def phase_device(torch):
@@ -298,7 +368,7 @@ def phase_build():
     from ssgvc_tpu_torch.ops import dcb as dcb_ops
 
     t0 = time.time()
-    names = ["dcb", "dcb_chain", "dcb_bwd"]
+    names = ["dcb", "dcb_chain", "dcb_bwd", "dcb_f32"]
     logs = _build.build(names)
     print(f"build: {time.time() - t0:.1f} s")
     for name in names:
@@ -312,13 +382,16 @@ def phase_build():
                 spill = line.strip()
             m = re.search(r"Used (\d+) registers", line)
             if m:
-                c = re.search(r"ILi(\d+)E(?:Lb(\d)E)?", entry)
-                what = (f"C={c.group(1)}" + (f" sc={c.group(2)}"
-                                             if c.group(2) else "")
+                # template flags: dcb [shortcut, padded], dcb_chain [padded]
+                c = re.search(r"ILi(\d+)E((?:Lb\dE)*)", entry)
+                flags = re.findall(r"Lb(\d)E", c.group(2)) if c else []
+                what = (f"CP={c.group(1)}" + (f" [{','.join(flags)}]"
+                                              if flags else "")
                         if c else entry)
                 print(f"  [{name}] {what}: {spill}, {m.group(1)} registers")
     print("  [dcb, dcb_chain] dynamic shared memory, any N: " + ", ".join(
-        f"C={c} {dcb_ops.smem_bytes(c)} B" for c in dcb_ops.DCB_CHANNELS))
+        f"CP={c} {dcb_ops.smem_bytes(c)} B"
+        for c in dcb_ops.COMPUTED_WIDTHS))
     cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
     for name in ("dcb", "dcb_chain"):    # the backward kernels are SIMT
         sass = subprocess.run([str(cuobjdump), "-sass",
@@ -351,18 +424,25 @@ def load_prev_port(path):
     return importlib.import_module("prev_port.layers.blocks")
 
 
-def phase_kernels(torch, seed, card, prev=None):
+def phase_kernels(torch, seed, card, prev=None, f32=False):
+    """Both kernels at every P-frame and I-frame shape against their plain
+    versions, timed: the bf16 wgmma kernels (with N launches of the single
+    block beside each chain, and --prev-port's kernels in turns), or with
+    ``f32`` the fp32 kernels of csrc/dcb_f32.cu (kernel and plain only)."""
     from ssgvc_tpu_torch.ops import dcb as dcb_ops
     from ssgvc_tpu_torch.ops import dcb_chain as chain_ops
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
     bf16 = torch.bfloat16
+    act = torch.float32 if f32 else bf16
+    if f32:
+        prev = None
 
     def inputs(h, w, c, n, with_q):
-        x = torch.tensor(rng.standard_normal((1, h, w, c)), dtype=bf16,
+        x = torch.tensor(rng.standard_normal((1, h, w, c)), dtype=act,
                          device=dev)
-        q = (torch.linspace(0.5, 1.5, c, device=dev).to(bf16) if with_q
+        q = (torch.linspace(0.5, 1.5, c, device=dev).to(act) if with_q
              else None)
         return x, q, [block_params(torch, c, rng, dev) for _ in range(n)]
 
@@ -381,8 +461,8 @@ def phase_kernels(torch, seed, card, prev=None):
         (prev,) middle, reversed middle (, prev)."""
         outs = {k: fn() for k, fn in fns.items()}
         torch.cuda.synchronize()
-        rel, max_err = check_close(torch, f"{what} at {(h, w, c, n)}",
-                                   outs["kernel"], ref)
+        rel, max_err = check_kernel(torch, f"{what} at {(h, w, c, n)}",
+                                    outs["kernel"], ref)
         for k in ("seq", "prev"):
             if k in outs:
                 check_close(torch, f"{k} at {(h, w, c, n)}", outs[k], ref)
@@ -394,15 +474,16 @@ def phase_kernels(torch, seed, card, prev=None):
             times[k].append(cuda_ms(torch, fns[k], 20))
         r = {f"{k}_ms": sum(v) / len(v) for k, v in times.items()}
         r.update(plain_ms=cuda_ms(torch, plain, 5),
-                 bound_us=1e3 * bound_ms(h, w, c, n), rel_err=rel,
+                 bound_us=1e3 * bound_ms(h, w, c, n, f32), rel_err=rel,
                  max_err=max_err, turns={k: times[k] for k in times})
         return r
 
     def run_single(h, w, c, shortcut, with_prev):
         x, _, blocks = inputs(h, w, c, 1, False)
         # packed once, outside every timed loop
-        packed = dcb_ops.pack_block(blocks[0], bf16)
-        fns = {"kernel": lambda: dcb_ops.dcb_cuda(x, packed, None, shortcut)}
+        packed = dcb_ops.pack_kernel(blocks[0], act)
+        launch = dcb_ops.dcb_f32_cuda if f32 else dcb_ops.dcb_cuda
+        fns = {"kernel": lambda: launch(x, packed, None, shortcut)}
         if with_prev:
             mod = prev_blocks(c, shortcut, blocks)[0]
             fns["prev"] = lambda: mod(x)
@@ -412,9 +493,14 @@ def phase_kernels(torch, seed, card, prev=None):
     def run_chain(h, w, c, n, with_q):
         x, q, blocks = inputs(h, w, c, n, with_q)
         # packed once, outside every timed loop
-        packed = chain_ops.pack_chain(blocks, bf16)
+        packed = chain_ops.pack_chain(blocks, act)
         singles = [dcb_ops.pack_block(p, bf16) for p in blocks]
         plain = lambda: chain_ops.dcb_chain_plain(x, blocks, q)
+        if f32:
+            fns = {"kernel": lambda: chain_ops.dcb_chain_f32_cuda(x, packed,
+                                                                  q)}
+            return in_turns("dcb_chain_f32", fns, ["kernel"], plain(), plain,
+                            h, w, c, n)
 
         def seq():
             y = x
@@ -441,20 +527,24 @@ def phase_kernels(torch, seed, card, prev=None):
             max_abs_err=max(r["max_err"] for r in rows))
 
     entries = []
+    sfx, src_single, src_chain = (
+        ("_f32", "ssgvc_tpu_torch/csrc/dcb_f32.cu",
+         "ssgvc_tpu_torch/csrc/dcb_f32.cu") if f32 else
+        ("", "ssgvc_tpu_torch/csrc/dcb.cu",
+         "ssgvc_tpu_torch/csrc/dcb_chain.cu"))
     for name, shapes, source, replaces in (
-            ("dcb", SINGLE_SHAPES + IFRAME_SHAPES,
-             "ssgvc_tpu_torch/csrc/dcb.cu", "ssgvc_tpu/ops/pallas_dcb.py:68"),
-            ("dcb_chain", CHAIN_SHAPES, "ssgvc_tpu_torch/csrc/dcb_chain.cu",
+            ("dcb" + sfx, SINGLE_SHAPES + IFRAME_SHAPES, src_single,
+             "ssgvc_tpu/ops/pallas_dcb.py:68"),
+            ("dcb_chain" + sfx, CHAIN_SHAPES, src_chain,
              "ssgvc_tpu/ops/pallas_dcb_chain.py:61")):
         rows = []
+        single = not name.startswith("dcb_chain")
         for k, shape in enumerate(shapes):
-            frame = "I" if name == "dcb" and k >= len(SINGLE_SHAPES) else "P"
-            if name == "dcb":
+            frame = "I" if single and k >= len(SINGLE_SHAPES) else "P"
+            if single:
                 h, w, c, shortcut, per_frame, sites = shape
                 n, with_q = 1, False
-                # the parent's kernel takes only the P-frame widths
-                r = run_single(h, w, c, shortcut,
-                               prev is not None and frame == "P")
+                r = run_single(h, w, c, shortcut, prev is not None)
             else:
                 h, w, c, n, with_q, per_frame, sites = shape
                 shortcut = False
@@ -466,16 +556,18 @@ def phase_kernels(torch, seed, card, prev=None):
             line = (f"  {name} [{frame}] {h}x{w}x{c} n={n} "
                     f"sc={int(shortcut)} q={int(with_q)}: kernel "
                     f"{r['kernel_ms']:.4f} ms")
-            if name == "dcb_chain":
+            if "seq_ms" in r:
                 line += f", seq ({n} x dcb) {r['seq_ms']:.4f} ms"
             if "prev_ms" in r:
                 line += f", prev {r['prev_ms']:.4f} ms"
             # derived, not measured: by design every 8x8 tile copies its
             # block's four matrices (8 C^2 bf16) into shared memory once
-            wbytes = math.prod(dcb_ops.tile_grid(h, w)) * n * 16 * c * c
-            line += (f", weight bytes copied by design {wbytes / 1e6:.0f}"
-                     f" MB / kernel time = {wbytes / r['kernel_ms'] / 1e9:.2f}"
-                     f" TB/s (derived)")
+            if not f32:
+                wbytes = math.prod(dcb_ops.tile_grid(h, w)) * n * 16 * c * c
+                line += (f", weight bytes copied by design "
+                         f"{wbytes / 1e6:.0f} MB / kernel time = "
+                         f"{wbytes / r['kernel_ms'] / 1e9:.2f} TB/s "
+                         f"(derived)")
             print(line + f", plain {r['plain_ms']:.4f} ms, bound "
                   f"{r['bound_us']:.1f} us (share {r['share']:.3f}), rel "
                   f"{r['rel_err']:.2e}, max abs {r['max_err']:.3g} [{card}]")
@@ -495,6 +587,9 @@ def phase_kernels(torch, seed, card, prev=None):
             if p_rows and all(k in r for r in p_rows):
                 entry[k] = sum(r[k] * r["launches_per_frame"]
                                for r in p_rows)
+            if i_rows and all(k in r for r in i_rows):
+                entry["iframe"][k] = sum(r[k] * r["launches_per_frame"]
+                                         for r in i_rows)
         entries.append(entry)
     return entries
 
@@ -799,7 +894,13 @@ def phase_gop(torch, seed, iframe, main, card):
     return dict(launches=launches, per_frame=counts, results=results)
 
 
-def phase_cross_check(torch, main, iframe, seed):
+def phase_cross_check(torch, main, iframe, seed, card_dtype="bfloat16",
+                      floors=None):
+    """Both codecs' weights at 128x128 through the CPU port in fp32 and the
+    card in ``card_dtype``. In bf16 (phase 8) the bf16 tolerances hold;
+    with ``floors`` (phase 15, fp32 on the card) each frame's PSNR to the
+    CPU's must reach its floor. Returns the PSNRs, bpps and the flipped
+    round(y) counts of both codecs' latents."""
     from ssgvc_tpu_torch.config import DMCConfig, DMCIConfig
     from ssgvc_tpu_torch.models.dmc import DMC
     from ssgvc_tpu_torch.models.dmci import DMCI
@@ -812,11 +913,16 @@ def phase_cross_check(torch, main, iframe, seed):
     frame = rng.uniform(0, 1, (1, hw // 8, hw // 8, 192)).astype(np.float32)
     feature = (rng.standard_normal((1, hw // 8, hw // 8, 256)) * 0.1
                ).astype(np.float32)
-    results = {}
-    for dev, dtype in (("cpu", "float32"), (DEVICE, "bfloat16")):
+    label = "bf16" if card_dtype == "bfloat16" else "fp32"
+    results, ys = [], []          # [CPU fp32, card]
+    for dev, dtype in (("cpu", "float32"), (DEVICE, card_dtype)):
         cfg = DMCConfig.variant("performance", dtype=dtype, packed_io=True)
         model = DMC(cfg, device=dev)
         model.load_state_dict(main["state"], strict=True)
+        y_taps = []
+        ys.append(y_taps)
+        model.encoder.register_forward_hook(
+            lambda m, a, out, t=y_taps: t.append(out.float().cpu()))
         cast = lambda a: torch.from_numpy(a).to(dev, model.dtype)
         outs = []
         dpb = {"frame": cast(frame), "feature": cast(feature)}
@@ -826,11 +932,17 @@ def phase_cross_check(torch, main, iframe, seed):
                             mask=cast(mask))
                 outs.append((float(out["bpp"].float()),
                              out["dpb"]["frame"].float().cpu()))
-        results[dtype] = outs
-    for i, ((b_cpu, f_cpu), (b_gpu, f_gpu)) in enumerate(
-            zip(results["float32"], results["bfloat16"])):
-        cross_check_pair(f"P-frame after_i={i == 0}", b_cpu, f_cpu, b_gpu,
-                         f_gpu)
+        results.append(outs)
+    r = {"p_psnr": [], "p_flips": []}
+    for i, ((b_cpu, f_cpu), (b_gpu, f_gpu)) in enumerate(zip(*results)):
+        flips = int((torch.round(ys[0][i]) != torch.round(ys[1][i])).sum())
+        what = f"P-frame after_i={i == 0}"
+        psnr = cross_check_pair(
+            what, b_cpu, f_cpu, b_gpu, f_gpu, label=label,
+            psnr_tol=30.0 if floors is None else floors["p"][i],
+            extra=f", flipped round(y) {flips} of {ys[0][i].numel()}")
+        r["p_psnr"].append(psnr)
+        r["p_flips"].append(flips)
 
     # The I-frame codec: end to end, then its analysis (the latent y) and
     # its synthesis alone on the fp32 run's y_hat. Its 4-pass prior chains
@@ -841,51 +953,62 @@ def phase_cross_check(torch, main, iframe, seed):
     # the decoder alone on the same y_hat agreed at 43 dB and is held at
     # 30 dB like the P-frame codec.
     xi = rng.uniform(0, 1, (1, hw, hw, 3)).astype(np.float32)
-    results, taps = {}, {}
-    for dev, dtype in (("cpu", "float32"), (DEVICE, "bfloat16")):
+    results, taps = [], []
+    for dev, dtype in (("cpu", "float32"), (DEVICE, card_dtype)):
         model = DMCI(DMCIConfig(dtype=dtype), device=dev)
         model.load_state_dict(iframe["state"], strict=True)
-        tap = taps[dtype] = {"model": model}
+        tap = {"model": model}
+        taps.append(tap)
         model.enc.register_forward_hook(
             lambda m, a, out, tap=tap: tap.__setitem__("y", out.float().cpu()))
         model.dec.register_forward_pre_hook(
             lambda m, a, tap=tap: tap.__setitem__("dec_in", a))
         with torch.no_grad():
             out = model(torch.from_numpy(xi).to(dev), QP)
-        results[dtype] = (float(out["bpp"].float()),
-                          out["dpb"]["frame"].float().cpu())
-    cross_check_pair("I-frame", *results["float32"], *results["bfloat16"],
-                     psnr_tol=18.0)
-    y32, y16 = taps["float32"]["y"], taps["bfloat16"]["y"]
-    rel_y = float(torch.linalg.vector_norm(y16 - y32)
+        results.append((float(out["bpp"].float()),
+                        out["dpb"]["frame"].float().cpu()))
+    y32, yc = taps[0]["y"], taps[1]["y"]
+    flips = int((torch.round(y32) != torch.round(yc)).sum())
+    r["i_psnr"] = cross_check_pair(
+        "I-frame", *results[0], *results[1], label=label,
+        psnr_tol=18.0 if floors is None else floors["i"],
+        extra=f", flipped round(y) {flips} of {y32.numel()}")
+    r["i_flips"] = flips
+    rel_y = float(torch.linalg.vector_norm(yc - y32)
                   / torch.linalg.vector_norm(y32))
-    y_hat, q_dec = taps["float32"]["dec_in"]
-    m16 = taps["bfloat16"]["model"]
+    y_hat, q_dec = taps[0]["dec_in"]
+    mc = taps[1]["model"]
     with torch.no_grad():
-        f16 = torch.clamp(m16.dec(y_hat.to(DEVICE, m16.dtype),
-                                  q_dec.to(DEVICE, m16.dtype)), 0.0, 1.0)
-    mse = float(((f16.float().cpu() - results["float32"][1]) ** 2).mean())
+        fc = torch.clamp(mc.dec(y_hat.to(DEVICE, mc.dtype),
+                                q_dec.to(DEVICE, mc.dtype)), 0.0, 1.0)
+    mse = float(((fc.float().cpu() - results[0][1]) ** 2).mean())
     psnr = 10 * math.log10(1.0 / max(mse, 1e-20))
-    print(f"cross-check I-frame parts 128x128: latent y rel {rel_y:.2e} "
-          f"(tol 2e-2); decoder alone on the fp32 run's y_hat, frame PSNR "
-          f"{psnr:.1f} dB (tol >= 30)")
+    r.update(i_rel_y=rel_y, i_dec_psnr=psnr)
+    print(f"cross-check I-frame parts 128x128 (card {label}): latent y rel "
+          f"{rel_y:.2e} (tol 2e-2); decoder alone on the fp32 run's y_hat, "
+          f"frame PSNR {psnr:.1f} dB (tol >= 30)")
     if rel_y > 2e-2 or psnr < 30:
-        fail("I-frame: card bf16 and CPU fp32 disagree beyond the bf16 "
+        fail(f"I-frame: card {label} and CPU fp32 disagree beyond the "
              "tolerance in the analysis or the synthesis")
+    return r
 
 
-def cross_check_pair(what, b_cpu, f_cpu, b_gpu, f_gpu, psnr_tol=30.0):
+def cross_check_pair(what, b_cpu, f_cpu, b_gpu, f_gpu, psnr_tol=30.0,
+                     label="bf16", extra=""):
+    """bpp within 5e-2 relative and the frames within ``psnr_tol`` dB of
+    each other, CPU fp32 against the card; returns the PSNR."""
     rel = abs(b_gpu - b_cpu) / b_cpu
     mse = float(((f_gpu - f_cpu) ** 2).mean())
     psnr = 10 * math.log10(1.0 / max(mse, 1e-20))
     print(f"cross-check {what} 128x128: bpp cpu-fp32 {b_cpu:.5f} "
-          f"card-bf16 {b_gpu:.5f} (rel {rel:.2e}, tol 5e-2), frame PSNR "
-          f"between them {psnr:.1f} dB (tol >= {psnr_tol:g})")
+          f"card-{label} {b_gpu:.5f} (rel {rel:.2e}, tol 5e-2), frame PSNR "
+          f"between them {psnr:.1f} dB (tol >= {psnr_tol:g}){extra}")
     # bf16 rounds activations to 8 bits of mantissa and flips some
     # round() decisions of the quantizer, so the two agree only loosely
     if rel > 5e-2 or psnr < psnr_tol:
-        fail(f"{what}: card bf16 and CPU fp32 disagree beyond the bf16 "
+        fail(f"{what}: card {label} and CPU fp32 disagree beyond the "
              "tolerance")
+    return psnr
 
 
 def phase_variants(torch, seed, card, iframe, main):
@@ -1474,15 +1597,16 @@ def launch_counts():
     from ssgvc_tpu_torch.ops import dcb_grad as dg
 
     def reset():
-        dcb_ops.launches = 0
-        chain_ops.launches = 0
+        dcb_ops.launches = dcb_ops.launches_f32 = 0
+        chain_ops.launches = chain_ops.launches_f32 = 0
         for k in dg.launches:
             dg.launches[k] = 0
         dg.shape_launches.clear()
 
     def read():
         return {"dcb": dcb_ops.launches, "dcb_chain": chain_ops.launches,
-                **dg.launches}
+                "dcb_f32": dcb_ops.launches_f32,
+                "dcb_chain_f32": chain_ops.launches_f32, **dg.launches}
     return reset, read
 
 
@@ -1688,6 +1812,444 @@ def train_cross_check(torch, seed, device=DEVICE, hw=TRAIN_HW, b=2, t=3):
     return r
 
 
+# Phases 14-18 of this slice: every profile's widths, float32, the RD recipe
+
+#: Widths of phase 14: every width a profile builds, one per computed width
+#: (C rounded up to 64; 448 at 512), the single block to 512 and the chain
+#: to 384
+WIDTH_SINGLE = (8, 16, 24, 32, 48, 64, 96, 128, 160, 184, 192, 256, 320,
+                384, 448, 512)
+WIDTH_CHAIN = (8, 16, 24, 32, 48, 64, 96, 128, 160, 192, 256, 320, 384)
+#: (B, rows, cols, what): a 64x64 training crop, a 192x192 eval clip and a
+#: 1088x1920 frame, each packed 8x8; then the same at the hyper and prior
+#: sites (/16, /64), whose last 8x8 tiles (8x4 in the fp32 kernel) are cut
+#: off or only partly filled
+WIDTH_FRAMES = ((4, 8, 8, "64x64 crop"), (4, 24, 24, "192x192 clip"),
+                (1, 136, 240, "1088x1920"),
+                (8, 4, 4, "64x64 crop /16"), (4, 12, 12, "192x192 clip /16"),
+                (1, 68, 120, "1088x1920 /16"), (1, 17, 30, "1088x1920 /64"))
+WIDTH_CHAIN_N = 2
+FP32_P_FRAMES = 7            # P-frames after the I-frame in phase 15
+FP32_RUNS = 2                # timed fp32 GOPs; ms their median
+RDHALF_P_FRAMES = 7          # the same at rd-half, bf16 (phase 16)
+RDHALF_RUNS = 3
+# The RD recipe (experiments/rd_tpu.py:train_variant_tpu, rd_full.py): the
+# rd-mid profile, performance variant, fp32, crop 64, T = 4, base_lr 7e-4,
+# min_lr 5e-5, roi_weight 100, lambda_normalize off (rd_full.LNORM),
+# accumulation 1; the recipe's batch is 32, here 8 to bound the smoke's
+# time (a micro-step is host-bound: its time barely grows with B)
+RD_PROFILE = {"dmc": dict(ch_d=64, ch_y=32, ch_z=32, ch_recon=96),
+              "dmci": dict(enc_dec=96, N=64, z_channel=32)}
+RD_B, RD_CROP, RD_T, RD_STEPS = 8, 64, 4, 10
+RD_EVAL_CLIPS, RD_EVAL_CROP = 6, 192
+EVAL_QPS = (8, 20, 32, 44, 56)     # experiments/rd_full.py:EVAL_QPS
+RDHALF_PROFILE = {"dmc": dict(ch_d=128, ch_y=64, ch_z=64, ch_recon=160),
+                  "dmci": dict(enc_dec=184, N=128, z_channel=64)}
+
+
+def phase_widths(torch, seed, card):
+    """Both kernels in both dtypes at every width of WIDTH_SINGLE /
+    WIDTH_CHAIN and every frame of WIDTH_FRAMES against their plain
+    versions (bf16 REL_TOL, fp32 F32_TOL), one launch per call counted,
+    timed beside the plain version and the bound. Returns {kernel name:
+    [rows]}."""
+    from ssgvc_tpu_torch.ops import dcb as dcb_ops
+    from ssgvc_tpu_torch.ops import dcb_chain as chain_ops
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(seed + 60)
+    rows = {k: [] for k in ("dcb", "dcb_chain", "dcb_f32", "dcb_chain_f32")}
+    cases = ([("dcb", c) for c in WIDTH_SINGLE]
+             + [("dcb_chain", c) for c in WIDTH_CHAIN])
+    for f32 in (False, True):
+        dt = torch.float32 if f32 else torch.bfloat16
+        for kernel, c in cases:
+            for b, h, w, what in WIDTH_FRAMES:
+                n = 1 if kernel == "dcb" else WIDTH_CHAIN_N
+                x = torch.tensor(rng.standard_normal((b, h, w, c)), dtype=dt,
+                                 device=dev)
+                q = torch.linspace(0.5, 1.5, c, device=dev).to(dt)
+                blocks = [block_params(torch, c, rng, dev) for _ in range(n)]
+                if kernel == "dcb":
+                    packed = dcb_ops.pack_kernel(blocks[0], dt)
+                    fn = dcb_ops.dcb_f32_cuda if f32 else dcb_ops.dcb_cuda
+                    run = lambda: fn(x, packed, q, True)
+                    plain = lambda: dcb_ops.dcb_plain(x, blocks[0], q, True)
+                    mod, count = dcb_ops, "launches"
+                else:
+                    packed = chain_ops.pack_chain(blocks, dt)
+                    fn = (chain_ops.dcb_chain_f32_cuda if f32
+                          else chain_ops.dcb_chain_cuda)
+                    run = lambda: fn(x, packed, q)
+                    plain = lambda: chain_ops.dcb_chain_plain(x, blocks, q)
+                    mod, count = chain_ops, "launches"
+                count += "_f32" if f32 else ""
+                before = getattr(mod, count)
+                out = run()
+                launched = getattr(mod, count) - before
+                torch.cuda.synchronize()
+                name = kernel + ("_f32" if f32 else "")
+                rel, max_err = check_kernel(
+                    torch, f"{name} {b}x{h}x{w}x{c} n={n}", out, plain())
+                if launched != 1:
+                    fail(f"{name} {b}x{h}x{w}x{c}: {launched} launches for "
+                         "one call")
+                r = dict(shape=[b, h, w, c], blocks=n, frame=what,
+                         cp=dcb_ops.padded_channels(c),
+                         ms=cuda_ms(torch, run, 10),
+                         plain_ms=cuda_ms(torch, plain, 3),
+                         bound_ms=bound_ms(h, w, c, n, f32, b),
+                         bound_by=bound_by(h, w, c, n, f32, b),
+                         launches=launched, rel_err=rel, max_abs_err=max_err)
+                rows[name].append(r)
+                print(f"  widths {name} {b}x{h}x{w}x{c} (CP {r['cp']}, "
+                      f"{what}) n={n}: kernel {r['ms']:.4f} ms, plain "
+                      f"{r['plain_ms']:.4f} ms, bound {1e3 * r['bound_ms']:.2f}"
+                      f" us ({r['bound_by']}, {'67' if f32 else '989'} "
+                      f"TFLOP/s), {launched} launch, "
+                      f"{'max rel' if f32 else 'rel'} {rel:.2e} [{card}]")
+    return rows
+
+
+def synced_ms(torch, fn):
+    """(fn's result, host ms around it, the device synchronised)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def coded_gop(torch, dmci, dmc, frames, masks, qps, counts, want):
+    """An I-frame then P-frames (packed io, the DPB carried), each frame
+    timed with the device synchronised and its launches (``counts``:
+    launch_counts' (reset, read)) compared with ``want`` (per frame: a dict
+    of the counts that must match, the rest 0). Returns (per-frame ms,
+    bpps, last DPB)."""
+    from ssgvc_tpu_torch.ops.pixel import pixel_unshuffle
+
+    reset, read = counts
+    ms, bpps = [], []
+    with torch.no_grad():
+        reset()
+        out, t = synced_ms(torch, lambda: dmci(frames[0], qps[0]))
+        ms.append(t)
+        got = [read()]
+        bpps.append(out["bpp"])
+        fp = pixel_unshuffle(frames[1:, 0], 8)
+        mp = pixel_unshuffle(masks[1:, 0], 8)
+        dpb = {"frame": pixel_unshuffle(out["dpb"]["frame"], 8),
+               "feature": torch.zeros(
+                   (1, fp.shape[1], fp.shape[2], dmc.cfg.ch_d),
+                   dtype=dmc.dtype, device=fp.device)}
+        for i in range(fp.shape[0]):
+            reset()
+            out, t = synced_ms(torch, lambda: dmc(
+                fp[i:i + 1], qps[i + 1], dpb, after_i=(i == 0),
+                mask=mp[i:i + 1]))
+            ms.append(t)
+            got.append(read())
+            bpps.append(out["bpp"])
+            dpb = out["dpb"]
+    for i, (g, w) in enumerate(zip(got, want)):
+        bad = {k: v for k, v in g.items() if v != w.get(k, 0)}
+        if bad:
+            fail(f"frame {i}: launches {g}, expected {w}")
+    return ms, torch.cat(bpps), dpb, got
+
+
+def gop_inputs(torch, seed, p_frames, dtype):
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    frames = torch.rand((1 + p_frames, 1, H, W, 3), generator=g,
+                        device=DEVICE).to(dtype)
+    masks = (torch.rand((1 + p_frames, 1, H, W, 1), generator=g,
+                        device=DEVICE) > 0.8).to(dtype)
+    return frames, masks
+
+
+def run_gops(torch, what, dmci, dmc, frames, masks, runs, want, card):
+    """A warm-up GOP, then ``runs`` timed ones: ms per I-frame and per
+    P-frame (medians over the runs; a P-frame's the mean over the GOP's),
+    peak memory of the first timed run."""
+    counts = launch_counts()
+    n_p = frames.shape[0] - 1
+    qps = [QP] + [QP] * n_p
+    coded_gop(torch, dmci, dmc, frames, masks, qps, counts, want)
+    torch.cuda.reset_peak_memory_stats()
+    i_ms, p_ms = [], []
+    for k in range(runs):
+        ms, bpps, dpb, got = coded_gop(torch, dmci, dmc, frames, masks, qps,
+                                       counts, want)
+        if k == 0:
+            peak = torch.cuda.max_memory_allocated()
+        i_ms.append(ms[0])
+        p_ms.append(float(np.mean(ms[1:])))
+    b = check_frame(torch, what, bpps, dpb["frame"])
+    r = dict(i_ms=float(np.median(i_ms)), p_ms=float(np.median(p_ms)),
+             i_ms_runs=i_ms, p_ms_runs=p_ms, peak_bytes=peak,
+             bpps=b.tolist(), launches_per_frame=got)
+    print(f"{what}: I + {n_p} P {H}x{W}, {r['i_ms']:.2f} ms per I-frame, "
+          f"{r['p_ms']:.2f} ms per P-frame (medians of {runs} GOPs after a "
+          f"warm-up: I {', '.join(f'{x:.2f}' for x in i_ms)}; P "
+          f"{', '.join(f'{x:.2f}' for x in p_ms)}), peak "
+          f"{peak / 2**20:.0f} MiB allocated, launches per frame I "
+          f"{got[0]}, P1 {got[1]}, P2 {got[2]}, bpp "
+          f"{np.round(b, 4).tolist()} [{card}]")
+    return r
+
+
+def fp32_want(single, chain):
+    return {"dcb_f32": single, "dcb_chain_f32": chain}
+
+
+def phase_fp32_full(torch, seed, card, iframe, main, plain_state):
+    """float32 at full width on the card: DMCIConfig() and the performance
+    DMCConfig at their default dtype (float32) on the I-frame's and the
+    P-frame path's weights, an I-frame and FP32_P_FRAMES P-frames of
+    1088x1920 with packed io, timed; every launch on the fp32 kernels. Then
+    the bare default DMCConfig() (plain variant, raw io) codes one P-frame
+    on the plain variant's weights."""
+    from ssgvc_tpu_torch.config import DMCConfig, DMCIConfig
+    from ssgvc_tpu_torch.models.dmc import DMC
+    from ssgvc_tpu_torch.models.dmci import DMCI
+
+    dmci = DMCI(DMCIConfig(), device=DEVICE)
+    dmci.load_state_dict(iframe["state"], strict=True)
+    dmc = DMC(DMCConfig.variant("performance", packed_io=True),
+              device=DEVICE)
+    dmc.load_state_dict(main["state"], strict=True)
+    if not dmci.dtype == dmc.dtype == torch.float32:
+        fail("the default configs are not float32")
+    frames, masks = gop_inputs(torch, seed + 70, FP32_P_FRAMES,
+                               torch.float32)
+    want = ([fp32_want(IFRAME_LAUNCHES, 0), fp32_want(19, 5)]
+            + [fp32_want(18, 5)] * (FP32_P_FRAMES - 1))
+    r = run_gops(torch, "fp32 full width", dmci.eval(), dmc.eval(), frames,
+                 masks, FP32_RUNS, want, card)
+    # per GOP of P-frames, and per I-frame, by kernel: the last timed GOP's
+    # counts
+    got = r["launches_per_frame"]
+    r["launches"] = {k: (sum(g[k] for g in got[1:]), got[0][k])
+                     for k in ("dcb_f32", "dcb_chain_f32")}
+    del dmc
+
+    bare = DMC(DMCConfig(), device=DEVICE)
+    bare.load_state_dict(plain_state, strict=True)
+    reset, read = launch_counts()
+    with torch.no_grad():
+        i_out = dmci(frames[0], QP)
+        dpb = {"frame": i_out["dpb"]["frame"],
+               "feature": torch.zeros((1, H // 8, W // 8, 256),
+                                      device=DEVICE)}
+        reset()
+        out = bare.eval()(frames[1, 0][None], QP, dpb, after_i=True)
+        got = read()
+    b = check_frame(torch, "DMC(DMCConfig()) P-frame", out["bpp"],
+                    out["dpb"]["frame"])
+    if {k: v for k, v in got.items() if v} != fp32_want(16, 5):
+        fail(f"DMC(DMCConfig()): launches {got}")
+    print(f"  DMC(DMCConfig()) (plain, raw io, {bare.dtype}) and "
+          f"DMCI(DMCIConfig()) ({dmci.dtype}) on the card: a P-frame "
+          f"{H}x{W} after the I-frame, bpp {float(b[0]):.4f}, launches "
+          f"dcb_f32 {got['dcb_f32']} dcb_chain_f32 {got['dcb_chain_f32']} "
+          f"[{card}]")
+    return r
+
+
+def phase_rdhalf(torch, seed, card):
+    """The rd-half profile in bf16 (the CP = 192 chains, C = 160 and 184
+    at frame size): I + RDHALF_P_FRAMES P-frames of 1088x1920, packed io,
+    weights drawn from --seed."""
+    from ssgvc_tpu_torch.config import DMCConfig, DMCIConfig
+    from ssgvc_tpu_torch.models.dmc import DMC
+    from ssgvc_tpu_torch.models.dmci import DMCI
+
+    dmci = random_weights(torch, DMCI(DMCIConfig(
+        dtype="bfloat16", **RDHALF_PROFILE["dmci"]), device=DEVICE),
+        seed + 80, DMCI_HEADS)
+    dmc = random_weights(torch, DMC(DMCConfig.variant(
+        "performance", dtype="bfloat16", packed_io=True,
+        **RDHALF_PROFILE["dmc"]), device=DEVICE), seed + 81)
+    frames, masks = gop_inputs(torch, seed + 82, RDHALF_P_FRAMES,
+                               torch.bfloat16)
+    bf = lambda s, c: {"dcb": s, "dcb_chain": c}
+    want = ([bf(IFRAME_LAUNCHES, 0), bf(19, 5)]
+            + [bf(18, 5)] * (RDHALF_P_FRAMES - 1))
+    return run_gops(torch, "rd-half bf16", dmci.eval(), dmc.eval(), frames,
+                    masks, RDHALF_RUNS, want, card)
+
+
+def phase_rd_recipe(torch, seed, card):
+    """The RD recipe's path on the card (experiments/rd_tpu.py): the
+    performance variant at rd-mid in fp32, RD_STEPS train_steps of B=RD_B
+    device_synth clips (crop RD_CROP, T=RD_T) with the recipe's optimizer
+    settings; then the batched RD evaluation over RD_EVAL_CLIPS clips of
+    RD_EVAL_CROP at EVAL_QPS, then the liveness probe on two of them."""
+    from ssgvc_tpu_torch.config import DMCConfig, DMCIConfig, TrainConfig
+    from ssgvc_tpu_torch.data.device_synth import synth_batch
+    from ssgvc_tpu_torch.training.evaluate import (evaluate_rd_batched,
+                                                   latent_liveness,
+                                                   liveness_collapsed,
+                                                   make_batched_gop_eval)
+    from ssgvc_tpu_torch.training.trainer import Trainer
+
+    cfg = TrainConfig(dmc_variant="performance", accumulation_steps=1,
+                      precision="fp32", roi_weight=100.0,
+                      lambda_normalize=False)
+    cfg.optimizer.base_lr = 7e-4
+    cfg.optimizer.min_lr = 5e-5
+    tr = Trainer(cfg, total_iters=RD_STEPS,
+                 dmc_cfg=DMCConfig.variant("performance",
+                                           **RD_PROFILE["dmc"]),
+                 dmci_cfg=DMCIConfig(**RD_PROFILE["dmci"]), device=DEVICE)
+    if tr.dmc.dtype != torch.float32:
+        fail("the RD recipe's DMC is not float32")
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 90)
+    batch = lambda: synth_batch(g, batch=RD_B, size=RD_CROP, seq_len=RD_T)
+    first = batch()
+    state = tr.init_state(torch.Generator().manual_seed(seed + 91), first)
+    reset, read = launch_counts()
+    noise = torch.Generator().manual_seed(seed + 92)
+    host = np.random.default_rng(seed + 93)
+    torch.cuda.reset_peak_memory_stats()
+    ms, counts, losses = [], [], []
+    for k in range(RD_STEPS):
+        b = first if k == 0 else batch()
+        qp = int(host.integers(0, 64))
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        reset()
+        e0.record()
+        state, aux = tr.train_step(state, b, qp, noise)
+        e1.record()
+        e1.synchronize()
+        counts.append(read())
+        ms.append(e0.elapsed_time(e1))
+        row = {key: float(v) for key, v in aux.items()}
+        losses.append(row)
+        if not all(math.isfinite(v) for v in row.values()):
+            fail(f"RD recipe micro-step {k + 1}: not finite: {row}")
+        c = counts[-1]
+        if c["dcb"] or c["dcb_chain"] or not all(
+                c[k] for k in ("dcb_f32", "dcb_chain_f32", *BWD_REPLACES)):
+            fail(f"RD recipe micro-step {k + 1}: launches {c}")
+    peak = torch.cuda.max_memory_allocated()
+    bad, zero = [], []
+    for name, m in dcb_modules(tr.dmc):
+        for p in m.core_params():
+            if p.grad is None or not torch.isfinite(p.grad).all():
+                bad.append(name)
+            elif not p.grad.abs().max() > 0:
+                zero.append(name)
+    if bad or zero:
+        fail(f"RD recipe: DepthConvBlock gradients not finite {bad[:4]} or "
+             f"zero {zero[:4]}")
+    step_ms = float(np.median(ms[2:]))
+    print(f"RD recipe: rd-mid performance fp32, {RD_STEPS} micro-steps B="
+          f"{RD_B} {RD_CROP}x{RD_CROP} T={RD_T}, {step_ms:.1f} ms per "
+          f"micro-step (CUDA events, median of steps 3-{RD_STEPS}: "
+          f"{', '.join(f'{x:.1f}' for x in ms[2:])}), peak "
+          f"{peak / 2**20:.0f} MiB allocated, losses "
+          f"{[round(r['loss'], 4) for r in losses]}, launches per micro-step "
+          f"{counts[-1]}, {10 * len(dcb_modules(tr.dmc))} DepthConvBlock "
+          f"gradients finite and nonzero [{card}]")
+
+    clips_t = synth_batch(torch.Generator(device=DEVICE).manual_seed(
+        seed + 94), batch=RD_EVAL_CLIPS, size=RD_EVAL_CROP, seq_len=RD_T)
+    clips = [(clips_t["frames"][i].cpu().numpy(),
+              clips_t["masks"][i].cpu().numpy())
+             for i in range(RD_EVAL_CLIPS)]
+    run = make_batched_gop_eval(tr.dmci, tr.dmc, tr.index_map,
+                                tr.dmc_cfg.qp_shift, seq_len=RD_T)
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    curve = evaluate_rd_batched(run, clips, EVAL_QPS, device=DEVICE)
+    eval_s = (time.perf_counter() - t0) / len(EVAL_QPS)
+    eval_counts = read()
+    if not (curve["qp"] == list(EVAL_QPS)
+            and all(math.isfinite(v) and v > 0 for v in curve["bpp"])
+            and all(math.isfinite(v) for v in curve["psnr"]
+                    + curve["roi_psnr"])
+            and eval_counts["dcb_f32"] and eval_counts["dcb_chain_f32"]
+            and not eval_counts["dcb"]):
+        fail(f"RD eval: curve {curve}, launches {eval_counts}")
+    print(f"  RD eval (make_batched_gop_eval + evaluate_rd_batched): "
+          f"{RD_EVAL_CLIPS} clips {RD_EVAL_CROP}x{RD_EVAL_CROP} T={RD_T}, "
+          f"{eval_s:.3f} s per QP (host metrics included), curve bpp "
+          f"{np.round(curve['bpp'], 4).tolist()} PSNR "
+          f"{np.round(curve['psnr'], 2).tolist()} ROI-PSNR "
+          f"{np.round(curve['roi_psnr'], 2).tolist()}, launches "
+          f"{eval_counts} [{card}]")
+    report = latent_liveness(tr.dmc, clips[0], clips[1])
+    collapsed = liveness_collapsed(report)
+    if not all(math.isfinite(v) for r in report.values()
+               for v in r.values()):
+        fail(f"liveness: {report}")
+    print(f"  liveness on two clips: {report}, collapsed {collapsed} "
+          f"({RD_STEPS} micro-steps from fresh weights: a run check) "
+          f"[{card}]")
+    return dict(ms_per_micro_step=step_ms, ms_runs=ms, peak_bytes=peak,
+                launches_per_micro_step=counts[-1], losses=losses,
+                eval_s_per_qp=eval_s, curve=curve, eval_launches=eval_counts,
+                liveness=report, collapsed=collapsed, batch=RD_B,
+                crop=RD_CROP, seq_len=RD_T)
+
+
+def phase_coded_f32(torch, seed, card):
+    """The real coder in fp32: VideoCodec at rd-mid, float32, I + 2 P of
+    192x192; every decoded frame and DPB equal (torch.equal) to the
+    encoder's; launches on the fp32 kernels only."""
+    from ssgvc_tpu_torch.coding.codec import VideoCodec
+    from ssgvc_tpu_torch.config import DMCConfig, DMCIConfig
+    from ssgvc_tpu_torch.models.dmc import DMC
+    from ssgvc_tpu_torch.models.dmci import DMCI
+
+    hw, t_len = RD_EVAL_CROP, 3
+    dmci = random_weights(torch, DMCI(DMCIConfig(**RD_PROFILE["dmci"]),
+                                      device=DEVICE), seed + 100, DMCI_HEADS)
+    dmc = random_weights(torch, DMC(DMCConfig.variant(
+        "performance", **RD_PROFILE["dmc"]), device=DEVICE), seed + 101)
+    codec = VideoCodec(dmci.eval(), dmc.eval())
+    rng = np.random.default_rng(seed + 102)
+    frames = rng.uniform(0, 1, (t_len, hw, hw, 3)).astype(np.float32)
+    masks = (rng.uniform(0, 1, (t_len, hw, hw, 1)) > 0.8).astype(np.float32)
+    dev = lambda a: torch.from_numpy(a)[None].to(DEVICE)
+    reset, read = launch_counts()
+    reset()
+    enc = codec.dmci_compress(dev(frames[0]), QP)
+    dec = codec.dmci_decompress(enc["bit_stream"], hw, hw, QP)
+    same = [torch.equal(enc["x_hat"], dec["x_hat"])]
+    nbytes = [len(enc["bit_stream"])]
+    feat0 = torch.zeros((1, hw // 8, hw // 8, dmc.cfg.ch_d), device=DEVICE)
+    dpb_e = {"frame": enc["x_hat"], "feature": feat0}
+    dpb_d = {"frame": dec["x_hat"], "feature": feat0}
+    for t in range(1, t_len):
+        e = codec.dmc_compress(dev(frames[t]), QP, dpb_e, after_i=(t == 1),
+                               mask=dev(masks[t]))
+        d = codec.dmc_decompress(e["bit_stream"], hw, hw, QP, dpb_d,
+                                 after_i=(t == 1))
+        same.append(torch.equal(e["x_hat"], d["x_hat"])
+                    and torch.equal(e["dpb"]["frame"], d["dpb"]["frame"])
+                    and torch.equal(e["dpb"]["feature"],
+                                    d["dpb"]["feature"]))
+        nbytes.append(len(e["bit_stream"]))
+        dpb_e, dpb_d = e["dpb"], d["dpb"]
+    got = read()
+    if not all(same):
+        fail(f"fp32 coded GOP: decoder differs from the encoder: {same}")
+    if got["dcb"] or got["dcb_chain"] or not (got["dcb_f32"]
+                                              and got["dcb_chain_f32"]):
+        fail(f"fp32 coded GOP: launches {got}")
+    if dmc.dtype != torch.float32 or dec["x_hat"].dtype != torch.float32:
+        fail("fp32 coded GOP: not float32")
+    print(f"coded fp32: VideoCodec rd-mid float32, I + {t_len - 1} P "
+          f"{hw}x{hw}, bytes {nbytes}, every decoded frame and DPB equal to "
+          f"the encoder's (torch.equal), launches {got} [{card}]")
+    return dict(bytes=nbytes, launches=got)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1720,7 +2282,7 @@ def main() -> int:
         entry["iframe"]["launches"] = i_count
     phase_streaming(torch, main_path)
     gop = phase_gop(torch, args.seed, iframe, main_path, card)
-    phase_cross_check(torch, main_path, iframe, args.seed)
+    xc16 = phase_cross_check(torch, main_path, iframe, args.seed)
     variants, variant_states = phase_variants(torch, args.seed, card, iframe,
                                               main_path)
     signs = phase_variants_cross_check(torch, variant_states, args.seed)
@@ -1742,8 +2304,40 @@ def main() -> int:
         entry["launches"] = counts[entry["name"]]
         if not entry["launches"]:
             fail(f"{entry['name']}: no launch in a training micro-step")
-    kernels += backward
     training["cross_check"] = train_cross_check(torch, args.seed)
+
+    # every profile's widths, float32, the RD recipe (phases 14-18)
+    with torch.no_grad():
+        widths = phase_widths(torch, args.seed, card)
+        kernels_f32 = phase_kernels(torch, args.seed, card, f32=True)
+    fp32 = phase_fp32_full(torch, args.seed, card, iframe, main_path,
+                           variant_states["plain"])
+    # the same weights as phase 8, fp32 on the card: 10 dB closer to the
+    # CPU's fp32 than the card's bf16 got there, frame by frame
+    floors = {"p": [p + 10 for p in xc16["p_psnr"]],
+              "i": xc16["i_psnr"] + 10}
+    xc32 = phase_cross_check(torch, main_path, iframe, args.seed,
+                             "float32", floors)
+    rd_half = phase_rdhalf(torch, args.seed, card)
+    rd = phase_rd_recipe(torch, args.seed, card)
+    coded32 = phase_coded_f32(torch, args.seed, card)
+    for entry in kernels:
+        entry["widths"] = widths[entry["name"]]
+    for entry in kernels_f32:
+        p_count, i_count = fp32["launches"][entry["name"]]
+        entry["launches"] = p_count
+        entry["iframe"]["launches"] = i_count
+        entry["per"] = ("fp32 P-frame (phase 15's GOP): per-shape time x "
+                        "launches per frame, summed; 'iframe' the same per "
+                        "I-frame")
+        entry["widths"] = widths[entry["name"]]
+        entry["training"] = dict(
+            launches=rd["launches_per_micro_step"][entry["name"]],
+            per="launches per RD-recipe micro-step (rd-mid fp32, phase 17)")
+    for entry in backward:
+        entry["rd_recipe_launches"] = \
+            rd["launches_per_micro_step"][entry["name"]]
+    kernels += kernels_f32 + backward
     print(json.dumps({"main_path": {
         "ms_per_frame": main_path["ms_per_frame"],
         "ms_per_frame_runs": main_path["ms_runs"],
@@ -1761,6 +2355,12 @@ def main() -> int:
                                    "card": card}}))
     print(json.dumps({"coded": {**coded, "card": card}}))
     print(json.dumps({"training": {**training, "card": card}}))
+    print(json.dumps({"cross_check": {"bf16": xc16, "fp32": xc32,
+                                      "card": card}}))
+    print(json.dumps({"fp32": {**fp32, "card": card}}))
+    print(json.dumps({"rd_half": {**rd_half, "card": card}}))
+    print(json.dumps({"rd_recipe": {**rd, "card": card}}))
+    print(json.dumps({"coded_fp32": {**coded32, "card": card}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

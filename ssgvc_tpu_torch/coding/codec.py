@@ -120,7 +120,6 @@ class VideoCodec:
             if dev != self.device:
                 raise ValueError(f"VideoCodec: DMCI and DMC must be on one "
                                  f"device, got {what} on {dev}")
-            common.check_card_dtype(f"VideoCodec ({what})", dev, m.dtype)
         if packed_dmc and not dmc.cfg.packed_io:
             packed = DMC(dataclasses.replace(dmc.cfg, packed_io=True),
                          device=self.device)

@@ -26,10 +26,13 @@
 // sharing a weight slab across more pixels (128-pixel tiles, or a 2-CTA
 // cluster with multicast).
 //
-// Widths: C in {128, 192, 256, 320, 368, 384, 512}. C = 368 is computed at
-// 384 with zero-padded weights (8.9% more products than its own); C = 512
-// holds a 104-row window and a 3-slot ring B to fit in shared memory
-// (csrc/dcb_tile.cuh).
+// Widths: every C that is a multiple of 8 from 8 to 512, computed at CP (C
+// rounded up to 64: 64, 128, ..., 384, and 512 for every C over 384): per
+// CP an instance for C == CP and one with the real C passed at run time
+// (csrc/dcb_tile.cuh). C = 368 is computed at 384 with zero-padded weights
+// (8.9% more products than its own), C = 448 at 512 (31%), C = 8 at 64
+// (64x); C = 512 holds a 104-row window and a 3-slot ring B to fit in
+// shared memory, CP = 64 a ring B of its own.
 
 #include "dcb_tile.cuh"
 
@@ -37,13 +40,13 @@ namespace single {
 
 using namespace dcbt;
 
-template <int C, bool Shortcut>
+template <int CP, bool Shortcut, bool Padded>
 __global__ void __launch_bounds__(kThreads, 1)
 dcb_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
-           const bf16* __restrict__ w, const bf16* __restrict__ q, int H,
-           int W, int tiles_x, int tiles, int total) {
+           const bf16* __restrict__ w, const bf16* __restrict__ q, int C,
+           int H, int W, int tiles_x, int tiles, int total) {
   extern __shared__ __align__(128) unsigned char smem[];
-  Smem<C> sm(smem);
+  Smem<CP> sm(smem);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   if (tid == 0) sm.init_barriers();
   __syncthreads();
@@ -54,7 +57,7 @@ dcb_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
     if (warp == kConsumers / 32 && lane == 0) {
       uint32_t ntile = 0;
       for (int t = blockIdx.x; t < total; t += gridDim.x)
-        produce_tile<C>(sm, w, 0, ntile);
+        produce_tile<CP>(sm, w, 0, ntile);
     }
     return;
   }
@@ -63,21 +66,21 @@ dcb_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kConsumerRegs));
   for (int t = blockIdx.x; t < total; t += gridDim.x) {
     const int b = t / tiles, tt = t - b * tiles, y_lo = b * H;
-    consume_tile<C, Shortcut>(sm, x, y, w, q, y_lo, y_lo + H, W,
-                              y_lo + (tt / tiles_x) * TILE,
-                              (tt % tiles_x) * TILE, tid);
+    consume_tile<CP, Shortcut, Padded>(sm, x, y, w, q, C, y_lo, y_lo + H,
+                                       W, y_lo + (tt / tiles_x) * TILE,
+                                       (tt % tiles_x) * TILE, tid);
   }
 }
 
-template <int C, bool Shortcut>
+template <int CP, bool Shortcut, bool Padded>
 int launch_kernel(const void* x, void* y, const void* w, const void* q, int B,
-                  int H, int W, cudaStream_t stream) {
+                  int H, int W, int C, cudaStream_t stream) {
   if (B <= 0 || H <= 0 || W <= 0) return cudaErrorInvalidValue;
   const int tiles_x = (W + TILE - 1) / TILE;
   const int tiles = (H + TILE - 1) / TILE * tiles_x;
   const int total = B * tiles;
-  const int smem = smem_bytes(C);
-  auto kern = dcb_kernel<C, Shortcut>;
+  const int smem = smem_bytes(CP);
+  auto kern = dcb_kernel<CP, Shortcut, Padded>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
@@ -87,16 +90,19 @@ int launch_kernel(const void* x, void* y, const void* w, const void* q, int B,
   if (e != cudaSuccess) return e;
   kern<<<total < sms ? total : sms, kThreads, smem, stream>>>(
       static_cast<const bf16*>(x), static_cast<bf16*>(y),
-      static_cast<const bf16*>(w), static_cast<const bf16*>(q), H, W, tiles_x,
-      tiles, total);
+      static_cast<const bf16*>(w), static_cast<const bf16*>(q), C, H, W,
+      tiles_x, tiles, total);
   return cudaGetLastError();
 }
 
-template <int C>
+template <int CP>
 int launch(const void* x, void* y, const void* w, const void* q, int B, int H,
-           int W, int shortcut, cudaStream_t stream) {
-  return shortcut ? launch_kernel<C, true>(x, y, w, q, B, H, W, stream)
-                  : launch_kernel<C, false>(x, y, w, q, B, H, W, stream);
+           int W, int C, int shortcut, cudaStream_t stream) {
+  auto kern = C == CP ? (shortcut ? launch_kernel<CP, true, false>
+                                  : launch_kernel<CP, false, false>)
+                      : (shortcut ? launch_kernel<CP, true, true>
+                                  : launch_kernel<CP, false, true>);
+  return kern(x, y, w, q, B, H, W, C, stream);
 }
 
 }  // namespace single
@@ -105,14 +111,15 @@ extern "C" int ssgvc_dcb_forward(const void* x, void* y, const void* w,
                                  const void* q, int B, int H, int W, int C,
                                  int shortcut, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (C) {
-    case 128: return single::launch<128>(x, y, w, q, B, H, W, shortcut, s);
-    case 192: return single::launch<192>(x, y, w, q, B, H, W, shortcut, s);
-    case 256: return single::launch<256>(x, y, w, q, B, H, W, shortcut, s);
-    case 320: return single::launch<320>(x, y, w, q, B, H, W, shortcut, s);
-    case 368: return single::launch<368>(x, y, w, q, B, H, W, shortcut, s);
-    case 384: return single::launch<384>(x, y, w, q, B, H, W, shortcut, s);
-    case 512: return single::launch<512>(x, y, w, q, B, H, W, shortcut, s);
+  if (C < 8 || C > 512 || C % 8) return cudaErrorInvalidValue;
+  switch (dcbt::padded(C)) {
+    case 64: return single::launch<64>(x, y, w, q, B, H, W, C, shortcut, s);
+    case 128: return single::launch<128>(x, y, w, q, B, H, W, C, shortcut, s);
+    case 192: return single::launch<192>(x, y, w, q, B, H, W, C, shortcut, s);
+    case 256: return single::launch<256>(x, y, w, q, B, H, W, C, shortcut, s);
+    case 320: return single::launch<320>(x, y, w, q, B, H, W, C, shortcut, s);
+    case 384: return single::launch<384>(x, y, w, q, B, H, W, C, shortcut, s);
+    case 512: return single::launch<512>(x, y, w, q, B, H, W, C, shortcut, s);
     default: return cudaErrorInvalidValue;
   }
 }

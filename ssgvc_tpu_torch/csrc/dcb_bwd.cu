@@ -3,7 +3,9 @@
 // tap, bias and q reductions. The block's matrix products (the recompute of
 // x W0, h W3 and u Wf0, and every 1x1 conv's input and weight gradient) run
 // outside them, as ops/dcb_grad.py:block_backward lays out. fp32 SIMT, NHWC
-// (B, H, W, C) with C contiguous; any C.
+// (B, H, W, C) with C contiguous; any C. The activations that come in or go
+// out in the block's dtype (dw_fwd's g, gate_bwd's dy and fr) are bf16 or
+// fp32: each such kernel is instantiated for both (T).
 //
 // The TPU package has no backward kernel: its trainer differentiates the XLA
 // conv composition of ssgvc_tpu/layers/blocks.py:DepthConvBlock and never
@@ -46,12 +48,25 @@ __device__ __forceinline__ float wsilu_grad(float v) {
   return s + 4.0f * v * s * (1.0f - s);
 }
 
+// An activation in the block's dtype, to and from fp32 (round to nearest).
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(float v) { return v; }
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+
 // (a) g = dw3x3(wsilu(a0)) + b2, zero padding in h = wsilu(a0) space per
-// image (taps (9, C): taps[3 i + j] multiplies h at (y + i - 1, x + j - 1)).
-// One thread per element.
+// image (taps (9, C): taps[3 i + j] multiplies h at (y + i - 1, x + j - 1)),
+// rounded to T. One thread per element.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 dw_fwd_kernel(const float* __restrict__ a0, const float* __restrict__ taps,
-              const float* __restrict__ b2, bf16* __restrict__ g, int H,
+              const float* __restrict__ b2, T* __restrict__ g, int H,
               int W, int C, long total) {
   for (long e = blockIdx.x * (long)blockDim.x + threadIdx.x; e < total;
        e += (long)gridDim.x * blockDim.x) {
@@ -72,21 +87,22 @@ dw_fwd_kernel(const float* __restrict__ a0, const float* __restrict__ taps,
                wsilu(a0[(img + (long)yy * W + xx) * C + c]);
       }
     }
-    g[e] = __float2bfloat16_rn(acc);
+    g[e] = from_f<T>(acc);
   }
 }
 
 // (b) From df (M, 2C) and p = u Wf0^T + bf0 (M, 4C): dp for both 2C halves
 // through wsilu', and fr = round(wsilu(p_a) + wsilu(p_b)) (M, 2C), the FFN's
-// hidden activation that the Wf2 gradient needs. From dy (M, C): with q,
-// dyq = dy * q (M, C). Partials of thread block k, row k of part (row
-// stride ld): [0, 4C) sum of dp, [4C, 5C) sum of dy (* q), [5C, 6C) with q
-// the sum of dy * resid (the q gradient's per-pixel part), else 0.
+// hidden activation that the Wf2 gradient needs, in T. From dy (M, C), in
+// T: with q, dyq = dy * q (M, C). Partials of thread block k, row k of part
+// (row stride ld): [0, 4C) sum of dp, [4C, 5C) sum of dy (* q), [5C, 6C)
+// with q the sum of dy * resid (the q gradient's per-pixel part), else 0.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 gate_bwd_kernel(const float* __restrict__ df, const float* __restrict__ p,
-                const bf16* __restrict__ dy, const float* __restrict__ q,
+                const T* __restrict__ dy, const float* __restrict__ q,
                 const float* __restrict__ resid, float* __restrict__ dp,
-                bf16* __restrict__ fr, float* __restrict__ dyq,
+                T* __restrict__ fr, float* __restrict__ dyq,
                 float* __restrict__ part, int ld, int C, long M) {
   const long p0 = blockIdx.x * (long)PIX;
   const long p1 = p0 + PIX < M ? p0 + PIX : M;
@@ -99,7 +115,7 @@ gate_bwd_kernel(const float* __restrict__ df, const float* __restrict__ p,
       const float da = d * wsilu_grad(pa), db = d * wsilu_grad(pb);
       dp[m * 4 * C + k] = da;
       dp[m * 4 * C + 2 * C + k] = db;
-      fr[m * 2 * C + k] = __float2bfloat16_rn(wsilu(pa) + wsilu(pb));
+      fr[m * 2 * C + k] = from_f<T>(wsilu(pa) + wsilu(pb));
       sa += da;
       sb += db;
     }
@@ -110,7 +126,7 @@ gate_bwd_kernel(const float* __restrict__ df, const float* __restrict__ p,
     float s1 = 0.0f, s2 = 0.0f;
     const float qc = q ? q[c] : 1.0f;
     for (long m = p0; m < p1; ++m) {
-      const float d = __bfloat162float(dy[m * C + c]);
+      const float d = to_f(dy[m * C + c]);
       if (q) {
         dyq[m * C + c] = d * qc;
         s2 += d * resid[m * C + c];
@@ -199,30 +215,54 @@ inline int pixel_blocks(long M) { return (int)((M + PIX - 1) / PIX); }
 
 using namespace dcbg;
 
+template <typename T>
+void dw_fwd_launch(const void* a0, const void* taps, const void* b2, void* g,
+                   int H, int W, int C, long total, cudaStream_t stream) {
+  dw_fwd_kernel<T><<<blocks_for(total), kThreads, 0, stream>>>(
+      static_cast<const float*>(a0), static_cast<const float*>(taps),
+      static_cast<const float*>(b2), static_cast<T*>(g), H, W, C, total);
+}
+
+template <typename T>
+void gate_bwd_launch(const void* df, const void* p, const void* dy,
+                     const void* q, const void* resid, void* dp, void* fr,
+                     void* dyq, void* part, int ld, int C, long M,
+                     cudaStream_t stream) {
+  gate_bwd_kernel<T><<<pixel_blocks(M), kThreads, 0, stream>>>(
+      static_cast<const float*>(df), static_cast<const float*>(p),
+      static_cast<const T*>(dy), static_cast<const float*>(q),
+      static_cast<const float*>(resid), static_cast<float*>(dp),
+      static_cast<T*>(fr), static_cast<float*>(dyq),
+      static_cast<float*>(part), ld, C, M);
+}
+
+// f32: g in fp32 (else bf16).
 extern "C" int ssgvc_dw_fwd(const void* a0, const void* taps, const void* b2,
-                            void* g, int B, int H, int W, int C,
+                            void* g, int B, int H, int W, int C, int f32,
                             void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0) return cudaErrorInvalidValue;
   const long total = (long)B * H * W * C;
-  dw_fwd_kernel<<<blocks_for(total), kThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a0), static_cast<const float*>(taps),
-      static_cast<const float*>(b2), static_cast<bf16*>(g), H, W, C, total);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (f32)
+    dw_fwd_launch<float>(a0, taps, b2, g, H, W, C, total, st);
+  else
+    dw_fwd_launch<bf16>(a0, taps, b2, g, H, W, C, total, st);
   return cudaGetLastError();
 }
 
+// f32: dy and fr in fp32 (else bf16).
 extern "C" int ssgvc_gate_bwd(const void* df, const void* p, const void* dy,
                               const void* q, const void* resid, void* dp,
                               void* fr, void* dyq, void* part, int ld, int C,
-                              long M, void* stream) {
+                              long M, int f32, void* stream) {
   if (C <= 0 || M <= 0) return cudaErrorInvalidValue;
-  gate_bwd_kernel<<<pixel_blocks(M), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(df), static_cast<const float*>(p),
-      static_cast<const bf16*>(dy), static_cast<const float*>(q),
-      static_cast<const float*>(resid), static_cast<float*>(dp),
-      static_cast<bf16*>(fr), static_cast<float*>(dyq),
-      static_cast<float*>(part), ld, C, M);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (f32)
+    gate_bwd_launch<float>(df, p, dy, q, resid, dp, fr, dyq, part, ld, C, M,
+                           st);
+  else
+    gate_bwd_launch<bf16>(df, p, dy, q, resid, dp, fr, dyq, part, ld, C, M,
+                          st);
   return cudaGetLastError();
 }
 

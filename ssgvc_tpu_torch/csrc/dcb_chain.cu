@@ -29,6 +29,10 @@
 // Left for later: sharing a weight slab across more pixels (128-pixel tiles,
 // or a 2-CTA cluster with multicast), the 128-byte swizzle, and overlapping
 // the epilogues with the next products.
+//
+// Widths: every C that is a multiple of 8 from 8 to 384, computed at CP (C
+// rounded up to 64): per CP an instance for C == CP and one with the real C
+// passed at run time, as in csrc/dcb.cu.
 
 #include <cooperative_groups.h>
 
@@ -39,16 +43,16 @@ namespace chain {
 namespace cg = cooperative_groups;
 using namespace dcbt;
 
-template <int C>
+template <int CP, bool Padded>
 __global__ void __launch_bounds__(kThreads, 1)
 chain_kernel(const bf16* x, bf16* y, bf16* s, const bf16* __restrict__ w,
-             const bf16* __restrict__ q, int H, int W, int n, int tiles_y,
-             int tiles_x, int batch) {
-  constexpr int NA = (C / KC) * (C / KS_A);  // W0 slabs per tile
-  constexpr size_t BLK = 8 * (size_t)C * C + 17 * C;  // elements per block
+             const bf16* __restrict__ q, int C, int H, int W, int n,
+             int tiles_y, int tiles_x, int batch) {
+  constexpr int NA = (CP / KC) * (CP / KS_A);  // W0 slabs per tile
+  constexpr size_t BLK = 8 * (size_t)CP * CP + 17 * CP;  // elements per block
 
   extern __shared__ __align__(128) unsigned char smem[];
-  Smem<C> sm(smem);
+  Smem<CP> sm(smem);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   if (tid == 0) sm.init_barriers();
   __syncthreads();
@@ -65,7 +69,7 @@ chain_kernel(const bf16* x, bf16* y, bf16* s, const bf16* __restrict__ w,
       const bf16* wj = w + j * BLK;
       if (issuer) {
         for (int t = blockIdx.x; t < total; t += gridDim.x)
-          produce_tile<C>(sm, wj, t == (int)blockIdx.x ? pre : 0, ntile);
+          produce_tile<CP>(sm, wj, t == (int)blockIdx.x ? pre : 0, ntile);
         pre = 0;
         if (j + 1 < n) {
           pre = NA < RING_A ? NA : RING_A;
@@ -88,21 +92,23 @@ chain_kernel(const bf16* x, bf16* y, bf16* s, const bf16* __restrict__ w,
     const bf16* qj = j == n - 1 ? q : nullptr;
     for (int t = blockIdx.x; t < total; t += gridDim.x) {
       const int b = t / tiles, tt = t - b * tiles, y_lo = b * H;
-      consume_tile<C, false>(sm, src, dst, w + j * BLK, qj, y_lo, y_lo + H,
-                             W, y_lo + (tt / tiles_x) * TILE,
-                             (tt % tiles_x) * TILE, tid);
+      consume_tile<CP, false, Padded>(sm, src, dst, w + j * BLK, qj, C,
+                                      y_lo, y_lo + H, W,
+                                      y_lo + (tt / tiles_x) * TILE,
+                                      (tt % tiles_x) * TILE, tid);
     }
     if (j + 1 < n) cg::this_grid().sync();
   }
 }
 
-template <int C>
-int launch(const void* x, void* y, void* s, const void* w, const void* q,
-           int B, int H, int W, int n, cudaStream_t stream) {
+template <int CP, bool Padded>
+int launch_kernel(const void* x, void* y, void* s, const void* w,
+                  const void* q, int B, int H, int W, int C, int n,
+                  cudaStream_t stream) {
   if (n <= 0 || B <= 0 || H <= 0 || W <= 0) return cudaErrorInvalidValue;
   int tiles_y = (H + TILE - 1) / TILE, tiles_x = (W + TILE - 1) / TILE;
-  const int smem = smem_bytes(C);
-  auto kern = chain_kernel<C>;
+  const int smem = smem_bytes(CP);
+  auto kern = chain_kernel<CP, Padded>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
@@ -121,12 +127,20 @@ int launch(const void* x, void* y, void* s, const void* w, const void* q,
   bf16* sp = static_cast<bf16*>(s);
   const bf16* wp = static_cast<const bf16*>(w);
   const bf16* qp = static_cast<const bf16*>(q);
-  void* args[] = {&xp, &yp, &sp, &wp, &qp, &H, &W, &n, &tiles_y, &tiles_x,
-                  &B};
+  void* args[] = {&xp, &yp, &sp, &wp, &qp, &C, &H, &W, &n, &tiles_y,
+                  &tiles_x, &B};
   e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kern), dim3(grid),
                                   dim3(kThreads), args, smem, stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+template <int CP>
+int launch(const void* x, void* y, void* s, const void* w, const void* q,
+           int B, int H, int W, int C, int n, cudaStream_t stream) {
+  return C == CP
+             ? launch_kernel<CP, false>(x, y, s, w, q, B, H, W, C, n, stream)
+             : launch_kernel<CP, true>(x, y, s, w, q, B, H, W, C, n, stream);
 }
 
 }  // namespace chain
@@ -136,11 +150,14 @@ extern "C" int ssgvc_dcb_chain_forward(const void* x, void* y, void* s,
                                        int H, int W, int C, int n,
                                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (C) {
-    case 128: return chain::launch<128>(x, y, s, w, q, B, H, W, n, st);
-    case 256: return chain::launch<256>(x, y, s, w, q, B, H, W, n, st);
-    case 320: return chain::launch<320>(x, y, s, w, q, B, H, W, n, st);
-    case 384: return chain::launch<384>(x, y, s, w, q, B, H, W, n, st);
+  if (C < 8 || C > 384 || C % 8) return cudaErrorInvalidValue;
+  switch (dcbt::padded(C)) {
+    case 64: return chain::launch<64>(x, y, s, w, q, B, H, W, C, n, st);
+    case 128: return chain::launch<128>(x, y, s, w, q, B, H, W, C, n, st);
+    case 192: return chain::launch<192>(x, y, s, w, q, B, H, W, C, n, st);
+    case 256: return chain::launch<256>(x, y, s, w, q, B, H, W, C, n, st);
+    case 320: return chain::launch<320>(x, y, s, w, q, B, H, W, C, n, st);
+    case 384: return chain::launch<384>(x, y, s, w, q, B, H, W, C, n, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -25,17 +25,24 @@
 //   bf16 hb; stage B gives each the tile's 64 pixels x half of the output
 //   columns, with an fp32 accumulator that carries u and then y while the 2C
 //   hidden width streams through in 64-channel chunks.
-// - A block of C channels (a multiple of 8) is computed at CP, C rounded up
-//   to a multiple of 64 (C = 368 runs at 384): ops/dcb.py:pack_block gives
-//   the padded channels zero weights and biases, so they stay exactly 0
-//   (wsilu(0) = 0) and add nothing; the frame is read and written at its
+// - A block of C channels (a multiple of 8, 8 to 512) is computed at CP, C
+//   rounded up to a multiple of 64, and at 512 above 384 (C = 368 runs at
+//   384, C = 8 at 64, C = 392-448 at 512: there is no CP = 448): per
+//   CP one instance for C == CP, where C is the constant CP (every full-
+//   profile width but 368), and one (Padded) taking the real C at run
+//   time; the tests of which columns are real cost the full widths 2-16%
+//   when C is not known to the compiler. ops/dcb.py:pack_block
+//   gives the padded channels zero weights and biases, so they stay exactly
+//   0 (wsilu(0) = 0) and add nothing; the frame is read and written at its
 //   real C, and the window's padded channels are zero-filled.
-// - Up to CP = 384 the window holds WIN_ROWS rows and ring B 4 slots. At
-//   CP = 512 that is over the shared-memory limit, so the window holds 104
-//   rows (13 core-matrix groups, its 100 pixels) and ring B 3 slots; stage
-//   A's second 64-row wgmma tile then reads its rows 104-127 from hb's
-//   bytes, and their results, like those of rows 100-103, belong to no
-//   pixel and are dropped.
+// - From CP = 128 to 384 the window holds WIN_ROWS rows and ring B 4 slots
+//   in its bytes. At CP = 512 that is over the shared-memory limit, so the
+//   window holds 104 rows (13 core-matrix groups, its 100 pixels) and ring
+//   B 3 slots; stage A's second 64-row wgmma tile then reads its rows
+//   104-127 from hb's bytes, and their results, like those of rows 100-103,
+//   belong to no pixel and are dropped. At CP = 64 a ring-B slot must hold
+//   a 2 KF x KS_B Wf0 slab (8 KiB), twice a CP x KS_B one, and four such
+//   slots do not fit in the 16 KiB window: ring B has bytes of its own.
 
 #pragma once
 
@@ -62,10 +69,12 @@ constexpr int HCHUNK = WIN * WIN * SH * 4 > 2 * TILE * TILE * KF * 2
 constexpr int SLAB_A = KC * KS_A * 2;  // bytes of one W0 slab
 
 // The plan of a block of C channels (must match ops/dcb.py:
-// padded_channels, window_rows, ring_b): the computed width, the window
-// rows held in shared memory and the ring-B slots.
+// padded_channels, window_rows, ring_b, slot_b, ring_b_own): the computed
+// width, the window rows held in shared memory, the ring-B slots, their
+// bytes (the larger of a CP x KS_B slab and a 2 KF x KS_B Wf0 slab), and
+// whether ring B needs bytes of its own (CP = 64) rather than the window's.
 __host__ __device__ constexpr int padded(int C) {
-  return (C + KC - 1) / KC * KC;
+  return C > 384 ? 512 : (C + KC - 1) / KC * KC;
 }
 __host__ __device__ constexpr int win_rows(int C) {
   return padded(C) > 384 ? 104 : WIN_ROWS;
@@ -73,13 +82,21 @@ __host__ __device__ constexpr int win_rows(int C) {
 __host__ __device__ constexpr int ring_b(int C) {
   return padded(C) > 384 ? 3 : 4;
 }
+__host__ __device__ constexpr int slot_b(int C) {
+  return KS_B * padded(C) * 2 > 2 * KF * KS_B * 2 ? KS_B * padded(C) * 2
+                                                  : 2 * KF * KS_B * 2;
+}
+__host__ __device__ constexpr bool ring_b_own(int C) {
+  return ring_b(C) * slot_b(C) > win_rows(C) * padded(C) * 2;
+}
 
 // Shared memory: window (ring B in stage B) | hb (uc) | ring A | h chunk
-// (two f chunks in stage B) | mbarriers. Checked against the limit on the
-// CPU through ops/dcb.py:smem_bytes.
+// (two f chunks in stage B) | [ring B, at CP = 64] | mbarriers. Checked
+// against the limit on the CPU through ops/dcb.py:smem_bytes.
 __host__ __device__ constexpr int smem_bytes(int C) {
   return win_rows(C) * padded(C) * 2 + TILE * TILE * padded(C) * 2 +
-         RING_A * SLAB_A + HCHUNK + BARRIER_BYTES;
+         RING_A * SLAB_A + HCHUNK +
+         (ring_b_own(C) ? ring_b(C) * slot_b(C) : 0) + BARRIER_BYTES;
 }
 
 __device__ __forceinline__ float wsilu(float v) {
@@ -180,14 +197,18 @@ __device__ __forceinline__ void ring_mma(float (&acc)[R], Ring& r, int lane,
 
 // One thread's view of the thread block's shared memory: the buffers, both
 // rings and the "window free" mbarrier, which the consumers arrive on once
-// stage A has read the window for the last time.
-template <int C>
+// stage A has read the window for the last time. CP: the computed width.
+template <int CP>
 struct Smem {
-  static constexpr int CP = padded(C), RB = ring_b(C), WR = win_rows(C);
-  static constexpr int SLOT_B = KS_B * CP * 2;  // bytes of a ring-B slot
+  static constexpr int RB = ring_b(CP), WR = win_rows(CP);
+  static constexpr int SLOT_B = slot_b(CP);    // bytes of a ring-B slot
+  static constexpr bool OWN_B = ring_b_own(CP);
+  static_assert(CP % KC == 0 && CP == padded(CP), "computed width");
   static_assert(WR % 8 == 0 && WR >= WIN * WIN &&
-                RB * SLOT_B <= WR * CP * 2 && 2 * KF * KS_B * 2 <= SLOT_B &&
-                RB * 2 + RING_A * 2 + 1 <= BARRIER_BYTES / 8, "layout");
+                (OWN_B || RB * SLOT_B <= WR * CP * 2) &&
+                KS_B * CP * 2 <= SLOT_B && 2 * KF * KS_B * 2 <= SLOT_B &&
+                RB * 2 + RING_A * 2 + 1 <= BARRIER_BYTES / 8 &&
+                smem_bytes(CP) <= 232448, "layout");
   unsigned char* win;      // window / ring B
   unsigned char* hb;       // hb, then uc
   unsigned char* hch_b;    // h chunk (fp32) / two f chunks
@@ -199,9 +220,12 @@ struct Smem {
     hb = smem + WR * CP * 2;
     unsigned char* ring_a = hb + TILE * TILE * CP * 2;
     hch_b = ring_a + RING_A * SLAB_A;
-    uint64_t* bars = reinterpret_cast<uint64_t*>(hch_b + HCHUNK);
+    unsigned char* ring_b_base = OWN_B ? hch_b + HCHUNK : win;
+    uint64_t* bars = reinterpret_cast<uint64_t*>(
+        hch_b + HCHUNK + (OWN_B ? RB * SLOT_B : 0));
     ra = Ring{bars, bars + RING_A, ring_a, SLAB_A, RING_A, 0};
-    rb = Ring{bars + 2 * RING_A, bars + 2 * RING_A + RB, win, SLOT_B, RB, 0};
+    rb = Ring{bars + 2 * RING_A, bars + 2 * RING_A + RB, ring_b_base, SLOT_B,
+              RB, 0};
     winfree = bars + 2 * RING_A + 2 * RB;
   }
 
@@ -223,10 +247,9 @@ struct Smem {
 // Producer (one thread): one tile's weight slabs of the block at w, in the
 // order consume_tile takes them. The first `skip_a` W0 slabs are already in
 // flight; ntile counts the tiles this thread has fed.
-template <int C>
-__device__ __forceinline__ void produce_tile(Smem<C>& s, const bf16* w,
+template <int CP>
+__device__ __forceinline__ void produce_tile(Smem<CP>& s, const bf16* w,
                                              int skip_a, uint32_t& ntile) {
-  constexpr int CP = padded(C);
   constexpr int NA = (CP / KC) * (CP / KS_A);  // W0 slabs per tile
   for (int i = skip_a; i < NA; ++i)
     issue(s.ra, w + (size_t)i * KC * KS_A, SLAB_A);
@@ -251,14 +274,15 @@ __device__ __forceinline__ void produce_tile(Smem<C>& s, const bf16* w,
 // held in registers through the FFN); only the row bounds move. With
 // Shortcut the output adds src at the output pixel; q, if not null, then
 // multiplies it. Out-of-frame pixels of a ragged tile, and the padded
-// channels of a block computed at CP > C, are neither read nor written.
-template <int C, bool Shortcut>
-__device__ __forceinline__ void consume_tile(Smem<C>& s, const bf16* src,
+// channels [C, CP) of a block computed at CP > C, are neither read nor
+// written. Padded: C (c_arg) may be below CP; else C is CP.
+template <int CP, bool Shortcut, bool Padded>
+__device__ __forceinline__ void consume_tile(Smem<CP>& s, const bf16* src,
                                              bf16* dst, const bf16* w,
-                                             const bf16* q, int y_lo,
-                                             int y_hi, int W, int ty0,
-                                             int tx0, int tid) {
-  constexpr int CP = padded(C);
+                                             const bf16* q, int c_arg,
+                                             int y_lo, int y_hi, int W,
+                                             int ty0, int tx0, int tid) {
+  const int C = Padded ? c_arg : CP;
   constexpr int NH = CP / 2;            // output columns per warpgroup
   const int warp = tid >> 5, lane = tid & 31;
   const int wg = warp >> 2, wl = warp & 3;
@@ -271,12 +295,9 @@ __device__ __forceinline__ void consume_tile(Smem<C>& s, const bf16* src,
   const bf16* bf0 = b3 + CP;
   const bf16* bf2 = bf0 + 4 * CP;
   float* hch = reinterpret_cast<float*>(s.hch_b);
-  // Whether accumulator element i holds a real output column: the padded
-  // columns [C, CP) are warpgroup 1's last column groups. Constant per
-  // unrolled i but for one test of wg, and always true when CP == C.
-  auto real = [&](int i) {
-    return C == CP || wg == 0 || NH + 8 * (i >> 2) + 8 <= C;
-  };
+  // Whether accumulator element i holds a real output column: its group of
+  // 8 columns starts below C (C is a multiple of 8).
+  auto real = [&](int i) { return !Padded || wg * NH + 8 * (i >> 2) < C; };
 
   // ---- window: 10x10 pixels, zero outside the frame ----
   // Not unrolled: the peeled first iterations' indices depend on tid alone,
@@ -286,7 +307,7 @@ __device__ __forceinline__ void consume_tile(Smem<C>& s, const bf16* src,
     const int r = i / (CP / 8), kc = i - r * (CP / 8);
     const int gy = ty0 - 1 + r / WIN, gx = tx0 - 1 + r % WIN;
     const bool in = gy >= y_lo && gy < y_hi && gx >= 0 && gx < W &&
-                    (C == CP || kc < C / 8);
+                    (!Padded || kc * 8 < C);
     hop::cp_async16(s.win + canon(r, kc * 8, CP),
                     in ? src + ((size_t)gy * W + gx) * C + kc * 8 : src, in);
   }

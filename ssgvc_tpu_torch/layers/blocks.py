@@ -15,6 +15,7 @@ backward, their plain versions for a CPU tensor.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Sequence, Tuple, Union
 
@@ -22,7 +23,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.dcb import pack_block, wsilu
+from ..ops.dcb import pack_kernel, wsilu
 from ..ops.dcb_chain import pack_chain
 from ..ops.dcb_grad import dcb_chain_grad, dcb_grad
 from ..ops.pixel import patch_down_conv, patch_up_conv, pixel_shuffle
@@ -83,8 +84,27 @@ def init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     return module
 
 
+@contextlib.contextmanager
+def cudnn_fp32(dtype: torch.dtype, device: torch.device):
+    """cuDNN without TF32 for the duration of a float32 conv on the card:
+    ``torch.backends.cudnn.allow_tf32`` defaults to True, which would round
+    an fp32 model's strided and 3x3 convs to TF32 (about three digits). The
+    flag is restored on exit; bf16 and CPU convs leave it alone. (The 1x1
+    convs run as ``F.linear``, whose fp32 default is full fp32.)"""
+    if dtype != torch.float32 or device.type != "cuda":
+        yield
+        return
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
 class Conv(nn.Module):
-    """A conv on NHWC tensors; 1x1 stride-1 convs run as a matmul."""
+    """A conv on NHWC tensors; 1x1 stride-1 convs run as a matmul, the rest
+    through cuDNN (in full fp32 for an fp32 module, :func:`cudnn_fp32`)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 1,
                  stride: int = 1, padding: int = 0, groups: int = 1, *,
@@ -103,8 +123,9 @@ class Conv(nn.Module):
         w, b = self.weight.to(dt), self.bias.to(dt)
         if w.shape[-1] == 1 and self.stride == 1 and self.groups == 1:
             return F.linear(x, w[:, :, 0, 0], b)
-        y = F.conv2d(x.permute(0, 3, 1, 2), w, b, self.stride, self.padding,
-                     groups=self.groups)
+        with cudnn_fp32(dt, x.device):
+            y = F.conv2d(x.permute(0, 3, 1, 2), w, b, self.stride,
+                         self.padding, groups=self.groups)
         return y.permute(0, 2, 3, 1).contiguous()
 
 
@@ -228,7 +249,7 @@ class DepthConvBlock(nn.Module):
         params = self.core_params()
         key = _pack_key(x, params)
         if key != self._packed_key:
-            self._packed = pack_block(params, x.dtype)
+            self._packed = pack_kernel(params, x.dtype)
             self._packed_key = key
         return self._packed
 

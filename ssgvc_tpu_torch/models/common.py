@@ -42,16 +42,6 @@ def compute_dtype(name: str) -> torch.dtype:
     return torch.bfloat16 if name == "bfloat16" else torch.float32
 
 
-def check_card_dtype(what: str, device, dtype: torch.dtype) -> None:
-    """Refuse a model that would run float32 on the card: the DepthConvBlock
-    kernels take bfloat16 activations only (ROADMAP K3)."""
-    if torch.device(device).type == "cuda" and dtype != torch.bfloat16:
-        raise TypeError(
-            f"{what}: the card runs bfloat16 until ROADMAP K3 (float32 "
-            f"DepthConvBlock kernels) lands; got {dtype}. Pass "
-            "dtype='bfloat16' in the config, or device='cpu' for float32")
-
-
 def checkerboard_masks_2x(channel: int, height: int, width: int,
                           dtype=torch.float32, device="cuda"
                           ) -> Tuple[torch.Tensor, torch.Tensor]:

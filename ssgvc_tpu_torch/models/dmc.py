@@ -41,7 +41,7 @@ from ..layers.blocks import (Conv, DepthConvBlock, PatchDownConv,
                              run_chain, wsilu)
 from ..layers.quant import noise_quant, ste_round
 from ..ops.pixel import pixel_shuffle, pixel_unshuffle
-from .common import (bpp_from_bits, check_card_dtype, compress_prior_2x,
+from .common import (bpp_from_bits, compress_prior_2x,
                      compute_dtype, pad_for_y, qp_gain_ramp_init)
 from .entropy import BitEstimator, gaussian_bits, gaussian_bits_cdf
 
@@ -303,7 +303,6 @@ class DMC(nn.Module):
                                "device='cpu' to run the plain versions")
         self.cfg = cfg
         self.dtype = compute_dtype(cfg.dtype)
-        check_card_dtype("DMC", device, self.dtype)
         kw = dict(dtype=self.dtype, device=device)
         c = cfg
         d = c.ch_d

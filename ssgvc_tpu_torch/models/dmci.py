@@ -27,7 +27,7 @@ from ..layers.blocks import (Conv, DepthConvBlock, ResidualBlockUpsample,
                              ResidualBlockWithStride2, init_)
 from ..layers.quant import noise_quant, ste_round
 from ..ops.pixel import pixel_shuffle
-from .common import (bpp_from_bits, check_card_dtype, compress_prior_4x,
+from .common import (bpp_from_bits, compress_prior_4x,
                      compute_dtype, pad_for_y, qp_gain_ramp_init)
 from .entropy import BitEstimator, gaussian_bits_cdf
 
@@ -87,7 +87,6 @@ class DMCI(nn.Module):
                                "device='cpu' to run the plain versions")
         self.cfg = c = cfg
         self.dtype = compute_dtype(cfg.dtype)
-        check_card_dtype("DMCI", device, self.dtype)
         kw = dict(dtype=self.dtype, device=device)
         n, z = c.N, c.z_channel
         self.enc = IntraEncoder(c, **kw)

@@ -19,9 +19,13 @@ the residuals and is rounded before Wf0; ``f`` is rounded before Wf2; the
 output is rounded once. In fp32 every rounding is the identity, so the
 plain version is the conv composition of ``layers/blocks.DepthConvBlock``.
 
-:func:`dcb` routes by device: a CPU tensor takes :func:`dcb_plain`; a CUDA
-tensor launches the kernel or raises. The kernel takes bfloat16 activations
-(B, H, W, C) with C in :data:`DCB_CHANNELS`.
+:func:`dcb` routes by device and dtype: a CPU tensor takes
+:func:`dcb_plain`; a CUDA tensor launches a kernel or raises. bfloat16
+activations (B, H, W, C) go to the wgmma kernel ``csrc/dcb.cu``, float32
+ones to the SIMT fp32 kernel ``csrc/dcb_f32.cu`` (:func:`dcb_f32_cuda`,
+weights from :func:`pack_f32`); any other dtype raises a ``TypeError``. Both
+take every C that is a multiple of 8 up to :data:`MAX_CHANNELS`
+(:func:`check_width`).
 
 Both kernels run one tile routine (``csrc/dcb_tile.cuh``) on 8x8 output
 tiles. A tile reads its input with a one-pixel halo (:data:`WIN` x
@@ -33,10 +37,11 @@ grid of one thread block per SM walking the B x tiles of a batch; a tile's
 halo never reads a neighbouring image.
 
 A block is computed at :func:`padded_channels` (C rounded up to a multiple
-of 64: 368 runs at 384). :func:`pack_block` gives the padded channels zero
-weights and biases, so they stay exactly 0 and add nothing; the kernel
-reads and writes the frame at its real C. At C=512 the window and ring B
-are cut to fit in shared memory (:func:`window_rows`, :func:`ring_b`).
+of 64, and 512 over 384: 368 runs at 384, 448 at 512). :func:`pack_block`
+gives the padded channels zero weights and biases, so they stay exactly 0
+and add nothing; the kernel reads and writes the frame at its real C. At C=512 the window and ring B
+are cut to fit in shared memory (:func:`window_rows`, :func:`ring_b`); at a
+computed width of 64 ring B has bytes of its own (:func:`ring_b_own`).
 """
 
 from __future__ import annotations
@@ -49,13 +54,17 @@ import torch.nn.functional as F
 
 from . import _build
 
-#: Channel widths the single-block kernel is instantiated for (every
-#: single-block site of the P-frame and I-frame codecs).
-DCB_CHANNELS = (128, 192, 256, 320, 368, 384, 512)
+#: The widest block the single-block kernels take; every C that is a
+#: multiple of :data:`WIDTH_STEP` up to it runs, computed at
+#: :func:`padded_channels`.
+MAX_CHANNELS = 512
+WIDTH_STEP = 8      # the window's 16-byte copies: 8 bf16 channels
 #: Dynamic shared memory one block may use on sm_90.
 SMEM_LIMIT = 232448
-#: Kernel launches since the count was last set to 0.
+#: Kernel launches since the count was last set to 0: the bf16 kernel's
+#: and the fp32 kernel's.
 launches = 0
+launches_f32 = 0
 
 Params = Tuple[torch.Tensor, ...]   # (w0, b0, w2, b2, w3, b3, wf0, bf0, wf2, bf2)
 
@@ -65,10 +74,11 @@ def wsilu(x: torch.Tensor) -> torch.Tensor:
     return F.silu(4.0 * x) * 0.25
 
 
-def packed_numel(c: int) -> int:
-    """Elements of one block's :func:`pack_block` tensor (at the computed
-    width)."""
-    cp = padded_channels(c)
+def packed_numel(c: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Elements of one block's packed weights for the card's ``dtype``
+    kernel: :func:`pack_block` (at the computed width) for bf16,
+    :func:`pack_f32` (at C) for fp32."""
+    cp = c if dtype == torch.float32 else padded_channels(c)
     return 8 * cp * cp + 17 * cp
 
 
@@ -98,6 +108,7 @@ RING_A = 4          # W0 slab slots
 RING_B = 4          # stage-B slab slots, in the window's bytes
 WIDE_RING_B = 3     # the same at C=512
 BARRIER_BYTES = 256
+HCHUNK = max(WIN * WIN * SH * 4, 2 * TILE * TILE * KF * 2)  # h / f chunks
 
 
 def tile_grid(h: int, w: int) -> Tuple[int, int]:
@@ -118,9 +129,16 @@ def window_pixel(r: int, y0: int, x0: int) -> Tuple[int, int]:
     return y0 - 1 + r // WIN, x0 - 1 + r % WIN
 
 
+#: The widths a block is computed at: one kernel instance pair each.
+COMPUTED_WIDTHS = (64, 128, 192, 256, 320, 384, 512)
+
+
 def padded_channels(c: int) -> int:
-    """The width a block of ``c`` channels is computed at: ``c`` rounded up
-    to a multiple of :data:`KC`."""
+    """The width a block of ``c`` channels is computed at, one of
+    :data:`COMPUTED_WIDTHS` up to 512: ``c`` rounded up to a multiple of
+    :data:`KC`, and 512 for every ``c`` from 392 to 512."""
+    if COMPUTED_WIDTHS[-2] < c <= COMPUTED_WIDTHS[-1]:
+        return COMPUTED_WIDTHS[-1]
     return -(-c // KC) * KC
 
 
@@ -133,8 +151,21 @@ def window_rows(c: int) -> int:
 
 
 def ring_b(c: int) -> int:
-    """Stage-B slab slots, held in the window's bytes."""
+    """Stage-B slab slots."""
     return RING_B if padded_channels(c) <= 384 else WIDE_RING_B
+
+
+def slot_b(c: int) -> int:
+    """Bytes of one ring-B slot: the larger of a CP x KS_B slab (W3, Wf2)
+    and a 2 KF x KS_B one (Wf0)."""
+    return max(KS_B * padded_channels(c) * 2, 2 * KF * KS_B * 2)
+
+
+def ring_b_own(c: int) -> bool:
+    """Whether ring B needs bytes of its own: its slots do not fit in the
+    window's (only at a computed width of 64, where the window is 16 KiB
+    and a slot must hold an 8 KiB Wf0 slab)."""
+    return ring_b(c) * slot_b(c) > window_rows(c) * padded_channels(c) * 2
 
 
 def smem_bytes(c: int) -> int:
@@ -144,14 +175,14 @@ def smem_bytes(c: int) -> int:
     Stage A holds the window A tile (:func:`window_rows` x CP bf16), the
     fp32 h chunk, hb (64 x CP bf16) and the W0 ring. In stage B the window
     is dead: its bytes hold the :func:`ring_b` slots of W3 / Wf0 / Wf2
-    slabs (each at most CP x KS_B bf16), hb is overwritten by uc, and the h
+    slabs (unless :func:`ring_b_own`), hb is overwritten by uc, and the h
     chunk's bytes hold two f chunks (64 x KF bf16)."""
     cp = padded_channels(c)
     window = window_rows(c) * cp * 2
-    hchunk = max(WIN * WIN * SH * 4, 2 * TILE * TILE * KF * 2)
     hb = TILE * TILE * cp * 2
     ring_a = RING_A * KS_A * KC * 2
-    return window + hchunk + hb + ring_a + BARRIER_BYTES
+    own = ring_b(c) * slot_b(c) if ring_b_own(c) else 0
+    return window + HCHUNK + hb + ring_a + own + BARRIER_BYTES
 
 
 def canonical(m: torch.Tensor) -> torch.Tensor:
@@ -246,6 +277,29 @@ def pack_block(params: Params, dtype: torch.dtype) -> torch.Tensor:
         return flat.to(dtype)
 
 
+def pack_f32(params: Params) -> torch.Tensor:
+    """One block's weights for the fp32 kernel (``csrc/dcb_f32.cu``), at C:
+    the four matrices transposed ([in][out], so that threads over output
+    channels read consecutive floats), then the taps and biases as in
+    :func:`pack_params`. 8 C^2 + 17 C floats."""
+    c = params[0].shape[0]
+    w0, _, _, _, w3, _, wf0, _, wf2, _ = params
+    with torch.no_grad():
+        mats = [m[:, :, 0, 0].float().t().reshape(-1)
+                for m in (w0, w3, wf0, wf2)]
+        return torch.cat(mats + [pack_params(params, torch.float32)
+                                 [8 * c * c:]]).contiguous()
+
+
+def pack_kernel(params: Params, dtype: torch.dtype) -> torch.Tensor:
+    """One block's weights as the card's kernel for ``dtype`` activations
+    takes them: :func:`pack_f32` for fp32, :func:`pack_block` (the bf16
+    kernel's layout) otherwise."""
+    if dtype == torch.float32:
+        return pack_f32(params)
+    return pack_block(params, dtype)
+
+
 def unpack_block(flat: torch.Tensor, c: int) -> dict:
     """The four matrices ([out][in]) of one :func:`pack_block` tensor of a
     block of ``c`` channels, at its computed width."""
@@ -287,19 +341,32 @@ def dcb_plain(x: torch.Tensor, params: Params,
     return y.to(cdt)
 
 
-def check_input(x: torch.Tensor, what: str,
-                channels: Tuple[int, ...]) -> None:
-    """Raise unless ``x`` is what a kernel instantiated for ``channels``
-    takes."""
+#: Activation dtypes the card's kernels take: bf16 (wgmma), fp32 (SIMT).
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def check_width(c: int, max_c: int, what: str) -> None:
+    """The kernels' width rule: C a multiple of :data:`WIDTH_STEP` from 8
+    to ``max_c``; raise a ``ValueError`` otherwise."""
+    if not (WIDTH_STEP <= c <= max_c and c % WIDTH_STEP == 0):
+        raise ValueError(f"{what}: C={c} is not a multiple of {WIDTH_STEP} "
+                         f"from {WIDTH_STEP} to {max_c}")
+
+
+def check_input(x: torch.Tensor, what: str, max_c: int,
+                dtype: torch.dtype) -> None:
+    """Raise unless ``x`` is what a kernel takes: a contiguous CUDA (B, H,
+    W, C) tensor of the kernel's ``dtype`` (a ``TypeError`` otherwise), C by
+    :func:`check_width`."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: kernel needs a CUDA tensor, got {x.device}")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"{what}: kernel takes bfloat16, got {x.dtype}")
+    if x.dtype != dtype:
+        raise TypeError(f"{what}: kernel takes {dtype}, got {x.dtype} (the "
+                        f"card's kernels take {KERNEL_DTYPES})")
     if x.dim() != 4 or x.shape[0] < 1:
         raise ValueError(f"{what}: kernel takes (B, H, W, C), got "
                          f"{tuple(x.shape)}")
-    if x.shape[-1] not in channels:
-        raise ValueError(f"{what}: C={x.shape[-1]} not in {channels}")
+    check_width(x.shape[-1], max_c, what)
     if not x.is_contiguous():
         raise ValueError(f"{what}: input must be contiguous NHWC")
 
@@ -337,15 +404,57 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _lib_f32() -> ctypes.CDLL:
+    lib = _build.load("dcb_f32")
+    fn = lib.ssgvc_dcb_f32_forward
+    if fn.argtypes is None:
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, vp]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def launch_f32(x: torch.Tensor, y: torch.Tensor, scratch: torch.Tensor,
+               packed: torch.Tensor, q_ptr, n: int, shortcut: bool,
+               what: str) -> None:
+    """One launch of ``csrc/dcb_f32.cu`` on checked operands: n blocks
+    (cooperative for n > 1) from x to y, ``scratch`` the chain's other
+    buffer."""
+    b, h, w, c = x.shape
+    lib = _lib_f32()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.ssgvc_dcb_f32_forward(
+            x.data_ptr(), y.data_ptr(), scratch.data_ptr(), packed.data_ptr(),
+            q_ptr, b, h, w, c, n, int(bool(shortcut)), stream)
+    _build.check(lib, rc, f"{what} kernel")
+
+
+def dcb_f32_cuda(x: torch.Tensor, packed: torch.Tensor,
+                 q: Optional[torch.Tensor] = None,
+                 shortcut: bool = False) -> torch.Tensor:
+    """Launch the fp32 kernel: x (B, H, W, C) fp32 CUDA, ``packed`` from
+    :func:`pack_f32`, q (C,) or None. Returns a new (B, H, W, C)."""
+    global launches_f32
+    check_input(x, "dcb_f32", MAX_CHANNELS, torch.float32)
+    c = x.shape[-1]
+    check_operand(packed, x, packed_numel(c, x.dtype), "dcb_f32 weights")
+    q, q_ptr = q_operand(q, x, "dcb_f32")
+    y = torch.empty_like(x)
+    launch_f32(x, y, y, packed, q_ptr, 1, shortcut, "dcb_f32")
+    launches_f32 += 1
+    return y
+
+
 def dcb_cuda(x: torch.Tensor, packed: torch.Tensor,
              q: Optional[torch.Tensor] = None,
              shortcut: bool = False) -> torch.Tensor:
-    """Launch the kernel: x (B, H, W, C) bf16 CUDA, ``packed`` from
+    """Launch the bf16 kernel: x (B, H, W, C) bf16 CUDA, ``packed`` from
     :func:`pack_block`, q (C,) or None. Returns a new (B, H, W, C)."""
     global launches
-    check_input(x, "dcb", DCB_CHANNELS)
+    check_input(x, "dcb", MAX_CHANNELS, torch.bfloat16)
     b, h, w, c = x.shape
-    check_operand(packed, x, packed_numel(c), "dcb weights")
+    check_operand(packed, x, packed_numel(c, x.dtype), "dcb weights")
     q, q_ptr = q_operand(q, x, "dcb")
     lib = _lib()
     y = torch.empty_like(x)
@@ -362,11 +471,14 @@ def dcb_cuda(x: torch.Tensor, packed: torch.Tensor,
 def dcb(x: torch.Tensor, params: Params, q: Optional[torch.Tensor] = None,
         shortcut: bool = False,
         packed: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One block after its adaptor: the plain version for a CPU tensor, the
-    kernel for a CUDA tensor. ``packed`` may carry cached
-    :func:`pack_block` output for the kernel."""
+    """One block after its adaptor: the plain version for a CPU tensor; for
+    a CUDA tensor the fp32 kernel for float32, else the bf16 kernel (which
+    refuses any other dtype). ``packed`` may carry cached
+    :func:`pack_kernel` output."""
     if x.device.type == "cpu":
         return dcb_plain(x, params, q, shortcut)
     if packed is None:
-        packed = pack_block(params, x.dtype)
+        packed = pack_kernel(params, x.dtype)
+    if x.dtype == torch.float32:
+        return dcb_f32_cuda(x, packed, q, shortcut)
     return dcb_cuda(x, packed, q, shortcut)

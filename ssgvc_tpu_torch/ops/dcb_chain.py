@@ -18,6 +18,12 @@ the main path's sizes. A tile reads its input with a one-pixel halo
 (:data:`WIN` x :data:`WIN` pixels) and recomputes dc_0 on it; nothing else
 is recomputed. Each tile runs the single-block kernel's tile routine
 (``csrc/dcb_tile.cuh``) on the block's slabs from :func:`pack_chain`.
+
+:func:`dcb_chain` routes by device and dtype as ``ops.dcb.dcb`` does: a
+bfloat16 CUDA tensor to ``csrc/dcb_chain.cu``, a float32 one to the fp32
+kernel ``csrc/dcb_f32.cu`` (:func:`dcb_chain_f32_cuda`, one cooperative
+launch per chain too), any other dtype raises. Both take every C that is a
+multiple of 8 up to :data:`MAX_CHANNELS`.
 """
 
 from __future__ import annotations
@@ -28,19 +34,20 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from . import _build
-from .dcb import (Params, check_input, check_operand, dcb_plain, pack_block,
-                  packed_numel, q_operand)
+from .dcb import (Params, check_input, check_operand, dcb_plain,
+                  launch_f32, pack_kernel, packed_numel, q_operand)
 # The per-tile layout both kernels share, re-exported for the chain's
 # callers and tests.
 from .dcb import (KC, KF, KS_A, KS_B, RING_B, TILE, WIN,  # noqa: F401
                   WIN_ROWS, canonical, decanonical, smem_bytes, tile_grid,
                   tile_origin, unpack_block, window_pixel)
 
-#: Channel widths the chain kernel is instantiated for (the P-frame
-#: codec's chains).
-CHAIN_CHANNELS = (128, 256, 320, 384)
-#: Kernel launches since the count was last set to 0.
+#: The widest block the chain kernels take (every multiple of 8 up to it).
+MAX_CHANNELS = 384
+#: Kernel launches since the count was last set to 0: the bf16 kernel's
+#: and the fp32 kernel's.
 launches = 0
+launches_f32 = 0
 
 
 def buffer_plan(n: int) -> List[Tuple[str, str]]:
@@ -52,9 +59,9 @@ def buffer_plan(n: int) -> List[Tuple[str, str]]:
 
 
 def pack_chain(blocks: Sequence[Params], dtype: torch.dtype) -> torch.Tensor:
-    """Every block's :func:`pack_block`, back to back: the kernel's one
-    weight operand."""
-    return torch.cat([pack_block(p, dtype) for p in blocks])
+    """Every block's ``ops.dcb.pack_kernel``, back to back: the one weight
+    operand of the card's chain kernel for ``dtype`` activations."""
+    return torch.cat([pack_kernel(p, dtype) for p in blocks])
 
 
 def dcb_chain_plain(x: torch.Tensor, blocks: Sequence[Params],
@@ -80,7 +87,7 @@ def dcb_chain_cuda(x: torch.Tensor, packed: torch.Tensor,
     """One launch for the whole chain: x (B, H, W, C) bf16 CUDA, ``packed``
     from :func:`pack_chain` (N blocks), q_last (C,) or None."""
     global launches
-    check_input(x, "dcb_chain", CHAIN_CHANNELS)
+    check_input(x, "dcb_chain", MAX_CHANNELS, torch.bfloat16)
     b, h, w, c = x.shape
     n = packed.numel() // packed_numel(c)
     if n < 1:
@@ -100,15 +107,39 @@ def dcb_chain_cuda(x: torch.Tensor, packed: torch.Tensor,
     return y
 
 
+def dcb_chain_f32_cuda(x: torch.Tensor, packed: torch.Tensor,
+                       q_last: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One launch of the fp32 kernel for the whole chain: x (B, H, W, C)
+    fp32 CUDA, ``packed`` from :func:`pack_chain` (N blocks, fp32), q_last
+    (C,) or None."""
+    global launches_f32
+    check_input(x, "dcb_chain_f32", MAX_CHANNELS, torch.float32)
+    c = x.shape[-1]
+    per = packed_numel(c, x.dtype)
+    n = packed.numel() // per
+    if n < 1:
+        raise ValueError("dcb_chain_f32: no blocks")
+    check_operand(packed, x, n * per, "dcb_chain_f32 weights")
+    q_last, q_ptr = q_operand(q_last, x, "dcb_chain_f32")
+    y = torch.empty_like(x)
+    scratch = torch.empty_like(x) if n > 1 else y
+    launch_f32(x, y, scratch, packed, q_ptr, n, False, "dcb_chain_f32")
+    launches_f32 += 1
+    return y
+
+
 def dcb_chain(x: torch.Tensor, blocks: Sequence[Params],
               q_last: Optional[torch.Tensor] = None,
               packed: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Chained blocks: the plain version for a CPU tensor, the kernel for a
-    CUDA tensor. ``packed`` may carry the chain's cached
+    """Chained blocks: the plain version for a CPU tensor; for a CUDA
+    tensor the fp32 kernel for float32, else the bf16 kernel (which refuses
+    any other dtype). ``packed`` may carry the chain's cached
     :func:`pack_chain` output."""
     if x.device.type == "cpu":
         return dcb_chain_plain(x, blocks, q_last)
     if packed is None:
         packed = pack_chain(blocks, x.dtype)
+    if x.dtype == torch.float32:
+        return dcb_chain_f32_cuda(x, packed, q_last)
     return dcb_chain_cuda(x, packed, q_last)
 

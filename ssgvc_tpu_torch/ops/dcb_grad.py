@@ -40,7 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .dcb import Params, dcb, packed_numel, wsilu
+from .dcb import KERNEL_DTYPES, Params, dcb, packed_numel, wsilu
 from .dcb_chain import dcb_chain
 
 #: Pixels per thread block of the partial sums (csrc/dcb_bwd.cu).
@@ -130,8 +130,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("dcb_bwd")
     if lib.ssgvc_dw_fwd.argtypes is None:
         vp, i, lg = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-        lib.ssgvc_dw_fwd.argtypes = [vp] * 4 + [i] * 4 + [vp]
-        lib.ssgvc_gate_bwd.argtypes = [vp] * 9 + [i, i, lg, vp]
+        lib.ssgvc_dw_fwd.argtypes = [vp] * 4 + [i] * 5 + [vp]
+        lib.ssgvc_gate_bwd.argtypes = [vp] * 9 + [i, i, lg, i, vp]
         lib.ssgvc_dw_bwd.argtypes = [vp] * 6 + [i] * 5 + [vp]
         lib.ssgvc_grad_reduce.argtypes = [vp, vp, i, i, vp]
         for fn in (lib.ssgvc_dw_fwd, lib.ssgvc_gate_bwd, lib.ssgvc_dw_bwd,
@@ -173,9 +173,17 @@ def _part_ptr(part: torch.Tensor, col: int, cols: int, rows: int) -> int:
     return part.data_ptr() + 4 * col
 
 
+def _act_dtype(what: str, dtype: torch.dtype) -> int:
+    """1 for fp32, 0 for bf16 (the kernels' ``f32`` flag); raise for any
+    other dtype."""
+    if dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{what}: kernel takes bfloat16 or float32, got "
+                        f"{dtype}")
+    return int(dtype == torch.float32)
+
+
 def dw_fwd_cuda(a0, taps, b2, out_dtype):
-    if out_dtype != torch.bfloat16:
-        raise TypeError(f"dw_fwd: kernel writes bfloat16, got {out_dtype}")
+    act = _act_dtype("dw_fwd", out_dtype)
     b, hh, ww, c = a0.shape
     dev, f32 = a0.device, torch.float32
     with torch.cuda.device(dev):
@@ -183,7 +191,8 @@ def dw_fwd_cuda(a0, taps, b2, out_dtype):
                 _check("dw_fwd taps", taps, f32, (9, c), dev),
                 _check("dw_fwd b2", b2, f32, (c,), dev)]
         g = torch.empty(a0.shape, dtype=out_dtype, device=dev)
-        _launch("dw_fwd", (b, hh, ww, c), *ptrs, g.data_ptr(), b, hh, ww, c)
+        _launch("dw_fwd", (b, hh, ww, c), *ptrs, g.data_ptr(), b, hh, ww, c,
+                act)
     return g
 
 
@@ -191,11 +200,12 @@ def gate_bwd_cuda(df, p, dy, q, resid, part, col):
     c = dy.shape[-1]
     m = dy[..., 0].numel()
     dev, f32 = dy.device, torch.float32
+    act = _act_dtype("gate_bwd", dy.dtype)
     lead = tuple(dy.shape[:-1])
     with torch.cuda.device(dev):
         ptrs = [_check("gate_bwd df", df, f32, lead + (2 * c,), dev),
                 _check("gate_bwd p", p, f32, lead + (4 * c,), dev),
-                _check("gate_bwd dy", dy, torch.bfloat16, lead + (c,), dev),
+                _check("gate_bwd dy", dy, dy.dtype, lead + (c,), dev),
                 _check("gate_bwd q", q, f32, (c,), dev),
                 _check("gate_bwd resid", resid, f32, lead + (c,), dev)]
         if (q is None) != (resid is None):
@@ -207,7 +217,7 @@ def gate_bwd_cuda(df, p, dy, q, resid, part, col):
         part_ptr = _part_ptr(part, col, GATE_COLS * c, -(-m // PIX))
         _launch("gate_bwd", lead + (c, q is not None), *ptrs, dp.data_ptr(),
                 fr.data_ptr(), 0 if dyq is None else dyq.data_ptr(),
-                part_ptr, part.shape[1], c, m)
+                part_ptr, part.shape[1], c, m, act)
     return dp, fr, dyq
 
 
@@ -373,7 +383,7 @@ class DCBChainFunction(torch.autograd.Function):
         x, q_last, packed, *flat = ctx.saved_tensors
         n = ctx.n
         blocks = [flat[10 * j:10 * j + 10] for j in range(n)]
-        per = packed_numel(x.shape[-1])
+        per = packed_numel(x.shape[-1], x.dtype)
         inputs: List[torch.Tensor] = [x]
         with torch.no_grad():
             for j in range(n - 1):

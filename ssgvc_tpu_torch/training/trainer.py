@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..config import DMCConfig, DMCIConfig, TrainConfig
+from ..layers.blocks import cudnn_fp32
 from ..models.dmc import DMC
 from ..models.dmci import DMCI
 from .loss import (alm_deadzone_penalty, alm_dual_update, init_psnrm_schedule,
@@ -271,6 +272,13 @@ class Trainer:
 
     # ----------------------------------------------------------------- steps
 
+    def backward(self, loss: torch.Tensor) -> None:
+        """``loss.backward()``, an fp32 model's conv gradients in full fp32
+        too (cuDNN's TF32 default off for the backward, as for each
+        forward)."""
+        with cudnn_fp32(self.dmc.dtype, self.device):
+            loss.backward()
+
     def train_step(self, state: TrainState, batch: Dict, qp: int,
                    generator: torch.Generator):
         """One micro-batch: forward, backward, the optimizer (which applies
@@ -281,7 +289,7 @@ class Trainer:
         self.tx.zero_grad()
         loss, aux = self.gop_loss(frames, masks, qp, generator, train=True,
                                   eval_mode=False)
-        loss.backward()
+        self.backward(loss)
         self.tx.step()
         if self.cfg.constraint_opt:
             state.alm_h_accum = state.alm_h_accum + aux["g_mean"]

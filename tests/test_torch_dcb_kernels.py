@@ -24,6 +24,11 @@ from ssgvc_tpu_torch.ops import dcb_chain as chain_ops
 from torch_port_helpers import perturbed
 
 NAMES = ("dc_0", "dc_2", "dc_3", "ffn_0", "ffn_2")
+# the full profile's widths: every single-block and chain site of the
+# P-frame and I-frame codecs (the smaller profiles' are in
+# test_torch_widths.py)
+FULL_DCB_WIDTHS = (128, 192, 256, 320, 368, 384, 512)
+FULL_CHAIN_WIDTHS = (128, 256, 320, 384)
 
 
 def _flax_block(c, seed):
@@ -113,7 +118,7 @@ def test_planner_fits_every_main_path_site_in_one_launch(kernel):
                                      ((17, 30, (128,)), (3, 4))):
             assert dcb_ops.tile_grid(h, w) == grid
             for c in widths:
-                assert c in dcb_ops.DCB_CHANNELS
+                dcb_ops.check_width(c, dcb_ops.MAX_CHANNELS, "dcb")
                 assert dcb_ops.smem_bytes(c) <= dcb_ops.SMEM_LIMIT
         return
     # the chains of the main path: one launch each over 8x8 tiles, the last
@@ -154,11 +159,12 @@ def _np_block(c, rng):
             t((c, 2 * c, 1, 1), 0.3 * (2 * c) ** -0.5), t((c,), 0.1))
 
 
-@pytest.mark.parametrize("c", chain_ops.CHAIN_CHANNELS)
+@pytest.mark.parametrize("c", FULL_CHAIN_WIDTHS)
 def test_chain_packing_round_trip(c):
     rng = np.random.default_rng(c)
     blocks = [_np_block(c, rng) for _ in range(2)]
-    packed = chain_ops.pack_chain(blocks, torch.float32)
+    # the bf16 kernel's layout, in fp32
+    packed = torch.cat([dcb_ops.pack_block(b, torch.float32) for b in blocks])
     size = dcb_ops.packed_numel(c)
     assert packed.numel() == 2 * size
     for j, blk in enumerate(blocks):
@@ -284,7 +290,8 @@ def test_chain_schedule_emulation_matches_plain(n, h, w, c, with_q):
     blocks = [_np_block(c, rng) for _ in range(n)]
     x = torch.from_numpy(_x((1, h, w, c), n + h, 1.0))
     q = torch.linspace(0.5, 1.5, c) if with_q else None
-    packed = chain_ops.pack_chain(blocks, torch.float32)
+    # the bf16 kernel's layout, in fp32
+    packed = torch.cat([dcb_ops.pack_block(b, torch.float32) for b in blocks])
     out = _emulate_chain(x, packed, n, q)
     ref = chain_ops.dcb_chain_plain(x, blocks, q)
     assert torch.isfinite(out).all()
@@ -311,7 +318,7 @@ def test_single_block_schedule_emulation_matches_plain(h, w, c, shortcut,
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("c", chain_ops.CHAIN_CHANNELS)
+@pytest.mark.parametrize("c", FULL_CHAIN_WIDTHS)
 def test_chain_shared_memory_fits_and_is_independent_of_n(c):
     # the budget is a function of C alone: the kernel takes no other input
     assert list(inspect.signature(chain_ops.smem_bytes).parameters) == ["c"]
@@ -320,9 +327,8 @@ def test_chain_shared_memory_fits_and_is_independent_of_n(c):
     assert chain_ops.smem_bytes(c) <= dcb_ops.SMEM_LIMIT
 
 
-@pytest.mark.parametrize("kernel,c", [("dcb", c) for c in dcb_ops.DCB_CHANNELS]
-                         + [("dcb_chain", c)
-                            for c in chain_ops.CHAIN_CHANNELS])
+@pytest.mark.parametrize("kernel,c", [("dcb", c) for c in FULL_DCB_WIDTHS]
+                         + [("dcb_chain", c) for c in FULL_CHAIN_WIDTHS])
 def test_shared_memory_fits_every_width_of_each_kernel(kernel, c):
     cp = dcb_ops.padded_channels(c)
     assert cp % 64 == 0 and 0 <= cp - c < 64

@@ -1,7 +1,7 @@
 """The port stands alone: no module of ssgvc_tpu_torch, and not
 chip_smoke.py, imports JAX, flax or the JAX package, nor loads its native
 coder; its entry points target the card unless asked for the CPU, with no
-fallback, and refuse float32 on the card."""
+fallback, and take bfloat16 and float32 there (any other dtype raises)."""
 
 import ast
 from pathlib import Path
@@ -34,7 +34,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
 
 TRAINING_MODULES = ("ops.dcb_grad", "data.device_synth", "training.loss",
                     "training.schedule", "training.optimizers",
-                    "training.calibrate", "training.trainer", "config")
+                    "training.calibrate", "training.trainer", "config",
+                    "training.evaluate", "ops.dcb", "ops.dcb_chain")
 
 
 @pytest.mark.parametrize("module", TRAINING_MODULES)
@@ -110,19 +111,45 @@ def test_dmci_defaults_to_the_card_and_never_falls_back():
 
 
 def test_card_refuses_float32_up_front():
-    """DMC, DMCI and VideoCodec call this check at construction: float32
-    on the card raises (ROADMAP K3), bfloat16 on the card and any dtype on
-    the CPU pass. A CUDA-less host cannot build a CUDA model, so the check
-    itself is tested."""
-    from ssgvc_tpu_torch.models.common import check_card_dtype
+    """The card takes float32 now (csrc/dcb_f32.cu): no model refuses it at
+    construction any more, and the DepthConvBlock ops refuse only dtypes
+    other than bfloat16 and float32, with a TypeError, before any kernel.
+    (The name is the test's from when float32 was refused.) A CUDA-less
+    host cannot build a CUDA model or tensor, so the rule itself and the
+    sources are tested."""
+    from ssgvc_tpu_torch.models import common
+    from ssgvc_tpu_torch.ops import dcb as dcb_ops
+    from ssgvc_tpu_torch.ops import dcb_chain as chain_ops
+    from ssgvc_tpu_torch.ops import dcb_grad
 
-    with pytest.raises(TypeError, match="bfloat16 until ROADMAP K3"):
-        check_card_dtype("DMC", "cuda", torch.float32)
-    with pytest.raises(TypeError, match="K3"):
-        check_card_dtype("DMCI", torch.device("cuda", 0), torch.float32)
-    check_card_dtype("DMC", "cuda", torch.bfloat16)
-    check_card_dtype("DMC", "cpu", torch.float32)
-    check_card_dtype("DMC", "cpu", torch.bfloat16)
+    assert not hasattr(common, "check_card_dtype")
+    for f in ("models/dmc.py", "models/dmci.py", "coding/codec.py"):
+        assert "check_card_dtype" not in (ROOT / "ssgvc_tpu_torch" / f
+                                          ).read_text(), f
+    assert dcb_ops.KERNEL_DTYPES == (torch.bfloat16, torch.float32)
+    for bad in (torch.float16, torch.float64):
+        with pytest.raises(TypeError):
+            dcb_grad._act_dtype("dw_fwd", bad)
+    assert [dcb_grad._act_dtype("dw_fwd", d)
+            for d in dcb_ops.KERNEL_DTYPES] == [0, 1]
+
+    class Half:                     # a CUDA half tensor, as the ops see it
+        device = torch.device("cuda")
+        dtype = torch.float16
+
+    x = Half()
+    c = 16
+    blk = tuple(torch.zeros(s) for s in ((c, c, 1, 1), (c,), (c, 1, 3, 3),
+                                         (c,), (c, c, 1, 1), (c,),
+                                         (4 * c, c, 1, 1), (4 * c,),
+                                         (c, 2 * c, 1, 1), (c,)))
+    with pytest.raises(TypeError, match="bfloat16"):
+        dcb_ops.dcb(x, blk)
+    with pytest.raises(TypeError, match="bfloat16"):
+        chain_ops.dcb_chain(x, [blk, blk])
+    for dtype in dcb_ops.KERNEL_DTYPES:
+        with pytest.raises(TypeError):
+            dcb_ops.check_input(x, "dcb", dcb_ops.MAX_CHANNELS, dtype)
 
 
 @pytest.mark.parametrize("variant", ["performance", "plain", "old", "fast",

@@ -5,9 +5,12 @@ This file imports neither JAX nor the JAX package, so it also runs on a
 machine without them:
 ``python -m pytest tests/test_torch_kernels_gpu.py -m gpu -q --noconftest``.
 
-Tolerance: both sides round at the same points in bf16 and accumulate in
+Tolerances: in bf16 both sides round at the same points and accumulate in
 fp32, in another order; the relative Frobenius error of the output must be
-at most 1e-2 (one bf16 rounding is 2^-8 ~ 3.9e-3 relative per element).
+at most 1e-2 (one bf16 rounding is 2^-8 ~ 3.9e-3 relative per element). In
+fp32 (``csrc/dcb_f32.cu``) nothing rounds but the sums, taken in another
+order: max |out - ref| / max |ref| at most 1e-5, with TF32 off for the
+plain version (both flags, set in ``_card``).
 """
 
 import numpy as np
@@ -18,6 +21,12 @@ from ssgvc_tpu_torch.ops import dcb as dcb_ops
 from ssgvc_tpu_torch.ops import dcb_chain as chain_ops
 
 REL_TOL = 1e-2
+F32_TOL = 1e-5
+# every width a profile builds (the single block to 512, the chain to 384)
+# and one per computed width (C rounded up to 64; 448 at 512)
+SINGLE_WIDTHS = (8, 16, 24, 32, 48, 64, 96, 128, 160, 184, 192, 256, 320,
+                 368, 384, 448, 512)
+CHAIN_WIDTHS = tuple(c for c in SINGLE_WIDTHS if c <= 384 and c != 368)
 
 
 def _card():
@@ -45,6 +54,96 @@ def rel_err(out, ref):
     out, ref = out.float(), ref.float()
     return float(torch.linalg.vector_norm(out - ref)
                  / torch.linalg.vector_norm(ref))
+
+
+def max_rel(out, ref):
+    """max |out - ref| / max |ref|: the fp32 kernels' measure."""
+    return float((out - ref).abs().max() / ref.abs().max())
+
+
+def within(out, ref):
+    """The dtype's tolerance: bf16 relative Frobenius, fp32 max relative."""
+    assert torch.isfinite(out.float()).all()
+    if out.dtype == torch.float32:
+        return max_rel(out, ref) <= F32_TOL
+    return rel_err(out, ref) <= REL_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("kernel,c", [("dcb", c) for c in SINGLE_WIDTHS]
+                         + [("dcb_chain", c) for c in CHAIN_WIDTHS])
+def test_kernels_at_every_width(kernel, c, dtype):
+    """Both kernels at every width of every profile, in both dtypes, B=2 on
+    a ragged 9x13 frame (q on, and the shortcut for the single block)."""
+    dev = _card()
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(c)
+    x = torch.tensor(rng.standard_normal((2, 9, 13, c)), dtype=dt,
+                     device=dev)
+    q = torch.linspace(0.5, 1.5, c, device=dev).to(dt)
+    counts = (dcb_ops, "launches" if dt == torch.bfloat16 else "launches_f32")
+    if kernel == "dcb":
+        p = block_params(c, rng, dev)
+        before = getattr(*counts)
+        out = dcb_ops.dcb(x, p, q, shortcut=True)
+        ref = dcb_ops.dcb_plain(x, p, q, True)
+    else:
+        blocks = [block_params(c, rng, dev) for _ in range(3)]
+        counts = (chain_ops, counts[1])
+        before = getattr(*counts)
+        out = chain_ops.dcb_chain(x, blocks, q)
+        ref = chain_ops.dcb_chain_plain(x, blocks, q)
+    torch.cuda.synchronize()
+    assert getattr(*counts) == before + 1
+    assert out.dtype == dt and out.shape == x.shape
+    assert within(out, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["dcb", "dcb_chain"])
+def test_fp32_kernels_repeat_bit_for_bit(kernel):
+    """The fp32 kernels sum in a fixed order: two launches agree exactly
+    (VideoCodec's decoder reproduces its encoder in fp32)."""
+    dev = _card()
+    rng = np.random.default_rng(11)
+    c = 96
+    x = torch.tensor(rng.standard_normal((1, 40, 52, c)), dtype=torch.float32,
+                     device=dev)
+    q = torch.linspace(0.5, 1.5, c, device=dev)
+    if kernel == "dcb":
+        packed = dcb_ops.pack_f32(block_params(c, rng, dev))
+        run = lambda: dcb_ops.dcb_f32_cuda(x, packed, q, shortcut=True)
+    else:
+        packed = chain_ops.pack_chain(
+            [block_params(c, rng, dev) for _ in range(3)], torch.float32)
+        run = lambda: chain_ops.dcb_chain_f32_cuda(x, packed, q)
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("kernel", ["dcb", "dcb_chain"])
+def test_batch_equals_one_image_at_a_time_at_a_small_width(kernel, dtype):
+    """B=4 in one launch equals four B=1 launches bit for bit at C=32
+    (computed at 64 in bf16)."""
+    dev = _card()
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(12)
+    c = 32
+    x = torch.tensor(rng.standard_normal((4, 8, 8, c)), dtype=dt, device=dev)
+    if kernel == "dcb":
+        p = block_params(c, rng, dev)
+        run = lambda t: dcb_ops.dcb(t, p, shortcut=True)
+    else:
+        blocks = [block_params(c, rng, dev) for _ in range(2)]
+        run = lambda t: chain_ops.dcb_chain(t, blocks)
+    batched = run(x)
+    single = torch.cat([run(x[i:i + 1].contiguous()) for i in range(4)])
+    torch.cuda.synchronize()
+    assert torch.equal(batched, single)
 
 
 @pytest.mark.gpu
@@ -150,15 +249,23 @@ def test_kernel_refuses_what_it_does_not_take():
         dcb_ops.dcb(x[0], p)                         # no batch axis
     with pytest.raises(ValueError):
         dcb_ops.dcb(x.transpose(1, 2), p)            # not contiguous NHWC
+    # fp32 runs (csrc/dcb_f32.cu), and so does any width that is a
+    # multiple of 8 (C = 200, computed at 256 in bf16)
+    assert dcb_ops.dcb(x[:1].float(), p).dtype == torch.float32
+    for dt in (torch.bfloat16, torch.float32):
+        dcb_ops.dcb(torch.zeros((1, 8, 8, 200), dtype=dt, device=dev),
+                    block_params(200, rng, dev))
     with pytest.raises(TypeError):
-        dcb_ops.dcb(x[:1].float(), p)                # fp32 on the card
-    with pytest.raises(ValueError):
-        dcb_ops.dcb(torch.zeros((1, 8, 8, 64), dtype=torch.bfloat16,
-                                device=dev), block_params(64, rng, dev))
-    with pytest.raises(ValueError):                  # a width off the list
-        dcb_ops.dcb(torch.zeros((1, 8, 8, 200), dtype=torch.bfloat16,
-                                device=dev), block_params(200, rng, dev))
-    with pytest.raises(ValueError):                  # the chain's list
-        chain_ops.dcb_chain(torch.zeros((1, 8, 8, 368), dtype=torch.bfloat16,
-                                        device=dev),
-                            [block_params(368, rng, dev)])
+        dcb_ops.dcb(x[:1].half(), p)                 # float16
+    with pytest.raises(TypeError):
+        chain_ops.dcb_chain(x[:1].half(), [p])
+    for what, c in (("C % 8 != 0", 60), ("C > 512", 520)):
+        for dt in (torch.bfloat16, torch.float32):
+            with pytest.raises(ValueError):
+                dcb_ops.dcb(torch.zeros((1, 8, 8, c), dtype=dt, device=dev),
+                            block_params(c, rng, dev))
+    for dt in (torch.bfloat16, torch.float32):
+        with pytest.raises(ValueError):              # the chain stops at 384
+            chain_ops.dcb_chain(torch.zeros((1, 8, 8, 392), dtype=dt,
+                                            device=dev),
+                                [block_params(392, rng, dev)])

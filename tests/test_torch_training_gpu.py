@@ -14,7 +14,18 @@ outputs within 1e-2 (one rounding flip is 2^-8 relative); the training
 cross-check at loss rel 5e-2, the card's bf16 gradient at cosine >=
 ``chip_smoke.XTRAIN_COSINE`` to the CPU's fp32 one and >=
 ``chip_smoke.XTRAIN_KERNEL_COSINE`` to the CPU's bf16 one (the same rounding
-points: what is left is the card's kernels).
+points: what is left is the card's kernels). The fp32 block and chain
+gradients (the fp32 forward kernel, the backward kernels with fp32
+activations) against the CPU's within 1e-4 relative: the same fp32 math,
+summed in other orders. With cuDNN's TF32 flag left at its default
+(True), an fp32 model's strided conv and the Trainer's fp32 backward on the
+card: the conv against the CPU within 1e-5 of the output's largest value
+(and its gradients of their norm); the tiny Trainer's whole DMC gradient
+within 1e-5 of the card's own with the flag off, and within 5e-4 of the
+CPU's (with TF32 off everywhere the card and the CPU differ by 1.6e-4 at
+this seed: fp32 sums in other orders through a GOP, largest on parameters
+of small gradient). With TF32 the conv misses by ~3e-4 and the gradient by
+~8e-4 (``experiments/tf32_gap.py``).
 """
 
 import numpy as np
@@ -109,6 +120,39 @@ def test_block_gradient_on_the_card_matches_the_cpu():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kernel,c", [("dcb", 32), ("dcb", 96),
+                                      ("dcb_chain", 64)])
+def test_fp32_block_gradient_on_the_card_matches_the_cpu(kernel, c):
+    """DCBFunction / DCBChainFunction in fp32 on the card (csrc/dcb_f32.cu
+    forward, csrc/dcb_bwd.cu with fp32 activations) against the same
+    Functions on the CPU, on the same fp32 inputs."""
+    from ssgvc_tpu_torch.ops import dcb_grad as dg
+
+    dev = _card()
+    rng = np.random.default_rng(c)
+    x = torch.tensor(rng.standard_normal((4, 8, 8, c)), dtype=torch.float32)
+    q = torch.linspace(0.5, 1.5, c)
+    n = 1 if kernel == "dcb" else 3
+    blocks = [chip_smoke.block_params(torch, c, rng, "cpu") for _ in range(n)]
+    cot = torch.tensor(rng.standard_normal((4, 8, 8, c)),
+                       dtype=torch.float32)
+    grads = {}
+    for d in ("cpu", dev):
+        leaf = lambda t: t.detach().clone().to(d).requires_grad_(True)
+        xs, qs = leaf(x), leaf(q)
+        ps = [[leaf(p) for p in blk] for blk in blocks]
+        y = (dg.dcb_grad(xs, ps[0], qs, True) if kernel == "dcb"
+             else dg.dcb_chain_grad(xs, ps, qs))
+        assert y.dtype == torch.float32
+        (y * cot.to(d)).sum().backward()
+        grads[str(d)] = [t.grad.cpu() for t in [xs, qs] + sum(ps, [])]
+    for a, b in zip(grads["cpu"], grads[str(dev)]):
+        rel = float(torch.linalg.vector_norm(a - b)
+                    / torch.linalg.vector_norm(a))
+        assert rel <= 1e-4
+
+
+@pytest.mark.gpu
 def test_training_on_the_card_matches_the_cpu_port():
     _card()
     r = chip_smoke.train_cross_check(torch, 0)
@@ -116,3 +160,109 @@ def test_training_on_the_card_matches_the_cpu_port():
     assert r["card_vs_cpu32"]["grad_cosine"] >= chip_smoke.XTRAIN_COSINE
     assert (r["card_vs_cpu16"]["grad_cosine"]
             >= chip_smoke.XTRAIN_KERNEL_COSINE)
+
+
+def _card_tf32():
+    """The card, with torch's own default for matmuls (no TF32); each test
+    sets cuDNN's TF32 flag inside ``torch.backends.cudnn.flags``, which
+    restores it afterwards: the port's fp32 path must not rely on a caller
+    having turned it off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def grad_rel(a, ref):
+    return float(torch.linalg.vector_norm(a - ref)
+                 / torch.linalg.vector_norm(ref))
+
+
+def conv_gap(dev):
+    """An fp32 Conv 3x3 stride 2 (64 -> 96, as the models' strided convs)
+    on ``dev`` against the CPU on the same weights: (output's max |d| / max
+    |ref|, input gradient's and weight gradient's relative norms). The
+    backward runs under ``cudnn_fp32`` as ``Trainer.backward`` runs it."""
+    from ssgvc_tpu_torch.layers.blocks import Conv, cudnn_fp32
+
+    rng = np.random.default_rng(5)
+    x = torch.tensor(rng.standard_normal((2, 32, 32, 64)),
+                     dtype=torch.float32)
+    w = torch.tensor(rng.standard_normal((96, 64, 3, 3)) / 24.0,
+                     dtype=torch.float32)
+    bias = torch.tensor(rng.standard_normal(96) * 0.1, dtype=torch.float32)
+    cot = torch.tensor(rng.standard_normal((2, 16, 16, 96)),
+                       dtype=torch.float32)
+    out = {}
+    for d in ("cpu", dev):
+        conv = Conv(64, 96, 3, stride=2, padding=1, device=d)
+        conv.load_state_dict({"weight": w, "bias": bias})
+        xs = x.to(d).detach().requires_grad_(True)
+        y = conv(xs)
+        with cudnn_fp32(torch.float32, torch.device(d)):
+            (y * cot.to(d)).sum().backward()
+        out[str(d)] = (y.detach().cpu(), xs.grad.cpu(),
+                       conv.weight.grad.cpu())
+    (y0, gx0, gw0), (y1, gx1, gw1) = out["cpu"], out[str(dev)]
+    return (float((y1 - y0).abs().max() / y0.abs().max()),
+            grad_rel(gx1, gx0), grad_rel(gw1, gw0))
+
+
+def trainer_grads(dev, states=None):
+    """The fp32 Trainer at the tiny profile on ``dev``: gop_loss
+    (train=False: STE rounding, no noise) and ``Trainer.backward`` on one
+    64x64 clip of T=3, weights from ``random_weights`` (or ``states``, the
+    (DMC, DMCI) state dicts of an earlier call). Returns (loss, the DMC's
+    gradient flat on the CPU, states)."""
+    from ssgvc_tpu_torch.config import TrainConfig
+    from ssgvc_tpu_torch.data.device_synth import synth_batch
+    from ssgvc_tpu_torch.training.trainer import Trainer
+
+    data = synth_batch(torch.Generator().manual_seed(4), batch=1, size=64,
+                       seq_len=3, device="cpu")
+    tr = Trainer(TrainConfig(precision="fp32", model_profile="tiny",
+                             recon_residual=True), device=dev)
+    assert tr.dmc.dtype == torch.float32
+    if states is None:
+        chip_smoke.random_weights(torch, tr.dmc, 0, chip_smoke.TRAIN_HEADS)
+        chip_smoke.random_weights(torch, tr.dmci, 0, chip_smoke.DMCI_HEADS)
+        states = (tr.dmc.state_dict(), tr.dmci.state_dict())
+    else:
+        tr.dmc.load_state_dict(states[0], strict=True)
+        tr.dmci.load_state_dict(states[1], strict=True)
+    loss, _ = tr.gop_loss(data["frames"].to(dev), data["masks"].to(dev),
+                          chip_smoke.QP, torch.Generator().manual_seed(0),
+                          train=False, eval_mode=False)
+    tr.backward(loss)
+    grad = torch.cat([(torch.zeros_like(p) if p.grad is None else p.grad)
+                      .reshape(-1).cpu() for p in tr.dmc.parameters()])
+    return float(loss.detach()), grad, states
+
+
+@pytest.mark.gpu
+def test_fp32_strided_conv_on_the_card_is_fp32_with_tf32_allowed():
+    dev = _card_tf32()
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+        y, gx, gw = conv_gap(dev)
+        assert torch.backends.cudnn.allow_tf32       # restored by the port
+    assert y <= 1e-5 and gx <= 1e-5 and gw <= 1e-5
+
+
+@pytest.mark.gpu
+def test_fp32_trainer_backward_on_the_card_is_fp32_with_tf32_allowed():
+    """The card's gradient with the flag left on against the card's with
+    it off (deterministic cuDNN for both: the same algorithms, so only
+    TF32 could move it) within 1e-5, and against the CPU's within 5e-4."""
+    dev = _card_tf32()
+    l_cpu, g_cpu, states = trainer_grads("cpu")
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True,
+                                    allow_tf32=False):
+        l_ref, g_ref, _ = trainer_grads(dev, states)
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True,
+                                    allow_tf32=True):
+        l_on, g_on, _ = trainer_grads(dev, states)
+        assert torch.backends.cudnn.allow_tf32       # restored by the port
+    assert abs(l_on - l_ref) <= 1e-5 * abs(l_ref)
+    assert grad_rel(g_on, g_ref) <= 1e-5
+    assert abs(l_on - l_cpu) <= 1e-5 * abs(l_cpu)
+    assert grad_rel(g_on, g_cpu) <= 5e-4
