@@ -6,15 +6,20 @@
 Phases (any failure exits non-zero and prints no result line):
   1. device: the card's name and power limit (nvidia-smi), name and count;
   2. build: the DepthConvBlock kernels from ssgvc_tpu_torch/csrc (dcb,
-     dcb_chain, dcb_bwd, dcb_f32), one nvcc each, started together; prints
-     registers, shared memory and spill bytes of every instantiation (one
-     per computed width CP), and the wgmma kernels' wgmma (HGMMA) and
-     bulk-copy (UBLKCP) instructions from cuobjdump (none of either fails);
+     dcb_chain, dcb_bwd, dcb_f32, dcb_tf32), one nvcc each, started
+     together; prints registers, shared memory and spill bytes of every
+     instantiation (one per computed width CP), the 3xTF32 kernel's
+     shared-memory plan as compiled (it fails unless ops/dcb.py's mirror
+     agrees), and the wgmma kernels' wgmma (HGMMA) and bulk-copy (UBLKCP)
+     instructions from cuobjdump (none of either fails);
   3. kernels: each kernel at every shape the P-frame and I-frame codecs
      give it, against its plain PyTorch version on the same bf16 inputs
      (relative Frobenius error <= 1e-2), timed with CUDA events, beside its
      bound; each chain also beside N launches of the single-block kernel
      on the same blocks (seq_ms), timed in turns (chain, seq, seq, chain).
+     Every time in this script is a mean over a run of launches queued
+     behind a torch.cuda._sleep (cuda_ms), so the card sets it, not the
+     host's launch rate.
      With --prev-port DIR (another checkout's ssgvc_tpu_torch/, e.g. the
      parent commit's unpacked by git archive into a git-ignored directory)
      that checkout's kernels are built and timed in the same turns as
@@ -73,7 +78,9 @@ Phases (any failure exits non-zero and prints no result line):
      at every shape a training micro-step gives it, B = 4, against its
      plain version on the same inputs, timed with CUDA events beside its
      bound (bytes) and the library call that computes the same function,
-     where there is one; the per-micro-step sums weigh each shape's time
+     where there is one (grad_reduce: torch.sum, and its result bit for
+     bit against ops.dcb_grad.grad_reduce_order, the same additions on the
+     CPU); the per-micro-step sums weigh each shape's time
      by its launches counted in phase 13 (a shape counted there and not
      timed here fails);
  13. training: training.trainer.Trainer with the default TrainConfig
@@ -98,13 +105,16 @@ Phases (any failure exits non-zero and prints no result line):
      frames and their hyper and prior sites (B=8 4x4, B=4 12x12, 68x120,
      17x30: cut-off and partly filled tiles), each against its plain version (bf16 relative Frobenius 1e-2,
      fp32 max |d| / max |ref| 1e-5 with TF32 off), one launch per call,
-     timed beside its plain version and its bound (989 TFLOP/s bf16, 67
-     TFLOP/s fp32); then the fp32 kernels at every P-frame and I-frame
-     shape as phase 3 times the bf16 ones;
+     timed beside its plain version and its bound (989 TFLOP/s bf16; fp32
+     by route: 3 x 495 TFLOP/s TF32 on the 3xTF32 kernel, C >= 72, 67
+     TFLOP/s on the SIMT one below); then the fp32 kernels at every P-frame
+     and I-frame shape (all on the 3xTF32 route) as phase 3 times the bf16
+     ones, with this checkout's SIMT kernel on the same inputs (simt_ms)
+     and --prev-port's fp32 kernels in the same turns;
  15. fp32 at full width: DMCIConfig() and the performance DMCConfig at
      their default dtype, float32, on phases 4-5's weights, an I-frame and
      FP32_P_FRAMES P-frames of 1088x1920 with packed io, launches per frame
-     on the fp32 kernels only (I 42; P 19+5, then 18+5), ms per I- and
+     on the 3xTF32 kernels only (I 42; P 19+5, then 18+5), ms per I- and
      P-frame, peak memory; DMC(DMCConfig()) (plain, raw io) codes a
      P-frame; then phase 8's cross-check with the card in fp32: each frame
      10 dB closer to the CPU's fp32 than the card's bf16 got in phase 8,
@@ -115,8 +125,9 @@ Phases (any failure exits non-zero and prints no result line):
  17. the RD recipe (experiments/rd_tpu.py): rd-mid, performance, fp32,
      RD_STEPS micro-steps of B=RD_B 64x64 T=4 device_synth clips with the
      recipe's optimizer settings (losses finite, every DepthConvBlock
-     gradient finite and nonzero, launches on the fp32 kernels and the
-     backward kernels only), ms per micro-step, peak memory; then
+     gradient finite and nonzero, launches on both fp32 routes (SIMT at C
+     <= 64, 3xTF32 at C = 96) and the backward kernels only), ms per
+     micro-step, peak memory; then
      make_batched_gop_eval + evaluate_rd_batched over RD_EVAL_CLIPS
      192x192 clips at EVAL_QPS (s per QP) and latent_liveness /
      liveness_collapsed on two of them;
@@ -133,6 +144,7 @@ The last lines are JSON objects: {"main_path": ...}, {"variants": ...},
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import math
 import os
@@ -147,6 +159,8 @@ import numpy as np
 
 H100_BF16_FLOPS = 989e12     # dense tensor-core peak, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12      # fp32 outside the tensor cores, the same
+H100_TF32_FLOPS = 495e12     # dense TF32 tensor cores, the same; 3xTF32
+#                              does three products per fp32 one
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 REL_TOL = 1e-2               # kernel vs plain, relative Frobenius error
 F32_TOL = 1e-5               # fp32 kernel vs plain, max |d| / max |ref|
@@ -225,6 +239,7 @@ XTRAIN_KERNEL_COSINE = 0.99
 # blocks' inputs with N - 1 single-block launches: 8 per P-frame)
 TRAIN_LAUNCHES = {"dcb": IFRAME_LAUNCHES + 2 * (19 + 18 + 18) + 3 * 8,
                   "dcb_chain": 2 * 3 * 5, "dcb_f32": 0, "dcb_chain_f32": 0,
+                  "dcb_tf32": 0, "dcb_chain_tf32": 0,
                   "dw_fwd": 94, "gate_bwd": 94, "dw_bwd": 94,
                   "grad_reduce": 94}
 # The shapes a micro-step's block backwards give their kernels (B = 4,
@@ -264,12 +279,21 @@ def fail(msg: str) -> None:
 
 
 def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of fn over reps launches, by CUDA events."""
+    """Mean device time of fn over reps launches, by CUDA events. The
+    launches are queued behind a torch.cuda._sleep that outlasts their
+    enqueueing (twice the host's time for reps calls, measured on the
+    warm-up), so the start event fires on a full queue and the card, not
+    the host's launch rate, sets the time."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    host_s = (time.perf_counter() - t0) / warmup * reps
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    # at most the SM clock's 1.98 GHz: the sleep lasts at least this long
+    torch.cuda._sleep(int(min(2 * host_s, 0.5) * 1.98e9))
     start.record()
     for _ in range(reps):
         fn()
@@ -326,15 +350,24 @@ def block_params(torch, c, rng, device):
 
 
 def bound_times(h, w, c, n, f32=False, b=1):
-    """(seconds for the block products at the dtype's peak, bf16 tensor
-    cores or fp32 outside them; seconds for the bytes at the HBM rate: x
-    read once, y written once, the weights read once), at the block's true
-    C (not the width the kernel computes it at), for b images."""
+    """(seconds for the block products at the route's peak: bf16 tensor
+    cores; for fp32, three TF32 products each on the 3xTF32 route
+    (ops.dcb.uses_tf32), fp32 outside the tensor cores on the SIMT one;
+    seconds for the bytes at the HBM rate: x read once, y written once, the
+    weights read once), at the block's true C (not the width the kernel
+    computes it at), for b images."""
+    from ssgvc_tpu_torch.ops.dcb import uses_tf32
+
     flops = n * b * h * w * (16 * c * c + 18 * c)
     size = 4 if f32 else 2
     nbytes = size * (2 * b * h * w * c) + n * size * (8 * c * c + 17 * c)
-    peak = H100_FP32_FLOPS if f32 else H100_BF16_FLOPS
-    return flops / peak, nbytes / H100_BYTES_PER_S
+    if not f32:
+        ops_s = flops / H100_BF16_FLOPS
+    elif uses_tf32(c):
+        ops_s = 3 * flops / H100_TF32_FLOPS
+    else:
+        ops_s = flops / H100_FP32_FLOPS
+    return ops_s, nbytes / H100_BYTES_PER_S
 
 
 def bound_ms(h, w, c, n, f32=False, b=1) -> float:
@@ -345,6 +378,15 @@ def bound_ms(h, w, c, n, f32=False, b=1) -> float:
 def bound_by(h, w, c, n, f32=False, b=1) -> str:
     ops, mem = bound_times(h, w, c, n, f32, b)
     return "operations" if ops >= mem else "bytes"
+
+
+def f32_route(c):
+    """(kernel name suffix, launch counter) of the fp32 kernel that takes a
+    block of c channels: the 3xTF32 one or the SIMT one."""
+    from ssgvc_tpu_torch.ops.dcb import uses_tf32
+
+    return ("_tf32", "launches_tf32") if uses_tf32(c) else \
+        ("_f32", "launches_f32")
 
 
 def phase_device(torch):
@@ -368,7 +410,7 @@ def phase_build():
     from ssgvc_tpu_torch.ops import dcb as dcb_ops
 
     t0 = time.time()
-    names = ["dcb", "dcb_chain", "dcb_bwd", "dcb_f32"]
+    names = ["dcb", "dcb_chain", "dcb_bwd", "dcb_f32", "dcb_tf32"]
     logs = _build.build(names)
     print(f"build: {time.time() - t0:.1f} s")
     for name in names:
@@ -392,8 +434,20 @@ def phase_build():
     print("  [dcb, dcb_chain] dynamic shared memory, any N: " + ", ".join(
         f"CP={c} {dcb_ops.smem_bytes(c)} B"
         for c in dcb_ops.COMPUTED_WIDTHS))
+    # the 3xTF32 kernel's plan, as compiled, against ops/dcb.py's mirror
+    lib = _build.load("dcb_tf32")
+    lib.ssgvc_dcb_tf32_smem.argtypes = [ctypes.c_int]
+    lib.ssgvc_dcb_tf32_smem.restype = ctypes.c_int
+    plan = {c: lib.ssgvc_dcb_tf32_smem(c)
+            for c in dcb_ops.COMPUTED_WIDTHS if dcb_ops.uses_tf32(c)}
+    if plan != {c: dcb_ops.tf32_smem_bytes(c) for c in plan}:
+        fail(f"dcb_tf32 shared memory {plan} != ops/dcb.py's")
+    print("  [dcb_tf32] dynamic shared memory: " + ", ".join(
+        f"CP={c} {b} B ({dcb_ops.tf32_slots(c)} slots of "
+        f"{dcb_ops.tf32_slot_bytes(c)} B a warpgroup)"
+        for c, b in plan.items()))
     cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
-    for name in ("dcb", "dcb_chain"):    # the backward kernels are SIMT
+    for name in ("dcb", "dcb_chain", "dcb_tf32"):   # the rest are SIMT
         sass = subprocess.run([str(cuobjdump), "-sass",
                                str(_build._lib_path(name))],
                               capture_output=True, text=True,
@@ -427,8 +481,10 @@ def load_prev_port(path):
 def phase_kernels(torch, seed, card, prev=None, f32=False):
     """Both kernels at every P-frame and I-frame shape against their plain
     versions, timed: the bf16 wgmma kernels (with N launches of the single
-    block beside each chain, and --prev-port's kernels in turns), or with
-    ``f32`` the fp32 kernels of csrc/dcb_f32.cu (kernel and plain only)."""
+    block beside each chain), or with ``f32`` the fp32 kernels the shapes
+    route to, 3xTF32 (csrc/dcb_tf32.cu) at every main-path width, with this
+    checkout's SIMT kernel (csrc/dcb_f32.cu) on the same inputs beside them;
+    --prev-port's kernels in turns in both dtypes."""
     from ssgvc_tpu_torch.ops import dcb as dcb_ops
     from ssgvc_tpu_torch.ops import dcb_chain as chain_ops
 
@@ -436,8 +492,6 @@ def phase_kernels(torch, seed, card, prev=None, f32=False):
     rng = np.random.default_rng(seed)
     bf16 = torch.bfloat16
     act = torch.float32 if f32 else bf16
-    if f32:
-        prev = None
 
     def inputs(h, w, c, n, with_q):
         x = torch.tensor(rng.standard_normal((1, h, w, c)), dtype=act,
@@ -448,7 +502,7 @@ def phase_kernels(torch, seed, card, prev=None, f32=False):
 
     def prev_blocks(c, shortcut, blocks):
         """The other checkout's DepthConvBlocks holding these weights."""
-        mods = [prev.DepthConvBlock(c, shortcut=shortcut, dtype=bf16,
+        mods = [prev.DepthConvBlock(c, shortcut=shortcut, dtype=act,
                                     device=dev) for _ in blocks]
         with torch.no_grad():
             for m, params in zip(mods, blocks):
@@ -463,9 +517,9 @@ def phase_kernels(torch, seed, card, prev=None, f32=False):
         torch.cuda.synchronize()
         rel, max_err = check_kernel(torch, f"{what} at {(h, w, c, n)}",
                                     outs["kernel"], ref)
-        for k in ("seq", "prev"):
+        for k in ("seq", "prev", "simt"):
             if k in outs:
-                check_close(torch, f"{k} at {(h, w, c, n)}", outs[k], ref)
+                check_kernel(torch, f"{k} at {(h, w, c, n)}", outs[k], ref)
         order = middle + middle[::-1]
         if "prev" in fns:
             order = ["prev"] + order + ["prev"]
@@ -482,13 +536,25 @@ def phase_kernels(torch, seed, card, prev=None, f32=False):
         x, _, blocks = inputs(h, w, c, 1, False)
         # packed once, outside every timed loop
         packed = dcb_ops.pack_kernel(blocks[0], act)
-        launch = dcb_ops.dcb_f32_cuda if f32 else dcb_ops.dcb_cuda
-        fns = {"kernel": lambda: launch(x, packed, None, shortcut)}
+        middle = ["kernel"]
+        if not f32:
+            fns = {"kernel": lambda: dcb_ops.dcb_cuda(x, packed, None,
+                                                      shortcut)}
+        elif dcb_ops.uses_tf32(c):
+            simt = dcb_ops.pack_f32(blocks[0])
+            fns = {"kernel": lambda: dcb_ops.dcb_tf32_cuda(x, packed, None,
+                                                           shortcut),
+                   "simt": lambda: dcb_ops.dcb_f32_cuda(x, simt, None,
+                                                        shortcut)}
+            middle.append("simt")
+        else:
+            fns = {"kernel": lambda: dcb_ops.dcb_f32_cuda(x, packed, None,
+                                                          shortcut)}
         if with_prev:
             mod = prev_blocks(c, shortcut, blocks)[0]
             fns["prev"] = lambda: mod(x)
         plain = lambda: dcb_ops.dcb_plain(x, blocks[0], None, shortcut)
-        return in_turns("dcb", fns, ["kernel"], plain(), plain, h, w, c, 1)
+        return in_turns("dcb", fns, middle, plain(), plain, h, w, c, 1)
 
     def run_chain(h, w, c, n, with_q):
         x, q, blocks = inputs(h, w, c, n, with_q)
@@ -497,10 +563,24 @@ def phase_kernels(torch, seed, card, prev=None, f32=False):
         singles = [dcb_ops.pack_block(p, bf16) for p in blocks]
         plain = lambda: chain_ops.dcb_chain_plain(x, blocks, q)
         if f32:
-            fns = {"kernel": lambda: chain_ops.dcb_chain_f32_cuda(x, packed,
-                                                                  q)}
-            return in_turns("dcb_chain_f32", fns, ["kernel"], plain(), plain,
-                            h, w, c, n)
+            tf32 = dcb_ops.uses_tf32(c)
+            fn = (chain_ops.dcb_chain_tf32_cuda if tf32
+                  else chain_ops.dcb_chain_f32_cuda)
+            fns = {"kernel": lambda: fn(x, packed, q)}
+            middle = ["kernel"]
+            if tf32:
+                # the SIMT kernel on the same chain, through its launcher
+                simt = torch.cat([dcb_ops.pack_f32(p) for p in blocks])
+                y, s = torch.empty_like(x), torch.empty_like(x)
+                fns["simt"] = lambda: (dcb_ops.launch_f32(
+                    x, y, s, simt, None if q is None else q.data_ptr(), n,
+                    False, "dcb_chain_f32"), y)[1]
+                middle.append("simt")
+            if prev is not None:
+                mods = prev_blocks(c, False, blocks)
+                fns["prev"] = lambda: prev.run_chain(x, mods, q)
+            return in_turns("dcb_chain" + f32_route(c)[0], fns, middle,
+                            plain(), plain, h, w, c, n)
 
         def seq():
             y = x
@@ -527,11 +607,15 @@ def phase_kernels(torch, seed, card, prev=None, f32=False):
             max_abs_err=max(r["max_err"] for r in rows))
 
     entries = []
+    # every P- and I-frame width takes the 3xTF32 route in fp32
     sfx, src_single, src_chain = (
-        ("_f32", "ssgvc_tpu_torch/csrc/dcb_f32.cu",
-         "ssgvc_tpu_torch/csrc/dcb_f32.cu") if f32 else
+        ("_tf32", "ssgvc_tpu_torch/csrc/dcb_tf32.cu",
+         "ssgvc_tpu_torch/csrc/dcb_tf32.cu") if f32 else
         ("", "ssgvc_tpu_torch/csrc/dcb.cu",
          "ssgvc_tpu_torch/csrc/dcb_chain.cu"))
+    if f32 and not all(dcb_ops.uses_tf32(s[2])
+                       for s in SINGLE_SHAPES + IFRAME_SHAPES + CHAIN_SHAPES):
+        fail("a main-path width is not on the 3xTF32 route")
     for name, shapes, source, replaces in (
             ("dcb" + sfx, SINGLE_SHAPES + IFRAME_SHAPES, src_single,
              "ssgvc_tpu/ops/pallas_dcb.py:68"),
@@ -558,6 +642,8 @@ def phase_kernels(torch, seed, card, prev=None, f32=False):
                     f"{r['kernel_ms']:.4f} ms")
             if "seq_ms" in r:
                 line += f", seq ({n} x dcb) {r['seq_ms']:.4f} ms"
+            if "simt_ms" in r:
+                line += f", SIMT fp32 kernel {r['simt_ms']:.4f} ms"
             if "prev_ms" in r:
                 line += f", prev {r['prev_ms']:.4f} ms"
             # derived, not measured: by design every 8x8 tile copies its
@@ -583,7 +669,7 @@ def phase_kernels(torch, seed, card, prev=None, f32=False):
             shapes=rows)
         # the largest error over every shape, of either codec
         entry["max_abs_err"] = max(r["max_err"] for r in rows)
-        for k in ("seq_ms", "prev_ms"):
+        for k in ("seq_ms", "prev_ms", "simt_ms"):
             if p_rows and all(k in r for r in p_rows):
                 entry[k] = sum(r[k] * r["launches_per_frame"]
                                for r in p_rows)
@@ -1442,6 +1528,9 @@ def check_backward_kernels(torch, case):
     cmp("dw_bwd", "da0", da0k, da0p)
     sk = dg.grad_reduce_cuda(part_k)
     sp = dg.grad_reduce_plain(part_p)
+    if not torch.equal(sk.cpu(), dg.grad_reduce_order(part_k.cpu())):
+        fail(f"grad_reduce at {(b, h, w, c)}: not grad_reduce_order's sums "
+             "bit for bit")
     cmp("grad_reduce", "the partials' sum", sk, dg.grad_reduce_plain(part_k))
     # each kernel's partial sums, reduced, against the plain sums
     cmp("gate_bwd", "bias and q partial sums", sk[:col], sp[:col])
@@ -1597,8 +1686,9 @@ def launch_counts():
     from ssgvc_tpu_torch.ops import dcb_grad as dg
 
     def reset():
-        dcb_ops.launches = dcb_ops.launches_f32 = 0
+        dcb_ops.launches = dcb_ops.launches_f32 = dcb_ops.launches_tf32 = 0
         chain_ops.launches = chain_ops.launches_f32 = 0
+        chain_ops.launches_tf32 = 0
         for k in dg.launches:
             dg.launches[k] = 0
         dg.shape_launches.clear()
@@ -1606,7 +1696,9 @@ def launch_counts():
     def read():
         return {"dcb": dcb_ops.launches, "dcb_chain": chain_ops.launches,
                 "dcb_f32": dcb_ops.launches_f32,
-                "dcb_chain_f32": chain_ops.launches_f32, **dg.launches}
+                "dcb_chain_f32": chain_ops.launches_f32,
+                "dcb_tf32": dcb_ops.launches_tf32,
+                "dcb_chain_tf32": chain_ops.launches_tf32, **dg.launches}
     return reset, read
 
 
@@ -1847,6 +1939,10 @@ RDHALF_PROFILE = {"dmc": dict(ch_d=128, ch_y=64, ch_z=64, ch_recon=160),
                   "dmci": dict(enc_dec=184, N=128, z_channel=64)}
 
 
+PEAK_TEXT = {"": "989 TFLOP/s bf16", "_f32": "67 TFLOP/s fp32",
+             "_tf32": "3 x 495 TFLOP/s TF32"}
+
+
 def phase_widths(torch, seed, card):
     """Both kernels in both dtypes at every width of WIDTH_SINGLE /
     WIDTH_CHAIN and every frame of WIDTH_FRAMES against their plain
@@ -1858,7 +1954,13 @@ def phase_widths(torch, seed, card):
 
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(seed + 60)
-    rows = {k: [] for k in ("dcb", "dcb_chain", "dcb_f32", "dcb_chain_f32")}
+    rows = {k + sfx: [] for k in ("dcb", "dcb_chain")
+            for sfx in ("", "_f32", "_tf32")}
+    single = {"": dcb_ops.dcb_cuda, "_f32": dcb_ops.dcb_f32_cuda,
+              "_tf32": dcb_ops.dcb_tf32_cuda}
+    chain = {"": chain_ops.dcb_chain_cuda,
+             "_f32": chain_ops.dcb_chain_f32_cuda,
+             "_tf32": chain_ops.dcb_chain_tf32_cuda}
     cases = ([("dcb", c) for c in WIDTH_SINGLE]
              + [("dcb_chain", c) for c in WIDTH_CHAIN])
     for f32 in (False, True):
@@ -1870,25 +1972,24 @@ def phase_widths(torch, seed, card):
                                  device=dev)
                 q = torch.linspace(0.5, 1.5, c, device=dev).to(dt)
                 blocks = [block_params(torch, c, rng, dev) for _ in range(n)]
+                sfx, count = f32_route(c) if f32 else ("", "launches")
                 if kernel == "dcb":
                     packed = dcb_ops.pack_kernel(blocks[0], dt)
-                    fn = dcb_ops.dcb_f32_cuda if f32 else dcb_ops.dcb_cuda
+                    fn = single[sfx]
                     run = lambda: fn(x, packed, q, True)
                     plain = lambda: dcb_ops.dcb_plain(x, blocks[0], q, True)
-                    mod, count = dcb_ops, "launches"
+                    mod = dcb_ops
                 else:
                     packed = chain_ops.pack_chain(blocks, dt)
-                    fn = (chain_ops.dcb_chain_f32_cuda if f32
-                          else chain_ops.dcb_chain_cuda)
+                    fn = chain[sfx]
                     run = lambda: fn(x, packed, q)
                     plain = lambda: chain_ops.dcb_chain_plain(x, blocks, q)
-                    mod, count = chain_ops, "launches"
-                count += "_f32" if f32 else ""
+                    mod = chain_ops
                 before = getattr(mod, count)
                 out = run()
                 launched = getattr(mod, count) - before
                 torch.cuda.synchronize()
-                name = kernel + ("_f32" if f32 else "")
+                name = kernel + sfx
                 rel, max_err = check_kernel(
                     torch, f"{name} {b}x{h}x{w}x{c} n={n}", out, plain())
                 if launched != 1:
@@ -1901,14 +2002,60 @@ def phase_widths(torch, seed, card):
                          bound_ms=bound_ms(h, w, c, n, f32, b),
                          bound_by=bound_by(h, w, c, n, f32, b),
                          launches=launched, rel_err=rel, max_abs_err=max_err)
+                alt = ""
+                if sfx == "_f32":
+                    # the routing rule's evidence: the 3xTF32 kernel (at a
+                    # computed width of 128) on the same inputs
+                    if kernel == "dcb":
+                        tp = dcb_ops.pack_tf32(blocks[0])
+                        trun = lambda: dcb_ops.dcb_tf32_cuda(x, tp, q, True)
+                    else:
+                        tp = torch.cat([dcb_ops.pack_tf32(p) for p in blocks])
+                        trun = lambda: chain_ops.dcb_chain_tf32_cuda(x, tp,
+                                                                     q)
+                    check_f32(torch, f"{kernel}_tf32 {b}x{h}x{w}x{c} n={n}",
+                              trun(), plain())
+                    r["tf32_ms"] = cuda_ms(torch, trun, 10)
+                    alt = f", 3xTF32 kernel {r['tf32_ms']:.4f} ms"
                 rows[name].append(r)
                 print(f"  widths {name} {b}x{h}x{w}x{c} (CP {r['cp']}, "
-                      f"{what}) n={n}: kernel {r['ms']:.4f} ms, plain "
+                      f"{what}) n={n}: kernel {r['ms']:.4f} ms{alt}, plain "
                       f"{r['plain_ms']:.4f} ms, bound {1e3 * r['bound_ms']:.2f}"
-                      f" us ({r['bound_by']}, {'67' if f32 else '989'} "
-                      f"TFLOP/s), {launched} launch, "
+                      f" us ({r['bound_by']}, "
+                      f"{PEAK_TEXT[sfx]}), {launched} launch, "
                       f"{'max rel' if f32 else 'rel'} {rel:.2e} [{card}]")
+    simt = [r for k in ("dcb_f32", "dcb_chain_f32") for r in rows[k]]
+    slower = [(r["shape"], r["blocks"]) for r in simt
+              if r["ms"] >= r["tf32_ms"]]
+    print(f"  widths: the SIMT fp32 kernel (C <= 64) faster than the 3xTF32 "
+          f"one in {len(simt) - len(slower)} of {len(simt)} cases; slower "
+          f"at {slower} [{card}]")
     return rows
+
+
+def simt_entries(widths, rd_counts):
+    """{"kernels"} entries of the SIMT fp32 kernel, the route of C <= 64
+    (no full-width site): phase 14's launch at B=4 8x8 C=64 (the RD
+    recipe's widest SIMT width at its crop) as ms, plain, bound and error;
+    launches per RD-recipe micro-step (phase 17, its main path)."""
+    out = []
+    for name in ("dcb_f32", "dcb_chain_f32"):
+        r = next(r for r in widths[name]
+                 if r["shape"] == [4, 8, 8, 64])
+        out.append(dict(
+            name=name, route="cuda",
+            source="ssgvc_tpu_torch/csrc/dcb_f32.cu",
+            replaces=("ssgvc_tpu/ops/pallas_dcb.py:68" if name == "dcb_f32"
+                      else "ssgvc_tpu/ops/pallas_dcb_chain.py:61"),
+            launches=rd_counts[name], max_abs_err=max(
+                x["max_abs_err"] for x in widths[name]),
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=None,
+            per="ms, plain, bound: one launch at B=4 8x8 C=64 (phase 14, "
+                f"n={r['blocks']}); launches per RD-recipe micro-step "
+                "(phase 17); max_abs_err over every SIMT width case",
+            widths=widths[name]))
+    return out
 
 
 def synced_ms(torch, fn):
@@ -1998,8 +2145,15 @@ def run_gops(torch, what, dmci, dmc, frames, masks, runs, want, card):
     return r
 
 
+#: The fp32 kernels of both routes: rd-mid runs both (C <= 64 on the SIMT
+#: kernel, C = 96 on the 3xTF32 one)
+FP32_KERNELS = ("dcb_f32", "dcb_chain_f32", "dcb_tf32", "dcb_chain_tf32")
+
+
 def fp32_want(single, chain):
-    return {"dcb_f32": single, "dcb_chain_f32": chain}
+    """Launches of a full-width fp32 frame: every width on the 3xTF32
+    route."""
+    return {"dcb_tf32": single, "dcb_chain_tf32": chain}
 
 
 def phase_fp32_full(torch, seed, card, iframe, main, plain_state):
@@ -2030,7 +2184,7 @@ def phase_fp32_full(torch, seed, card, iframe, main, plain_state):
     # counts
     got = r["launches_per_frame"]
     r["launches"] = {k: (sum(g[k] for g in got[1:]), got[0][k])
-                     for k in ("dcb_f32", "dcb_chain_f32")}
+                     for k in ("dcb_tf32", "dcb_chain_tf32")}
     del dmc
 
     bare = DMC(DMCConfig(), device=DEVICE)
@@ -2051,8 +2205,8 @@ def phase_fp32_full(torch, seed, card, iframe, main, plain_state):
     print(f"  DMC(DMCConfig()) (plain, raw io, {bare.dtype}) and "
           f"DMCI(DMCIConfig()) ({dmci.dtype}) on the card: a P-frame "
           f"{H}x{W} after the I-frame, bpp {float(b[0]):.4f}, launches "
-          f"dcb_f32 {got['dcb_f32']} dcb_chain_f32 {got['dcb_chain_f32']} "
-          f"[{card}]")
+          f"dcb_tf32 {got['dcb_tf32']} dcb_chain_tf32 "
+          f"{got['dcb_chain_tf32']} [{card}]")
     return r
 
 
@@ -2132,7 +2286,7 @@ def phase_rd_recipe(torch, seed, card):
             fail(f"RD recipe micro-step {k + 1}: not finite: {row}")
         c = counts[-1]
         if c["dcb"] or c["dcb_chain"] or not all(
-                c[k] for k in ("dcb_f32", "dcb_chain_f32", *BWD_REPLACES)):
+                c[k] for k in (*FP32_KERNELS, *BWD_REPLACES)):
             fail(f"RD recipe micro-step {k + 1}: launches {c}")
     peak = torch.cuda.max_memory_allocated()
     bad, zero = [], []
@@ -2172,7 +2326,7 @@ def phase_rd_recipe(torch, seed, card):
             and all(math.isfinite(v) and v > 0 for v in curve["bpp"])
             and all(math.isfinite(v) for v in curve["psnr"]
                     + curve["roi_psnr"])
-            and eval_counts["dcb_f32"] and eval_counts["dcb_chain_f32"]
+            and all(eval_counts[k] for k in FP32_KERNELS)
             and not eval_counts["dcb"]):
         fail(f"RD eval: curve {curve}, launches {eval_counts}")
     print(f"  RD eval (make_batched_gop_eval + evaluate_rd_batched): "
@@ -2239,8 +2393,8 @@ def phase_coded_f32(torch, seed, card):
     got = read()
     if not all(same):
         fail(f"fp32 coded GOP: decoder differs from the encoder: {same}")
-    if got["dcb"] or got["dcb_chain"] or not (got["dcb_f32"]
-                                              and got["dcb_chain_f32"]):
+    if got["dcb"] or got["dcb_chain"] or not all(got[k]
+                                                 for k in FP32_KERNELS):
         fail(f"fp32 coded GOP: launches {got}")
     if dmc.dtype != torch.float32 or dec["x_hat"].dtype != torch.float32:
         fail("fp32 coded GOP: not float32")
@@ -2309,7 +2463,8 @@ def main() -> int:
     # every profile's widths, float32, the RD recipe (phases 14-18)
     with torch.no_grad():
         widths = phase_widths(torch, args.seed, card)
-        kernels_f32 = phase_kernels(torch, args.seed, card, f32=True)
+        kernels_f32 = phase_kernels(torch, args.seed, card, prev,
+                                    f32=True)
     fp32 = phase_fp32_full(torch, args.seed, card, iframe, main_path,
                            variant_states["plain"])
     # the same weights as phase 8, fp32 on the card: 10 dB closer to the
@@ -2334,6 +2489,7 @@ def main() -> int:
         entry["training"] = dict(
             launches=rd["launches_per_micro_step"][entry["name"]],
             per="launches per RD-recipe micro-step (rd-mid fp32, phase 17)")
+    kernels_f32 += simt_entries(widths, rd["launches_per_micro_step"])
     for entry in backward:
         entry["rd_recipe_launches"] = \
             rd["launches_per_micro_step"][entry["name"]]

@@ -24,6 +24,21 @@
 // floating-point atomics, so the same inputs give the same gradients bit for
 // bit. Left for later: wider tiles per block, and fusing the partial sums
 // into the matrix products' epilogues.
+//
+// grad_reduce (d): out[k] = sum over r of part[r][k], fp32, where part has
+// one row per PIX pixels and 18 C columns. Bound: bytes, rows x 18 C x 4
+// read once (0.6 MB at the training shapes' 128 x 4608), a few us at 3.35
+// TB/s; below that, one launch. Its partition is fixed by (rows, K) alone,
+// never by the SM count or the grid: a thread block owns a stripe of
+// RED_COLS columns (a warp reads 128 contiguous bytes of a row), and of
+// each chunk of RED_CHUNK rows each of its RED_WARPS warps sums a fixed
+// contiguous run of ceil(min(rows, RED_CHUNK) / RED_WARPS) rows in order,
+// RED_UNROLL loads in flight; the warps' sums are added in shared memory
+// in warp order. More rows than RED_CHUNK: each chunk's sum goes to a
+// scratch row, and the same kernel sums the scratch rows (a second pass).
+// ops/dcb_grad.py:grad_reduce_order does the same additions on the CPU.
+// Left for later: fewer partial rows at their source (more pixels per
+// thread block in gate_bwd and dw_bwd).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -192,15 +207,44 @@ dw_bwd_kernel(const float* __restrict__ dg, const float* __restrict__ a0,
   }
 }
 
-// (d) out[k] = sum over rows r of part[r][k], rows in order.
-__global__ void __launch_bounds__(kThreads)
+// (d) one pass of grad_reduce: out[chunk][k] = the sum of rows [chunk
+// RED_CHUNK, (chunk + 1) RED_CHUNK) of part, in the fixed order above;
+// blockIdx.x the column stripe, blockIdx.y the chunk.
+constexpr int RED_COLS = 32, RED_WARPS = 8, RED_UNROLL = 8;
+constexpr int RED_CHUNK = 1024;  // must match ops/dcb_grad.py
+
+__global__ void __launch_bounds__(RED_COLS * RED_WARPS)
 reduce_kernel(const float* __restrict__ part, float* __restrict__ out,
               int rows, int K) {
-  for (int k = blockIdx.x * blockDim.x + threadIdx.x; k < K;
-       k += gridDim.x * blockDim.x) {
-    float s = 0.0f;
-    for (int r = 0; r < rows; ++r) s += part[(long)r * K + k];
-    out[k] = s;
+  __shared__ float sums[RED_WARPS][RED_COLS];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int k = blockIdx.x * RED_COLS + lane;
+  const int run = ((rows < RED_CHUNK ? rows : RED_CHUNK) + RED_WARPS - 1) /
+                  RED_WARPS;
+  const int c0 = blockIdx.y * RED_CHUNK;
+  const int c1 = c0 + RED_CHUNK < rows ? c0 + RED_CHUNK : rows;
+  const int r0 = c0 + warp * run;
+  const int r1 = r0 + run < c1 ? r0 + run : c1;
+  float s = 0.0f;
+  if (k < K) {
+    const float* p = part + k;
+    int r = r0;
+    for (; r + RED_UNROLL <= r1; r += RED_UNROLL) {
+      float v[RED_UNROLL];
+#pragma unroll
+      for (int u = 0; u < RED_UNROLL; ++u) v[u] = p[(long)(r + u) * K];
+#pragma unroll
+      for (int u = 0; u < RED_UNROLL; ++u) s += v[u];
+    }
+    for (; r < r1; ++r) s += p[(long)r * K];
+  }
+  sums[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && k < K) {
+    float t = sums[0][lane];
+#pragma unroll
+    for (int w = 1; w < RED_WARPS; ++w) t += sums[w][lane];
+    out[(long)blockIdx.y * K + k] = t;
   }
 }
 
@@ -280,12 +324,26 @@ extern "C" int ssgvc_dw_bwd(const void* dg, const void* a0, const void* taps,
   return cudaGetLastError();
 }
 
-extern "C" int ssgvc_grad_reduce(const void* part, void* out, int rows, int K,
-                                 void* stream) {
-  if (rows <= 0 || K <= 0) return cudaErrorInvalidValue;
-  reduce_kernel<<<blocks_for(K), kThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(part), static_cast<float*>(out), rows, K);
+// scratch: ceil(rows / RED_CHUNK) x K floats when rows > RED_CHUNK (else
+// unused); rows at most RED_CHUNK^2.
+extern "C" int ssgvc_grad_reduce(const void* part, void* out, void* scratch,
+                                 int rows, int K, void* stream) {
+  if (rows <= 0 || K <= 0 || rows > RED_CHUNK * RED_CHUNK)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int stripes = (K + RED_COLS - 1) / RED_COLS;
+  const int chunks = (rows + RED_CHUNK - 1) / RED_CHUNK;
+  const float* src = static_cast<const float*>(part);
+  if (chunks > 1) {
+    reduce_kernel<<<dim3(stripes, chunks), RED_COLS * RED_WARPS, 0, st>>>(
+        src, static_cast<float*>(scratch), rows, K);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    src = static_cast<const float*>(scratch);
+    rows = chunks;
+  }
+  reduce_kernel<<<dim3(stripes, 1), RED_COLS * RED_WARPS, 0, st>>>(
+      src, static_cast<float*>(out), rows, K);
   return cudaGetLastError();
 }
 

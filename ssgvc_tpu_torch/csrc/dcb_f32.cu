@@ -3,6 +3,11 @@
 // shortcut-free blocks in one persistent launch with q on the last output.
 // fp32 NHWC (B, H, W, C), fp32 weights, fp32 sums: the math of
 // ops/dcb.py:dcb_plain in fp32, where every rounding point is the identity.
+// The fp32 route of the narrow blocks, C up to 64 (ops/dcb.py:uses_tf32):
+// wider ones run on the 3xTF32 wgmma kernel, csrc/dcb_tf32.cu (2.3-2.7x
+// faster on an H100 at 136x240 from C = 192 up), which computes at a width
+// of at least 128: 2-16x the products of C = 64-8. This kernel itself
+// takes every C up to 512.
 //
 // Replaces, for float32 activations, the TPU kernels _dcb_kernel
 // (ssgvc_tpu/ops/pallas_dcb.py:68, through _dcb_fused / pl.pallas_call) and
@@ -38,8 +43,7 @@
 // one scratch tensor (ops/dcb_chain.py:buffer_plan). Sums run in a fixed
 // order and the grid's split of the tiles changes no tile's arithmetic, so
 // the same inputs give the same output bit for bit, at any batch size.
-// Left for later: the products on wgmma in 3xTF32, wider tiles, weights
-// staged through shared memory.
+// Left for later: wider tiles, weights staged through shared memory.
 //
 // Weights (ops/dcb.py:pack_f32), per block, 8 C^2 + 17 C floats: W0^T
 // (C x C, [in][out]), W3^T (C x C), Wf0^T (C x 4C), Wf2^T (2C x C), the

@@ -21,11 +21,15 @@ plain version is the conv composition of ``layers/blocks.DepthConvBlock``.
 
 :func:`dcb` routes by device and dtype: a CPU tensor takes
 :func:`dcb_plain`; a CUDA tensor launches a kernel or raises. bfloat16
-activations (B, H, W, C) go to the wgmma kernel ``csrc/dcb.cu``, float32
-ones to the SIMT fp32 kernel ``csrc/dcb_f32.cu`` (:func:`dcb_f32_cuda`,
-weights from :func:`pack_f32`); any other dtype raises a ``TypeError``. Both
-take every C that is a multiple of 8 up to :data:`MAX_CHANNELS`
-(:func:`check_width`).
+activations (B, H, W, C) go to the wgmma kernel ``csrc/dcb.cu``; any dtype
+but bf16 and fp32 raises a ``TypeError``. float32 goes by width
+(:func:`uses_tf32`): a block computed at CP >= :data:`TF32_MIN_CP` (C >= 72)
+runs on the 3xTF32 wgmma kernel ``csrc/dcb_tf32.cu`` (:func:`dcb_tf32_cuda`,
+weights from :func:`pack_tf32`, launches counted in
+:data:`launches_tf32`), a narrower one on the SIMT fp32 kernel
+``csrc/dcb_f32.cu`` (:func:`dcb_f32_cuda`, weights from :func:`pack_f32`,
+:data:`launches_f32`), which is faster there. Every kernel takes every C
+that is a multiple of 8 up to :data:`MAX_CHANNELS` (:func:`check_width`).
 
 Both kernels run one tile routine (``csrc/dcb_tile.cuh``) on 8x8 output
 tiles. A tile reads its input with a one-pixel halo (:data:`WIN` x
@@ -61,10 +65,11 @@ MAX_CHANNELS = 512
 WIDTH_STEP = 8      # the window's 16-byte copies: 8 bf16 channels
 #: Dynamic shared memory one block may use on sm_90.
 SMEM_LIMIT = 232448
-#: Kernel launches since the count was last set to 0: the bf16 kernel's
-#: and the fp32 kernel's.
+#: Kernel launches since the count was last set to 0: the bf16 kernel's,
+#: the SIMT fp32 kernel's and the 3xTF32 kernel's.
 launches = 0
 launches_f32 = 0
+launches_tf32 = 0
 
 Params = Tuple[torch.Tensor, ...]   # (w0, b0, w2, b2, w3, b3, wf0, bf0, wf2, bf2)
 
@@ -76,9 +81,12 @@ def wsilu(x: torch.Tensor) -> torch.Tensor:
 
 def packed_numel(c: int, dtype: torch.dtype = torch.bfloat16) -> int:
     """Elements of one block's packed weights for the card's ``dtype``
-    kernel: :func:`pack_block` (at the computed width) for bf16,
-    :func:`pack_f32` (at C) for fp32."""
-    cp = c if dtype == torch.float32 else padded_channels(c)
+    kernel: :func:`pack_block` (at the computed width) for bf16; for fp32
+    :func:`pack_tf32` (at the computed width) where :func:`uses_tf32`, else
+    :func:`pack_f32` (at C)."""
+    if dtype == torch.float32:
+        return tf32_numel(c) if uses_tf32(c) else 8 * c * c + 17 * c
+    cp = padded_channels(c)
     return 8 * cp * cp + 17 * cp
 
 
@@ -291,12 +299,196 @@ def pack_f32(params: Params) -> torch.Tensor:
                                  [8 * c * c:]]).contiguous()
 
 
+# The 3xTF32 kernel's layout: must match csrc/dcb_tf32.cu.
+#: fp32 blocks computed at this width or wider run on the 3xTF32 kernel.
+TF32_MIN_CP = 128
+T_NPIX = TILE * TILE       # output pixels of a tile: one m64 A tile
+T_NWIN = WIN * WIN         # window pixels: rows [0, 100) of two m64 tiles
+T_KC = 64                  # h channels per stage-A chunk
+T_KF = 64                  # hidden channels per FFN chunk
+T_HS = T_KC + 4            # fp32 row stride of the h chunk
+T_XBUF = 2 * T_NPIX * T_KF * 4   # the h chunk or two f chunks
+T_MAX_SLOTS = 8
+
+
+def uses_tf32(c: int) -> bool:
+    """Whether an fp32 block of ``c`` channels runs on the 3xTF32 kernel
+    (computed at CP >= :data:`TF32_MIN_CP`) rather than the SIMT one."""
+    return padded_channels(c) >= TF32_MIN_CP
+
+
+def tf32_width(c: int) -> int:
+    """The width the 3xTF32 kernel computes a block of ``c`` channels at:
+    :func:`padded_channels`, and at least :data:`TF32_MIN_CP` (narrower
+    blocks route to the SIMT kernel, but the 3xTF32 one takes them too)."""
+    return max(TF32_MIN_CP, padded_channels(c))
+
+
+def tf32_numel(c: int) -> int:
+    """Elements of one block's :func:`pack_tf32` weights."""
+    cp = tf32_width(c)
+    return 16 * cp * cp + 17 * cp
+
+
+def tf32_slot_bytes(c: int) -> int:
+    """Bytes of one ring slot: 16 KiB, 12 KiB at CP = 192 and 384, 10 KiB
+    at 320 (whole k8 steps of a W3 / Wf2 slab, 32 CP bytes each, and of a
+    W0 / Wf0 slab, 4 KiB each)."""
+    cp = tf32_width(c)
+    return {192: 12288, 384: 12288, 320: 10240}.get(cp, 16384)
+
+
+def _pow2_floor(v: int) -> int:
+    return 4 if v >= 4 else 2 if v >= 2 else 1
+
+
+def tf32_sps(c: int) -> Tuple[int, int]:
+    """k8 steps per slab: (W0 / Wf0, 64 rows; W3 / Wf2, CP/2 rows)."""
+    slot = tf32_slot_bytes(c)
+    return (_pow2_floor(slot // 4096),
+            _pow2_floor(slot // (32 * tf32_width(c))))
+
+
+def tf32_slots(c: int) -> int:
+    """Slots of each warpgroup's ring: as many as fit, at most 8."""
+    cp = tf32_width(c)
+    free = SMEM_LIMIT - T_NPIX * cp * 4 - T_XBUF - BARRIER_BYTES
+    return min(T_MAX_SLOTS, free // (2 * tf32_slot_bytes(c)))
+
+
+def tf32_smem_bytes(c: int) -> int:
+    """Dynamic shared memory of one thread block of the 3xTF32 kernel: act
+    (64 x CP fp32: g, then u), the h chunk or two f chunks, two rings of
+    :func:`tf32_slots` slots, the mbarriers."""
+    cp = tf32_width(c)
+    return (T_NPIX * cp * 4 + T_XBUF
+            + 2 * tf32_slots(c) * tf32_slot_bytes(c) + BARRIER_BYTES)
+
+
+def rna_tf32(t: torch.Tensor) -> torch.Tensor:
+    """fp32 ``t`` rounded to tf32 (10 mantissa bits; to nearest, ties away
+    from zero), in an fp32 container with the low 13 bits 0."""
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo): hi = rna_tf32(t), lo = rna_tf32(t - hi); hi + lo is within
+    2^-22 |t| of t."""
+    hi = rna_tf32(t)
+    return hi, rna_tf32(t.float() - hi)
+
+
+def tf32_k_order(k: int) -> torch.Tensor:
+    """The channel of each of the kernel's k positions over ``k`` (a
+    multiple of 16): in k8 step s of a k16 block, logical column kl holds
+    channel 4 (kl % 4) + 2 s + kl // 4 of the block, so that a thread's
+    two steps of one A row are one float4."""
+    kl = torch.arange(8)
+    step = torch.cat([4 * (kl % 4) + 2 * s + kl // 4 for s in (0, 1)])
+    return (torch.arange(0, k, 16)[:, None] + step).reshape(-1)
+
+
+def tf32_steps(m: torch.Tensor) -> torch.Tensor:
+    """The B operand of a (R, K) matrix (output rows, K contiguous) for the
+    3xTF32 kernel: per k8 step, hi then lo, each (R, 8) in wgmma's
+    canonical K-major layout (8x4 core matrices of 32 contiguous floats,
+    K-adjacent ones 128 bytes apart, 8-row groups 256 bytes apart). Flat,
+    K/8 x 2 x 8 R floats."""
+    r, k = m.shape
+    mp = m.float()[:, tf32_k_order(k)].reshape(r // 8, 8, k // 8, 2, 4)
+    hi, lo = tf32_split(mp)
+    both = torch.stack([hi, lo])           # (2, R/8, 8, K/8, 2, 4)
+    return both.permute(3, 0, 1, 4, 2, 5).reshape(-1)
+
+
+def tf32_unsteps(flat: torch.Tensor, r: int, k: int) -> torch.Tensor:
+    """Inverse of :func:`tf32_steps` up to the split: hi + lo, (R, K)."""
+    both = flat.reshape(k // 8, 2, r // 8, 2, 8, 4).permute(1, 2, 4, 0, 3, 5)
+    mp = (both[0] + both[1]).reshape(r, k)
+    out = torch.empty_like(mp)
+    out[:, tf32_k_order(k)] = mp
+    return out
+
+
+def tf32_pieces(c: int) -> Iterator[Tuple[str, List[int], int, int]]:
+    """The matrices of one block in :func:`pack_tf32`'s order, at the
+    computed width CP: (matrix, rows, first k, k count), each packed by
+    :func:`tf32_steps`. W0 in chunks of 64 h channels (both warpgroups
+    stream it); then per warpgroup g: W3's rows of its CP/2 outputs, and per
+    FFN chunk of 64 hidden channels its Wf0 rows (:func:`ffn_rows`: 32 of
+    half a, 32 of half b) and Wf2's rows of its outputs over the chunk."""
+    cp = tf32_width(c)
+    half = cp // 2
+    for c0 in range(0, cp, T_KC):
+        yield "w0", list(range(c0, c0 + T_KC)), 0, cp
+    for g in range(2):
+        outs = list(range(g * half, (g + 1) * half))
+        yield "w3", outs, 0, cp
+        for f0 in range(0, 2 * cp, T_KF):
+            yield "wf0", ffn_rows(cp, f0)[T_KF * g:T_KF * (g + 1)], 0, cp
+            yield "wf2", outs, f0, T_KF
+
+
+def pack_tf32(params: Params) -> torch.Tensor:
+    """One block's weights for the 3xTF32 kernel (``csrc/dcb_tf32.cu``), at
+    the computed width CP (:func:`pad_params`): the pieces of
+    :func:`tf32_pieces` back to back, each split hi / lo by
+    :func:`tf32_steps` (16 CP^2 floats), then the taps and biases as in
+    :func:`pack_params`. 16 CP^2 + 17 CP floats."""
+    params = pad_params(params, tf32_width(params[0].shape[0]))
+    cp = params[0].shape[0]
+    with torch.no_grad():
+        mats = _matrices(params)
+        parts = [tf32_steps(mats[name][rows][:, k0:k0 + ks])
+                 for name, rows, k0, ks in tf32_pieces(cp)]
+        return torch.cat(parts + [pack_params(params, torch.float32)
+                                  [8 * cp * cp:]]).contiguous()
+
+
+def unpack_tf32(flat: torch.Tensor, c: int) -> dict:
+    """The four matrices ([out][in], hi + lo) of one :func:`pack_tf32`
+    tensor, at the computed width."""
+    cp = tf32_width(c)
+    mats = {"w0": flat.new_zeros(cp, cp), "w3": flat.new_zeros(cp, cp),
+            "wf0": flat.new_zeros(4 * cp, cp),
+            "wf2": flat.new_zeros(cp, 2 * cp)}
+    off = 0
+    for name, rows, k0, ks in tf32_pieces(cp):
+        n = 2 * len(rows) * ks
+        mats[name][rows, k0:k0 + ks] = tf32_unsteps(flat[off:off + n],
+                                                    len(rows), ks)
+        off += n
+    return mats
+
+
+def tf32_stream(c: int, g: int) -> List[Tuple[int, int]]:
+    """(byte offset in the block's packed weights, bytes) of each slab
+    warpgroup ``g`` streams for one tile, in order: the arithmetic of
+    ``Stream::src`` in csrc/dcb_tf32.cu."""
+    cp = tf32_width(c)
+    (sa, sb), ks = tf32_sps(c), cp // 8
+    a_bytes, b_bytes = 4096 * sa, 32 * cp * sb
+    w0_bytes, wg_bytes = 8 * cp * cp, 28 * cp * cp
+    out = [(i * a_bytes, a_bytes) for i in range(cp // T_KC * ks // sa)]
+    wg = w0_bytes + g * wg_bytes
+    out += [(wg + i * b_bytes, b_bytes) for i in range(ks // sb)]
+    for chunk in range(2 * cp // T_KF):
+        cb = wg + ks * 32 * cp + chunk * 768 * cp
+        out += [(cb + r * a_bytes, a_bytes) for r in range(ks // sa)]
+        out += [(cb + 512 * cp + r * b_bytes, b_bytes)
+                for r in range(8 // sb)]
+    return out
+
+
 def pack_kernel(params: Params, dtype: torch.dtype) -> torch.Tensor:
     """One block's weights as the card's kernel for ``dtype`` activations
-    takes them: :func:`pack_f32` for fp32, :func:`pack_block` (the bf16
-    kernel's layout) otherwise."""
+    takes them: for fp32 :func:`pack_tf32` where :func:`uses_tf32`, else
+    :func:`pack_f32`; :func:`pack_block` (the bf16 kernel's layout)
+    otherwise."""
     if dtype == torch.float32:
-        return pack_f32(params)
+        return pack_tf32(params) if uses_tf32(params[0].shape[0]) \
+            else pack_f32(params)
     return pack_block(params, dtype)
 
 
@@ -341,7 +533,8 @@ def dcb_plain(x: torch.Tensor, params: Params,
     return y.to(cdt)
 
 
-#: Activation dtypes the card's kernels take: bf16 (wgmma), fp32 (SIMT).
+#: Activation dtypes the card's kernels take: bf16 (wgmma), fp32 (3xTF32
+#: wgmma or SIMT, by width).
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -404,9 +597,11 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _lib_f32() -> ctypes.CDLL:
-    lib = _build.load("dcb_f32")
-    fn = lib.ssgvc_dcb_f32_forward
+def _lib_f32(tf32: bool) -> ctypes.CDLL:
+    """The fp32 kernel's library: csrc/dcb_tf32.cu or csrc/dcb_f32.cu."""
+    name = "dcb_tf32" if tf32 else "dcb_f32"
+    lib = _build.load(name)
+    fn = getattr(lib, f"ssgvc_{name}_forward")
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, vp]
@@ -416,33 +611,57 @@ def _lib_f32() -> ctypes.CDLL:
 
 def launch_f32(x: torch.Tensor, y: torch.Tensor, scratch: torch.Tensor,
                packed: torch.Tensor, q_ptr, n: int, shortcut: bool,
-               what: str) -> None:
-    """One launch of ``csrc/dcb_f32.cu`` on checked operands: n blocks
-    (cooperative for n > 1) from x to y, ``scratch`` the chain's other
-    buffer."""
+               what: str, tf32: bool = False) -> None:
+    """One launch of ``csrc/dcb_tf32.cu`` (``tf32``) or ``csrc/dcb_f32.cu``
+    on checked operands: n blocks (cooperative for n > 1) from x to y,
+    ``scratch`` the chain's other buffer."""
     b, h, w, c = x.shape
-    lib = _lib_f32()
+    if tf32 and (x.data_ptr() | y.data_ptr() | scratch.data_ptr()
+                 | packed.data_ptr()) % 16:
+        raise ValueError(f"{what}: the 3xTF32 kernel reads and copies in 16 "
+                         "bytes: x, y and the weights must be 16-byte "
+                         "aligned")
+    lib = _lib_f32(tf32)
+    fn = lib.ssgvc_dcb_tf32_forward if tf32 else lib.ssgvc_dcb_f32_forward
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.ssgvc_dcb_f32_forward(
-            x.data_ptr(), y.data_ptr(), scratch.data_ptr(), packed.data_ptr(),
-            q_ptr, b, h, w, c, n, int(bool(shortcut)), stream)
+        rc = fn(x.data_ptr(), y.data_ptr(), scratch.data_ptr(),
+                packed.data_ptr(), q_ptr, b, h, w, c, n, int(bool(shortcut)),
+                stream)
     _build.check(lib, rc, f"{what} kernel")
 
 
 def dcb_f32_cuda(x: torch.Tensor, packed: torch.Tensor,
                  q: Optional[torch.Tensor] = None,
                  shortcut: bool = False) -> torch.Tensor:
-    """Launch the fp32 kernel: x (B, H, W, C) fp32 CUDA, ``packed`` from
-    :func:`pack_f32`, q (C,) or None. Returns a new (B, H, W, C)."""
+    """Launch the SIMT fp32 kernel: x (B, H, W, C) fp32 CUDA, any C the
+    kernels take, ``packed`` from :func:`pack_f32`, q (C,) or None.
+    Returns a new (B, H, W, C)."""
     global launches_f32
     check_input(x, "dcb_f32", MAX_CHANNELS, torch.float32)
     c = x.shape[-1]
-    check_operand(packed, x, packed_numel(c, x.dtype), "dcb_f32 weights")
+    check_operand(packed, x, 8 * c * c + 17 * c, "dcb_f32 weights")
     q, q_ptr = q_operand(q, x, "dcb_f32")
     y = torch.empty_like(x)
     launch_f32(x, y, y, packed, q_ptr, 1, shortcut, "dcb_f32")
     launches_f32 += 1
+    return y
+
+
+def dcb_tf32_cuda(x: torch.Tensor, packed: torch.Tensor,
+                  q: Optional[torch.Tensor] = None,
+                  shortcut: bool = False) -> torch.Tensor:
+    """Launch the 3xTF32 kernel: x (B, H, W, C) fp32 CUDA, any C the
+    kernels take (:func:`dcb` sends it C >= 72), ``packed`` from
+    :func:`pack_tf32`, q (C,) or None. Returns a new (B, H, W, C)."""
+    global launches_tf32
+    check_input(x, "dcb_tf32", MAX_CHANNELS, torch.float32)
+    c = x.shape[-1]
+    check_operand(packed, x, tf32_numel(c), "dcb_tf32 weights")
+    q, q_ptr = q_operand(q, x, "dcb_tf32")
+    y = torch.empty_like(x)
+    launch_f32(x, y, y, packed, q_ptr, 1, shortcut, "dcb_tf32", tf32=True)
+    launches_tf32 += 1
     return y
 
 
@@ -472,13 +691,15 @@ def dcb(x: torch.Tensor, params: Params, q: Optional[torch.Tensor] = None,
         shortcut: bool = False,
         packed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One block after its adaptor: the plain version for a CPU tensor; for
-    a CUDA tensor the fp32 kernel for float32, else the bf16 kernel (which
-    refuses any other dtype). ``packed`` may carry cached
-    :func:`pack_kernel` output."""
+    a CUDA tensor in float32 the 3xTF32 kernel where :func:`uses_tf32`,
+    else the SIMT one; otherwise the bf16 kernel (which refuses any other
+    dtype). ``packed`` may carry cached :func:`pack_kernel` output."""
     if x.device.type == "cpu":
         return dcb_plain(x, params, q, shortcut)
     if packed is None:
         packed = pack_kernel(params, x.dtype)
     if x.dtype == torch.float32:
+        if uses_tf32(x.shape[-1]):
+            return dcb_tf32_cuda(x, packed, q, shortcut)
         return dcb_f32_cuda(x, packed, q, shortcut)
     return dcb_cuda(x, packed, q, shortcut)

@@ -19,11 +19,13 @@ the main path's sizes. A tile reads its input with a one-pixel halo
 is recomputed. Each tile runs the single-block kernel's tile routine
 (``csrc/dcb_tile.cuh``) on the block's slabs from :func:`pack_chain`.
 
-:func:`dcb_chain` routes by device and dtype as ``ops.dcb.dcb`` does: a
-bfloat16 CUDA tensor to ``csrc/dcb_chain.cu``, a float32 one to the fp32
-kernel ``csrc/dcb_f32.cu`` (:func:`dcb_chain_f32_cuda`, one cooperative
-launch per chain too), any other dtype raises. Both take every C that is a
-multiple of 8 up to :data:`MAX_CHANNELS`.
+:func:`dcb_chain` routes by device, dtype and width as ``ops.dcb.dcb``
+does: a bfloat16 CUDA tensor to ``csrc/dcb_chain.cu``; a float32 one, one
+cooperative launch per chain too, to the 3xTF32 kernel
+``csrc/dcb_tf32.cu`` where ``ops.dcb.uses_tf32`` (:func:`dcb_chain_tf32_cuda`)
+and to the SIMT kernel ``csrc/dcb_f32.cu`` below it
+(:func:`dcb_chain_f32_cuda`); any other dtype raises. All take every C that
+is a multiple of 8 up to :data:`MAX_CHANNELS`.
 """
 
 from __future__ import annotations
@@ -35,7 +37,8 @@ import torch
 
 from . import _build
 from .dcb import (Params, check_input, check_operand, dcb_plain,
-                  launch_f32, pack_kernel, packed_numel, q_operand)
+                  launch_f32, pack_kernel, packed_numel, q_operand,
+                  tf32_numel, uses_tf32)
 # The per-tile layout both kernels share, re-exported for the chain's
 # callers and tests.
 from .dcb import (KC, KF, KS_A, KS_B, RING_B, TILE, WIN,  # noqa: F401
@@ -44,10 +47,11 @@ from .dcb import (KC, KF, KS_A, KS_B, RING_B, TILE, WIN,  # noqa: F401
 
 #: The widest block the chain kernels take (every multiple of 8 up to it).
 MAX_CHANNELS = 384
-#: Kernel launches since the count was last set to 0: the bf16 kernel's
-#: and the fp32 kernel's.
+#: Kernel launches since the count was last set to 0: the bf16 kernel's,
+#: the SIMT fp32 kernel's and the 3xTF32 kernel's.
 launches = 0
 launches_f32 = 0
+launches_tf32 = 0
 
 
 def buffer_plan(n: int) -> List[Tuple[str, str]]:
@@ -107,24 +111,41 @@ def dcb_chain_cuda(x: torch.Tensor, packed: torch.Tensor,
     return y
 
 
-def dcb_chain_f32_cuda(x: torch.Tensor, packed: torch.Tensor,
-                       q_last: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One launch of the fp32 kernel for the whole chain: x (B, H, W, C)
-    fp32 CUDA, ``packed`` from :func:`pack_chain` (N blocks, fp32), q_last
-    (C,) or None."""
-    global launches_f32
-    check_input(x, "dcb_chain_f32", MAX_CHANNELS, torch.float32)
+def _chain_f32(x, packed, q_last, what, tf32):
     c = x.shape[-1]
-    per = packed_numel(c, x.dtype)
+    check_input(x, what, MAX_CHANNELS, torch.float32)
+    per = tf32_numel(c) if tf32 else 8 * c * c + 17 * c
     n = packed.numel() // per
     if n < 1:
-        raise ValueError("dcb_chain_f32: no blocks")
-    check_operand(packed, x, n * per, "dcb_chain_f32 weights")
-    q_last, q_ptr = q_operand(q_last, x, "dcb_chain_f32")
+        raise ValueError(f"{what}: no blocks")
+    check_operand(packed, x, n * per, f"{what} weights")
+    q_last, q_ptr = q_operand(q_last, x, what)
     y = torch.empty_like(x)
     scratch = torch.empty_like(x) if n > 1 else y
-    launch_f32(x, y, scratch, packed, q_ptr, n, False, "dcb_chain_f32")
+    launch_f32(x, y, scratch, packed, q_ptr, n, False, what, tf32=tf32)
+    return y
+
+
+def dcb_chain_f32_cuda(x: torch.Tensor, packed: torch.Tensor,
+                       q_last: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One launch of the SIMT fp32 kernel for the whole chain: x (B, H, W,
+    C) fp32 CUDA (:func:`dcb_chain` sends it C <= 64), ``packed``: N
+    ``ops.dcb.pack_f32`` back to back, q_last (C,) or None."""
+    global launches_f32
+    y = _chain_f32(x, packed, q_last, "dcb_chain_f32", False)
     launches_f32 += 1
+    return y
+
+
+def dcb_chain_tf32_cuda(x: torch.Tensor, packed: torch.Tensor,
+                        q_last: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """One launch of the 3xTF32 kernel for the whole chain: x (B, H, W, C)
+    fp32 CUDA (:func:`dcb_chain` sends it C >= 72), ``packed``: N
+    ``ops.dcb.pack_tf32`` back to back, q_last (C,) or None."""
+    global launches_tf32
+    y = _chain_f32(x, packed, q_last, "dcb_chain_tf32", True)
+    launches_tf32 += 1
     return y
 
 
@@ -132,14 +153,17 @@ def dcb_chain(x: torch.Tensor, blocks: Sequence[Params],
               q_last: Optional[torch.Tensor] = None,
               packed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Chained blocks: the plain version for a CPU tensor; for a CUDA
-    tensor the fp32 kernel for float32, else the bf16 kernel (which refuses
-    any other dtype). ``packed`` may carry the chain's cached
-    :func:`pack_chain` output."""
+    tensor in float32 the 3xTF32 kernel where ``ops.dcb.uses_tf32``, else
+    the SIMT one; otherwise the bf16 kernel (which refuses any other
+    dtype). ``packed`` may carry the chain's cached :func:`pack_chain`
+    output."""
     if x.device.type == "cpu":
         return dcb_chain_plain(x, blocks, q_last)
     if packed is None:
         packed = pack_chain(blocks, x.dtype)
     if x.dtype == torch.float32:
+        if uses_tf32(x.shape[-1]):
+            return dcb_chain_tf32_cuda(x, packed, q_last)
         return dcb_chain_f32_cuda(x, packed, q_last)
     return dcb_chain_cuda(x, packed, q_last)
 

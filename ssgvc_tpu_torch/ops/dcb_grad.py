@@ -22,7 +22,9 @@ kernel or raises:
     FFN's hidden f, dy * q, and per-block partial sums for bf0, bf2 and q;
   * :func:`dw_bwd` (c): da0 = dw3x3^T(dg) * wsilu'(a0), and partial sums
     for the taps (wsilu(a0) recomputed at each neighbour), b2, b0 and b3;
-  * :func:`grad_reduce` (d): the partials' rows summed in a fixed order.
+  * :func:`grad_reduce` (d): the partials' rows summed in a fixed order,
+    the partition set by the partials' shape alone
+    (:func:`grad_reduce_order` is the same additions on the CPU).
 
 Every rounding is the identity in the backward (the straight-through
 gradient autograd gives ``.to(dtype)``); gradients are fp32 inside, dx
@@ -51,6 +53,11 @@ launches = {"dw_fwd": 0, "gate_bwd": 0, "dw_bwd": 0, "grad_reduce": 0}
 #: count; the key is the activation's (B, H, W, C), for gate_bwd with
 #: whether q was given, and for grad_reduce the partials' (rows, cols).
 shape_launches: Dict[Tuple[str, tuple], int] = {}
+#: grad_reduce's fixed partition (csrc/dcb_bwd.cu): rows in chunks of
+#: RED_CHUNK, each chunk's rows in RED_WARPS contiguous runs summed in order,
+#: the runs' sums added in order; more than one chunk, and the chunks' sums
+#: are summed the same way.
+RED_CHUNK, RED_WARPS = 1024, 8
 #: Partial-sum columns of one block backward, as multiples of C: gate_bwd's
 #: bf0 (4), bf2 (1) and q (1), then dw_bwd's taps (9), b2, b0 and b3 (1 each).
 GATE_COLS, DW_COLS = 6, 12
@@ -124,6 +131,29 @@ def grad_reduce_plain(part: torch.Tensor) -> torch.Tensor:
     return part.sum(0)
 
 
+def grad_reduce_order(part: torch.Tensor) -> torch.Tensor:
+    """``part.sum(0)`` with the kernel's additions in the kernel's order
+    (fp32, one add at a time): what ``grad_reduce_cuda`` returns, bit for
+    bit."""
+    rows = part.float()
+    while True:
+        n = rows.shape[0]
+        run = -(-min(n, RED_CHUNK) // RED_WARPS)
+        sums = []
+        for c0 in range(0, n, RED_CHUNK):
+            c1 = min(c0 + RED_CHUNK, n)
+            total = None
+            for w in range(RED_WARPS):
+                s = torch.zeros_like(rows[0])
+                for r in range(c0 + w * run, min(c0 + (w + 1) * run, c1)):
+                    s = s + rows[r]
+                total = s if total is None else total + s
+            sums.append(total)
+        if len(sums) == 1:
+            return sums[0]
+        rows = torch.stack(sums)
+
+
 # ------------------------------------------------------------------ kernels
 
 def _lib() -> ctypes.CDLL:
@@ -133,7 +163,7 @@ def _lib() -> ctypes.CDLL:
         lib.ssgvc_dw_fwd.argtypes = [vp] * 4 + [i] * 5 + [vp]
         lib.ssgvc_gate_bwd.argtypes = [vp] * 9 + [i, i, lg, i, vp]
         lib.ssgvc_dw_bwd.argtypes = [vp] * 6 + [i] * 5 + [vp]
-        lib.ssgvc_grad_reduce.argtypes = [vp, vp, i, i, vp]
+        lib.ssgvc_grad_reduce.argtypes = [vp, vp, vp, i, i, vp]
         for fn in (lib.ssgvc_dw_fwd, lib.ssgvc_gate_bwd, lib.ssgvc_dw_bwd,
                    lib.ssgvc_grad_reduce):
             fn.restype = ctypes.c_int
@@ -239,11 +269,18 @@ def dw_bwd_cuda(dg, a0, taps, du, part, col):
 
 def grad_reduce_cuda(part):
     rows, k = part.shape
+    if rows > RED_CHUNK * RED_CHUNK:
+        raise ValueError(f"grad_reduce: {rows} rows, at most "
+                         f"{RED_CHUNK * RED_CHUNK}")
     with torch.cuda.device(part.device):
         ptr = _check("grad_reduce part", part, torch.float32, (rows, k),
                      part.device)
         out = torch.empty(k, dtype=torch.float32, device=part.device)
-        _launch("grad_reduce", (rows, k), ptr, out.data_ptr(), rows, k)
+        scratch = (torch.empty(-(-rows // RED_CHUNK), k, dtype=torch.float32,
+                               device=part.device)
+                   if rows > RED_CHUNK else out)
+        _launch("grad_reduce", (rows, k), ptr, out.data_ptr(),
+                scratch.data_ptr(), rows, k)
     return out
 
 

@@ -8,9 +8,11 @@ machine without them:
 Tolerances: in bf16 both sides round at the same points and accumulate in
 fp32, in another order; the relative Frobenius error of the output must be
 at most 1e-2 (one bf16 rounding is 2^-8 ~ 3.9e-3 relative per element). In
-fp32 (``csrc/dcb_f32.cu``) nothing rounds but the sums, taken in another
-order: max |out - ref| / max |ref| at most 1e-5, with TF32 off for the
-plain version (both flags, set in ``_card``).
+fp32 (``csrc/dcb_tf32.cu`` in 3xTF32 from a computed width of 128 up,
+``csrc/dcb_f32.cu`` in SIMT below) the sums are taken in another order and
+3xTF32 drops each product's lo x lo term (~2^-22 relative): max |out - ref|
+/ max |ref| at most 1e-5, with TF32 off for the plain version (both flags,
+set in ``_card``).
 """
 
 import numpy as np
@@ -27,6 +29,13 @@ F32_TOL = 1e-5
 SINGLE_WIDTHS = (8, 16, 24, 32, 48, 64, 96, 128, 160, 184, 192, 256, 320,
                  368, 384, 448, 512)
 CHAIN_WIDTHS = tuple(c for c in SINGLE_WIDTHS if c <= 384 and c != 368)
+# one width per fp32 route and computed width: SIMT (CP 64), then 3xTF32
+F32_ROUTE_WIDTHS = (32, 96, 160, 256, 320, 368, 512)
+
+
+def f32_count(c):
+    """The launch counter of the fp32 kernel that takes width c."""
+    return "launches_tf32" if dcb_ops.uses_tf32(c) else "launches_f32"
 
 
 def _card():
@@ -82,7 +91,7 @@ def test_kernels_at_every_width(kernel, c, dtype):
     x = torch.tensor(rng.standard_normal((2, 9, 13, c)), dtype=dt,
                      device=dev)
     q = torch.linspace(0.5, 1.5, c, device=dev).to(dt)
-    counts = (dcb_ops, "launches" if dt == torch.bfloat16 else "launches_f32")
+    counts = (dcb_ops, "launches" if dt == torch.bfloat16 else f32_count(c))
     if kernel == "dcb":
         p = block_params(c, rng, dev)
         before = getattr(*counts)
@@ -104,23 +113,31 @@ def test_kernels_at_every_width(kernel, c, dtype):
 @pytest.mark.parametrize("kernel", ["dcb", "dcb_chain"])
 def test_fp32_kernels_repeat_bit_for_bit(kernel):
     """The fp32 kernels sum in a fixed order: two launches agree exactly
-    (VideoCodec's decoder reproduces its encoder in fp32)."""
+    (VideoCodec's decoder reproduces its encoder in fp32), on both routes
+    (SIMT at C = 32, 3xTF32 at every computed width it takes)."""
     dev = _card()
     rng = np.random.default_rng(11)
-    c = 96
-    x = torch.tensor(rng.standard_normal((1, 40, 52, c)), dtype=torch.float32,
-                     device=dev)
-    q = torch.linspace(0.5, 1.5, c, device=dev)
-    if kernel == "dcb":
-        packed = dcb_ops.pack_f32(block_params(c, rng, dev))
-        run = lambda: dcb_ops.dcb_f32_cuda(x, packed, q, shortcut=True)
-    else:
-        packed = chain_ops.pack_chain(
-            [block_params(c, rng, dev) for _ in range(3)], torch.float32)
-        run = lambda: chain_ops.dcb_chain_f32_cuda(x, packed, q)
-    first, second = run(), run()
-    torch.cuda.synchronize()
-    assert torch.equal(first, second)
+    for c in F32_ROUTE_WIDTHS:
+        if kernel == "dcb_chain" and c > chain_ops.MAX_CHANNELS:
+            continue
+        x = torch.tensor(rng.standard_normal((1, 40, 52, c)),
+                         dtype=torch.float32, device=dev)
+        q = torch.linspace(0.5, 1.5, c, device=dev)
+        tf32 = dcb_ops.uses_tf32(c)
+        if kernel == "dcb":
+            packed = dcb_ops.pack_kernel(block_params(c, rng, dev),
+                                         torch.float32)
+            fn = dcb_ops.dcb_tf32_cuda if tf32 else dcb_ops.dcb_f32_cuda
+            run = lambda: fn(x, packed, q, shortcut=True)
+        else:
+            packed = chain_ops.pack_chain(
+                [block_params(c, rng, dev) for _ in range(3)], torch.float32)
+            fn = (chain_ops.dcb_chain_tf32_cuda if tf32
+                  else chain_ops.dcb_chain_f32_cuda)
+            run = lambda: fn(x, packed, q)
+        first, second = run(), run()
+        torch.cuda.synchronize()
+        assert torch.equal(first, second), c
 
 
 @pytest.mark.gpu
@@ -128,22 +145,27 @@ def test_fp32_kernels_repeat_bit_for_bit(kernel):
 @pytest.mark.parametrize("kernel", ["dcb", "dcb_chain"])
 def test_batch_equals_one_image_at_a_time_at_a_small_width(kernel, dtype):
     """B=4 in one launch equals four B=1 launches bit for bit at C=32
-    (computed at 64 in bf16)."""
+    (computed at 64 in bf16); in fp32 also at one width per computed width
+    of the 3xTF32 route."""
     dev = _card()
     dt = getattr(torch, dtype)
     rng = np.random.default_rng(12)
-    c = 32
-    x = torch.tensor(rng.standard_normal((4, 8, 8, c)), dtype=dt, device=dev)
-    if kernel == "dcb":
-        p = block_params(c, rng, dev)
-        run = lambda t: dcb_ops.dcb(t, p, shortcut=True)
-    else:
-        blocks = [block_params(c, rng, dev) for _ in range(2)]
-        run = lambda t: chain_ops.dcb_chain(t, blocks)
-    batched = run(x)
-    single = torch.cat([run(x[i:i + 1].contiguous()) for i in range(4)])
-    torch.cuda.synchronize()
-    assert torch.equal(batched, single)
+    widths = (32,) if dt == torch.bfloat16 else F32_ROUTE_WIDTHS
+    for c in widths:
+        if kernel == "dcb_chain" and c > chain_ops.MAX_CHANNELS:
+            continue
+        x = torch.tensor(rng.standard_normal((4, 8, 8, c)), dtype=dt,
+                         device=dev)
+        if kernel == "dcb":
+            p = block_params(c, rng, dev)
+            run = lambda t: dcb_ops.dcb(t, p, shortcut=True)
+        else:
+            blocks = [block_params(c, rng, dev) for _ in range(2)]
+            run = lambda t: chain_ops.dcb_chain(t, blocks)
+        batched = run(x)
+        single = torch.cat([run(x[i:i + 1].contiguous()) for i in range(4)])
+        torch.cuda.synchronize()
+        assert torch.equal(batched, single), c
 
 
 @pytest.mark.gpu
@@ -249,8 +271,8 @@ def test_kernel_refuses_what_it_does_not_take():
         dcb_ops.dcb(x[0], p)                         # no batch axis
     with pytest.raises(ValueError):
         dcb_ops.dcb(x.transpose(1, 2), p)            # not contiguous NHWC
-    # fp32 runs (csrc/dcb_f32.cu), and so does any width that is a
-    # multiple of 8 (C = 200, computed at 256 in bf16)
+    # fp32 runs (csrc/dcb_tf32.cu at C = 128), and so does any width that
+    # is a multiple of 8 (C = 200, computed at 256)
     assert dcb_ops.dcb(x[:1].float(), p).dtype == torch.float32
     for dt in (torch.bfloat16, torch.float32):
         dcb_ops.dcb(torch.zeros((1, 8, 8, 200), dtype=dt, device=dev),

@@ -79,6 +79,15 @@ def test_backward_kernels_are_deterministic():
                              case["du"], part, dg.GATE_COLS * 256)
         runs.append((dp, g, da0, dg.grad_reduce_cuda(part)))
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+    # grad_reduce is grad_reduce_order's additions, in its order, also past
+    # one chunk of rows (a second pass)
+    assert torch.equal(runs[0][3].cpu(), dg.grad_reduce_order(part.cpu()))
+    rng = np.random.default_rng(6)
+    for rows in (1, 7, 128, dg.RED_CHUNK + 3):
+        part = torch.tensor(rng.standard_normal((rows, 18 * 40)),
+                            dtype=torch.float32, device=dev)
+        assert torch.equal(dg.grad_reduce_cuda(part).cpu(),
+                           dg.grad_reduce_order(part.cpu())), rows
 
 
 @pytest.mark.gpu

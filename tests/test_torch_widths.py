@@ -171,8 +171,10 @@ def _np_block(c, rng):
 def test_packing_at_padded_widths(c):
     """pack_block at a width computed at CP > C: the matrices come back at
     CP with the block's own in the top-left corner (Wf0's two halves
-    apart) and zeros elsewhere; the taps and biases zero past C. pack_f32:
-    the matrices transposed at C, then the same tail unpadded."""
+    apart) and zeros elsewhere; the taps and biases zero past C. pack_f32
+    (the SIMT fp32 kernel's): the matrices transposed at C, then the same
+    tail unpadded. The card's fp32 pack is pack_f32 at a computed width of
+    64 and pack_tf32 (the 3xTF32 kernel's, at CP) above it."""
     rng = np.random.default_rng(c)
     blk = _np_block(c, rng)
     cp = dcb_ops.padded_channels(c)
@@ -210,8 +212,10 @@ def test_packing_at_padded_widths(c):
     torch.testing.assert_close(bf0_p, want_bf0, rtol=0, atol=0)
 
     f32 = dcb_ops.pack_f32(blk)
-    assert f32.numel() == dcb_ops.packed_numel(c, torch.float32)
     assert f32.numel() == 8 * c * c + 17 * c
+    tf32 = dcb_ops.uses_tf32(c)
+    assert dcb_ops.packed_numel(c, torch.float32) == (
+        16 * cp * cp + 17 * cp if tf32 else f32.numel())
     off = 0
     for m in (w0, w3, wf0[..., None, None], wf2):
         m = m[:, :, 0, 0]
@@ -224,7 +228,8 @@ def test_packing_at_padded_widths(c):
         f32[off:], dcb_ops.pack_params(blk, torch.float32)[off:], rtol=0,
         atol=0)
     # the card's pack for each dtype
-    torch.testing.assert_close(dcb_ops.pack_kernel(blk, torch.float32), f32,
+    torch.testing.assert_close(dcb_ops.pack_kernel(blk, torch.float32),
+                               dcb_ops.pack_tf32(blk) if tf32 else f32,
                                rtol=0, atol=0)
     torch.testing.assert_close(dcb_ops.pack_kernel(blk, torch.bfloat16),
                                dcb_ops.pack_block(blk, torch.bfloat16),
