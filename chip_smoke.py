@@ -76,13 +76,18 @@ Phases (any failure exits non-zero and prints no result line):
      against four B = 1 launches, bit for bit, timed beside them;
  12. backward kernels: each kernel of ops/dcb_grad.py (csrc/dcb_bwd.cu)
      at every shape a training micro-step gives it, B = 4, against its
-     plain version on the same inputs, timed with CUDA events beside its
-     bound (bytes) and the library call that computes the same function,
-     where there is one (grad_reduce: torch.sum, and its result bit for
-     bit against ops.dcb_grad.grad_reduce_order, the same additions on the
-     CPU); the per-micro-step sums weigh each shape's time
-     by its launches counted in phase 13 (a shape counted there and not
-     timed here fails);
+     plain version on the same inputs, gate_bwd's and dw_bwd's partials
+     row by row against the plain sums over each row's tile
+     (ops.dcb_grad.bwd_tiles), timed with CUDA events beside its bound
+     (the bytes of its function: each input read once, each output and
+     per-channel sum written once) and the library call that computes the
+     same function, where there is one (grad_reduce: torch.sum, and its
+     result bit for bit against ops.dcb_grad.grad_reduce_order, the same
+     additions on the CPU); with --prev-port also the other checkout's
+     gate_bwd, dw_bwd and grad_reduce on the same inputs (its own
+     partials), in turns (prev, new, new, prev); the per-micro-step sums
+     weigh each shape's time by the block backwards counted there in
+     phase 13 (a shape counted there and not timed here fails);
  13. training: training.trainer.Trainer with the default TrainConfig
      (performance variant, full profile, bf16-mixed, accumulation_steps 8,
      clip 5.0, AdamW), fresh calibrated weights from --seed, TRAIN_STEPS
@@ -130,7 +135,11 @@ Phases (any failure exits non-zero and prints no result line):
      micro-step, peak memory; then
      make_batched_gop_eval + evaluate_rd_batched over RD_EVAL_CLIPS
      192x192 clips at EVAL_QPS (s per QP) and latent_liveness /
-     liveness_collapsed on two of them;
+     liveness_collapsed on two of them; then the SIMT fp32 kernels
+     (phase 14's C <= 64 route) at each operand shape the last micro-step
+     launched them at, against their plain versions (fp32 1e-5) and timed
+     beside them and the bound: their kernels-line entries are these
+     times x launches per micro-step;
  18. coded fp32: VideoCodec at rd-mid in float32, I + 2 P of 192x192,
      every decoded frame and DPB torch.equal to the encoder's.
 
@@ -1480,74 +1489,103 @@ def phase_batch(torch, seed, card):
     return rows
 
 
-def bwd_case(torch, rng, b, h, w, c, with_q, dev):
-    """Inputs of one block backward's kernels at a shape: fp32, dy bf16."""
+def bwd_case(torch, rng, b, h, w, c, with_q, dev, act=None):
+    """Inputs of one block backward's kernels at a shape: fp32, dy in the
+    block's dtype ``act`` (bf16 by default)."""
     def t(*shape, std=1.0):
         return torch.tensor(rng.standard_normal(shape) * std,
                             dtype=torch.float32, device=dev)
     return dict(a0=t(b, h, w, c), taps=t(9, c, std=1 / 3), b2=t(c, std=0.1),
                 df=t(b, h, w, 2 * c), p=t(b, h, w, 4 * c),
-                dy=t(b, h, w, c).to(torch.bfloat16), dg=t(b, h, w, c),
+                dy=t(b, h, w, c).to(act or torch.bfloat16), dg=t(b, h, w, c),
                 du=t(b, h, w, c), q=1.0 + t(c, std=0.2) if with_q else None,
                 resid=t(b, h, w, c) if with_q else None)
 
 
+def check_rows(torch, what, part, ref, tol=BWD_FP32_TOL):
+    """Fail unless each row of the partials ``part`` is finite and within
+    ``tol`` of the same row of ``ref`` in relative norm: each tile's sums,
+    so a sum assigned to the wrong tile fails even where the total holds."""
+    norm = torch.linalg.vector_norm
+    rel = norm(part - ref, dim=1) / norm(ref, dim=1)
+    if not torch.isfinite(part).all() or not (rel <= tol).all():
+        fail(f"{what}: per-tile partial sums disagree with the plain ones, "
+             f"worst row rel {float(rel.max()):.3g} > {tol}")
+
+
 def check_backward_kernels(torch, case):
     """Each backward kernel against its plain version on ``case``; fails
-    beyond BWD_FP32_TOL (fp32 outputs) or REL_TOL (bf16 outputs). Returns
-    {kernel: max abs error of its outputs}."""
+    beyond BWD_FP32_TOL (fp32 outputs and each tile's partial sums) or
+    REL_TOL (bf16 outputs). Returns {kernel: max abs error of its
+    outputs}."""
     from ssgvc_tpu_torch.ops import dcb_grad as dg
 
     a0, taps, b2 = case["a0"], case["taps"], case["b2"]
-    q, resid = case["q"], case["resid"]
+    q, resid, act = case["q"], case["resid"], case["dy"].dtype
     b, h, w, c = a0.shape
     errs = {}
+    act_tol = REL_TOL if act == torch.bfloat16 else BWD_FP32_TOL
+    what = f"at {(b, h, w, c)} {str(act)[6:]} q={q is not None}"
 
-    def cmp(kernel, what, out, ref, tol=BWD_FP32_TOL):
-        _, err = check_close(torch, f"{kernel} at {(b, h, w, c)} q="
-                             f"{q is not None}: {what}", out, ref, tol)
+    def cmp(kernel, out_name, out, ref, tol=BWD_FP32_TOL):
+        _, err = check_close(torch, f"{kernel} {what}: {out_name}", out, ref,
+                             tol)
         errs[kernel] = max(errs.get(kernel, 0.0), err)
 
-    bf16 = torch.bfloat16
-    cmp("dw_fwd", "g", dg.dw_fwd_cuda(a0, taps, b2, bf16),
-        dg.dw_fwd_plain(a0, taps, b2, bf16), REL_TOL)
+    cmp("dw_fwd", "g", dg.dw_fwd_cuda(a0, taps, b2, act),
+        dg.dw_fwd_plain(a0, taps, b2, act), act_tol)
     cols = (dg.GATE_COLS + dg.DW_COLS) * c
-    part_k = torch.zeros(dg.partial_rows(a0), cols, device=a0.device)
-    part_p = torch.zeros(1, cols, device=a0.device)
+    rows = dg.partial_rows(a0)
+    part_k = torch.zeros(rows, cols, device=a0.device)
+    part_t = torch.zeros(rows, cols, device=a0.device)   # plain, per tile
+    part_p = torch.zeros(1, cols, device=a0.device)      # plain, in all
     kern = dg.gate_bwd_cuda(case["df"], case["p"], case["dy"], q, resid,
                             part_k, 0)
     plain = dg.gate_bwd_plain(case["df"], case["p"], case["dy"], q, resid,
                               part_p, 0)
+    dg.gate_bwd_plain(case["df"], case["p"], case["dy"], q, resid, part_t, 0)
     cmp("gate_bwd", "dp", kern[0], plain[0])
-    cmp("gate_bwd", "f", kern[1], plain[1], REL_TOL)
+    cmp("gate_bwd", "f", kern[1], plain[1], act_tol)
     if q is not None:
         cmp("gate_bwd", "dy * q", kern[2], plain[2])
     col = dg.GATE_COLS * c
-    da0k = dg.dw_bwd_cuda(case["dg"], a0, taps, case["du"], part_k, col)
-    da0p = dg.dw_bwd_plain(case["dg"], a0, taps, case["du"], part_p, col)
+    dw = (case["dg"], a0, taps, case["du"])
+    da0k = dg.dw_bwd_cuda(*dw, part_k, col)
+    da0p = dg.dw_bwd_plain(*dw, part_p, col)
+    dg.dw_bwd_plain(*dw, part_t, col)
     cmp("dw_bwd", "da0", da0k, da0p)
+    torch.cuda.synchronize()
+    check_rows(torch, f"gate_bwd {what}", part_k[:, :col], part_t[:, :col])
+    check_rows(torch, f"dw_bwd {what}", part_k[:, col:], part_t[:, col:])
     sk = dg.grad_reduce_cuda(part_k)
     sp = dg.grad_reduce_plain(part_p)
     if not torch.equal(sk.cpu(), dg.grad_reduce_order(part_k.cpu())):
-        fail(f"grad_reduce at {(b, h, w, c)}: not grad_reduce_order's sums "
-             "bit for bit")
-    cmp("grad_reduce", "the partials' sum", sk, dg.grad_reduce_plain(part_k))
+        fail(f"grad_reduce {what}: not grad_reduce_order's sums bit for bit")
+    cmp("grad_reduce", "the partials' sum", sk,
+        dg.grad_reduce_plain(part_k))
     # each kernel's partial sums, reduced, against the plain sums
     cmp("gate_bwd", "bias and q partial sums", sk[:col], sp[:col])
     cmp("dw_bwd", "tap and bias partial sums", sk[col:], sp[col:])
     return errs
 
 
-def bwd_bytes(b, h, w, c, with_q):
-    """Bytes each backward kernel must move at a shape (each input read
-    once, each output written once, partials included)."""
-    m, rows = b * h * w, -(-(b * h * w) // 8)
-    gate = 4 * m * c * (2 + 4 + 4 + 1) + 2 * m * c + 4 * rows * 6 * c
+def bwd_bytes(b, h, w, c, with_q, size=2):
+    """Bytes each backward kernel's function must move at a shape: each
+    input read once, each output written once, and for gate_bwd and dw_bwd
+    their per-channel sums written once (not the partials, whose count is
+    the partition's: the bound is the same work whatever partition runs
+    it); grad_reduce reads the partials it is given. ``size``: bytes of an
+    activation in the block's dtype (dw_fwd's g, gate_bwd's dy and f)."""
+    from ssgvc_tpu_torch.ops import dcb_grad as dg
+
+    m, rows = b * h * w, dg.bwd_tiles((b, h, w, c))[2]
+    # df, p and dp in fp32; dy and f (2C) in the block's dtype; the 6C sums
+    gate = 4 * m * c * (2 + 4 + 4) + size * m * c * 3 + 4 * 6 * c
     if with_q:
-        gate += 4 * c + 2 * 4 * m * c
-    return {"dw_fwd": 4 * m * c + 2 * m * c + 40 * c,
+        gate += 4 * c + 2 * 4 * m * c              # q, resid, dy * q
+    return {"dw_fwd": 4 * m * c + size * m * c + 40 * c,
             "gate_bwd": gate,
-            "dw_bwd": 4 * m * c * 4 + 36 * c + 4 * rows * 12 * c,
+            "dw_bwd": 4 * m * c * 4 + 36 * c + 4 * 12 * c,
             "grad_reduce": 4 * rows * 18 * c + 4 * 18 * c}
 
 
@@ -1568,20 +1606,27 @@ def bwd_key(kernel, b, h, w, c, with_q):
     if kernel == "gate_bwd":
         return (b, h, w, c, with_q)
     if kernel == "grad_reduce":
-        return (-(-(b * h * w) // dg.PIX), (dg.GATE_COLS + dg.DW_COLS) * c)
+        return (dg.bwd_tiles((b, h, w, c))[2],
+                (dg.GATE_COLS + dg.DW_COLS) * c)
     return (b, h, w, c)
 
 
-def phase_backward_kernels(torch, seed, card):
+def phase_backward_kernels(torch, seed, card, prev=False):
     """Each backward kernel at every training shape, B = TRAIN_B, against
     its plain version; timed beside its plain version, its bound and a
-    library call, once per operand shape it counts launches by. Returns
-    {kernel: [rows]}; :func:`backward_entries` weighs them by the launches
-    a micro-step makes at each."""
+    library call, once per operand shape it counts launches by; with
+    ``prev`` (--prev-port loaded) also the other checkout's dw_bwd,
+    gate_bwd and grad_reduce on the same inputs (its own partials), in
+    turns (prev, new, new, prev). Returns {kernel: [rows]};
+    :func:`backward_entries` weighs them by the launches a micro-step makes
+    at each."""
+    import importlib
+
     import torch.nn.functional as F
 
     from ssgvc_tpu_torch.ops import dcb_grad as dg
 
+    pdg = importlib.import_module("prev_port.ops.dcb_grad") if prev else None
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(seed + 50)
     names = list(BWD_REPLACES)
@@ -1616,43 +1661,75 @@ def phase_backward_kernels(torch, seed, card):
             "grad_reduce": (lambda: dg.grad_reduce_cuda(part_k),
                             lambda: dg.grad_reduce_plain(part_k),
                             lambda: torch.sum(part_k, 0))}
+        prev_fns = {}
+        if pdg is not None:
+            # the other checkout's kernels on the same inputs, each with
+            # its own partials (its partition's rows)
+            part_q = torch.zeros(pdg.partial_rows(a0), cols, device=dev)
+            pdg.gate_bwd_cuda(*gate, part_q, 0)
+            pdg.dw_bwd_cuda(*dw, part_q, col)
+            prev_fns = {"gate_bwd": lambda: pdg.gate_bwd_cuda(*gate, part_q,
+                                                              0),
+                        "dw_bwd": lambda: pdg.dw_bwd_cuda(*dw, part_q, col),
+                        "grad_reduce": lambda: pdg.grad_reduce_cuda(part_q)}
         nbytes = bwd_bytes(TRAIN_B, h, w, c, with_q)
         for k in names:
             key = bwd_key(k, TRAIN_B, h, w, c, with_q)
-            if any(r["key"] == key for r in rows[k]):
-                continue            # q changes only gate_bwd's operands
             kern, plain, lib = fns[k]
             r = dict(key=key, shape=[TRAIN_B, h, w, c], q=with_q,
-                     sites=sites, ms=cuda_ms(torch, kern, 20),
-                     plain_ms=cuda_ms(torch, plain, 20),
+                     sites=sites)
+            if k in prev_fns:
+                turns = {"prev": [], "new": []}
+                for who in ("prev", "new", "new", "prev"):
+                    turns[who].append(cuda_ms(
+                        torch, prev_fns[k] if who == "prev" else kern, 20))
+                r.update(ms=sum(turns["new"]) / 2,
+                         prev_ms=sum(turns["prev"]) / 2, turns=turns,
+                         prev_rows=part_q.shape[0])
+            else:
+                r["ms"] = cuda_ms(torch, kern, 20)
+            r.update(plain_ms=cuda_ms(torch, plain, 20),
                      library_ms=cuda_ms(torch, lib, 20) if lib else None,
                      bytes=nbytes[k],
                      bound_ms=1e3 * nbytes[k] / H100_BYTES_PER_S,
-                     max_abs_err=errs[k])
+                     max_abs_err=errs[k], rows=part_k.shape[0])
             rows[k].append(r)
             lib_txt = (f", library {r['library_ms']:.4f}" if lib else "")
+            prev_txt = (f", prev {r['prev_ms']:.4f} ({r['prev_rows']} rows)"
+                        if "prev_ms" in r else "")
+            rows_txt = (f" ({r['rows']} partial rows)" if k != "dw_fwd"
+                        else "")
             print(f"  {k} {TRAIN_B}x{h}x{w}x{c} q={int(with_q)}: kernel "
-                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f}{lib_txt}, "
-                  f"bound {1e3 * r['bound_ms']:.2f} us ({nbytes[k]} B at "
-                  f"3.35 TB/s), max abs {r['max_abs_err']:.3g} [{card}]")
+                  f"{r['ms']:.4f} ms{rows_txt}{prev_txt}, "
+                  f"plain {r['plain_ms']:.4f}{lib_txt}, bound "
+                  f"{1e3 * r['bound_ms']:.2f} us ({nbytes[k]} B at 3.35 "
+                  f"TB/s), max abs {r['max_abs_err']:.3g} [{card}]")
     return rows
 
 
 def backward_entries(rows, shape_counts, card):
     """One {"kernels"} entry per backward kernel: each timed shape's
-    numbers times the launches a training micro-step made at it
-    (``shape_counts``, phase 13), summed. Fails if the micro-step launched
-    a kernel at a shape phase 12 did not time."""
+    numbers times the block backwards a training micro-step ran at it
+    (``shape_counts``, phase 13: gate_bwd's launches by shape and q, one
+    per block backward), summed. Fails if the micro-step ran a block
+    backward at a shape phase 12 did not time, or launched a kernel at an
+    operand shape that its timed rows do not hold."""
+    blocks = {key: n for (name, key), n in shape_counts.items()
+              if name == "gate_bwd"}
+    timed = {(TRAIN_B, h, w, c, q) for h, w, c, q, _ in BWD_SHAPES}
+    if set(blocks) - timed:
+        fail(f"a training micro-step ran block backwards at "
+             f"{sorted(set(blocks) - timed)}, shapes phase 12 did not time")
     entries = []
     for k, rs in rows.items():
         counted = {key: n for (name, key), n in shape_counts.items()
                    if name == k}
-        untimed = set(counted) - {r["key"] for r in rs}
-        if untimed:
-            fail(f"{k}: a training micro-step launched it at {sorted(untimed)}"
-                 ", shapes phase 12 did not time")
         for r in rs:
-            r["per_step"] = counted.get(r["key"], 0)
+            r["per_step"] = blocks.get((*r["shape"], r["q"]), 0)
+        if (set(counted) - {r["key"] for r in rs}
+                or sum(counted.values()) != sum(r["per_step"] for r in rs)):
+            fail(f"{k}: launches by operand shape {counted} are not the "
+                 "block backwards' at the timed shapes")
         per = lambda key: sum(r[key] * r["per_step"] for r in rs)
         entries.append(dict(
             name=k, route="cuda", source="ssgvc_tpu_torch/csrc/dcb_bwd.cu",
@@ -1662,11 +1739,16 @@ def backward_entries(rows, shape_counts, card):
             bound_by="bytes",
             library_ms=(per("library_ms") if rs[0]["library_ms"] is not None
                         else None),
-            per="training micro-step: per-shape time x launches per "
+            per="training micro-step: per-shape time x block backwards per "
                 "micro-step at that shape (counted), summed", shapes=rs))
+        if "prev_ms" in rs[0]:
+            entries[-1]["prev_ms"] = per("prev_ms")
         print(f"  {k} launches per micro-step by shape: "
-              + ", ".join(f"{r['key']} x{r['per_step']}" for r in rs)
-              + f"; {entries[-1]['ms']:.3f} ms per micro-step [{card}]")
+              + ", ".join(f"{r['shape']} q={int(r['q'])} x{r['per_step']}"
+                          for r in rs)
+              + f"; {entries[-1]['ms']:.3f} ms per micro-step"
+              + (f" (prev {entries[-1]['prev_ms']:.3f} in turns)"
+                 if "prev_ms" in entries[-1] else "") + f" [{card}]")
     return entries
 
 
@@ -1692,6 +1774,8 @@ def launch_counts():
         for k in dg.launches:
             dg.launches[k] = 0
         dg.shape_launches.clear()
+        dcb_ops.shape_launches_f32.clear()
+        chain_ops.shape_launches_f32.clear()
 
     def read():
         return {"dcb": dcb_ops.launches, "dcb_chain": chain_ops.launches,
@@ -2033,28 +2117,83 @@ def phase_widths(torch, seed, card):
     return rows
 
 
-def simt_entries(widths, rd_counts):
+def phase_simt_shapes(torch, seed, card, counts):
+    """The SIMT fp32 kernels (C <= 64) at each operand shape an RD-recipe
+    micro-step launched them at (``counts``: {kernel: {key: launches}},
+    phase 17's last micro-step; keys (B, H, W, C, shortcut or N, q)), on
+    random inputs and weights, against their plain versions (F32_TOL) and
+    timed beside them and the bound. Returns {kernel: [rows]}."""
+    from ssgvc_tpu_torch.ops import dcb as dcb_ops
+    from ssgvc_tpu_torch.ops import dcb_chain as chain_ops
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(seed + 70)
+    rows = {}
+    for name, keyed in counts.items():
+        rows[name] = []
+        for key, launched in sorted(keyed.items()):
+            b, h, w, c, extra, with_q = key
+            n = 1 if name == "dcb_f32" else extra
+            x = torch.tensor(rng.standard_normal((b, h, w, c)),
+                             dtype=torch.float32, device=dev)
+            q = (torch.linspace(0.5, 1.5, c, device=dev) if with_q
+                 else None)
+            blocks = [block_params(torch, c, rng, dev) for _ in range(n)]
+            if name == "dcb_f32":
+                packed = dcb_ops.pack_f32(blocks[0])
+                run = lambda: dcb_ops.dcb_f32_cuda(x, packed, q, extra)
+                plain = lambda: dcb_ops.dcb_plain(x, blocks[0], q, extra)
+            else:
+                packed = torch.cat([dcb_ops.pack_f32(p) for p in blocks])
+                run = lambda: chain_ops.dcb_chain_f32_cuda(x, packed, q)
+                plain = lambda: chain_ops.dcb_chain_plain(x, blocks, q)
+            rel, max_err = check_f32(torch, f"{name} at {key}", run(),
+                                     plain())
+            r = dict(key=list(key), blocks=n, per_step=launched,
+                     ms=cuda_ms(torch, run, 20),
+                     plain_ms=cuda_ms(torch, plain, 5),
+                     bound_ms=bound_ms(h, w, c, n, True, b),
+                     bound_by=bound_by(h, w, c, n, True, b), rel_err=rel,
+                     max_abs_err=max_err)
+            rows[name].append(r)
+            print(f"  SIMT {name} at RD-recipe shape {key} (x{launched} per "
+                  f"micro-step): kernel {r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f}, bound {1e3 * r['bound_ms']:.2f} us "
+                  f"({r['bound_by']}), max rel {rel:.2e} [{card}]")
+    return rows
+
+
+def simt_entries(widths, rd_counts, shapes):
     """{"kernels"} entries of the SIMT fp32 kernel, the route of C <= 64
-    (no full-width site): phase 14's launch at B=4 8x8 C=64 (the RD
-    recipe's widest SIMT width at its crop) as ms, plain, bound and error;
-    launches per RD-recipe micro-step (phase 17, its main path)."""
+    (no full-width site), per RD-recipe micro-step (phase 17, its main
+    path): each shape's ms, plain ms and bound (:func:`phase_simt_shapes`)
+    times its launches there, summed; max_abs_err over those shapes and
+    every SIMT width case of phase 14."""
     out = []
     for name in ("dcb_f32", "dcb_chain_f32"):
-        r = next(r for r in widths[name]
-                 if r["shape"] == [4, 8, 8, 64])
+        rs = shapes[name]
+        per = lambda k: sum(r[k] * r["per_step"] for r in rs)
+        if sum(r["per_step"] for r in rs) != rd_counts[name]:
+            fail(f"{name}: launches by shape {rs} are not the micro-step's "
+                 f"{rd_counts[name]}")
         out.append(dict(
             name=name, route="cuda",
             source="ssgvc_tpu_torch/csrc/dcb_f32.cu",
             replaces=("ssgvc_tpu/ops/pallas_dcb.py:68" if name == "dcb_f32"
                       else "ssgvc_tpu/ops/pallas_dcb_chain.py:61"),
             launches=rd_counts[name], max_abs_err=max(
-                x["max_abs_err"] for x in widths[name]),
-            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=None,
-            per="ms, plain, bound: one launch at B=4 8x8 C=64 (phase 14, "
-                f"n={r['blocks']}); launches per RD-recipe micro-step "
-                "(phase 17); max_abs_err over every SIMT width case",
-            widths=widths[name]))
+                x["max_abs_err"] for x in widths[name] + rs),
+            ms=per("ms"), plain_ms=per("plain_ms"),
+            bound_ms=per("bound_ms"),
+            bound_by=("operations" if any(r["bound_by"] == "operations"
+                                         for r in rs) else "bytes"),
+            library_ms=None,
+            per="RD-recipe micro-step (rd-mid fp32, phase 17): each shape's "
+                "time x its launches there, summed",
+            shapes=rs, widths=widths[name]))
+        print(f"  {name}: {out[-1]['ms']:.3f} ms per RD-recipe micro-step "
+              f"({rd_counts[name]} launches), bound "
+              f"{out[-1]['bound_ms']:.4f} ms")
     return out
 
 
@@ -2241,6 +2380,8 @@ def phase_rd_recipe(torch, seed, card):
     RD_EVAL_CROP at EVAL_QPS, then the liveness probe on two of them."""
     from ssgvc_tpu_torch.config import DMCConfig, DMCIConfig, TrainConfig
     from ssgvc_tpu_torch.data.device_synth import synth_batch
+    from ssgvc_tpu_torch.ops import dcb as dcb_ops
+    from ssgvc_tpu_torch.ops import dcb_chain as chain_ops
     from ssgvc_tpu_torch.training.evaluate import (evaluate_rd_batched,
                                                    latent_liveness,
                                                    liveness_collapsed,
@@ -2289,6 +2430,10 @@ def phase_rd_recipe(torch, seed, card):
                 c[k] for k in (*FP32_KERNELS, *BWD_REPLACES)):
             fail(f"RD recipe micro-step {k + 1}: launches {c}")
     peak = torch.cuda.max_memory_allocated()
+    # the last micro-step's SIMT launches by operand shape (timed by
+    # phase_simt_shapes)
+    simt_counts = {"dcb_f32": dict(dcb_ops.shape_launches_f32),
+                   "dcb_chain_f32": dict(chain_ops.shape_launches_f32)}
     bad, zero = [], []
     for name, m in dcb_modules(tr.dmc):
         for p in m.core_params():
@@ -2348,7 +2493,7 @@ def phase_rd_recipe(torch, seed, card):
                 launches_per_micro_step=counts[-1], losses=losses,
                 eval_s_per_qp=eval_s, curve=curve, eval_launches=eval_counts,
                 liveness=report, collapsed=collapsed, batch=RD_B,
-                crop=RD_CROP, seq_len=RD_T)
+                crop=RD_CROP, seq_len=RD_T, simt_counts=simt_counts)
 
 
 def phase_coded_f32(torch, seed, card):
@@ -2444,7 +2589,8 @@ def main() -> int:
                         variant_states["mask_prop"])
     with torch.no_grad():
         batch = phase_batch(torch, args.seed, card)
-        bwd_rows = phase_backward_kernels(torch, args.seed, card)
+        bwd_rows = phase_backward_kernels(torch, args.seed, card,
+                                          prev is not None)
     training = phase_train(torch, args.seed, card)
     counts = training["launches_per_micro_step"]
     backward = backward_entries(bwd_rows, training.pop("shape_counts"), card)
@@ -2475,6 +2621,9 @@ def main() -> int:
                              "float32", floors)
     rd_half = phase_rdhalf(torch, args.seed, card)
     rd = phase_rd_recipe(torch, args.seed, card)
+    with torch.no_grad():
+        simt = phase_simt_shapes(torch, args.seed, card,
+                                 rd.pop("simt_counts"))
     coded32 = phase_coded_f32(torch, args.seed, card)
     for entry in kernels:
         entry["widths"] = widths[entry["name"]]
@@ -2489,7 +2638,7 @@ def main() -> int:
         entry["training"] = dict(
             launches=rd["launches_per_micro_step"][entry["name"]],
             per="launches per RD-recipe micro-step (rd-mid fp32, phase 17)")
-    kernels_f32 += simt_entries(widths, rd["launches_per_micro_step"])
+    kernels_f32 += simt_entries(widths, rd["launches_per_micro_step"], simt)
     for entry in backward:
         entry["rd_recipe_launches"] = \
             rd["launches_per_micro_step"][entry["name"]]

@@ -3,9 +3,9 @@
 // tap, bias and q reductions. The block's matrix products (the recompute of
 // x W0, h W3 and u Wf0, and every 1x1 conv's input and weight gradient) run
 // outside them, as ops/dcb_grad.py:block_backward lays out. fp32 SIMT, NHWC
-// (B, H, W, C) with C contiguous; any C. The activations that come in or go
-// out in the block's dtype (dw_fwd's g, gate_bwd's dy and fr) are bf16 or
-// fp32: each such kernel is instantiated for both (T).
+// (B, H, W, C) with C contiguous. The activations that come in or go out in
+// the block's dtype (dw_fwd's g, gate_bwd's dy and fr) are bf16 or fp32:
+// each such kernel is instantiated for both (T).
 //
 // The TPU package has no backward kernel: its trainer differentiates the XLA
 // conv composition of ssgvc_tpu/layers/blocks.py:DepthConvBlock and never
@@ -16,19 +16,26 @@
 // Bound on an H100 SXM: bytes. Each kernel does a few to a few tens of
 // operations per element it moves (the depthwise 3x3: 18 per output), far
 // under the ~20 fp32 operations per byte at which 67 TFLOP/s and 3.35 TB/s
-// meet. What the design does about it: one pass over each tensor, C on the
-// fastest thread index so that a warp's loads and stores are contiguous, and
-// every per-channel sum over the B*H*W pixels taken in two deterministic
-// steps: each thread block sums its PIX pixels in registers into its own row
-// of a partials matrix, then grad_reduce sums the rows in a fixed order. No
+// meet. At the training shapes (B = 4, 2x2 to 16x16 pixels) one launch
+// moves 0.1-15 MB, a few us at 3.35 TB/s, so latency matters as much as
+// bytes. Every per-channel sum over the B*H*W pixels is taken in two
+// deterministic steps: each tile's sum in a fixed order into its own row of
+// a partials matrix, then grad_reduce sums the rows in a fixed order. No
 // floating-point atomics, so the same inputs give the same gradients bit for
-// bit. Left for later: wider tiles per block, and fusing the partial sums
-// into the matrix products' epilogues.
+// bit.
+//
+// The partials' partition (gate_bwd and dw_bwd; ops/dcb_grad.py:bwd_tiles
+// chooses th x tw from the shape alone and passes them): tiles of th x tw
+// pixels of one image, th = min(TILE, H), tw = min(TILE, W), the last tile
+// row and column cut off at the image's edge; one partials row per tile, in
+// (image, tile row, tile column) order. A thread block owns one tile's
+// SLICE channels (grid: tiles x ceil(C / SLICE)) and writes those channels'
+// columns of the tile's row. Both need C % 8 == 0 and 16-byte aligned
+// operands (16-byte loads and copies of 4 channels).
 //
 // grad_reduce (d): out[k] = sum over r of part[r][k], fp32, where part has
-// one row per PIX pixels and 18 C columns. Bound: bytes, rows x 18 C x 4
-// read once (0.6 MB at the training shapes' 128 x 4608), a few us at 3.35
-// TB/s; below that, one launch. Its partition is fixed by (rows, K) alone,
+// one row per tile and 18 C columns. Bound: bytes, rows x 18 C x 4 read
+// once; below that, one launch. Its partition is fixed by (rows, K) alone,
 // never by the SM count or the grid: a thread block owns a stripe of
 // RED_COLS columns (a warp reads 128 contiguous bytes of a row), and of
 // each chunk of RED_CHUNK rows each of its RED_WARPS warps sums a fixed
@@ -37,18 +44,27 @@
 // in warp order. More rows than RED_CHUNK: each chunk's sum goes to a
 // scratch row, and the same kernel sums the scratch rows (a second pass).
 // ops/dcb_grad.py:grad_reduce_order does the same additions on the CPU.
-// Left for later: fewer partial rows at their source (more pixels per
-// thread block in gate_bwd and dw_bwd).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
+
 namespace dcbg {
 
+using hop::cp_async16;
+using hop::cp_async_wait_all;
 typedef __nv_bfloat16 bf16;
 
 constexpr int kThreads = 256;
-constexpr int PIX = 8;   // pixels per thread block; must match ops/dcb_grad.py
+// The partials' tiles; must match ops/dcb_grad.py
+constexpr int TILE = 8;     // at most TILE x TILE pixels of one image
+constexpr int SLICE = 32;   // channels of one thread block
+constexpr int HALO = TILE + 2;
+constexpr int GROUPS = SLICE / 4;         // gate_bwd: 4-channel groups
+constexpr int LANES = kThreads / GROUPS;  // gate_bwd: pixel lanes
+static_assert(kThreads / SLICE == TILE, "dw_bwd: one warp per tile row");
+static_assert(2 * LANES >= TILE * TILE, "gate_bwd: two pixels a lane");
 
 __device__ __forceinline__ float sigmoid4(float v) {
   return 1.0f / (1.0f + __expf(-4.0f * v));
@@ -58,14 +74,14 @@ __device__ __forceinline__ float wsilu(float v) {     // silu(4v)/4
   return v * sigmoid4(v);
 }
 
-__device__ __forceinline__ float wsilu_grad(float v) {
+// wsilu(v) and wsilu'(v) from one exponential.
+__device__ __forceinline__ void wsilu_both(float v, float& f, float& d) {
   const float s = sigmoid4(v);
-  return s + 4.0f * v * s * (1.0f - s);
+  f = v * s;
+  d = s + 4.0f * v * s * (1.0f - s);
 }
 
-// An activation in the block's dtype, to and from fp32 (round to nearest).
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f(float v) { return v; }
+// An activation in the block's dtype, from fp32 (round to nearest).
 template <typename T>
 __device__ __forceinline__ T from_f(float v);
 template <>
@@ -74,6 +90,50 @@ __device__ __forceinline__ bf16 from_f<bf16>(float v) {
 }
 template <>
 __device__ __forceinline__ float from_f<float>(float v) { return v; }
+
+// Four consecutive channels: 16 bytes of fp32, 8 of bf16.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(bf16* p, float4 v) {
+  __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
+  __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<uint32_t*>(&a);
+  u.y = *reinterpret_cast<uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+__device__ __forceinline__ float4 operator*(float4 a, float4 b) {
+  return make_float4(a.x * b.x, a.y * b.y, a.z * b.z, a.w * b.w);
+}
+__device__ __forceinline__ float4 operator+(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+__device__ __forceinline__ void operator+=(float4& a, float4 b) { a = a + b; }
+__device__ __forceinline__ float get(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// Tile t of the partition: its image and first pixel.
+struct Tile {
+  int b, y0, x0;
+};
+__device__ __forceinline__ Tile tile_of(int t, int th, int tw, int tiles_y,
+                                        int tiles_x) {
+  const int tx = t % tiles_x, r = t / tiles_x;
+  return Tile{r / tiles_y, (r % tiles_y) * th, tx * tw};
+}
 
 // (a) g = dw3x3(wsilu(a0)) + b2, zero padding in h = wsilu(a0) space per
 // image (taps (9, C): taps[3 i + j] multiplies h at (y + i - 1, x + j - 1)),
@@ -109,74 +169,192 @@ dw_fwd_kernel(const float* __restrict__ a0, const float* __restrict__ taps,
 // (b) From df (M, 2C) and p = u Wf0^T + bf0 (M, 4C): dp for both 2C halves
 // through wsilu', and fr = round(wsilu(p_a) + wsilu(p_b)) (M, 2C), the FFN's
 // hidden activation that the Wf2 gradient needs, in T. From dy (M, C), in
-// T: with q, dyq = dy * q (M, C). Partials of thread block k, row k of part
-// (row stride ld): [0, 4C) sum of dp, [4C, 5C) sum of dy (* q), [5C, 6C)
-// with q the sum of dy * resid (the q gradient's per-pixel part), else 0.
+// T: with q, dyq = dy * q (M, C). Partials of tile t, row t of part (row
+// stride ld): [0, 4C) sum of dp, [4C, 5C) sum of dy (* q), [5C, 6C) with q
+// the sum of dy * resid (the q gradient's per-pixel part), else 0.
+//
+// A thread owns 4 channels (GROUPS a slice) of the tile's pixels lane,
+// lane + LANES: one pass over every column, 16-byte loads and stores (8 for
+// bf16), one exponential per element for wsilu and wsilu'. Its 24 sums go
+// to shared memory, and each column's LANES sums are added in lane order.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 gate_bwd_kernel(const float* __restrict__ df, const float* __restrict__ p,
                 const T* __restrict__ dy, const float* __restrict__ q,
                 const float* __restrict__ resid, float* __restrict__ dp,
                 T* __restrict__ fr, float* __restrict__ dyq,
-                float* __restrict__ part, int ld, int C, long M) {
-  const long p0 = blockIdx.x * (long)PIX;
-  const long p1 = p0 + PIX < M ? p0 + PIX : M;
-  float* row = part + blockIdx.x * (long)ld;
-  for (int k = threadIdx.x; k < 2 * C; k += blockDim.x) {
-    float sa = 0.0f, sb = 0.0f;
-    for (long m = p0; m < p1; ++m) {
-      const float pa = p[m * 4 * C + k], pb = p[m * 4 * C + 2 * C + k];
-      const float d = df[m * 2 * C + k];
-      const float da = d * wsilu_grad(pa), db = d * wsilu_grad(pb);
-      dp[m * 4 * C + k] = da;
-      dp[m * 4 * C + 2 * C + k] = db;
-      fr[m * 2 * C + k] = from_f<T>(wsilu(pa) + wsilu(pb));
-      sa += da;
-      sb += db;
-    }
-    row[k] = sa;
-    row[2 * C + k] = sb;
-  }
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    float s1 = 0.0f, s2 = 0.0f;
-    const float qc = q ? q[c] : 1.0f;
-    for (long m = p0; m < p1; ++m) {
-      const float d = to_f(dy[m * C + c]);
-      if (q) {
-        dyq[m * C + c] = d * qc;
-        s2 += d * resid[m * C + c];
+                float* __restrict__ part, int ld, int H, int W, int C,
+                int th, int tw, int tiles_y, int tiles_x) {
+  // [sum s][channel of the group][lane][group]: s = dp at c, C + c,
+  // 2C + c, 3C + c, then dy (* q), dy * resid
+  __shared__ float red[6][4][LANES][GROUPS];
+  const int grp = threadIdx.x % GROUPS, lane = threadIdx.x / GROUPS;
+  const int c0 = blockIdx.y * SLICE, c = c0 + 4 * grp;
+  const Tile t = tile_of(blockIdx.x, th, tw, tiles_y, tiles_x);
+  float4 acc[6];
+#pragma unroll
+  for (int s = 0; s < 6; ++s) acc[s] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (c < C) {
+    const float4 qv = q ? load4(q + c) : make_float4(1.0f, 1.0f, 1.0f, 1.0f);
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {       // both pixels' loads in flight
+      const int i = lane + u * LANES;
+      const int y = t.y0 + i / tw, x = t.x0 + i % tw;
+      if (i >= th * tw || y >= H || x >= W) continue;
+      const long m = ((long)t.b * H + y) * W + x;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const long k = m * 4 * C + half * C + c;    // p_a; p_b is 2C on
+        const long kf = m * 2 * C + half * C + c;   // df and fr
+        const float4 pa = load4(p + k), pb = load4(p + k + 2 * C);
+        const float4 d = load4(df + kf);
+        float4 fa, ga, fb, gb;
+        wsilu_both(pa.x, fa.x, ga.x);
+        wsilu_both(pa.y, fa.y, ga.y);
+        wsilu_both(pa.z, fa.z, ga.z);
+        wsilu_both(pa.w, fa.w, ga.w);
+        wsilu_both(pb.x, fb.x, gb.x);
+        wsilu_both(pb.y, fb.y, gb.y);
+        wsilu_both(pb.z, fb.z, gb.z);
+        wsilu_both(pb.w, fb.w, gb.w);
+        const float4 da = d * ga, db = d * gb;
+        store4(dp + k, da);
+        store4(dp + k + 2 * C, db);
+        store4(fr + kf, fa + fb);
+        acc[half] += da;
+        acc[2 + half] += db;
       }
-      s1 += d * qc;
+      const float4 d = load4(dy + m * C + c);
+      if (q) {
+        const float4 dq = d * qv;
+        store4(dyq + m * C + c, dq);
+        acc[4] += dq;
+        acc[5] += d * load4(resid + m * C + c);
+      } else {
+        acc[4] += d;
+      }
     }
-    row[4 * C + c] = s1;
-    row[5 * C + c] = s2;
+  }
+#pragma unroll
+  for (int s = 0; s < 6; ++s) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) red[s][j][lane][grp] = get(acc[s], j);
+  }
+  __syncthreads();
+  float* row = part + (long)blockIdx.x * ld;
+  for (int o = threadIdx.x; o < 6 * SLICE; o += kThreads) {
+    const int s = o / SLICE, cc = o % SLICE;
+    if (c0 + cc >= C) continue;
+    const float* v = &red[s][cc % 4][0][cc / 4];
+    float sum = 0.0f;
+    for (int l = 0; l < LANES; ++l) sum += v[l * GROUPS];
+    row[s * C + c0 + cc] = sum;
   }
 }
 
 // (c) From dg (M, C), the gradient of g: dh = dw3x3^T(dg), the correlation
 // with the flipped taps, zero beyond each image's edge, and da0 = dh *
-// wsilu'(a0). Partials of thread block k, row k of part: [0, 9C) the tap
-// gradient sum dg(y, x) h(y + i - 1, x + j - 1) at 3 i + j, with h =
-// wsilu(a0) recomputed at each neighbour (not stored by (a)), [9C, 10C) sum
-// of dg (b2), [10C, 11C) sum of da0 (b0), [11C, 12C) sum of du (b3).
+// wsilu'(a0). Partials of tile t, row t of part: [0, 9C) the tap gradient
+// sum dg(y, x) h(y + i - 1, x + j - 1) at 3 i + j, with h = wsilu(a0),
+// [9C, 10C) sum of dg (b2), [10C, 11C) sum of da0 (b0), [11C, 12C) sum of
+// du (b3).
+//
+// The thread block copies dg and a0 over its tile and a one-pixel halo into
+// shared memory (16-byte cp.async, zero-filled beyond the image: dg is 0
+// there and wsilu(0) = 0, so the zeros are the padding), then turns a0 into
+// h once per element (wsilu' kept in registers at the tile's own pixels).
+// Warp r owns tile row r, a thread one channel: it walks the row with 3x3
+// windows of dg and h in registers (three new values of each a pixel), its
+// 9 tap and 3 bias sums in registers; the rows' sums are added in row order
+// in shared memory.
 __global__ void __launch_bounds__(kThreads)
 dw_bwd_kernel(const float* __restrict__ dg, const float* __restrict__ a0,
               const float* __restrict__ taps, const float* __restrict__ du,
-              float* __restrict__ da0,
-              float* __restrict__ part, int ld, int H, int W, int C, long M) {
-  const long p0 = blockIdx.x * (long)PIX;
-  const long p1 = p0 + PIX < M ? p0 + PIX : M;
-  float* row = part + blockIdx.x * (long)ld;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    float t[9];
+              float* __restrict__ da0, float* __restrict__ part, int ld,
+              int H, int W, int C, int th, int tw, int tiles_y,
+              int tiles_x) {
+  __shared__ __align__(16) float sg[HALO * HALO * SLICE];  // dg, then sums
+  __shared__ __align__(16) float sh[HALO * HALO * SLICE];  // a0, then h
+  const int lc = threadIdx.x % SLICE, r = threadIdx.x / SLICE;
+  const int c0 = blockIdx.y * SLICE, c = c0 + lc;
+  const int cs = C - c0 < SLICE ? C - c0 : SLICE;
+  const Tile t = tile_of(blockIdx.x, th, tw, tiles_y, tiles_x);
+  const long img = (long)t.b * H * W;
+  const int y = t.y0 + r;
+  const bool mine = r < th && y < H && lc < cs;   // this thread's row
+
+  // stage rows y0 - 1 .. y0 + th, columns x0 - 1 .. x0 + tw
+  const int hw = tw + 2, n = (th + 2) * hw * GROUPS;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const int q4 = i % GROUPS, pix = i / GROUPS;
+    const int sr = pix / hw, scol = pix % hw;
+    const int yy = t.y0 - 1 + sr, xx = t.x0 - 1 + scol;
+    const bool valid = yy >= 0 && yy < H && xx >= 0 && xx < W && 4 * q4 < cs;
+    const long src = valid ? (img + (long)yy * W + xx) * C + c0 + 4 * q4 : 0;
+    const int dst = (sr * HALO + scol) * SLICE + 4 * q4;
+    cp_async16(sg + dst, dg + src, valid);
+    cp_async16(sh + dst, a0 + src, valid);
+  }
+  // while the copies fly: the taps and du at this thread's pixels
+  float tp[9], dus[TILE];
 #pragma unroll
-    for (int k = 0; k < 9; ++k) t[k] = taps[k * C + c];
-    float dt[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0};
-    float s2 = 0.0f, s0 = 0.0f, s3 = 0.0f;
-    for (long m = p0; m < p1; ++m) {
-      const int x = m % W, y = (m / W) % H;
-      const long img = m - (long)y * W - x;
-      const float dgc = dg[m * C + c];
+  for (int k = 0; k < 9; ++k) tp[k] = lc < cs ? taps[k * C + c] : 0.0f;
+#pragma unroll
+  for (int x = 0; x < TILE; ++x)
+    dus[x] = mine && x < tw && t.x0 + x < W
+                 ? du[(img + (long)y * W + t.x0 + x) * C + c]
+                 : 0.0f;
+  cp_async_wait_all();
+  __syncthreads();
+
+  // h = wsilu(a0), each staged element once: warp r its own row (r + 1 in
+  // shared memory), warp 0 also the top halo row, warp th - 1 the bottom
+  float dsl[TILE] = {};
+  if (r < th) {
+    float* hr = sh + (r + 1) * HALO * SLICE + lc;
+#pragma unroll
+    for (int x = 0; x < HALO; ++x) {
+      if (x >= tw + 2) break;
+      float f, d;
+      wsilu_both(hr[x * SLICE], f, d);
+      hr[x * SLICE] = f;
+      if (x >= 1 && x <= TILE) dsl[x - 1] = d;
+    }
+    for (int edge = 0; edge < 2; ++edge) {
+      const int sr = edge == 0 ? 0 : th + 1;
+      if (r != (edge == 0 ? 0 : th - 1)) continue;
+      float* he = sh + sr * HALO * SLICE + lc;
+      for (int x = 0; x < tw + 2; ++x) he[x * SLICE] = wsilu(he[x * SLICE]);
+    }
+  }
+  __syncthreads();
+
+  float dt[9], s2 = 0.0f, s0 = 0.0f, s3 = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) dt[k] = 0.0f;
+  if (mine) {
+    // windows [i][j]: shared-memory row r + i, column x + j (pixel x of
+    // the tile sits at column x + 1)
+    const float* G = sg + r * HALO * SLICE + lc;
+    const float* Hs = sh + r * HALO * SLICE + lc;
+    float gw[3][3], hv[3][3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        gw[i][j] = G[(i * HALO + j) * SLICE];
+        hv[i][j] = Hs[(i * HALO + j) * SLICE];
+      }
+    }
+#pragma unroll
+    for (int x = 0; x < TILE; ++x) {
+      if (x >= tw) break;
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        gw[i][2] = G[(i * HALO + x + 2) * SLICE];
+        hv[i][2] = Hs[(i * HALO + x + 2) * SLICE];
+      }
+      const float dgc = gw[1][1];
       float dh = 0.0f;
 #pragma unroll
       for (int i = 0; i < 3; ++i) {
@@ -184,26 +362,43 @@ dw_bwd_kernel(const float* __restrict__ dg, const float* __restrict__ a0,
         for (int j = 0; j < 3; ++j) {
           // g at (y - i + 1, x - j + 1) read h here through tap 3 i + j;
           // h at (y + i - 1, x + j - 1) fed g here through the same tap
-          const int gy = y - i + 1, gx = x - j + 1;
-          if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-            dh += t[3 * i + j] * dg[(img + (long)gy * W + gx) * C + c];
-          const int hy = y + i - 1, hx = x + j - 1;
-          if (hy >= 0 && hy < H && hx >= 0 && hx < W)
-            dt[3 * i + j] +=
-                dgc * wsilu(a0[(img + (long)hy * W + hx) * C + c]);
+          dh += tp[3 * i + j] * gw[2 - i][2 - j];
+          dt[3 * i + j] += dgc * hv[i][j];
         }
       }
-      const float d = dh * wsilu_grad(a0[m * C + c]);
-      da0[m * C + c] = d;
-      s2 += dgc;
-      s0 += d;
-      s3 += du[m * C + c];
-    }
+      if (t.x0 + x < W) {
+        const float d = dh * dsl[x];
+        da0[(img + (long)y * W + t.x0 + x) * C + c] = d;
+        s2 += dgc;
+        s0 += d;
+        s3 += dus[x];
+      }
 #pragma unroll
-    for (int k = 0; k < 9; ++k) row[k * C + c] = dt[k];
-    row[9 * C + c] = s2;
-    row[10 * C + c] = s0;
-    row[11 * C + c] = s3;
+      for (int i = 0; i < 3; ++i) {
+        gw[i][0] = gw[i][1];
+        gw[i][1] = gw[i][2];
+        hv[i][0] = hv[i][1];
+        hv[i][1] = hv[i][2];
+      }
+    }
+  }
+  __syncthreads();                  // every window read: sg holds the sums
+  float* red = sg;                  // [12][TILE rows][SLICE]
+#pragma unroll
+  for (int k = 0; k < 9; ++k) red[(k * TILE + r) * SLICE + lc] = dt[k];
+  red[(9 * TILE + r) * SLICE + lc] = s2;
+  red[(10 * TILE + r) * SLICE + lc] = s0;
+  red[(11 * TILE + r) * SLICE + lc] = s3;
+  __syncthreads();
+  float* row = part + (long)blockIdx.x * ld;
+  for (int o = threadIdx.x; o < 12 * SLICE; o += kThreads) {
+    const int k = o / SLICE, cc = o % SLICE;
+    if (cc >= cs) continue;
+    const float* v = red + k * TILE * SLICE + cc;
+    float sum = 0.0f;
+#pragma unroll
+    for (int rr = 0; rr < TILE; ++rr) sum += v[rr * SLICE];
+    row[k * C + c0 + cc] = sum;
   }
 }
 
@@ -253,7 +448,20 @@ inline int blocks_for(long n) {
   return (int)(b < 4096 ? (b > 0 ? b : 1) : 4096);
 }
 
-inline int pixel_blocks(long M) { return (int)((M + PIX - 1) / PIX); }
+// The tile grid of gate_bwd and dw_bwd (tiles x channel slices), or false
+// for a shape or tile they do not take.
+inline bool tile_grid(int B, int H, int W, int C, int th, int tw,
+                      int* tiles_y, int* tiles_x, dim3* grid) {
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || C % 8 != 0) return false;
+  if (th < 1 || th > TILE || th > H || tw < 1 || tw > TILE || tw > W)
+    return false;
+  *tiles_y = (H + th - 1) / th;
+  *tiles_x = (W + tw - 1) / tw;
+  const long tiles = (long)B * *tiles_y * *tiles_x;
+  if (tiles > 0x7fffffffL) return false;
+  *grid = dim3((unsigned)tiles, (C + SLICE - 1) / SLICE);
+  return true;
+}
 
 }  // namespace dcbg
 
@@ -270,14 +478,15 @@ void dw_fwd_launch(const void* a0, const void* taps, const void* b2, void* g,
 template <typename T>
 void gate_bwd_launch(const void* df, const void* p, const void* dy,
                      const void* q, const void* resid, void* dp, void* fr,
-                     void* dyq, void* part, int ld, int C, long M,
+                     void* dyq, void* part, int ld, int H, int W, int C,
+                     int th, int tw, int tiles_y, int tiles_x, dim3 grid,
                      cudaStream_t stream) {
-  gate_bwd_kernel<T><<<pixel_blocks(M), kThreads, 0, stream>>>(
+  gate_bwd_kernel<T><<<grid, kThreads, 0, stream>>>(
       static_cast<const float*>(df), static_cast<const float*>(p),
       static_cast<const T*>(dy), static_cast<const float*>(q),
       static_cast<const float*>(resid), static_cast<float*>(dp),
       static_cast<T*>(fr), static_cast<float*>(dyq),
-      static_cast<float*>(part), ld, C, M);
+      static_cast<float*>(part), ld, H, W, C, th, tw, tiles_y, tiles_x);
 }
 
 // f32: g in fp32 (else bf16).
@@ -294,33 +503,39 @@ extern "C" int ssgvc_dw_fwd(const void* a0, const void* taps, const void* b2,
   return cudaGetLastError();
 }
 
-// f32: dy and fr in fp32 (else bf16).
+// f32: dy and fr in fp32 (else bf16). th x tw: the partition's tile.
 extern "C" int ssgvc_gate_bwd(const void* df, const void* p, const void* dy,
                               const void* q, const void* resid, void* dp,
-                              void* fr, void* dyq, void* part, int ld, int C,
-                              long M, int f32, void* stream) {
-  if (C <= 0 || M <= 0) return cudaErrorInvalidValue;
+                              void* fr, void* dyq, void* part, int ld, int B,
+                              int H, int W, int C, int th, int tw, int f32,
+                              void* stream) {
+  int tiles_y, tiles_x;
+  dim3 grid;
+  if (!tile_grid(B, H, W, C, th, tw, &tiles_y, &tiles_x, &grid))
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (f32)
-    gate_bwd_launch<float>(df, p, dy, q, resid, dp, fr, dyq, part, ld, C, M,
-                           st);
+    gate_bwd_launch<float>(df, p, dy, q, resid, dp, fr, dyq, part, ld, H, W,
+                           C, th, tw, tiles_y, tiles_x, grid, st);
   else
-    gate_bwd_launch<bf16>(df, p, dy, q, resid, dp, fr, dyq, part, ld, C, M,
-                          st);
+    gate_bwd_launch<bf16>(df, p, dy, q, resid, dp, fr, dyq, part, ld, H, W,
+                          C, th, tw, tiles_y, tiles_x, grid, st);
   return cudaGetLastError();
 }
 
 extern "C" int ssgvc_dw_bwd(const void* dg, const void* a0, const void* taps,
                             const void* du, void* da0, void* part, int ld,
-                            int B, int H, int W, int C, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || C <= 0) return cudaErrorInvalidValue;
-  const long M = (long)B * H * W;
-  dw_bwd_kernel<<<pixel_blocks(M), kThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
+                            int B, int H, int W, int C, int th, int tw,
+                            void* stream) {
+  int tiles_y, tiles_x;
+  dim3 grid;
+  if (!tile_grid(B, H, W, C, th, tw, &tiles_y, &tiles_x, &grid))
+    return cudaErrorInvalidValue;
+  dw_bwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(dg), static_cast<const float*>(a0),
       static_cast<const float*>(taps), static_cast<const float*>(du),
-      static_cast<float*>(da0),
-      static_cast<float*>(part), ld, H, W, C, M);
+      static_cast<float*>(da0), static_cast<float*>(part), ld, H, W, C, th,
+      tw, tiles_y, tiles_x);
   return cudaGetLastError();
 }
 

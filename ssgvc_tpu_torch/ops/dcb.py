@@ -51,7 +51,7 @@ computed width of 64 ring B has bytes of its own (:func:`ring_b_own`).
 from __future__ import annotations
 
 import ctypes
-from typing import Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -70,6 +70,9 @@ SMEM_LIMIT = 232448
 launches = 0
 launches_f32 = 0
 launches_tf32 = 0
+#: The SIMT fp32 kernel's launches by operand shape since last cleared:
+#: (B, H, W, C, shortcut, q given) -> count.
+shape_launches_f32: Dict[tuple, int] = {}
 
 Params = Tuple[torch.Tensor, ...]   # (w0, b0, w2, b2, w3, b3, wf0, bf0, wf2, bf2)
 
@@ -645,6 +648,8 @@ def dcb_f32_cuda(x: torch.Tensor, packed: torch.Tensor,
     y = torch.empty_like(x)
     launch_f32(x, y, y, packed, q_ptr, 1, shortcut, "dcb_f32")
     launches_f32 += 1
+    key = (*x.shape, bool(shortcut), q is not None)
+    shape_launches_f32[key] = shape_launches_f32.get(key, 0) + 1
     return y
 
 

@@ -31,7 +31,7 @@ is a multiple of 8 up to :data:`MAX_CHANNELS`.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -52,6 +52,9 @@ MAX_CHANNELS = 384
 launches = 0
 launches_f32 = 0
 launches_tf32 = 0
+#: The SIMT fp32 kernel's launches by operand shape since last cleared:
+#: (B, H, W, C, N, q given) -> count.
+shape_launches_f32: Dict[tuple, int] = {}
 
 
 def buffer_plan(n: int) -> List[Tuple[str, str]]:
@@ -123,6 +126,9 @@ def _chain_f32(x, packed, q_last, what, tf32):
     y = torch.empty_like(x)
     scratch = torch.empty_like(x) if n > 1 else y
     launch_f32(x, y, scratch, packed, q_ptr, n, False, what, tf32=tf32)
+    if not tf32:
+        key = (*x.shape, n, q_last is not None)
+        shape_launches_f32[key] = shape_launches_f32.get(key, 0) + 1
     return y
 
 

@@ -19,12 +19,15 @@ kernel or raises:
   * :func:`dw_fwd` (a): g from a0, the depthwise 3x3 of wsilu(a0) with
     zero padding per image;
   * :func:`gate_bwd` (b): dp from df through wsilu' for both 2C halves, the
-    FFN's hidden f, dy * q, and per-block partial sums for bf0, bf2 and q;
-  * :func:`dw_bwd` (c): da0 = dw3x3^T(dg) * wsilu'(a0), and partial sums
-    for the taps (wsilu(a0) recomputed at each neighbour), b2, b0 and b3;
+    FFN's hidden f, dy * q, and per-tile partial sums for bf0, bf2 and q;
+  * :func:`dw_bwd` (c): da0 = dw3x3^T(dg) * wsilu'(a0), and per-tile partial
+    sums for the taps (against h = wsilu(a0)), b2, b0 and b3;
   * :func:`grad_reduce` (d): the partials' rows summed in a fixed order,
     the partition set by the partials' shape alone
     (:func:`grad_reduce_order` is the same additions on the CPU).
+
+The partials have one row per tile of :func:`bwd_tiles` on the card (one
+on the CPU), a partition set by the activation's shape alone.
 
 Every rounding is the identity in the backward (the straight-through
 gradient autograd gives ``.to(dtype)``); gradients are fp32 inside, dx
@@ -42,11 +45,14 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .dcb import KERNEL_DTYPES, Params, dcb, packed_numel, wsilu
+from .dcb import (KERNEL_DTYPES, WIDTH_STEP, Params, dcb, packed_numel,
+                  wsilu)
 from .dcb_chain import dcb_chain
 
-#: Pixels per thread block of the partial sums (csrc/dcb_bwd.cu).
-PIX = 8
+#: The partials' partition (csrc/dcb_bwd.cu): tiles of at most TILE x TILE
+#: pixels of one image, one partials row each; gate_bwd and dw_bwd give a
+#: thread block one tile's SLICE channels.
+TILE, SLICE = 8, 32
 #: Kernel launches since each count was last set to 0.
 launches = {"dw_fwd": 0, "gate_bwd": 0, "dw_bwd": 0, "grad_reduce": 0}
 #: The same launches by operand shape since last cleared: (kernel, key) ->
@@ -69,12 +75,39 @@ def wsilu_grad(v: torch.Tensor) -> torch.Tensor:
     return s + 4.0 * v * s * (1.0 - s)
 
 
+def bwd_tiles(shape: Sequence[int]) -> Tuple[int, int, int]:
+    """(th, tw, rows) of the partials' partition of a (B, H, W, C)
+    activation: tiles of th x tw pixels (th = min(TILE, H), tw = min(TILE,
+    W)) that never cross an image, the last tile row and column cut off at
+    the image's edge; one partials row per tile, ordered (image, tile row,
+    tile column). A function of the shape alone."""
+    b, h, w, _ = shape
+    th, tw = min(TILE, h), min(TILE, w)
+    return th, tw, b * -(-h // th) * -(-w // tw)
+
+
 def partial_rows(x: torch.Tensor) -> int:
     """Rows of the partials matrix for a (B, H, W, C) activation: one per
-    thread block on the card, one on the CPU."""
+    tile of :func:`bwd_tiles` on the card, one on the CPU."""
     if x.device.type == "cpu":
         return 1
-    return -(-x[..., 0].numel() // PIX)
+    return bwd_tiles(x.shape)[2]
+
+
+def tile_sums(t: torch.Tensor, rows: int) -> torch.Tensor:
+    """Per-pixel values ``t`` (B, H, W, K) summed over each partials row's
+    pixels: (rows, K). One row sums every pixel; otherwise ``rows`` must be
+    :func:`bwd_tiles`' count, and row r sums tile r's pixels."""
+    if rows == 1:
+        return t.sum((0, 1, 2))[None]
+    b, h, w, k = t.shape
+    th, tw, n = bwd_tiles(t.shape)
+    if rows != n:
+        raise ValueError(f"partials: {rows} rows, the partition of "
+                         f"{tuple(t.shape)} has {n}")
+    ny, nx = -(-h // th), -(-w // tw)
+    t = F.pad(t, (0, 0, 0, nx * tw - w, 0, ny * th - h))
+    return t.reshape(b, ny, th, nx, tw, k).sum((2, 4)).reshape(n, k)
 
 
 # ------------------------------------------------------------ plain versions
@@ -93,37 +126,47 @@ def dw_fwd_plain(a0: torch.Tensor, taps: torch.Tensor, b2: torch.Tensor,
 
 def gate_bwd_plain(df, p, dy, q, resid, part, col):
     """(dp, f, dy * q or None); the sums of dp, dy (* q) and (with q) dy *
-    resid written to ``part[0, col:col + 6C]``."""
+    resid written to ``part[:, col:col + 6C]``, by :func:`tile_sums` (one
+    row: over every pixel)."""
     c = dy.shape[-1]
+    rows = part.shape[0]
     pa, pb = p[..., :2 * c], p[..., 2 * c:]
     dp = torch.cat([df * wsilu_grad(pa), df * wsilu_grad(pb)], dim=-1)
     fr = (wsilu(pa) + wsilu(pb)).to(dy.dtype)
     dyf = dy.float()
     dyq = dyf * q if q is not None else None
-    dims = tuple(range(dy.dim() - 1))
-    sums = [dp.sum(dims), (dyq if q is not None else dyf).sum(dims),
-            (dyf * resid).sum(dims) if q is not None else dyf.new_zeros(c)]
-    part[0, col:col + GATE_COLS * c] = torch.cat(sums)
+    sums = [tile_sums(dp, rows),
+            tile_sums(dyq if q is not None else dyf, rows),
+            tile_sums(dyf * resid, rows) if q is not None
+            else dyf.new_zeros(rows, c)]
+    part[:, col:col + GATE_COLS * c] = torch.cat(sums, 1)
     return dp, fr, dyq
 
 
 def dw_bwd_plain(dg, a0, taps, du, part, col):
     """da0 = dw3x3^T(dg) * wsilu'(a0); the sums of the tap gradient (9, C)
     (against h = wsilu(a0)), dg, da0 and du written to
-    ``part[0, col:col + 12C]``."""
+    ``part[:, col:col + 12C]``, by :func:`tile_sums` (one row: over every
+    pixel)."""
     c = dg.shape[-1]
+    rows = part.shape[0]
     w = taps.t().reshape(c, 1, 3, 3)
     dgn, hn = dg.permute(0, 3, 1, 2), wsilu(a0).permute(0, 3, 1, 2)
     dh = F.conv_transpose2d(dgn, w, padding=1, groups=c)
     da0 = dh.permute(0, 2, 3, 1) * wsilu_grad(a0)
-    # tap (i, j): sum over pixels of dg(y, x) h(y + i - 1, x + j - 1)
+    # tap (i, j): dg(y, x) h(y + i - 1, x + j - 1), summed over pixels
     hp = F.pad(hn, (1, 1, 1, 1))
     hh, ww = dg.shape[1], dg.shape[2]
-    dtap = torch.stack([(dgn * hp[:, :, i:i + hh, j:j + ww]).sum((0, 2, 3))
-                        for i in range(3) for j in range(3)])
-    dims = tuple(range(dg.dim() - 1))
-    part[0, col:col + DW_COLS * c] = torch.cat(
-        [dtap.reshape(-1), dg.sum(dims), da0.sum(dims), du.sum(dims)])
+    prods = [dgn * hp[:, :, i:i + hh, j:j + ww]
+             for i in range(3) for j in range(3)]
+    if rows == 1:
+        dtap = torch.cat([t.sum((0, 2, 3)) for t in prods])[None]
+    else:
+        dtap = torch.cat([tile_sums(t.permute(0, 2, 3, 1), rows)
+                          for t in prods], 1)
+    part[:, col:col + DW_COLS * c] = torch.cat(
+        [dtap, tile_sums(dg, rows), tile_sums(da0, rows),
+         tile_sums(du, rows)], 1)
     return da0
 
 
@@ -159,10 +202,10 @@ def grad_reduce_order(part: torch.Tensor) -> torch.Tensor:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("dcb_bwd")
     if lib.ssgvc_dw_fwd.argtypes is None:
-        vp, i, lg = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+        vp, i = ctypes.c_void_p, ctypes.c_int
         lib.ssgvc_dw_fwd.argtypes = [vp] * 4 + [i] * 5 + [vp]
-        lib.ssgvc_gate_bwd.argtypes = [vp] * 9 + [i, i, lg, i, vp]
-        lib.ssgvc_dw_bwd.argtypes = [vp] * 6 + [i] * 5 + [vp]
+        lib.ssgvc_gate_bwd.argtypes = [vp] * 9 + [i] * 8 + [vp]
+        lib.ssgvc_dw_bwd.argtypes = [vp] * 6 + [i] * 7 + [vp]
         lib.ssgvc_grad_reduce.argtypes = [vp, vp, vp, i, i, vp]
         for fn in (lib.ssgvc_dw_fwd, lib.ssgvc_gate_bwd, lib.ssgvc_dw_bwd,
                    lib.ssgvc_grad_reduce):
@@ -195,6 +238,8 @@ def _launch(name: str, key: tuple, *args) -> None:
 
 
 def _part_ptr(part: torch.Tensor, col: int, cols: int, rows: int) -> int:
+    """The pointer of the partials' column ``col``, or raise unless ``part``
+    is a contiguous fp32 (rows, >= col + cols) tensor."""
     if (part.dtype != torch.float32 or not part.is_contiguous()
             or part.shape[0] != rows or col + cols > part.shape[1]):
         raise ValueError(f"partials: expected a contiguous float32 ({rows}, "
@@ -226,44 +271,65 @@ def dw_fwd_cuda(a0, taps, b2, out_dtype):
     return g
 
 
+def _bwd_shape(what: str, t: torch.Tensor) -> Tuple[int, int, int, int]:
+    """The (B, H, W, C) of gate_bwd's or dw_bwd's activation, or raise
+    unless C is a multiple of WIDTH_STEP, as the forward kernels take it
+    (these move 4 channels at a time; no other C runs)."""
+    if t.dim() != 4 or t.shape[-1] % WIDTH_STEP:
+        raise ValueError(f"{what}: kernel takes (B, H, W, C) with C a "
+                         f"multiple of {WIDTH_STEP}, got {tuple(t.shape)}")
+    return tuple(t.shape)
+
+
+def _aligned(what: str, ptrs: Sequence[int]) -> None:
+    if any(p % 16 for p in ptrs):
+        raise ValueError(f"{what}: kernel reads and writes 16 bytes at a "
+                         "time: every operand must be 16-byte aligned")
+
+
 def gate_bwd_cuda(df, p, dy, q, resid, part, col):
-    c = dy.shape[-1]
-    m = dy[..., 0].numel()
+    b, hh, ww, c = shape = _bwd_shape("gate_bwd", dy)
     dev, f32 = dy.device, torch.float32
     act = _act_dtype("gate_bwd", dy.dtype)
-    lead = tuple(dy.shape[:-1])
+    lead = shape[:-1]
+    if q is not None and q.data_ptr() % 16:
+        q = q.clone()                   # a small view off 16 bytes: copied
     with torch.cuda.device(dev):
         ptrs = [_check("gate_bwd df", df, f32, lead + (2 * c,), dev),
                 _check("gate_bwd p", p, f32, lead + (4 * c,), dev),
-                _check("gate_bwd dy", dy, dy.dtype, lead + (c,), dev),
+                _check("gate_bwd dy", dy, dy.dtype, shape, dev),
                 _check("gate_bwd q", q, f32, (c,), dev),
-                _check("gate_bwd resid", resid, f32, lead + (c,), dev)]
+                _check("gate_bwd resid", resid, f32, shape, dev)]
         if (q is None) != (resid is None):
             raise ValueError("gate_bwd: q and resid go together")
         dp = torch.empty_like(p)
         fr = torch.empty(lead + (2 * c,), dtype=dy.dtype, device=dev)
-        dyq = torch.empty(dy.shape, dtype=f32, device=dev) if q is not None \
+        dyq = torch.empty(shape, dtype=f32, device=dev) if q is not None \
             else None
-        part_ptr = _part_ptr(part, col, GATE_COLS * c, -(-m // PIX))
-        _launch("gate_bwd", lead + (c, q is not None), *ptrs, dp.data_ptr(),
-                fr.data_ptr(), 0 if dyq is None else dyq.data_ptr(),
-                part_ptr, part.shape[1], c, m, act)
+        outs = [dp.data_ptr(), fr.data_ptr(),
+                0 if dyq is None else dyq.data_ptr()]
+        _aligned("gate_bwd", ptrs + outs)
+        th, tw, rows = bwd_tiles(shape)
+        part_ptr = _part_ptr(part, col, GATE_COLS * c, rows)
+        _launch("gate_bwd", shape + (q is not None,), *ptrs, *outs,
+                part_ptr, part.shape[1], b, hh, ww, c, th, tw, act)
     return dp, fr, dyq
 
 
 def dw_bwd_cuda(dg, a0, taps, du, part, col):
-    b, hh, ww, c = dg.shape
+    b, hh, ww, c = shape = _bwd_shape("dw_bwd", dg)
     dev, f32 = dg.device, torch.float32
-    shape = (b, hh, ww, c)
     with torch.cuda.device(dev):
         ptrs = [_check("dw_bwd dg", dg, f32, shape, dev),
                 _check("dw_bwd a0", a0, f32, shape, dev),
                 _check("dw_bwd taps", taps, f32, (9, c), dev),
                 _check("dw_bwd du", du, f32, shape, dev)]
         da0 = torch.empty_like(dg)
-        part_ptr = _part_ptr(part, col, DW_COLS * c, -(-(b * hh * ww) // PIX))
+        _aligned("dw_bwd", ptrs[:2] + [da0.data_ptr()])
+        th, tw, rows = bwd_tiles(shape)
+        part_ptr = _part_ptr(part, col, DW_COLS * c, rows)
         _launch("dw_bwd", shape, *ptrs, da0.data_ptr(), part_ptr,
-                part.shape[1], b, hh, ww, c)
+                part.shape[1], b, hh, ww, c, th, tw)
     return da0
 
 

@@ -44,50 +44,88 @@ def _card():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("act", ["bfloat16", "float32"])
 @pytest.mark.parametrize("h,w,c,with_q",
                          [s[:4] for s in chip_smoke.BWD_SHAPES]
-                         + [(7, 9, 64, True), (3, 5, 368, False)])
-def test_backward_kernels_match_plain(h, w, c, with_q):
+                         + [(7, 9, 64, True), (3, 5, 368, False),
+                            (5, 7, 32, True), (1, 1, 96, False),
+                            (2, 2, 32, False), (12, 20, 96, True),
+                            (16, 16, 96, False)])
+def test_backward_kernels_match_plain(h, w, c, with_q, act):
+    """Each kernel's outputs, and each partials row against its tile's
+    plain sums (chip_smoke.check_backward_kernels), at the training shapes,
+    ragged and one-tile frames and the RD recipe's widths, with the block's
+    activations in bf16 and in fp32."""
     from ssgvc_tpu_torch.ops import dcb_grad as dg
 
     dev = _card()
     rng = np.random.default_rng(h * w + c)
     before = dict(dg.launches)
     errs = chip_smoke.check_backward_kernels(
-        torch, chip_smoke.bwd_case(torch, rng, 4, h, w, c, with_q, dev))
+        torch, chip_smoke.bwd_case(torch, rng, 4, h, w, c, with_q, dev,
+                                   getattr(torch, act)))
     assert set(errs) == set(dg.launches)
     assert all(dg.launches[k] > before[k] for k in dg.launches)
 
 
 @pytest.mark.gpu
-def test_backward_kernels_are_deterministic():
-    """No atomics: the same inputs give the same bits."""
+@pytest.mark.parametrize("act", ["bfloat16", "float32"])
+def test_backward_kernels_are_deterministic(act):
+    """No atomics: the same inputs give the same bits, outputs and partials
+    alike."""
     from ssgvc_tpu_torch.ops import dcb_grad as dg
 
     dev = _card()
+    dt = getattr(torch, act)
     case = chip_smoke.bwd_case(torch, np.random.default_rng(5), 4, 16, 16,
-                               256, True, dev)
+                               256, True, dev, dt)
     runs = []
     for _ in range(2):
         part = torch.zeros(dg.partial_rows(case["a0"]),
                            (dg.GATE_COLS + dg.DW_COLS) * 256, device=dev)
-        dp, _, _ = dg.gate_bwd_cuda(case["df"], case["p"], case["dy"],
-                                    case["q"], case["resid"], part, 0)
-        g = dg.dw_fwd_cuda(case["a0"], case["taps"], case["b2"],
-                           torch.bfloat16)
+        dp, fr, dyq = dg.gate_bwd_cuda(case["df"], case["p"], case["dy"],
+                                       case["q"], case["resid"], part, 0)
+        g = dg.dw_fwd_cuda(case["a0"], case["taps"], case["b2"], dt)
         da0 = dg.dw_bwd_cuda(case["dg"], case["a0"], case["taps"],
                              case["du"], part, dg.GATE_COLS * 256)
-        runs.append((dp, g, da0, dg.grad_reduce_cuda(part)))
+        runs.append((dp, fr, dyq, g, da0, part, dg.grad_reduce_cuda(part)))
     assert all(torch.equal(a, b) for a, b in zip(*runs))
-    # grad_reduce is grad_reduce_order's additions, in its order, also past
-    # one chunk of rows (a second pass)
-    assert torch.equal(runs[0][3].cpu(), dg.grad_reduce_order(part.cpu()))
+    # the new partition: one partials row per 8x8 tile, 16 at 4x16x16
+    assert part.shape[0] == 16
+    # grad_reduce is grad_reduce_order's additions, in its order, on the
+    # partials the kernels wrote, and also past one chunk of rows (a
+    # second pass)
+    assert torch.equal(runs[0][-1].cpu(), dg.grad_reduce_order(part.cpu()))
     rng = np.random.default_rng(6)
     for rows in (1, 7, 128, dg.RED_CHUNK + 3):
         part = torch.tensor(rng.standard_normal((rows, 18 * 40)),
                             dtype=torch.float32, device=dev)
         assert torch.equal(dg.grad_reduce_cuda(part).cpu(),
                            dg.grad_reduce_order(part.cpu())), rows
+
+
+@pytest.mark.gpu
+def test_backward_kernels_refuse_what_they_do_not_take():
+    """gate_bwd and dw_bwd take C a multiple of 8 and 16-byte aligned
+    operands; anything else raises (there is no other route)."""
+    from ssgvc_tpu_torch.ops import dcb_grad as dg
+
+    dev = _card()
+    k = chip_smoke.bwd_case(torch, np.random.default_rng(7), 2, 4, 4, 12,
+                            True, dev)
+    part = torch.zeros(2, 18 * 12, device=dev)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        dg.gate_bwd_cuda(k["df"], k["p"], k["dy"], k["q"], k["resid"],
+                         part, 0)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        dg.dw_bwd_cuda(k["dg"], k["a0"], k["taps"], k["du"], part, 72)
+    k = chip_smoke.bwd_case(torch, np.random.default_rng(7), 2, 4, 4, 8,
+                            False, dev)
+    off = torch.zeros(2 * 4 * 4 * 8 + 1, device=dev)[1:].reshape(2, 4, 4, 8)
+    off.copy_(k["dg"])
+    with pytest.raises(ValueError, match="aligned"):
+        dg.dw_bwd_cuda(off, k["a0"], k["taps"], k["du"],
+                       torch.zeros(2, 18 * 8, device=dev), 48)
 
 
 @pytest.mark.gpu
