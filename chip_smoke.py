@@ -8,10 +8,12 @@ Phases (any failure exits non-zero and prints no result line):
   2. build: the DepthConvBlock kernels from ssgvc_tpu_torch/csrc (dcb,
      dcb_chain, dcb_bwd, dcb_f32, dcb_tf32), one nvcc each, started
      together; prints registers, shared memory and spill bytes of every
-     instantiation (one per computed width CP), the 3xTF32 kernel's
-     shared-memory plan as compiled (it fails unless ops/dcb.py's mirror
-     agrees), and the wgmma kernels' wgmma (HGMMA) and bulk-copy (UBLKCP)
-     instructions from cuobjdump (none of either fails);
+     instantiation (one per computed width CP; the SIMT kernel's one per
+     C), the 3xTF32 and SIMT kernels' shared-memory plans and the SIMT
+     kernel's unit plans and K split as compiled (each fails unless
+     ops/dcb.py's mirror agrees), and the wgmma kernels' wgmma (HGMMA) and
+     every weight-staging kernel's bulk-copy (UBLKCP) instructions from
+     cuobjdump (none fails);
   3. kernels: each kernel at every shape the P-frame and I-frame codecs
      give it, against its plain PyTorch version on the same bf16 inputs
      (relative Frobenius error <= 1e-2), timed with CUDA events, beside its
@@ -112,10 +114,12 @@ Phases (any failure exits non-zero and prints no result line):
      fp32 max |d| / max |ref| 1e-5 with TF32 off), one launch per call,
      timed beside its plain version and its bound (989 TFLOP/s bf16; fp32
      by route: 3 x 495 TFLOP/s TF32 on the 3xTF32 kernel, C >= 72, 67
-     TFLOP/s on the SIMT one below); then the fp32 kernels at every P-frame
-     and I-frame shape (all on the 3xTF32 route) as phase 3 times the bf16
-     ones, with this checkout's SIMT kernel on the same inputs (simt_ms)
-     and --prev-port's fp32 kernels in the same turns;
+     TFLOP/s on the SIMT one below; at C <= 64 the 3xTF32 kernel on the
+     same inputs beside the SIMT one, and with --prev-port the other
+     checkout's SIMT kernel in turns, prev_ms); then the fp32 kernels at
+     every P-frame and I-frame shape (all on the 3xTF32 route) as phase 3
+     times the bf16 ones, with --prev-port's fp32 kernels in the same
+     turns;
  15. fp32 at full width: DMCIConfig() and the performance DMCConfig at
      their default dtype, float32, on phases 4-5's weights, an I-frame and
      FP32_P_FRAMES P-frames of 1088x1920 with packed io, launches per frame
@@ -138,8 +142,9 @@ Phases (any failure exits non-zero and prints no result line):
      liveness_collapsed on two of them; then the SIMT fp32 kernels
      (phase 14's C <= 64 route) at each operand shape the last micro-step
      launched them at, against their plain versions (fp32 1e-5) and timed
-     beside them and the bound: their kernels-line entries are these
-     times x launches per micro-step;
+     beside them and the bound (with --prev-port the other checkout's SIMT
+     kernel in turns, prev_ms): their kernels-line entries are these times
+     x launches per micro-step;
  18. coded fp32: VideoCodec at rd-mid in float32, I + 2 P of 192x192,
      every decoded frame and DPB torch.equal to the encoder's.
 
@@ -436,8 +441,9 @@ def phase_build():
                 # template flags: dcb [shortcut, padded], dcb_chain [padded]
                 c = re.search(r"ILi(\d+)E((?:Lb\dE)*)", entry)
                 flags = re.findall(r"Lb(\d)E", c.group(2)) if c else []
-                what = (f"CP={c.group(1)}" + (f" [{','.join(flags)}]"
-                                              if flags else "")
+                width = "C" if name == "dcb_f32" else "CP"
+                what = (f"{width}={c.group(1)}" + (f" [{','.join(flags)}]"
+                                                   if flags else "")
                         if c else entry)
                 print(f"  [{name}] {what}: {spill}, {m.group(1)} registers")
     print("  [dcb, dcb_chain] dynamic shared memory, any N: " + ", ".join(
@@ -455,8 +461,31 @@ def phase_build():
         f"CP={c} {b} B ({dcb_ops.tf32_slots(c)} slots of "
         f"{dcb_ops.tf32_slot_bytes(c)} B a warpgroup)"
         for c, b in plan.items()))
+    # the SIMT kernel's shared memory, unit plans and K split, as compiled
+    lib = _build.load("dcb_f32")
+    ip = ctypes.POINTER(ctypes.c_int)
+    lib.ssgvc_dcb_f32_smem.argtypes = [ctypes.c_int]
+    lib.ssgvc_dcb_f32_ksplit.argtypes = [ctypes.c_int]
+    lib.ssgvc_dcb_f32_plan.argtypes = [ctypes.c_int] * 3 + [ip]
+    widths = range(dcb_ops.WIDTH_STEP, dcb_ops.F32_MAX_CHANNELS + 1,
+                   dcb_ops.WIDTH_STEP)
+    smem = {c: lib.ssgvc_dcb_f32_smem(c) for c in widths}
+    if smem != {c: dcb_ops.f32_smem_bytes(c) for c in widths}:
+        fail(f"dcb_f32 shared memory {smem} != ops/dcb.py's")
+    if any(lib.ssgvc_dcb_f32_ksplit(c) != dcb_ops.f32_ksplit(c)
+           for c in widths):
+        fail("dcb_f32 K split != ops/dcb.py's")
+    out = (ctypes.c_int * len(dcb_ops.F32Plan._fields))()
+    for b, h, w in F32_PLAN_SHAPES:
+        lib.ssgvc_dcb_f32_plan(b, h, w, out)
+        if tuple(out) != tuple(dcb_ops.f32_plan(b, h, w)):
+            fail(f"dcb_f32 plan of {(b, h, w)}: {tuple(out)} != "
+                 f"{dcb_ops.f32_plan(b, h, w)}")
+    print("  [dcb_f32] dynamic shared memory: " + ", ".join(
+        f"C={c} {b} B" for c, b in smem.items()) + f"; unit plans of "
+        f"{len(F32_PLAN_SHAPES)} shapes and the K split as ops/dcb.py's")
     cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
-    for name in ("dcb", "dcb_chain", "dcb_tf32"):   # the rest are SIMT
+    for name in ("dcb", "dcb_chain", "dcb_tf32", "dcb_f32"):
         sass = subprocess.run([str(cuobjdump), "-sass",
                                str(_build._lib_path(name))],
                               capture_output=True, text=True,
@@ -466,7 +495,7 @@ def phase_build():
         print(f"  [{name}] SASS: {len(hgmma)} HGMMA, "
               f"{sass.count('UBLKCP')} UBLKCP (bulk copy), e.g. "
               f"{hgmma[0] if hgmma else 'none'}")
-        if not hgmma or "UBLKCP" not in sass:
+        if "UBLKCP" not in sass or (name != "dcb_f32" and not hgmma):
             fail(f"{name} kernel issues no wgmma or no bulk copy")
 
 
@@ -487,13 +516,35 @@ def load_prev_port(path):
     return importlib.import_module("prev_port.layers.blocks")
 
 
+def prev_modules(torch, prev, c, shortcut, blocks, dtype):
+    """The other checkout's DepthConvBlocks (``prev``: its layers.blocks)
+    holding these weights, on the card in ``dtype``."""
+    mods = [prev.DepthConvBlock(c, shortcut=shortcut, dtype=dtype,
+                                device="cuda") for _ in blocks]
+    with torch.no_grad():
+        for m, params in zip(mods, blocks):
+            for dst, src in zip(m.core_params(), params):
+                dst.copy_(src)
+    return mods
+
+
+def timed_turns(torch, fns, reps):
+    """Mean cuda_ms of each of fns ({"new": fn, "prev": fn}) over the turns
+    prev, new, new, prev, and each turn's time."""
+    order = ["prev", "new", "new", "prev"] if "prev" in fns else ["new"]
+    times = {k: [] for k in fns}
+    for k in order:
+        times[k].append(cuda_ms(torch, fns[k], reps))
+    return {k: sum(v) / len(v) for k, v in times.items()}, times
+
+
 def phase_kernels(torch, seed, card, prev=None, f32=False):
     """Both kernels at every P-frame and I-frame shape against their plain
     versions, timed: the bf16 wgmma kernels (with N launches of the single
     block beside each chain), or with ``f32`` the fp32 kernels the shapes
-    route to, 3xTF32 (csrc/dcb_tf32.cu) at every main-path width, with this
-    checkout's SIMT kernel (csrc/dcb_f32.cu) on the same inputs beside them;
-    --prev-port's kernels in turns in both dtypes."""
+    route to, 3xTF32 (csrc/dcb_tf32.cu) at every main-path width (the SIMT
+    kernel takes C <= 64 only); --prev-port's kernels in turns in both
+    dtypes."""
     from ssgvc_tpu_torch.ops import dcb as dcb_ops
     from ssgvc_tpu_torch.ops import dcb_chain as chain_ops
 
@@ -510,14 +561,7 @@ def phase_kernels(torch, seed, card, prev=None, f32=False):
         return x, q, [block_params(torch, c, rng, dev) for _ in range(n)]
 
     def prev_blocks(c, shortcut, blocks):
-        """The other checkout's DepthConvBlocks holding these weights."""
-        mods = [prev.DepthConvBlock(c, shortcut=shortcut, dtype=act,
-                                    device=dev) for _ in blocks]
-        with torch.no_grad():
-            for m, params in zip(mods, blocks):
-                for dst, src in zip(m.core_params(), params):
-                    dst.copy_(src)
-        return mods
+        return prev_modules(torch, prev, c, shortcut, blocks, act)
 
     def in_turns(what, fns, middle, ref, plain, h, w, c, n):
         """Check every variant against ref, then time them in turns:
@@ -526,7 +570,7 @@ def phase_kernels(torch, seed, card, prev=None, f32=False):
         torch.cuda.synchronize()
         rel, max_err = check_kernel(torch, f"{what} at {(h, w, c, n)}",
                                     outs["kernel"], ref)
-        for k in ("seq", "prev", "simt"):
+        for k in ("seq", "prev"):
             if k in outs:
                 check_kernel(torch, f"{k} at {(h, w, c, n)}", outs[k], ref)
         order = middle + middle[::-1]
@@ -549,16 +593,9 @@ def phase_kernels(torch, seed, card, prev=None, f32=False):
         if not f32:
             fns = {"kernel": lambda: dcb_ops.dcb_cuda(x, packed, None,
                                                       shortcut)}
-        elif dcb_ops.uses_tf32(c):
-            simt = dcb_ops.pack_f32(blocks[0])
+        else:       # every main-path width is on the 3xTF32 route
             fns = {"kernel": lambda: dcb_ops.dcb_tf32_cuda(x, packed, None,
-                                                           shortcut),
-                   "simt": lambda: dcb_ops.dcb_f32_cuda(x, simt, None,
-                                                        shortcut)}
-            middle.append("simt")
-        else:
-            fns = {"kernel": lambda: dcb_ops.dcb_f32_cuda(x, packed, None,
-                                                          shortcut)}
+                                                           shortcut)}
         if with_prev:
             mod = prev_blocks(c, shortcut, blocks)[0]
             fns["prev"] = lambda: mod(x)
@@ -572,19 +609,9 @@ def phase_kernels(torch, seed, card, prev=None, f32=False):
         singles = [dcb_ops.pack_block(p, bf16) for p in blocks]
         plain = lambda: chain_ops.dcb_chain_plain(x, blocks, q)
         if f32:
-            tf32 = dcb_ops.uses_tf32(c)
-            fn = (chain_ops.dcb_chain_tf32_cuda if tf32
-                  else chain_ops.dcb_chain_f32_cuda)
-            fns = {"kernel": lambda: fn(x, packed, q)}
+            fns = {"kernel": lambda: chain_ops.dcb_chain_tf32_cuda(x, packed,
+                                                                   q)}
             middle = ["kernel"]
-            if tf32:
-                # the SIMT kernel on the same chain, through its launcher
-                simt = torch.cat([dcb_ops.pack_f32(p) for p in blocks])
-                y, s = torch.empty_like(x), torch.empty_like(x)
-                fns["simt"] = lambda: (dcb_ops.launch_f32(
-                    x, y, s, simt, None if q is None else q.data_ptr(), n,
-                    False, "dcb_chain_f32"), y)[1]
-                middle.append("simt")
             if prev is not None:
                 mods = prev_blocks(c, False, blocks)
                 fns["prev"] = lambda: prev.run_chain(x, mods, q)
@@ -651,8 +678,6 @@ def phase_kernels(torch, seed, card, prev=None, f32=False):
                     f"{r['kernel_ms']:.4f} ms")
             if "seq_ms" in r:
                 line += f", seq ({n} x dcb) {r['seq_ms']:.4f} ms"
-            if "simt_ms" in r:
-                line += f", SIMT fp32 kernel {r['simt_ms']:.4f} ms"
             if "prev_ms" in r:
                 line += f", prev {r['prev_ms']:.4f} ms"
             # derived, not measured: by design every 8x8 tile copies its
@@ -678,7 +703,7 @@ def phase_kernels(torch, seed, card, prev=None, f32=False):
             shapes=rows)
         # the largest error over every shape, of either codec
         entry["max_abs_err"] = max(r["max_err"] for r in rows)
-        for k in ("seq_ms", "prev_ms", "simt_ms"):
+        for k in ("seq_ms", "prev_ms"):
             if p_rows and all(k in r for r in p_rows):
                 entry[k] = sum(r[k] * r["launches_per_frame"]
                                for r in p_rows)
@@ -2023,16 +2048,22 @@ RDHALF_PROFILE = {"dmc": dict(ch_d=128, ch_y=64, ch_z=64, ch_recon=160),
                   "dmci": dict(enc_dec=184, N=128, z_channel=64)}
 
 
+#: (B, H, W) whose SIMT unit plans phase 2 checks against ops/dcb.py: the RD
+#: recipe's, a ragged batch, phase 14's frames
+F32_PLAN_SHAPES = ((8, 1, 1), (8, 2, 2), (8, 4, 4), (8, 8, 8), (3, 5, 7),
+                   (1, 40, 52), (4, 24, 24), (1, 17, 30), (1, 136, 240))
 PEAK_TEXT = {"": "989 TFLOP/s bf16", "_f32": "67 TFLOP/s fp32",
              "_tf32": "3 x 495 TFLOP/s TF32"}
 
 
-def phase_widths(torch, seed, card):
+def phase_widths(torch, seed, card, prev=None):
     """Both kernels in both dtypes at every width of WIDTH_SINGLE /
     WIDTH_CHAIN and every frame of WIDTH_FRAMES against their plain
     versions (bf16 REL_TOL, fp32 F32_TOL), one launch per call counted,
-    timed beside the plain version and the bound. Returns {kernel name:
-    [rows]}."""
+    timed beside the plain version and the bound; the SIMT cases (fp32, C
+    <= 64) beside the 3xTF32 kernel and, with ``prev`` (the other
+    checkout's layers.blocks), in turns with that checkout's kernel.
+    Returns {kernel name: [rows]}."""
     from ssgvc_tpu_torch.ops import dcb as dcb_ops
     from ssgvc_tpu_torch.ops import dcb_chain as chain_ops
 
@@ -2079,9 +2110,17 @@ def phase_widths(torch, seed, card):
                 if launched != 1:
                     fail(f"{name} {b}x{h}x{w}x{c}: {launched} launches for "
                          "one call")
+                fns = {"new": run}
+                if sfx == "_f32" and prev is not None:
+                    mods = prev_modules(torch, prev, c, kernel == "dcb",
+                                        blocks, dt)
+                    fns["prev"] = ((lambda: mods[0](x, q)) if kernel == "dcb"
+                                   else (lambda: prev.run_chain(x, mods, q)))
+                    check_f32(torch, f"prev {name} {b}x{h}x{w}x{c} n={n}",
+                              fns["prev"](), plain())
+                means, turns = timed_turns(torch, fns, 10)
                 r = dict(shape=[b, h, w, c], blocks=n, frame=what,
-                         cp=dcb_ops.padded_channels(c),
-                         ms=cuda_ms(torch, run, 10),
+                         cp=dcb_ops.padded_channels(c), ms=means["new"],
                          plain_ms=cuda_ms(torch, plain, 3),
                          bound_ms=bound_ms(h, w, c, n, f32, b),
                          bound_by=bound_by(h, w, c, n, f32, b),
@@ -2101,6 +2140,10 @@ def phase_widths(torch, seed, card):
                               trun(), plain())
                     r["tf32_ms"] = cuda_ms(torch, trun, 10)
                     alt = f", 3xTF32 kernel {r['tf32_ms']:.4f} ms"
+                    if "prev" in means:
+                        r.update(prev_ms=means["prev"], turns=turns)
+                        alt += (f", prev {r['prev_ms']:.4f} ms ("
+                                f"{r['ms'] / r['prev_ms'] - 1:+.1%})")
                 rows[name].append(r)
                 print(f"  widths {name} {b}x{h}x{w}x{c} (CP {r['cp']}, "
                       f"{what}) n={n}: kernel {r['ms']:.4f} ms{alt}, plain "
@@ -2114,15 +2157,24 @@ def phase_widths(torch, seed, card):
     print(f"  widths: the SIMT fp32 kernel (C <= 64) faster than the 3xTF32 "
           f"one in {len(simt) - len(slower)} of {len(simt)} cases; slower "
           f"at {slower} [{card}]")
+    if prev is not None:
+        worst = max(simt, key=lambda r: r["ms"] / r["prev_ms"])
+        ratio = worst["ms"] / worst["prev_ms"]
+        print(f"  widths: the SIMT kernel against --prev-port's in turns: "
+              f"{sum(r['ms'] < r['prev_ms'] for r in simt)} of {len(simt)} "
+              f"cases faster; the largest ratio {ratio:.3f} at "
+              f"{worst['shape']} n={worst['blocks']} [{card}]")
     return rows
 
 
-def phase_simt_shapes(torch, seed, card, counts):
+def phase_simt_shapes(torch, seed, card, counts, prev=None):
     """The SIMT fp32 kernels (C <= 64) at each operand shape an RD-recipe
     micro-step launched them at (``counts``: {kernel: {key: launches}},
     phase 17's last micro-step; keys (B, H, W, C, shortcut or N, q)), on
     random inputs and weights, against their plain versions (F32_TOL) and
-    timed beside them and the bound. Returns {kernel: [rows]}."""
+    timed beside them and the bound; with ``prev`` (the other checkout's
+    layers.blocks) that checkout's kernel on the same inputs, in turns
+    (prev, new, new, prev). Returns {kernel: [rows]}."""
     from ssgvc_tpu_torch.ops import dcb as dcb_ops
     from ssgvc_tpu_torch.ops import dcb_chain as chain_ops
 
@@ -2147,19 +2199,31 @@ def phase_simt_shapes(torch, seed, card, counts):
                 packed = torch.cat([dcb_ops.pack_f32(p) for p in blocks])
                 run = lambda: chain_ops.dcb_chain_f32_cuda(x, packed, q)
                 plain = lambda: chain_ops.dcb_chain_plain(x, blocks, q)
-            rel, max_err = check_f32(torch, f"{name} at {key}", run(),
-                                     plain())
+            ref = plain()
+            rel, max_err = check_f32(torch, f"{name} at {key}", run(), ref)
+            fns = {"new": run}
+            if prev is not None:
+                single = name == "dcb_f32"
+                mods = prev_modules(torch, prev, c, single and bool(extra),
+                                    blocks, torch.float32)
+                fns["prev"] = ((lambda: mods[0](x, q)) if single
+                               else (lambda: prev.run_chain(x, mods, q)))
+                check_f32(torch, f"prev {name} at {key}", fns["prev"](), ref)
+            means, turns = timed_turns(torch, fns, 20)
             r = dict(key=list(key), blocks=n, per_step=launched,
-                     ms=cuda_ms(torch, run, 20),
-                     plain_ms=cuda_ms(torch, plain, 5),
+                     ms=means["new"], plain_ms=cuda_ms(torch, plain, 5),
                      bound_ms=bound_ms(h, w, c, n, True, b),
                      bound_by=bound_by(h, w, c, n, True, b), rel_err=rel,
                      max_abs_err=max_err)
+            line = ""
+            if "prev" in means:
+                r.update(prev_ms=means["prev"], turns=turns)
+                line = f", parent {r['prev_ms']:.4f} ms"
             rows[name].append(r)
             print(f"  SIMT {name} at RD-recipe shape {key} (x{launched} per "
-                  f"micro-step): kernel {r['ms']:.4f} ms, plain "
-                  f"{r['plain_ms']:.4f}, bound {1e3 * r['bound_ms']:.2f} us "
-                  f"({r['bound_by']}), max rel {rel:.2e} [{card}]")
+                  f"micro-step): kernel {r['ms']:.4f} ms{line}, plain "
+                  f"{r['plain_ms']:.4f} ms, bound {1e3 * r['bound_ms']:.2f} "
+                  f"us ({r['bound_by']}), max rel {rel:.2e} [{card}]")
     return rows
 
 
@@ -2185,15 +2249,19 @@ def simt_entries(widths, rd_counts, shapes):
                 x["max_abs_err"] for x in widths[name] + rs),
             ms=per("ms"), plain_ms=per("plain_ms"),
             bound_ms=per("bound_ms"),
+            parent_ms=(per("prev_ms") if all("prev_ms" in r for r in rs)
+                       else None),
             bound_by=("operations" if any(r["bound_by"] == "operations"
                                          for r in rs) else "bytes"),
             library_ms=None,
             per="RD-recipe micro-step (rd-mid fp32, phase 17): each shape's "
                 "time x its launches there, summed",
             shapes=rs, widths=widths[name]))
+        parent = out[-1]["parent_ms"]
         print(f"  {name}: {out[-1]['ms']:.3f} ms per RD-recipe micro-step "
               f"({rd_counts[name]} launches), bound "
-              f"{out[-1]['bound_ms']:.4f} ms")
+              f"{out[-1]['bound_ms']:.4f} ms" + (
+                  f", parent {parent:.3f} ms" if parent is not None else ""))
     return out
 
 
@@ -2608,7 +2676,7 @@ def main() -> int:
 
     # every profile's widths, float32, the RD recipe (phases 14-18)
     with torch.no_grad():
-        widths = phase_widths(torch, args.seed, card)
+        widths = phase_widths(torch, args.seed, card, prev)
         kernels_f32 = phase_kernels(torch, args.seed, card, prev,
                                     f32=True)
     fp32 = phase_fp32_full(torch, args.seed, card, iframe, main_path,
@@ -2623,7 +2691,7 @@ def main() -> int:
     rd = phase_rd_recipe(torch, args.seed, card)
     with torch.no_grad():
         simt = phase_simt_shapes(torch, args.seed, card,
-                                 rd.pop("simt_counts"))
+                                 rd.pop("simt_counts"), prev)
     coded32 = phase_coded_f32(torch, args.seed, card)
     for entry in kernels:
         entry["widths"] = widths[entry["name"]]

@@ -28,8 +28,11 @@ runs on the 3xTF32 wgmma kernel ``csrc/dcb_tf32.cu`` (:func:`dcb_tf32_cuda`,
 weights from :func:`pack_tf32`, launches counted in
 :data:`launches_tf32`), a narrower one on the SIMT fp32 kernel
 ``csrc/dcb_f32.cu`` (:func:`dcb_f32_cuda`, weights from :func:`pack_f32`,
-:data:`launches_f32`), which is faster there. Every kernel takes every C
-that is a multiple of 8 up to :data:`MAX_CHANNELS` (:func:`check_width`).
+:data:`launches_f32`), which is faster there and takes C up to
+:data:`F32_MAX_CHANNELS` only; its work units (whole small images, or 8x8
+tiles) are :func:`f32_plan` / :func:`f32_units`. Every other kernel takes
+every C that is a multiple of 8 up to :data:`MAX_CHANNELS`
+(:func:`check_width`).
 
 Both kernels run one tile routine (``csrc/dcb_tile.cuh``) on 8x8 output
 tiles. A tile reads its input with a one-pixel halo (:data:`WIN` x
@@ -51,7 +54,7 @@ computed width of 64 ring B has bytes of its own (:func:`ring_b_own`).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -289,10 +292,11 @@ def pack_block(params: Params, dtype: torch.dtype) -> torch.Tensor:
 
 
 def pack_f32(params: Params) -> torch.Tensor:
-    """One block's weights for the fp32 kernel (``csrc/dcb_f32.cu``), at C:
-    the four matrices transposed ([in][out], so that threads over output
-    channels read consecutive floats), then the taps and biases as in
-    :func:`pack_params`. 8 C^2 + 17 C floats."""
+    """One block's weights for the SIMT fp32 kernel (``csrc/dcb_f32.cu``),
+    at C: the four matrices transposed ([in][out], so that a thread's four
+    output channels are one float4), then the taps and biases as in
+    :func:`pack_params`. 8 C^2 + 17 C floats; the kernel copies them into
+    shared memory in :data:`F32_GROUPS`."""
     c = params[0].shape[0]
     w0, _, _, _, w3, _, wf0, _, wf2, _ = params
     with torch.no_grad():
@@ -300,6 +304,151 @@ def pack_f32(params: Params) -> torch.Tensor:
                 for m in (w0, w3, wf0, wf2)]
         return torch.cat(mats + [pack_params(params, torch.float32)
                                  [8 * c * c:]]).contiguous()
+
+
+# The SIMT fp32 kernel's plan: must match csrc/dcb_f32.cu.
+#: The widest block the SIMT fp32 kernel takes (wider ones run on 3xTF32).
+F32_MAX_CHANNELS = 64
+F32_THREADS = 256
+F32_PMAX = 64            # output pixels of a unit
+F32_PCTA = 16            # least of them a cluster's CTA takes
+F32_MAX_CS = 4           # CTAs a unit of whole images spans
+F32_TILE = (8, 8)        # a tile unit's outputs
+F32_RP = 8               # pixels of a thread's product tile
+F32_LDQ = 104            # window pixels a unit holds: (8 + 2)^2 rounded to 8
+F32_LDP = 68             # row stride of g and f: F32_PMAX + 4
+F32_GROUPS = 5           # weight groups, one mbarrier each
+
+
+def f32_ksplit(c: int) -> int:
+    """K segments of every product of the SIMT kernel at ``c`` channels: a
+    function of C alone, so every sum runs in one order whatever the batch,
+    the plan or the grid (256 threads over a 64-pixel unit's 8x8 tiles at
+    C = 32 and 64; below 32 more segments, for shorter serial chains)."""
+    return 8 if c <= 32 else 4
+
+
+def f32_groups(c: int) -> List[List[Tuple[int, int]]]:
+    """The SIMT kernel's weight groups in the order it waits for them, each
+    a matrix and its bias as (offset, floats) spans of one :func:`pack_f32`
+    block (``group_span`` in csrc/dcb_f32.cu): W0 + b0, the taps + b2, W3 +
+    b3, Wf0 + bf0, Wf2 + bf2. Each lands at the same offset in shared
+    memory, one bulk copy per span."""
+    cc, t = c * c, 8 * c * c          # t: the taps, then the biases
+    return [[(0, cc), (t + 9 * c, c)], [(t, 9 * c), (t + 10 * c, c)],
+            [(cc, cc), (t + 11 * c, c)], [(2 * cc, 4 * cc), (t + 12 * c, 4 * c)],
+            [(6 * cc, 2 * cc), (t + 16 * c, c)]]
+
+
+def f32_smem_bytes(c: int) -> int:
+    """Dynamic shared memory of one SIMT thread block: the weights (8 C^2 +
+    17 C floats), the input window and h / u (C x :data:`F32_LDQ` floats
+    each), g / f (2C x :data:`F32_LDP`), the unit's tables (:data:`F32_LDQ`
+    + 11 :data:`F32_PMAX` ints: window pixels, output slots and pixels, the
+    3x3 neighbours) and the mbarriers."""
+    floats = 8 * c * c + 17 * c + 2 * c * F32_LDQ + 2 * c * F32_LDP
+    return 4 * floats + 4 * (F32_LDQ + 11 * F32_PMAX) + 8 * F32_GROUPS
+
+
+class F32Plan(NamedTuple):
+    """The SIMT kernel's work units for a (B, H, W) batch (``make_plan``
+    in csrc/dcb_f32.cu, field for field)."""
+    b: int
+    h: int
+    w: int
+    whole: int     # 1: units of g whole images; 0: tiles
+    g: int         # images per unit (whole), else 1
+    cs: int        # CTAs per unit (a cluster; whole), else 1
+    th: int        # outputs per window: the image, or the tile
+    tw: int
+    tiles_x: int   # tile columns per image (tiles), else 1
+    tiles: int     # tiles per image (tiles), else 1
+    units: int
+    ww: int        # window row stride in slots
+    q: int         # window slots per CTA (a multiple of F32_RP)
+    p: int         # outputs per CTA (a multiple of F32_RP)
+
+
+def f32_plan(b: int, h: int, w: int) -> F32Plan:
+    """Units of at most :data:`F32_PMAX` output pixels. An image that fits
+    one is never cut: a unit holds as many whole images as fit (``g``, up
+    to 64 at 1x1; the last unit may hold fewer), a chain (n > 1) runs every
+    block on them in shared memory, and the unit spans a cluster of ``cs``
+    CTAs (1, 2 or 4, at least :data:`F32_PCTA` pixels each; CTA r takes the
+    unit's pixels [r p, (r + 1) p) in image, row, column order, h crossing
+    between them through distributed shared memory). Larger images are cut
+    into :data:`F32_TILE` output tiles with a one-pixel halo (zero outside
+    the image), one CTA each. The same plan serves one block and a chain."""
+    rnd = lambda v: -(-v // F32_RP) * F32_RP
+    if h * w <= F32_PMAX:
+        g = min(F32_PMAX // (h * w), b)
+        px = g * h * w
+        cs = (F32_MAX_CS if px >= F32_MAX_CS * F32_PCTA
+              else 2 if px >= 2 * F32_PCTA else 1)
+        q = rnd(-(-px // cs))
+        return F32Plan(b, h, w, 1, g, cs, h, w, 1, 1, -(-b // g), w, q, q)
+    th, tw = F32_TILE
+    tiles_x = -(-w // tw)
+    tiles = -(-h // th) * tiles_x
+    return F32Plan(b, h, w, 0, 1, 1, th, tw, tiles_x, tiles, b * tiles,
+                   tw + 2, rnd((th + 2) * (tw + 2)), th * tw)
+
+
+def f32_units(b: int, h: int, w: int, c: int) -> dict:
+    """The SIMT kernel's work for a (B, H, W, C) batch, as
+    ``setup_unit`` in csrc/dcb_f32.cu lays it out: ``plan``
+    (:func:`f32_plan`), ``ksplit`` (:func:`f32_ksplit`; the plan itself is
+    the same at every C), and ``units``: per unit, per CTA of its cluster,
+    ``slots`` (per window slot, the pixel of the (B H W) stack whose input
+    it holds, or -1: h is 0 there) and ``outputs`` (per output: its window
+    slot, its pixel or -1 where nothing is stored, and per 3x3 tap t the
+    CTA and slot whose h it reads, ``rank << 8 | slot``, or -1 for a zero
+    past the image's edge)."""
+    check_width(c, F32_MAX_CHANNELS, "f32_units")
+    pl = f32_plan(b, h, w)
+    units = []
+    for u in range(pl.units):
+        ctas = []
+        for rank in range(pl.cs):
+            if pl.whole:
+                hw, b0, first = h * w, u * pl.g, rank * pl.p
+                real = min(pl.g, b - b0) * hw
+                slots = [b0 * hw + first + i if first + i < real else -1
+                         for i in range(pl.p)]
+                outputs = []
+                for i in range(pl.p):
+                    at = first + i
+                    nbrs = []
+                    for t in range(9):
+                        r = at % hw // w + t // 3 - 1
+                        col = at % w + t % 3 - 1
+                        nb = at + (t // 3 - 1) * w + t % 3 - 1
+                        nbrs.append(nb // pl.p << 8 | nb % pl.p
+                                    if at < real and 0 <= r < h
+                                    and 0 <= col < w else -1)
+                    outputs.append((i, slots[i], tuple(nbrs)))
+            else:
+                img, tt = divmod(u, pl.tiles)
+                ty0 = tt // pl.tiles_x * pl.th
+                tx0 = tt % pl.tiles_x * pl.tw
+                slots = []
+                for i in range(pl.q):
+                    gy, gx = ty0 - 1 + i // pl.ww, tx0 - 1 + i % pl.ww
+                    slots.append((img * h + gy) * w + gx
+                                 if i < (pl.th + 2) * pl.ww and 0 <= gy < h
+                                 and 0 <= gx < w else -1)
+                outputs = []
+                for i in range(pl.p):
+                    r, col = divmod(i, pl.tw)
+                    gy, gx = ty0 + r, tx0 + col
+                    nbrs = tuple((r + t // 3) * pl.ww + col + t % 3
+                                 for t in range(9))
+                    outputs.append(((r + 1) * pl.ww + col + 1,
+                                    (img * h + gy) * w + gx
+                                    if gy < h and gx < w else -1, nbrs))
+            ctas.append(dict(slots=slots, outputs=outputs))
+        units.append(ctas)
+    return dict(plan=pl, ksplit=f32_ksplit(c), units=units)
 
 
 # The 3xTF32 kernel's layout: must match csrc/dcb_tf32.cu.
@@ -616,14 +765,18 @@ def launch_f32(x: torch.Tensor, y: torch.Tensor, scratch: torch.Tensor,
                packed: torch.Tensor, q_ptr, n: int, shortcut: bool,
                what: str, tf32: bool = False) -> None:
     """One launch of ``csrc/dcb_tf32.cu`` (``tf32``) or ``csrc/dcb_f32.cu``
-    on checked operands: n blocks (cooperative for n > 1) from x to y,
-    ``scratch`` the chain's other buffer."""
+    on checked operands: n blocks from x to y, ``scratch`` the chain's other
+    buffer where the kernel takes the cooperative path (3xTF32 for n > 1;
+    the SIMT kernel for n > 1 on tile units only)."""
     b, h, w, c = x.shape
     if tf32 and (x.data_ptr() | y.data_ptr() | scratch.data_ptr()
                  | packed.data_ptr()) % 16:
         raise ValueError(f"{what}: the 3xTF32 kernel reads and copies in 16 "
                          "bytes: x, y and the weights must be 16-byte "
                          "aligned")
+    if not tf32 and packed.data_ptr() % 16:
+        raise ValueError(f"{what}: the SIMT kernel copies its weights in 16 "
+                         "bytes: they must be 16-byte aligned")
     lib = _lib_f32(tf32)
     fn = lib.ssgvc_dcb_tf32_forward if tf32 else lib.ssgvc_dcb_f32_forward
     with torch.cuda.device(x.device):
@@ -637,11 +790,12 @@ def launch_f32(x: torch.Tensor, y: torch.Tensor, scratch: torch.Tensor,
 def dcb_f32_cuda(x: torch.Tensor, packed: torch.Tensor,
                  q: Optional[torch.Tensor] = None,
                  shortcut: bool = False) -> torch.Tensor:
-    """Launch the SIMT fp32 kernel: x (B, H, W, C) fp32 CUDA, any C the
-    kernels take, ``packed`` from :func:`pack_f32`, q (C,) or None.
-    Returns a new (B, H, W, C)."""
+    """Launch the SIMT fp32 kernel: x (B, H, W, C) fp32 CUDA, C a multiple
+    of 8 up to :data:`F32_MAX_CHANNELS` (a ``ValueError`` above),
+    ``packed`` from :func:`pack_f32`, q (C,) or None. Returns a new (B, H,
+    W, C)."""
     global launches_f32
-    check_input(x, "dcb_f32", MAX_CHANNELS, torch.float32)
+    check_input(x, "dcb_f32", F32_MAX_CHANNELS, torch.float32)
     c = x.shape[-1]
     check_operand(packed, x, 8 * c * c + 17 * c, "dcb_f32 weights")
     q, q_ptr = q_operand(q, x, "dcb_f32")

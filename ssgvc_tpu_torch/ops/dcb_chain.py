@@ -21,11 +21,14 @@ is recomputed. Each tile runs the single-block kernel's tile routine
 
 :func:`dcb_chain` routes by device, dtype and width as ``ops.dcb.dcb``
 does: a bfloat16 CUDA tensor to ``csrc/dcb_chain.cu``; a float32 one, one
-cooperative launch per chain too, to the 3xTF32 kernel
+launch per chain too, to the 3xTF32 kernel
 ``csrc/dcb_tf32.cu`` where ``ops.dcb.uses_tf32`` (:func:`dcb_chain_tf32_cuda`)
 and to the SIMT kernel ``csrc/dcb_f32.cu`` below it
-(:func:`dcb_chain_f32_cuda`); any other dtype raises. All take every C that
-is a multiple of 8 up to :data:`MAX_CHANNELS`.
+(:func:`dcb_chain_f32_cuda`: on units of whole small images it runs the
+whole chain in each thread block's shared memory, a plain launch with no
+scratch tensor; see :func:`buffer_plan`); any other dtype raises. All take
+every C that is a multiple of 8 up to :data:`MAX_CHANNELS`, the SIMT one
+up to ``ops.dcb.F32_MAX_CHANNELS``.
 """
 
 from __future__ import annotations
@@ -36,9 +39,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from . import _build
-from .dcb import (Params, check_input, check_operand, dcb_plain,
-                  launch_f32, pack_kernel, packed_numel, q_operand,
-                  tf32_numel, uses_tf32)
+from .dcb import (F32_MAX_CHANNELS, Params, check_input, check_operand,
+                  dcb_plain, f32_plan, launch_f32, pack_kernel, packed_numel,
+                  q_operand, tf32_numel, uses_tf32)
 # The per-tile layout both kernels share, re-exported for the chain's
 # callers and tests.
 from .dcb import (KC, KF, KS_A, KS_B, RING_B, TILE, WIN,  # noqa: F401
@@ -57,11 +60,17 @@ launches_tf32 = 0
 shape_launches_f32: Dict[tuple, int] = {}
 
 
-def buffer_plan(n: int) -> List[Tuple[str, str]]:
+def buffer_plan(n: int, in_smem: bool = False) -> List[Tuple[str, str]]:
     """(source, destination) of each block: 'x' the input (never written),
     'y' the caller's output, 's' the scratch tensor; the last block writes
-    'y'. The kernel applies the same rule to pick its buffers."""
-    dst = ["y" if (n - 1 - j) % 2 == 0 else "s" for j in range(n)]
+    'y'. The kernels apply the same rule to pick their buffers. With
+    ``in_smem`` (the SIMT fp32 kernel on units of whole images, where
+    ``ops.dcb.f32_plan`` says ``whole``) every other output stays in the
+    thread block's shared memory, 'm', and no scratch tensor is used."""
+    if in_smem:
+        dst = ["y" if j == n - 1 else "m" for j in range(n)]
+    else:
+        dst = ["y" if (n - 1 - j) % 2 == 0 else "s" for j in range(n)]
     return [("x" if j == 0 else dst[j - 1], dst[j]) for j in range(n)]
 
 
@@ -115,8 +124,9 @@ def dcb_chain_cuda(x: torch.Tensor, packed: torch.Tensor,
 
 
 def _chain_f32(x, packed, q_last, what, tf32):
-    c = x.shape[-1]
-    check_input(x, what, MAX_CHANNELS, torch.float32)
+    check_input(x, what, MAX_CHANNELS if tf32 else F32_MAX_CHANNELS,
+                torch.float32)
+    b, h, w, c = x.shape
     per = tf32_numel(c) if tf32 else 8 * c * c + 17 * c
     n = packed.numel() // per
     if n < 1:
@@ -124,7 +134,9 @@ def _chain_f32(x, packed, q_last, what, tf32):
     check_operand(packed, x, n * per, f"{what} weights")
     q_last, q_ptr = q_operand(q_last, x, what)
     y = torch.empty_like(x)
-    scratch = torch.empty_like(x) if n > 1 else y
+    in_smem = not tf32 and f32_plan(b, h, w).whole == 1
+    scratch = (torch.empty_like(x)
+               if any(d == "s" for _, d in buffer_plan(n, in_smem)) else y)
     launch_f32(x, y, scratch, packed, q_ptr, n, False, what, tf32=tf32)
     if not tf32:
         key = (*x.shape, n, q_last is not None)
@@ -135,8 +147,12 @@ def _chain_f32(x, packed, q_last, what, tf32):
 def dcb_chain_f32_cuda(x: torch.Tensor, packed: torch.Tensor,
                        q_last: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One launch of the SIMT fp32 kernel for the whole chain: x (B, H, W,
-    C) fp32 CUDA (:func:`dcb_chain` sends it C <= 64), ``packed``: N
-    ``ops.dcb.pack_f32`` back to back, q_last (C,) or None."""
+    C) fp32 CUDA, C up to ``ops.dcb.F32_MAX_CHANNELS`` (a ``ValueError``
+    above; :func:`dcb_chain` sends it C <= 64), ``packed``: N
+    ``ops.dcb.pack_f32`` back to back, q_last (C,) or None. On units of
+    whole images the N blocks run in shared memory (a plain launch, no
+    scratch tensor); on tiles, cooperatively with a grid barrier between
+    blocks."""
     global launches_f32
     y = _chain_f32(x, packed, q_last, "dcb_chain_f32", False)
     launches_f32 += 1

@@ -291,3 +291,96 @@ def test_kernel_refuses_what_it_does_not_take():
             chain_ops.dcb_chain(torch.zeros((1, 8, 8, 392), dtype=dt,
                                             device=dev),
                                 [block_params(392, rng, dev)])
+
+
+# The SIMT fp32 kernel (csrc/dcb_f32.cu, C <= 64) at the RD recipe's shapes:
+# B = 8 images of 1x1 to 8x8 (units of whole images) at C = 32 and 64
+RD_SHAPES = [(8, s, s, c) for s in (1, 2, 4, 8) for c in (32, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shortcut,with_q", [(False, False), (True, False),
+                                             (False, True), (True, True)])
+@pytest.mark.parametrize("b,h,w,c", RD_SHAPES)
+def test_simt_kernel_at_the_rd_shapes(b, h, w, c, shortcut, with_q):
+    dev = _card()
+    rng = np.random.default_rng(h * 1000 + c)
+    x = torch.tensor(rng.standard_normal((b, h, w, c)), dtype=torch.float32,
+                     device=dev)
+    q = torch.linspace(0.5, 1.5, c, device=dev) if with_q else None
+    p = block_params(c, rng, dev)
+    before = dcb_ops.launches_f32
+    out = dcb_ops.dcb_f32_cuda(x, dcb_ops.pack_f32(p), q, shortcut)
+    torch.cuda.synchronize()
+    assert dcb_ops.launches_f32 == before + 1
+    assert out.shape == x.shape and out.dtype == torch.float32
+    assert within(out, dcb_ops.dcb_plain(x, p, q, shortcut))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,w,n,with_q", [
+    (8, 8, 8, 2, False), (8, 8, 8, 2, True), (8, 8, 8, 4, False),
+    (1, 40, 52, 2, True), (1, 40, 52, 4, False)])
+def test_simt_chain_at_the_rd_shapes(b, h, w, n, with_q):
+    """The chain on whole 8x8 images (in shared memory, no scratch) and on
+    a 40x52 frame (tiles: the cooperative path with a grid barrier)."""
+    dev = _card()
+    c = 64
+    rng = np.random.default_rng(n * 100 + h)
+    x = torch.tensor(rng.standard_normal((b, h, w, c)), dtype=torch.float32,
+                     device=dev)
+    q = torch.linspace(0.5, 1.5, c, device=dev) if with_q else None
+    blocks = [block_params(c, rng, dev) for _ in range(n)]
+    assert dcb_ops.f32_plan(b, h, w).whole == (h * w <= 64)
+    before = chain_ops.launches_f32
+    out = chain_ops.dcb_chain_f32_cuda(
+        x, chain_ops.pack_chain(blocks, torch.float32), q)
+    torch.cuda.synchronize()
+    assert chain_ops.launches_f32 == before + 1
+    assert within(out, chain_ops.dcb_chain_plain(x, blocks, q))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["dcb", "dcb_chain"])
+@pytest.mark.parametrize("s", [1, 8])
+def test_simt_batch_of_eight_equals_eight_single_images(kernel, s):
+    """B = 8 in one launch (one unit of eight 1x1 images, or eight units of
+    one 8x8 image) equals eight B = 1 launches bit for bit: the K split is
+    C's alone, and each image's arithmetic the same in any unit."""
+    dev = _card()
+    c = 64
+    rng = np.random.default_rng(s + 20)
+    x = torch.tensor(rng.standard_normal((8, s, s, c)), dtype=torch.float32,
+                     device=dev)
+    q = torch.linspace(0.5, 1.5, c, device=dev)
+    if kernel == "dcb":
+        packed = dcb_ops.pack_f32(block_params(c, rng, dev))
+        run = lambda t: dcb_ops.dcb_f32_cuda(t, packed, q, shortcut=True)
+    else:
+        packed = chain_ops.pack_chain([block_params(c, rng, dev)
+                                       for _ in range(4)], torch.float32)
+        run = lambda t: chain_ops.dcb_chain_f32_cuda(t, packed, q)
+    batched = run(x)
+    single = torch.cat([run(x[i:i + 1].contiguous()) for i in range(8)])
+    again = run(x)
+    torch.cuda.synchronize()
+    assert torch.equal(batched, single)
+    assert torch.equal(batched, again)
+
+
+@pytest.mark.gpu
+def test_simt_kernel_refuses_wider_blocks():
+    """C >= 72 runs on the 3xTF32 kernel; the SIMT launchers refuse it."""
+    dev = _card()
+    rng = np.random.default_rng(72)
+    c = 72
+    x = torch.zeros((1, 4, 4, c), dtype=torch.float32, device=dev)
+    p = block_params(c, rng, dev)
+    with pytest.raises(ValueError):
+        dcb_ops.dcb_f32_cuda(x, dcb_ops.pack_f32(p))
+    with pytest.raises(ValueError):
+        chain_ops.dcb_chain_f32_cuda(x, dcb_ops.pack_f32(p))
+    # the routed call takes it, on the 3xTF32 kernel
+    before = dcb_ops.launches_tf32
+    dcb_ops.dcb(x, p)
+    assert dcb_ops.launches_tf32 == before + 1
