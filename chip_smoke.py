@@ -85,11 +85,14 @@ Phases (any failure exits non-zero and prints no result line):
      per-channel sum written once) and the library call that computes the
      same function, where there is one (grad_reduce: torch.sum, and its
      result bit for bit against ops.dcb_grad.grad_reduce_order, the same
-     additions on the CPU); with --prev-port also the other checkout's
-     gate_bwd, dw_bwd and grad_reduce on the same inputs (its own
-     partials), in turns (prev, new, new, prev); the per-micro-step sums
-     weigh each shape's time by the block backwards counted there in
-     phase 13 (a shape counted there and not timed here fails);
+     additions on the CPU; dw_fwd: cuDNN's depthwise conv alone, without
+     WSiLU); dw_fwd also with an fp32 g; with --prev-port also the other
+     checkout's kernels on the same inputs (gate_bwd and dw_bwd on their
+     own partials), in turns (prev, new, new, prev), and dw_fwd's g, in
+     bf16 and fp32, equal to that checkout's (max |difference| 0); the
+     per-micro-step sums weigh each shape's time by the block backwards
+     counted there in phase 13 (a shape counted there and not timed here
+     fails);
  13. training: training.trainer.Trainer with the default TrainConfig
      (performance variant, full profile, bf16-mixed, accumulation_steps 8,
      clip 5.0, AdamW), fresh calibrated weights from --seed, TRAIN_STEPS
@@ -144,7 +147,9 @@ Phases (any failure exits non-zero and prints no result line):
      launched them at, against their plain versions (fp32 1e-5) and timed
      beside them and the bound (with --prev-port the other checkout's SIMT
      kernel in turns, prev_ms): their kernels-line entries are these times
-     x launches per micro-step;
+     x launches per micro-step; likewise dw_fwd (fp32 g) at each shape the
+     last micro-step launched it at (ops.dcb_grad.shape_launches), with
+     --prev-port in turns with the other checkout's and equal to its g;
  18. coded fp32: VideoCodec at rd-mid in float32, I + 2 P of 192x192,
      every decoded frame and DPB torch.equal to the encoder's.
 
@@ -1636,18 +1641,67 @@ def bwd_key(kernel, b, h, w, c, with_q):
     return (b, h, w, c)
 
 
+def dw_fwd_row(torch, a0, taps, b2, act, pdg=None, reps=20):
+    """dw_fwd at one shape with g in ``act``: against its plain version
+    (REL_TOL in bf16, BWD_FP32_TOL in fp32); with ``pdg`` (the other
+    checkout's ops.dcb_grad) its g against that checkout's kernel's (fails
+    on any difference) and its time in turns with it (prev, new, new,
+    prev); beside the plain version, cuDNN's depthwise conv alone (no
+    WSiLU: less work) and the bound (a0 read, g written, taps and b2
+    read)."""
+    import torch.nn.functional as F
+
+    from ssgvc_tpu_torch.ops import dcb_grad as dg
+
+    b, h, w, c = a0.shape
+    what = f"dw_fwd at {(b, h, w, c)} {str(act)[6:]}"
+    kern = lambda: dg.dw_fwd_cuda(a0, taps, b2, act)
+    plain = lambda: dg.dw_fwd_plain(a0, taps, b2, act)
+    hn = dg.wsilu(a0).permute(0, 3, 1, 2)
+    wdw = taps.t().reshape(c, 1, 3, 3)
+    g = kern()
+    _, err = check_close(torch, what, g, plain(),
+                         REL_TOL if act == torch.bfloat16 else BWD_FP32_TOL)
+    fns = {"new": kern}
+    if pdg is not None:
+        fns["prev"] = lambda: pdg.dw_fwd_cuda(a0, taps, b2, act)
+        diff = float((g.float() - fns["prev"]().float()).abs().max())
+        if not diff == 0.0:
+            fail(f"{what}: g differs from the other checkout's by up to "
+                 f"{diff}")
+    means, turns = timed_turns(torch, fns, reps)
+    nbytes = bwd_bytes(b, h, w, c, False, act.itemsize)["dw_fwd"]
+    r = dict(ms=means["new"], plain_ms=cuda_ms(torch, plain, reps),
+             library_ms=cuda_ms(torch, lambda: F.conv2d(
+                 hn, wdw, b2, padding=1, groups=c), reps),
+             bytes=nbytes, bound_ms=1e3 * nbytes / H100_BYTES_PER_S,
+             max_abs_err=err)
+    if "prev" in means:
+        r.update(prev_ms=means["prev"], turns=turns, prev_max_abs_diff=0.0)
+    return r
+
+
+def dw_fwd_text(r):
+    """One dw_fwd row's times, as phases 12 and 17 print them."""
+    prev = (f", parent {r['prev_ms']:.4f} (g equal bit for bit)"
+            if "prev_ms" in r else "")
+    return (f"kernel {r['ms']:.4f} ms{prev}, plain {r['plain_ms']:.4f}, "
+            f"cuDNN depthwise alone {r['library_ms']:.4f}, bound "
+            f"{1e3 * r['bound_ms']:.2f} us ({r['bytes']} B at 3.35 TB/s), "
+            f"max abs {r['max_abs_err']:.3g}")
+
+
 def phase_backward_kernels(torch, seed, card, prev=False):
     """Each backward kernel at every training shape, B = TRAIN_B, against
     its plain version; timed beside its plain version, its bound and a
     library call, once per operand shape it counts launches by; with
-    ``prev`` (--prev-port loaded) also the other checkout's dw_bwd,
-    gate_bwd and grad_reduce on the same inputs (its own partials), in
-    turns (prev, new, new, prev). Returns {kernel: [rows]};
-    :func:`backward_entries` weighs them by the launches a micro-step makes
-    at each."""
+    ``prev`` (--prev-port loaded) also the other checkout's kernels on the
+    same inputs (gate_bwd and dw_bwd on their own partials), in turns
+    (prev, new, new, prev). dw_fwd also with an fp32 g (its row's "f32"),
+    and its g equal to the other checkout's in both dtypes. Returns
+    {kernel: [rows]}; :func:`backward_entries` weighs them by the launches
+    a micro-step makes at each."""
     import importlib
-
-    import torch.nn.functional as F
 
     from ssgvc_tpu_torch.ops import dcb_grad as dg
 
@@ -1670,10 +1724,6 @@ def phase_backward_kernels(torch, seed, card, prev=False):
         hn = dg.wsilu(a0).permute(0, 3, 1, 2)
         dgn = case["dg"].permute(0, 3, 1, 2)
         fns = {
-            "dw_fwd": (lambda: dg.dw_fwd_cuda(a0, taps, b2, torch.bfloat16),
-                       lambda: dg.dw_fwd_plain(a0, taps, b2, torch.bfloat16),
-                       # the depthwise conv alone (cuDNN), without WSiLU
-                       lambda: F.conv2d(hn, wdw, b2, padding=1, groups=c)),
             "gate_bwd": (lambda: dg.gate_bwd_cuda(*gate, part_k, 0),
                          lambda: dg.gate_bwd_plain(*gate, part_p, 0), None),
             "dw_bwd": (lambda: dg.dw_bwd_cuda(*dw, part_k, col),
@@ -1700,9 +1750,21 @@ def phase_backward_kernels(torch, seed, card, prev=False):
         nbytes = bwd_bytes(TRAIN_B, h, w, c, with_q)
         for k in names:
             key = bwd_key(k, TRAIN_B, h, w, c, with_q)
-            kern, plain, lib = fns[k]
             r = dict(key=key, shape=[TRAIN_B, h, w, c], q=with_q,
                      sites=sites)
+            if k == "dw_fwd":
+                # g in bf16 (the default micro-step's) and in fp32
+                r.update(dw_fwd_row(torch, a0, taps, b2, torch.bfloat16,
+                                    pdg))
+                r["f32"] = dw_fwd_row(torch, a0, taps, b2, torch.float32,
+                                      pdg)
+                r["max_abs_err"] = max(r["max_abs_err"], errs[k])
+                rows[k].append(r)
+                for dt, x in (("bf16", r), ("fp32", r["f32"])):
+                    print(f"  dw_fwd {TRAIN_B}x{h}x{w}x{c} g {dt}: "
+                          f"{dw_fwd_text(x)} [{card}]")
+                continue
+            kern, plain, lib = fns[k]
             if k in prev_fns:
                 turns = {"prev": [], "new": []}
                 for who in ("prev", "new", "new", "prev"):
@@ -1722,10 +1784,8 @@ def phase_backward_kernels(torch, seed, card, prev=False):
             lib_txt = (f", library {r['library_ms']:.4f}" if lib else "")
             prev_txt = (f", prev {r['prev_ms']:.4f} ({r['prev_rows']} rows)"
                         if "prev_ms" in r else "")
-            rows_txt = (f" ({r['rows']} partial rows)" if k != "dw_fwd"
-                        else "")
             print(f"  {k} {TRAIN_B}x{h}x{w}x{c} q={int(with_q)}: kernel "
-                  f"{r['ms']:.4f} ms{rows_txt}{prev_txt}, "
+                  f"{r['ms']:.4f} ms ({r['rows']} partial rows){prev_txt}, "
                   f"plain {r['plain_ms']:.4f}{lib_txt}, bound "
                   f"{1e3 * r['bound_ms']:.2f} us ({nbytes[k]} B at 3.35 "
                   f"TB/s), max abs {r['max_abs_err']:.3g} [{card}]")
@@ -2450,6 +2510,7 @@ def phase_rd_recipe(torch, seed, card):
     from ssgvc_tpu_torch.data.device_synth import synth_batch
     from ssgvc_tpu_torch.ops import dcb as dcb_ops
     from ssgvc_tpu_torch.ops import dcb_chain as chain_ops
+    from ssgvc_tpu_torch.ops import dcb_grad as dg
     from ssgvc_tpu_torch.training.evaluate import (evaluate_rd_batched,
                                                    latent_liveness,
                                                    liveness_collapsed,
@@ -2502,6 +2563,8 @@ def phase_rd_recipe(torch, seed, card):
     # phase_simt_shapes)
     simt_counts = {"dcb_f32": dict(dcb_ops.shape_launches_f32),
                    "dcb_chain_f32": dict(chain_ops.shape_launches_f32)}
+    # and the backward kernels' (dw_fwd's timed by phase_rd_dw_fwd)
+    bwd_counts = dict(dg.shape_launches)
     bad, zero = [], []
     for name, m in dcb_modules(tr.dmc):
         for p in m.core_params():
@@ -2521,6 +2584,9 @@ def phase_rd_recipe(torch, seed, card):
           f"{[round(r['loss'], 4) for r in losses]}, launches per micro-step "
           f"{counts[-1]}, {10 * len(dcb_modules(tr.dmc))} DepthConvBlock "
           f"gradients finite and nonzero [{card}]")
+    print("  RD recipe backward kernels' launches per micro-step by operand "
+          "shape: " + ", ".join(f"{k} {list(key)} x{n}" for (k, key), n
+                                in sorted(bwd_counts.items())))
 
     clips_t = synth_batch(torch.Generator(device=DEVICE).manual_seed(
         seed + 94), batch=RD_EVAL_CLIPS, size=RD_EVAL_CROP, seq_len=RD_T)
@@ -2561,7 +2627,54 @@ def phase_rd_recipe(torch, seed, card):
                 launches_per_micro_step=counts[-1], losses=losses,
                 eval_s_per_qp=eval_s, curve=curve, eval_launches=eval_counts,
                 liveness=report, collapsed=collapsed, batch=RD_B,
-                crop=RD_CROP, seq_len=RD_T, simt_counts=simt_counts)
+                crop=RD_CROP, seq_len=RD_T, simt_counts=simt_counts,
+                bwd_shape_launches=[
+                    dict(kernel=k, key=list(key), launches=n)
+                    for (k, key), n in sorted(bwd_counts.items())])
+
+
+def phase_rd_dw_fwd(torch, seed, card, shape_launches, prev=False):
+    """dw_fwd with an fp32 g (the RD recipe's) at each operand shape the
+    RD micro-step launched it at (``shape_launches``: phase 17's
+    bwd_shape_launches), on random inputs, by :func:`dw_fwd_row`: against
+    its plain version, beside cuDNN's depthwise conv alone and the bound;
+    with ``prev`` (--prev-port loaded) the other checkout's kernel in turns
+    and its g equal. Returns the kernels-line summary: each shape's times x
+    its launches, summed."""
+    import importlib
+
+    pdg = importlib.import_module("prev_port.ops.dcb_grad") if prev else None
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(seed + 110)
+    rows = []
+    for e in shape_launches:
+        if e["kernel"] != "dw_fwd":
+            continue
+        b, h, w, c = e["key"]
+        case = bwd_case(torch, rng, b, h, w, c, False, dev, torch.float32)
+        r = dict(shape=e["key"], per_step=e["launches"],
+                 **dw_fwd_row(torch, case["a0"], case["taps"], case["b2"],
+                              torch.float32, pdg))
+        rows.append(r)
+        print(f"  dw_fwd at RD-recipe shape {e['key']} g fp32 (x"
+              f"{e['launches']} per micro-step): {dw_fwd_text(r)} [{card}]")
+    per = lambda k: sum(r[k] * r["per_step"] for r in rows)
+    out = dict(launches=sum(r["per_step"] for r in rows), ms=per("ms"),
+               plain_ms=per("plain_ms"), library_ms=per("library_ms"),
+               bound_ms=per("bound_ms"),
+               max_abs_err=max(r["max_abs_err"] for r in rows),
+               per="RD-recipe micro-step (rd-mid fp32, phase 17): each "
+                   "shape's time x its launches there, summed",
+               shapes=rows)
+    if pdg is not None:
+        out["prev_ms"] = per("prev_ms")
+    print(f"  dw_fwd: {out['ms']:.3f} ms per RD-recipe micro-step "
+          f"({out['launches']} launches), plain {out['plain_ms']:.3f}, "
+          f"cuDNN depthwise alone {out['library_ms']:.3f}, bound "
+          f"{out['bound_ms']:.4f} ms" + (
+              f", parent {out['prev_ms']:.3f} ms in turns"
+              if pdg is not None else "") + f" [{card}]")
+    return out
 
 
 def phase_coded_f32(torch, seed, card):
@@ -2692,6 +2805,9 @@ def main() -> int:
     with torch.no_grad():
         simt = phase_simt_shapes(torch, args.seed, card,
                                  rd.pop("simt_counts"), prev)
+        rd_dw_fwd = phase_rd_dw_fwd(torch, args.seed, card,
+                                    rd["bwd_shape_launches"],
+                                    prev is not None)
     coded32 = phase_coded_f32(torch, args.seed, card)
     for entry in kernels:
         entry["widths"] = widths[entry["name"]]
@@ -2710,6 +2826,11 @@ def main() -> int:
     for entry in backward:
         entry["rd_recipe_launches"] = \
             rd["launches_per_micro_step"][entry["name"]]
+        if entry["name"] == "dw_fwd":
+            if rd_dw_fwd["launches"] != entry["rd_recipe_launches"]:
+                fail(f"dw_fwd: RD launches by shape {rd_dw_fwd['launches']} "
+                     f"!= the micro-step's {entry['rd_recipe_launches']}")
+            entry["rd_recipe"] = rd_dw_fwd
     kernels += kernels_f32 + backward
     print(json.dumps({"main_path": {
         "ms_per_frame": main_path["ms_per_frame"],

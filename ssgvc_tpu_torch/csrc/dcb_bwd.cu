@@ -30,8 +30,10 @@
 // row and column cut off at the image's edge; one partials row per tile, in
 // (image, tile row, tile column) order. A thread block owns one tile's
 // SLICE channels (grid: tiles x ceil(C / SLICE)) and writes those channels'
-// columns of the tile's row. Both need C % 8 == 0 and 16-byte aligned
-// operands (16-byte loads and copies of 4 channels).
+// columns of the tile's row. dw_fwd runs on the same tiles but writes no
+// partials, and its thread blocks own DW_SLICE channels. All three need C %
+// 8 == 0 and 16-byte aligned operands (16-byte loads and copies of 4
+// channels).
 //
 // grad_reduce (d): out[k] = sum over r of part[r][k], fp32, where part has
 // one row per tile and 18 C columns. Bound: bytes, rows x 18 C x 4 read
@@ -81,17 +83,8 @@ __device__ __forceinline__ void wsilu_both(float v, float& f, float& d) {
   d = s + 4.0f * v * s * (1.0f - s);
 }
 
-// An activation in the block's dtype, from fp32 (round to nearest).
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-
-// Four consecutive channels: 16 bytes of fp32, 8 of bf16.
+// Four consecutive channels: 16 bytes of fp32, 8 of bf16 (stored rounded
+// to nearest).
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -137,33 +130,115 @@ __device__ __forceinline__ Tile tile_of(int t, int th, int tw, int tiles_y,
 
 // (a) g = dw3x3(wsilu(a0)) + b2, zero padding in h = wsilu(a0) space per
 // image (taps (9, C): taps[3 i + j] multiplies h at (y + i - 1, x + j - 1)),
-// rounded to T. One thread per element.
+// rounded to T. Replaces the wsilu and dc_2 lines of
+// ssgvc_tpu/layers/blocks.py:DepthConvBlock (:491-498) in the recompute.
+//
+// A thread block owns one tile of the partition (th x tw pixels of one
+// image) and DW_SLICE channels; a thread owns 4 of those channels of one
+// pixel of the TILE x TILE grid throughout. It copies its channels of a
+// cell or two of the tile's window (the tile and a one-pixel halo, on a
+// fixed HALO x HALO grid) into shared memory (16-byte cp.async,
+// zero-filled beyond the image: wsilu(0) = 0, so the zeros are the
+// padding), then turns what it copied into h in place: one exponential per
+// staged value in the image, at most (th + 2)(tw + 2) a channel (100 at
+// 8x8, not 9 an output). After one barrier it computes its pixel, where
+// the tile has it: its 9 taps and b2 in registers (16-byte loads), h read
+// from shared memory 16 bytes at a time, g stored 16 bytes (fp32) or 8
+// (bf16). The index math is per tile and pixel, in 32 bits, on the fixed
+// grids (no division by a run-time value; the entry takes at most 2^31 - 1
+// pixels). Each output's sum: b2, then one fma per tap in (i, j) row-major
+// order. A halo tap adds t * 0, which leaves the sum's value as it is, so
+// g is that of a sum over the in-image taps alone, in the same order.
+//
+// Why these shapes (experiments/dw_fwd_turns.py, in turns on an H100): at
+// the training shapes (B = 4, 2x2 to 16x16) and the RD recipe's (B = 8,
+// 1x1 to 8x8) a launch lasts a few microseconds, a round trip to memory
+// and a block's serial work after the launch itself. 32-channel blocks of
+// 256 threads put a small frame on few SMs (4x8x8x128: 16 blocks) and
+// gave each thread two pixels and four cells; 8-channel blocks of 128
+// threads spread the same work over 4x the SMs, one pixel and at most two
+// cells a thread, and took a sixth to a quarter less time at 8x8.
+__device__ __forceinline__ float4 fma4(float4 a, float4 b, float4 c) {
+  return make_float4(__fmaf_rn(a.x, b.x, c.x), __fmaf_rn(a.y, b.y, c.y),
+                     __fmaf_rn(a.z, b.z, c.z), __fmaf_rn(a.w, b.w, c.w));
+}
+
+// dw_fwd's channel slice: it writes no partials, so its thread blocks need
+// not own SLICE channels; a narrow slice spreads a small frame's tiles over
+// more SMs (see above)
+constexpr int DW_SLICE = 8;
+static_assert(8 % DW_SLICE == 0, "dw_fwd: C % 8 == 0 fills every slice");
+constexpr int DW_GROUPS = DW_SLICE / 4;
+constexpr int DW_THREADS = TILE * TILE * DW_GROUPS;  // one pixel a thread
+constexpr int DW_COPIES = (HALO * HALO + TILE * TILE - 1) / (TILE * TILE);
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(DW_THREADS)
 dw_fwd_kernel(const float* __restrict__ a0, const float* __restrict__ taps,
-              const float* __restrict__ b2, T* __restrict__ g, int H,
-              int W, int C, long total) {
-  for (long e = blockIdx.x * (long)blockDim.x + threadIdx.x; e < total;
-       e += (long)gridDim.x * blockDim.x) {
-    const int c = e % C;
-    const long p = e / C;
-    const int x = p % W, y = (p / W) % H;
-    const long img = p - (long)y * W - x;      // first pixel of the image
-    float acc = b2[c];
+              const float* __restrict__ b2, T* __restrict__ g, int H, int W,
+              int C, int th, int tw, int tiles_y, int tiles_x) {
+  // a0, then h, on a fixed HALO x HALO grid of cells: cell (r, s) holds
+  // row y0 - 1 + r, column x0 - 1 + s, DW_SLICE channels
+  __shared__ __align__(16) float sh[HALO * HALO * DW_SLICE];
+  // this thread's 4 channels: it stages, turns into h and computes them
+  // (no other thread reads them)
+  const int grp = threadIdx.x % DW_GROUPS, lane = threadIdx.x / DW_GROUPS;
+  const int c = blockIdx.y * DW_SLICE + 4 * grp;
+  const Tile t = tile_of(blockIdx.x, th, tw, tiles_y, tiles_x);
+  const int img = t.b * H * W;                  // the image's first pixel
+
+  // stage the window's cells lane + j TILE^2 (j < DW_COPIES), 4 channels
+  // each: in the image copied, beyond it zero-filled
+  int cell[DW_COPIES];                          // shared-memory offsets
+  bool inside[DW_COPIES];
 #pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      const int yy = y + i - 1;
-      if (yy < 0 || yy >= H) continue;
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        const int xx = x + j - 1;
-        if (xx < 0 || xx >= W) continue;
-        acc += taps[(3 * i + j) * C + c] *
-               wsilu(a0[(img + (long)yy * W + xx) * C + c]);
-      }
-    }
-    g[e] = from_f<T>(acc);
+  for (int j = 0; j < DW_COPIES; ++j) {
+    const int pix = lane + j * TILE * TILE;
+    const int r = pix / HALO, s = pix % HALO;
+    const int yy = t.y0 - 1 + r, xx = t.x0 - 1 + s;
+    const bool want = r < th + 2 && s < tw + 2;
+    inside[j] = want && yy >= 0 && yy < H && xx >= 0 && xx < W;
+    cell[j] = pix * DW_SLICE + 4 * grp;
+    if (want)
+      cp_async16(sh + cell[j],
+                 inside[j] ? a0 + (size_t)(img + yy * W + xx) * C + c : a0,
+                 inside[j]);
   }
+  // while the copies fly: this thread's taps and b2
+  float4 tp[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) tp[k] = load4(taps + k * C + c);
+  const float4 bias = load4(b2 + c);
+  cp_async_wait_all();
+  // h = wsilu(a0) for the cells this thread copied (visible to it after its
+  // own wait; a zero-filled cell is already h), then one barrier
+#pragma unroll
+  for (int j = 0; j < DW_COPIES; ++j) {
+    if (!inside[j]) continue;
+    float4* v = reinterpret_cast<float4*>(sh + cell[j]);
+    const float4 a = *v;
+    *v = make_float4(wsilu(a.x), wsilu(a.y), wsilu(a.z), wsilu(a.w));
+  }
+  __syncthreads();
+
+  // pixel lane of the TILE x TILE grid, where the tile (th x tw, cut off
+  // at the image's edge) has it; it sits at cell (py + 1, px + 1), so its
+  // window starts at cell (py, px)
+  const int py = lane / TILE, px = lane % TILE;
+  const int y = t.y0 + py, x = t.x0 + px;
+  if (py >= th || px >= tw || y >= H || x >= W) return;
+  const float* hs = sh + (py * HALO + px) * DW_SLICE + 4 * grp;
+  float4 acc = bias;
+#pragma unroll
+  for (int ti = 0; ti < 3; ++ti) {
+#pragma unroll
+    for (int tj = 0; tj < 3; ++tj)
+      acc = fma4(tp[3 * ti + tj],
+                 *reinterpret_cast<const float4*>(
+                     hs + (ti * HALO + tj) * DW_SLICE),
+                 acc);
+  }
+  store4(g + (size_t)(img + y * W + x) * C + c, acc);
 }
 
 // (b) From df (M, 2C) and p = u Wf0^T + bf0 (M, 4C): dp for both 2C halves
@@ -443,13 +518,8 @@ reduce_kernel(const float* __restrict__ part, float* __restrict__ out,
   }
 }
 
-inline int blocks_for(long n) {
-  const long b = (n + kThreads - 1) / kThreads;
-  return (int)(b < 4096 ? (b > 0 ? b : 1) : 4096);
-}
-
-// The tile grid of gate_bwd and dw_bwd (tiles x channel slices), or false
-// for a shape or tile they do not take.
+// The tile grid of dw_fwd, gate_bwd and dw_bwd (tiles x channel slices), or
+// false for a shape or tile they do not take.
 inline bool tile_grid(int B, int H, int W, int C, int th, int tw,
                       int* tiles_y, int* tiles_x, dim3* grid) {
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || C % 8 != 0) return false;
@@ -469,10 +539,12 @@ using namespace dcbg;
 
 template <typename T>
 void dw_fwd_launch(const void* a0, const void* taps, const void* b2, void* g,
-                   int H, int W, int C, long total, cudaStream_t stream) {
-  dw_fwd_kernel<T><<<blocks_for(total), kThreads, 0, stream>>>(
+                   int H, int W, int C, int th, int tw, int tiles_y,
+                   int tiles_x, dim3 grid, cudaStream_t stream) {
+  dw_fwd_kernel<T><<<grid, DW_THREADS, 0, stream>>>(
       static_cast<const float*>(a0), static_cast<const float*>(taps),
-      static_cast<const float*>(b2), static_cast<T*>(g), H, W, C, total);
+      static_cast<const float*>(b2), static_cast<T*>(g), H, W, C, th, tw,
+      tiles_y, tiles_x);
 }
 
 template <typename T>
@@ -489,17 +561,23 @@ void gate_bwd_launch(const void* df, const void* p, const void* dy,
       static_cast<float*>(part), ld, H, W, C, th, tw, tiles_y, tiles_x);
 }
 
-// f32: g in fp32 (else bf16).
+// f32: g in fp32 (else bf16). th x tw: the partition's tile.
 extern "C" int ssgvc_dw_fwd(const void* a0, const void* taps, const void* b2,
-                            void* g, int B, int H, int W, int C, int f32,
-                            void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || C <= 0) return cudaErrorInvalidValue;
-  const long total = (long)B * H * W * C;
+                            void* g, int B, int H, int W, int C, int th,
+                            int tw, int f32, void* stream) {
+  int tiles_y, tiles_x;
+  dim3 grid;
+  if (!tile_grid(B, H, W, C, th, tw, &tiles_y, &tiles_x, &grid) ||
+      (long)B * H * W > 0x7fffffffL)
+    return cudaErrorInvalidValue;
+  grid.y = (C + DW_SLICE - 1) / DW_SLICE;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (f32)
-    dw_fwd_launch<float>(a0, taps, b2, g, H, W, C, total, st);
+    dw_fwd_launch<float>(a0, taps, b2, g, H, W, C, th, tw, tiles_y, tiles_x,
+                         grid, st);
   else
-    dw_fwd_launch<bf16>(a0, taps, b2, g, H, W, C, total, st);
+    dw_fwd_launch<bf16>(a0, taps, b2, g, H, W, C, th, tw, tiles_y, tiles_x,
+                        grid, st);
   return cudaGetLastError();
 }
 

@@ -51,7 +51,8 @@ from .dcb_chain import dcb_chain
 
 #: The partials' partition (csrc/dcb_bwd.cu): tiles of at most TILE x TILE
 #: pixels of one image, one partials row each; gate_bwd and dw_bwd give a
-#: thread block one tile's SLICE channels.
+#: thread block one tile's SLICE channels (dw_fwd runs on the same tiles
+#: without partials, its thread blocks on narrower slices).
 TILE, SLICE = 8, 32
 #: Kernel launches since each count was last set to 0.
 launches = {"dw_fwd": 0, "gate_bwd": 0, "dw_bwd": 0, "grad_reduce": 0}
@@ -203,7 +204,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("dcb_bwd")
     if lib.ssgvc_dw_fwd.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.ssgvc_dw_fwd.argtypes = [vp] * 4 + [i] * 5 + [vp]
+        lib.ssgvc_dw_fwd.argtypes = [vp] * 4 + [i] * 7 + [vp]
         lib.ssgvc_gate_bwd.argtypes = [vp] * 9 + [i] * 8 + [vp]
         lib.ssgvc_dw_bwd.argtypes = [vp] * 6 + [i] * 7 + [vp]
         lib.ssgvc_grad_reduce.argtypes = [vp, vp, vp, i, i, vp]
@@ -258,23 +259,26 @@ def _act_dtype(what: str, dtype: torch.dtype) -> int:
 
 
 def dw_fwd_cuda(a0, taps, b2, out_dtype):
+    b, hh, ww, c = shape = _bwd_shape("dw_fwd", a0)
     act = _act_dtype("dw_fwd", out_dtype)
-    b, hh, ww, c = a0.shape
     dev, f32 = a0.device, torch.float32
     with torch.cuda.device(dev):
-        ptrs = [_check("dw_fwd a0", a0, f32, (b, hh, ww, c), dev),
+        ptrs = [_check("dw_fwd a0", a0, f32, shape, dev),
                 _check("dw_fwd taps", taps, f32, (9, c), dev),
                 _check("dw_fwd b2", b2, f32, (c,), dev)]
-        g = torch.empty(a0.shape, dtype=out_dtype, device=dev)
-        _launch("dw_fwd", (b, hh, ww, c), *ptrs, g.data_ptr(), b, hh, ww, c,
+        g = torch.empty(shape, dtype=out_dtype, device=dev)
+        _aligned("dw_fwd", ptrs + [g.data_ptr()])
+        th, tw, _ = bwd_tiles(shape)
+        _launch("dw_fwd", shape, *ptrs, g.data_ptr(), b, hh, ww, c, th, tw,
                 act)
     return g
 
 
 def _bwd_shape(what: str, t: torch.Tensor) -> Tuple[int, int, int, int]:
-    """The (B, H, W, C) of gate_bwd's or dw_bwd's activation, or raise
-    unless C is a multiple of WIDTH_STEP, as the forward kernels take it
-    (these move 4 channels at a time; no other C runs)."""
+    """The (B, H, W, C) of a tiled kernel's activation (dw_fwd's a0,
+    gate_bwd's dy, dw_bwd's dg), or raise unless C is a multiple of
+    WIDTH_STEP, as the forward kernels take it (these move 4 channels at a
+    time; no other C runs)."""
     if t.dim() != 4 or t.shape[-1] % WIDTH_STEP:
         raise ValueError(f"{what}: kernel takes (B, H, W, C) with C a "
                          f"multiple of {WIDTH_STEP}, got {tuple(t.shape)}")

@@ -3,7 +3,8 @@
 ``ops.dcb_grad.bwd_tiles`` chooses, the tile constants against the CUDA
 source, the plain per-tile sums (the card's oracle for each partials row)
 against a pixel-by-pixel sum, and those rows through the kernel's fixed
-reduction order against the sums over every pixel.
+reduction order against the sums over every pixel; ``dw_fwd``'s data flow
+over the same tiles against its plain version.
 
 Tolerances: the per-tile sums and their reduction at 1e-5 of the largest
 magnitude (fp32 sums in another order).
@@ -154,6 +155,81 @@ def test_tile_sums_reduced_in_the_kernels_order_are_the_sums(shape):
     whole = plain_part(k, 1)
     tiles = plain_part(k, dg.bwd_tiles(shape)[2])
     assert close(dg.grad_reduce_order(tiles), whole.sum(0))
+
+
+#: dw_fwd's own channel slice (csrc/dcb_bwd.cu: it writes no partials);
+#: a thread owns 4 channels of one pixel, lane, of the TILE x TILE grid and
+#: stages cells lane + j TILE^2 of the window's HALO x HALO grid
+DW_SLICE = int(re.search(r"constexpr int DW_SLICE = (\d+);",
+                         (CSRC / "dcb_bwd.cu").read_text()).group(1))
+HALO = dg.TILE + 2
+LANES = dg.TILE * dg.TILE
+
+
+def dw_fwd_tiles(a0, taps, b2):
+    """g as dw_fwd's thread blocks compute it (csrc/dcb_bwd.cu): per tile
+    of bwd_tiles and DW_SLICE of channels, the a0 window over the tile and
+    a one-pixel halo (cells (r, s) < (th + 2, tw + 2) of the HALO x HALO
+    grid), zero beyond the image, turned into h = wsilu(a0); each pixel
+    lane of the TILE x TILE grid that lies in the tile summed from b2 tap
+    by tap in (i, j) order over its window. Returns g and how many times
+    each output was written."""
+    b, h, w, c = a0.shape
+    th, tw, rows = dg.bwd_tiles(a0.shape)
+    # every window cell is some lane's copy
+    copies = -(-(HALO * HALO) // LANES)
+    cells = torch.arange(LANES)[:, None] + LANES * torch.arange(copies)
+    r, s = cells // HALO, cells % HALO
+    staged = cells[(r < th + 2) & (s < tw + 2)]
+    assert sorted(staged.tolist()) == [
+        rr * HALO + ss for rr in range(th + 2) for ss in range(tw + 2)]
+    # zeros beyond the image: the halo and the cut-off tile's far side
+    pad = F.pad(a0, (0, 0, 1, dg.TILE + 1, 1, dg.TILE + 1))
+    g = torch.zeros_like(a0)
+    writes = torch.zeros(a0.shape, dtype=torch.int64)
+    lane = torch.arange(LANES)
+    py, px = lane // dg.TILE, lane % dg.TILE
+    keep = (py < th) & (px < tw)
+    py, px = py[keep], px[keep]
+    for t in range(rows):
+        img, y0, x0 = tile_of(t, a0.shape)
+        y, x = y0 + py, x0 + px
+        inside = (y < h) & (x < w)
+        for c0 in range(0, c, DW_SLICE):
+            ch = slice(c0, min(c0 + DW_SLICE, c))
+            hs = dg.wsilu(pad[img, y0:y0 + th + 2, x0:x0 + tw + 2, ch])
+            acc = b2[ch].expand(len(py), -1)
+            for ti in range(3):
+                for tj in range(3):
+                    acc = acc + taps[3 * ti + tj, ch] * hs[py + ti, px + tj]
+            g[img, y[inside], x[inside], ch] = acc[inside]
+            writes[img, y[inside], x[inside], ch] += 1
+    return g, writes
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(4, 12, 20, 24), (3, 9, 5, 8),
+                                            (8, 8, 8, 64), (8, 4, 4, 32),
+                                            (8, 1, 1, 32), (2, 17, 9, 40)])
+def test_dw_fwd_through_the_kernels_tiles_is_the_plain_version(shape):
+    """dw_fwd's data flow (a thread block per tile and channel slice, the
+    window staged with a zero halo, h once per staged value, a pixel's 4
+    channels a thread) writes every output once, and what it writes is
+    dw_fwd_plain's g: the halo stays inside each image, cut-off tiles
+    included. Its constants against the .cu: one thread per pixel and
+    group of 4 channels, the HALO grid, every slice full (C a multiple of
+    DW_SLICE)."""
+    text = (CSRC / "dcb_bwd.cu").read_text()
+    assert "constexpr int DW_THREADS = TILE * TILE * DW_GROUPS;" in text
+    assert "constexpr int DW_GROUPS = DW_SLICE / 4;" in text
+    assert "constexpr int HALO = TILE + 2;" in text
+    # every slice full: the kernel stages and computes every channel group
+    assert DW_SLICE % 4 == 0 and dcb_ops.WIDTH_STEP % DW_SLICE == 0
+    k = case(shape, False, 11 + sum(shape))
+    b2 = torch.from_numpy(np.random.default_rng(sum(shape)).standard_normal(
+        shape[-1]).astype(np.float32))
+    g, writes = dw_fwd_tiles(k["a0"], k["taps"], b2)
+    assert (writes == 1).all()
+    assert close(g, dg.dw_fwd_plain(k["a0"], k["taps"], b2, torch.float32))
 
 
 def test_tile_sums_refuse_another_row_count():

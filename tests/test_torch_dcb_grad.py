@@ -193,6 +193,44 @@ def test_dw_fwd_plain_is_the_depthwise_composition():
     assert torch.equal(g16, g.to(torch.bfloat16))
 
 
+@pytest.mark.parametrize("h,w,c", [(9, 13, 16), (5, 11, 24), (3, 1, 8)])
+def test_dw_fwd_plain_matches_the_jax_blocks_lines(h, w, c):
+    """dw_fwd_plain against ssgvc_tpu/layers/blocks.py:490-497 on the XLA
+    conv path: the flax DepthConvBlock's dc_0 output (a0) and dc_2 output
+    (wsilu, then the grouped 3x3 conv) captured from one apply, with dc_2's
+    params as taps and b2; fp32, B = 2, H and W not multiples of the 8x8
+    tile. Tolerance: 1e-5 of the largest |g| (ten fp32 terms summed in
+    another order, and an ulp between XLA's and torch's sigmoid)."""
+    rng = _rng(40 + h)
+    x = jnp.asarray(rng.standard_normal((2, h, w, c)).astype(np.float32))
+    m = jb.DepthConvBlock(c)
+    params = perturbed(m.init(jax.random.PRNGKey(h), x)["params"], seed=h,
+                       scale=0.05)
+    _, state = m.apply({"params": params}, x, capture_intermediates=True,
+                       mutable=["intermediates"])
+    inter = state["intermediates"]
+    a0 = np.array(inter["dc_0"]["__call__"][0])
+    want = np.array(inter["dc_2"]["__call__"][0])
+    kernel = params["dc_2"]["kernel"]                  # (3, 3, 1, C)
+    assert kernel.shape == (3, 3, 1, c)
+    taps = torch.from_numpy(kernel.reshape(9, c).copy())
+    b2 = torch.from_numpy(params["dc_2"]["bias"])
+    got = dg.dw_fwd_plain(torch.from_numpy(a0), taps, b2, torch.float32)
+    assert got.shape == want.shape == (2, h, w, c)
+    assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("c", [4, 12, 20])
+def test_dw_fwd_kernel_refuses_a_width_off_8_before_the_card(c):
+    """dw_fwd_cuda moves 4 channels at a time on 8-channel steps: C % 8 !=
+    0 raises at the shape check, the first thing it does (no card
+    needed to reach it)."""
+    a0 = torch.zeros(2, 3, 3, c)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        dg.dw_fwd_cuda(a0, torch.zeros(9, c), torch.zeros(c),
+                       torch.float32)
+
+
 @pytest.mark.parametrize("with_q", [False, True])
 def test_gate_bwd_plain_is_autograd_of_the_gate(with_q):
     rng = _rng(4 + with_q)

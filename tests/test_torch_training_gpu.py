@@ -1,6 +1,8 @@
 """Training on the card (marked ``gpu``; skipped where no CUDA device is
 present): the DepthConvBlock backward kernels (csrc/dcb_bwd.cu) against
-their plain versions at every shape a training micro-step gives them, both
+their plain versions at every shape a training micro-step gives them
+(dw_fwd also at the RD recipe's shapes and on edge tiles, image by image
+and rerun bit for bit), both
 forward kernels at B = 4 against four B = 1 launches bit for bit, and the
 card's bf16 gop_loss and gradient against the CPU port's fp32 and bf16 at
 full width.
@@ -106,19 +108,23 @@ def test_backward_kernels_are_deterministic(act):
 
 @pytest.mark.gpu
 def test_backward_kernels_refuse_what_they_do_not_take():
-    """gate_bwd and dw_bwd take C a multiple of 8 and 16-byte aligned
-    operands; anything else raises (there is no other route)."""
+    """dw_fwd, gate_bwd and dw_bwd take C a multiple of 8 and 16-byte
+    aligned operands; anything else raises (there is no other route)."""
     from ssgvc_tpu_torch.ops import dcb_grad as dg
 
     dev = _card()
     k = chip_smoke.bwd_case(torch, np.random.default_rng(7), 2, 4, 4, 12,
                             True, dev)
     part = torch.zeros(2, 18 * 12, device=dev)
+    before = dict(dg.launches)
     with pytest.raises(ValueError, match="multiple of 8"):
         dg.gate_bwd_cuda(k["df"], k["p"], k["dy"], k["q"], k["resid"],
                          part, 0)
     with pytest.raises(ValueError, match="multiple of 8"):
         dg.dw_bwd_cuda(k["dg"], k["a0"], k["taps"], k["du"], part, 72)
+    for act in (torch.bfloat16, torch.float32):
+        with pytest.raises(ValueError, match="multiple of 8"):
+            dg.dw_fwd_cuda(k["a0"], k["taps"], k["b2"], act)
     k = chip_smoke.bwd_case(torch, np.random.default_rng(7), 2, 4, 4, 8,
                             False, dev)
     off = torch.zeros(2 * 4 * 4 * 8 + 1, device=dev)[1:].reshape(2, 4, 4, 8)
@@ -126,6 +132,99 @@ def test_backward_kernels_refuse_what_they_do_not_take():
     with pytest.raises(ValueError, match="aligned"):
         dg.dw_bwd_cuda(off, k["a0"], k["taps"], k["du"],
                        torch.zeros(2, 18 * 8, device=dev), 48)
+    off.copy_(k["a0"])
+    b2_off = torch.zeros(8 + 1, device=dev)[1:]
+    b2_off.copy_(k["b2"])
+    for act in (torch.bfloat16, torch.float32):
+        with pytest.raises(ValueError, match="aligned"):
+            dg.dw_fwd_cuda(off, k["taps"], k["b2"], act)
+        with pytest.raises(ValueError, match="aligned"):
+            dg.dw_fwd_cuda(k["a0"], k["taps"], b2_off, act)
+    assert dg.launches == before          # nothing launched
+    # the aligned operands themselves run
+    dg.dw_fwd_cuda(k["a0"], k["taps"], k["b2"], torch.float32)
+    assert dg.launches["dw_fwd"] == before["dw_fwd"] + 1
+
+
+#: dw_fwd beyond the training shapes (B = 4): the RD recipe's (B = 8, rd-mid
+#: widths 32-96 at 8x8 and below), edge tiles (H, W not multiples of the
+#: 8x8 tile, partial channel slices) and a one-tile, one-slice frame
+DW_FWD_SHAPES = list(dict.fromkeys(
+    [(chip_smoke.TRAIN_B, h, w, c) for h, w, c, _, _ in chip_smoke.BWD_SHAPES]
+    + [(8, 8, 8, 96), (8, 8, 8, 64), (8, 4, 4, 64), (8, 4, 4, 32),
+       (8, 2, 2, 32), (8, 1, 1, 32)]
+    + [(4, 12, 20, 24), (3, 9, 5, 8), (2, 17, 9, 40), (1, 8, 8, 32)]))
+
+
+def _dw_fwd_inputs(shape, seed, dev):
+    rng = np.random.default_rng(seed)
+    t = lambda *s, std=1.0: torch.tensor(rng.standard_normal(s) * std,
+                                         dtype=torch.float32, device=dev)
+    c = shape[-1]
+    return t(*shape), t(9, c, std=1 / 3), t(c, std=0.1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", DW_FWD_SHAPES)
+def test_dw_fwd_matches_plain(shape, act):
+    """dw_fwd_cuda's g against dw_fwd_plain on the same inputs: bf16 within
+    chip_smoke.REL_TOL (one rounding flip is 2^-8 relative), fp32 within
+    chip_smoke.BWD_FP32_TOL (the same fp32 math, __expf and another
+    order), relative Frobenius error."""
+    from ssgvc_tpu_torch.ops import dcb_grad as dg
+
+    dev = _card()
+    dt = getattr(torch, act)
+    a0, taps, b2 = _dw_fwd_inputs(shape, sum(shape), dev)
+    before = dg.launches["dw_fwd"]
+    g = dg.dw_fwd_cuda(a0, taps, b2, dt)
+    assert dg.launches["dw_fwd"] == before + 1
+    assert g.dtype == dt and tuple(g.shape) == shape
+    chip_smoke.check_close(torch, f"dw_fwd {shape} {act}", g,
+                           dg.dw_fwd_plain(a0, taps, b2, dt),
+                           chip_smoke.REL_TOL if act == "bfloat16"
+                           else chip_smoke.BWD_FP32_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", [(3, 9, 13, 40), (4, 16, 16, 32),
+                                   (8, 2, 2, 32)])
+def test_dw_fwd_keeps_each_image_to_itself(shape, act):
+    """With B > 1 the halo stays inside each image: the B-image launch
+    equals B one-image launches bit for bit, and another image 1 leaves
+    every other image's g as it was."""
+    from ssgvc_tpu_torch.ops import dcb_grad as dg
+
+    dev = _card()
+    dt = getattr(torch, act)
+    a0, taps, b2 = _dw_fwd_inputs(shape, 3, dev)
+    g = dg.dw_fwd_cuda(a0, taps, b2, dt)
+    for i in range(shape[0]):
+        assert torch.equal(g[i:i + 1], dg.dw_fwd_cuda(
+            a0[i:i + 1].contiguous(), taps, b2, dt)), i
+    a1 = a0.clone()
+    a1[1] = 10.0 * torch.rand_like(a1[1]) - 5.0
+    g1 = dg.dw_fwd_cuda(a1, taps, b2, dt)
+    keep = [i for i in range(shape[0]) if i != 1]
+    assert torch.equal(g1[keep], g[keep])
+    assert not torch.equal(g1[1], g[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", [(4, 16, 16, 320), (8, 8, 8, 64),
+                                   (3, 9, 5, 8)])
+def test_dw_fwd_reruns_are_bit_equal(shape, act):
+    from ssgvc_tpu_torch.ops import dcb_grad as dg
+
+    dev = _card()
+    dt = getattr(torch, act)
+    a0, taps, b2 = _dw_fwd_inputs(shape, 9, dev)
+    g = dg.dw_fwd_cuda(a0, taps, b2, dt)
+    for _ in range(3):
+        assert torch.equal(dg.dw_fwd_cuda(a0, taps, b2, dt), g)
 
 
 @pytest.mark.gpu
