@@ -147,22 +147,47 @@ Phases (any failure exits non-zero and prints no result line):
      launched them at, against their plain versions (fp32 1e-5) and timed
      beside them and the bound (with --prev-port the other checkout's SIMT
      kernel in turns, prev_ms): their kernels-line entries are these times
-     x launches per micro-step; likewise dw_fwd (fp32 g) at each shape the
-     last micro-step launched it at (ops.dcb_grad.shape_launches), with
-     --prev-port in turns with the other checkout's and equal to its g;
+     x launches per micro-step; likewise each backward kernel (fp32
+     activations) at each shape the last micro-step launched it at
+     (ops.dcb_grad.shape_launches), against its plain version, beside it,
+     the library call and the bound, with --prev-port in turns with the
+     other checkout's (dw_fwd's g equal to its);
  18. coded fp32: VideoCodec at rd-mid in float32, I + 2 P of 192x192,
-     every decoded frame and DPB torch.equal to the encoder's.
+     every decoded frame and DPB torch.equal to the encoder's;
+ 19. train CLI: ssgvc_tpu_torch.trainer_seg_video_model.main in a
+     temporary working directory (the default YAML written there), on
+     Waymo TFRecords written from --seed (CLI_RECORDS records of 1920x1280
+     FRONT JPEGs, the Waymo front camera's size, through the port's
+     build_frame_proto and write_records) with their mask cache built by
+     data.build_cache and a seeded stub segmenter; phase 13's default
+     TrainConfig (full profile, bf16-mixed, performance, B=4 128x128 T=4,
+     accumulation 8): CLI_EPOCHS epochs of 2 steps, validation every
+     CLI_VAL_EVERY steps (twice), save_top_k CLI_TOP_K; every file the JAX
+     CLI writes (the CSVs with the JAX headers, the config snapshot,
+     checkpoints/last and at most save_top_k step checkpoints, both recon
+     panels per validation), every loss and gradient finite, dcb,
+     dcb_chain and the four backward kernels launched (counts set to 0
+     just before main, read just after); checkpoints/last restored into a
+     new Trainer equal to the live state (torch.equal on every parameter
+     and optimizer tensor, the step and the ALM scalars) and an eval_step
+     from each equal bit for bit on one batch, QP and generator; then the
+     CLI again with resume_from_checkpoint=last for 2 more steps. Timed:
+     the host time inside next(train_iter) per step (the data path: JPEG
+     decode, colour conversion, mask load and crop), CUDA events around
+     train_step as in phase 13, and the host time from a step's next() to
+     its train_step's end.
 
 The last lines are JSON objects: {"main_path": ...}, {"variants": ...},
 {"coded": ...}, {"training": ...}, {"cross_check": ...}, {"fp32": ...},
-{"rd_half": ...}, {"rd_recipe": ...}, {"coded_fp32": ...}, {"kernels":
-[...]}, and last {"ok": true, "device": {"platform": "gpu", "kind": ...,
-"count": ...}}.
+{"rd_half": ...}, {"rd_recipe": ...}, {"coded_fp32": ...},
+{"train_cli": ...}, {"kernels": [...]}, and last {"ok": true, "device":
+{"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import math
@@ -2563,7 +2588,7 @@ def phase_rd_recipe(torch, seed, card):
     # phase_simt_shapes)
     simt_counts = {"dcb_f32": dict(dcb_ops.shape_launches_f32),
                    "dcb_chain_f32": dict(chain_ops.shape_launches_f32)}
-    # and the backward kernels' (dw_fwd's timed by phase_rd_dw_fwd)
+    # and the backward kernels' (timed by phase_rd_backward)
     bwd_counts = dict(dg.shape_launches)
     bad, zero = [], []
     for name, m in dcb_modules(tr.dmc):
@@ -2633,47 +2658,127 @@ def phase_rd_recipe(torch, seed, card):
                     for (k, key), n in sorted(bwd_counts.items())])
 
 
-def phase_rd_dw_fwd(torch, seed, card, shape_launches, prev=False):
-    """dw_fwd with an fp32 g (the RD recipe's) at each operand shape the
-    RD micro-step launched it at (``shape_launches``: phase 17's
-    bwd_shape_launches), on random inputs, by :func:`dw_fwd_row`: against
-    its plain version, beside cuDNN's depthwise conv alone and the bound;
-    with ``prev`` (--prev-port loaded) the other checkout's kernel in turns
-    and its g equal. Returns the kernels-line summary: each shape's times x
-    its launches, summed."""
+def rd_bwd_row(torch, k, key, rng, dev, pdg, reps=20):
+    """gate_bwd, dw_bwd or grad_reduce with fp32 activations (the RD
+    recipe's) at one operand shape ``key``, on random inputs: against its
+    plain version (gate_bwd and dw_bwd by check_backward_kernels at the
+    block's shape; grad_reduce on random partials of ``key``'s shape, also
+    bit for bit against grad_reduce_order), timed beside the plain version,
+    the library call (dw_bwd: convolution_backward; grad_reduce: torch.sum)
+    and the bound; with ``pdg`` (the other checkout's ops.dcb_grad) its
+    kernel on the same inputs, with its own partials, in turns (prev, new,
+    new, prev)."""
+    from ssgvc_tpu_torch.ops import dcb_grad as dg
+
+    lib = prev = None
+    if k == "grad_reduce":
+        n, cols = key
+        part = torch.tensor(rng.standard_normal((n, cols)),
+                            dtype=torch.float32, device=dev)
+        kern = lambda: dg.grad_reduce_cuda(part)
+        plain = lambda: dg.grad_reduce_plain(part)
+        lib = lambda: torch.sum(part, 0)
+        if pdg is not None:
+            prev = lambda: pdg.grad_reduce_cuda(part)
+        _, err = check_close(torch, f"grad_reduce at {key}", kern(), plain(),
+                             BWD_FP32_TOL)
+        if not torch.equal(kern().cpu(), dg.grad_reduce_order(part.cpu())):
+            fail(f"grad_reduce at {key}: not grad_reduce_order's sums bit "
+                 "for bit")
+        nbytes = 4 * n * cols + 4 * cols
+    else:
+        b, h, w, c = key[:4]
+        with_q = k == "gate_bwd" and bool(key[4])
+        case = bwd_case(torch, rng, b, h, w, c, with_q, dev, torch.float32)
+        err = check_backward_kernels(torch, case)[k]
+        cols = (dg.GATE_COLS + dg.DW_COLS) * c
+        part_k = torch.zeros(dg.partial_rows(case["a0"]), cols, device=dev)
+        part_p = torch.zeros(1, cols, device=dev)
+        part_q = (torch.zeros(pdg.partial_rows(case["a0"]), cols, device=dev)
+                  if pdg is not None else None)
+        if k == "gate_bwd":
+            args, col, name = (case["df"], case["p"], case["dy"], case["q"],
+                               case["resid"]), 0, "gate_bwd"
+        else:
+            args, col, name = (case["dg"], case["a0"], case["taps"],
+                               case["du"]), dg.GATE_COLS * c, "dw_bwd"
+            hn = dg.wsilu(case["a0"]).permute(0, 3, 1, 2)
+            dgn = case["dg"].permute(0, 3, 1, 2)
+            wdw = case["taps"].t().reshape(c, 1, 3, 3)
+            lib = lambda: torch.ops.aten.convolution_backward(
+                dgn, hn, wdw, [c], [1, 1], [1, 1], [1, 1], False, [0, 0], c,
+                [True, True, True])
+        kern = lambda: getattr(dg, name + "_cuda")(*args, part_k, col)
+        plain = lambda: getattr(dg, name + "_plain")(*args, part_p, col)
+        if pdg is not None:
+            prev = lambda: getattr(pdg, name + "_cuda")(*args, part_q, col)
+        nbytes = bwd_bytes(b, h, w, c, with_q, 4)[k]
+    fns = {"new": kern} if prev is None else {"new": kern, "prev": prev}
+    means, turns = timed_turns(torch, fns, reps)
+    r = dict(ms=means["new"], plain_ms=cuda_ms(torch, plain, reps),
+             library_ms=cuda_ms(torch, lib, reps) if lib else None,
+             bytes=nbytes, bound_ms=1e3 * nbytes / H100_BYTES_PER_S,
+             max_abs_err=err)
+    if prev is not None:
+        r.update(prev_ms=means["prev"], turns=turns)
+    return r
+
+
+def phase_rd_backward(torch, seed, card, shape_launches, prev=False):
+    """Each backward kernel with fp32 activations (the RD recipe's) at each
+    operand shape the RD micro-step launched it at (``shape_launches``:
+    phase 17's bwd_shape_launches), on random inputs: dw_fwd by
+    :func:`dw_fwd_row`, the others by :func:`rd_bwd_row`; with ``prev``
+    (--prev-port loaded) the other checkout's kernels in turns (dw_fwd's g
+    equal to its). Returns {kernel: the kernels-line summary: each shape's
+    times x its launches, summed}."""
     import importlib
 
     pdg = importlib.import_module("prev_port.ops.dcb_grad") if prev else None
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(seed + 110)
-    rows = []
+    rows = {k: [] for k in BWD_REPLACES}
     for e in shape_launches:
-        if e["kernel"] != "dw_fwd":
-            continue
-        b, h, w, c = e["key"]
-        case = bwd_case(torch, rng, b, h, w, c, False, dev, torch.float32)
-        r = dict(shape=e["key"], per_step=e["launches"],
-                 **dw_fwd_row(torch, case["a0"], case["taps"], case["b2"],
-                              torch.float32, pdg))
-        rows.append(r)
-        print(f"  dw_fwd at RD-recipe shape {e['key']} g fp32 (x"
-              f"{e['launches']} per micro-step): {dw_fwd_text(r)} [{card}]")
-    per = lambda k: sum(r[k] * r["per_step"] for r in rows)
-    out = dict(launches=sum(r["per_step"] for r in rows), ms=per("ms"),
-               plain_ms=per("plain_ms"), library_ms=per("library_ms"),
-               bound_ms=per("bound_ms"),
-               max_abs_err=max(r["max_abs_err"] for r in rows),
-               per="RD-recipe micro-step (rd-mid fp32, phase 17): each "
-                   "shape's time x its launches there, summed",
-               shapes=rows)
-    if pdg is not None:
-        out["prev_ms"] = per("prev_ms")
-    print(f"  dw_fwd: {out['ms']:.3f} ms per RD-recipe micro-step "
-          f"({out['launches']} launches), plain {out['plain_ms']:.3f}, "
-          f"cuDNN depthwise alone {out['library_ms']:.3f}, bound "
-          f"{out['bound_ms']:.4f} ms" + (
-              f", parent {out['prev_ms']:.3f} ms in turns"
-              if pdg is not None else "") + f" [{card}]")
+        k, key = e["kernel"], tuple(e["key"])
+        if k == "dw_fwd":
+            case = bwd_case(torch, rng, *key, False, dev, torch.float32)
+            r = dw_fwd_row(torch, case["a0"], case["taps"], case["b2"],
+                           torch.float32, pdg)
+        else:
+            r = rd_bwd_row(torch, k, key, rng, dev, pdg)
+        r.update(shape=list(key), per_step=e["launches"])
+        rows[k].append(r)
+        prev_txt = (f", parent {r['prev_ms']:.4f} in turns"
+                    if "prev_ms" in r else "")
+        lib_txt = (f", library {r['library_ms']:.4f}"
+                   if r["library_ms"] is not None else "")
+        print(f"  {k} at RD-recipe shape {list(key)} fp32 (x"
+              f"{e['launches']} per micro-step): kernel {r['ms']:.4f} ms"
+              f"{prev_txt}, plain {r['plain_ms']:.4f}{lib_txt}, bound "
+              f"{1e3 * r['bound_ms']:.2f} us ({r['bytes']} B at 3.35 TB/s), "
+              f"max abs {r['max_abs_err']:.3g} [{card}]")
+    out = {}
+    for k, rs in rows.items():
+        if not rs:
+            fail(f"{k}: no launch counted in the RD micro-step")
+        per = lambda f: sum(r[f] * r["per_step"] for r in rs)
+        out[k] = dict(launches=sum(r["per_step"] for r in rs), ms=per("ms"),
+                      plain_ms=per("plain_ms"),
+                      library_ms=(per("library_ms")
+                                  if rs[0]["library_ms"] is not None
+                                  else None),
+                      bound_ms=per("bound_ms"),
+                      max_abs_err=max(r["max_abs_err"] for r in rs),
+                      per="RD-recipe micro-step (rd-mid fp32, phase 17): "
+                          "each shape's time x its launches there, summed",
+                      shapes=rs)
+        if pdg is not None:
+            out[k]["prev_ms"] = per("prev_ms")
+        print(f"  {k}: {out[k]['ms']:.3f} ms per RD-recipe micro-step "
+              f"({out[k]['launches']} launches), plain "
+              f"{out[k]['plain_ms']:.3f}, bound {out[k]['bound_ms']:.4f} ms"
+              + (f", parent {out[k]['prev_ms']:.3f} ms in turns"
+                 if pdg is not None else "") + f" [{card}]")
     return out
 
 
@@ -2728,6 +2833,231 @@ def phase_coded_f32(torch, seed, card):
           f"{hw}x{hw}, bytes {nbytes}, every decoded frame and DPB equal to "
           f"the encoder's (torch.equal), launches {got} [{card}]")
     return dict(bytes=nbytes, launches=got)
+
+
+#: Phase 19: the Waymo fixture (records per TFRecord: 5 + 5 clip windows
+#: of 4 frames, 8 of them for training), its frames' size (the Waymo front
+#: camera's), and the run: 2 steps an epoch, validation every
+#: CLI_VAL_EVERY steps; the model profile (the rehearsal on the CPU sets
+#: "tiny")
+CLI_RECORDS = (8, 8)
+WAYMO_HW = (1280, 1920)
+CLI_EPOCHS, CLI_VAL_EVERY, CLI_TOP_K, CLI_RESUME_STEPS = 5, 5, 1, 2
+CLI_PROFILE = "full"
+
+
+def waymo_fixture(root: Path, seed: int) -> None:
+    """TFRecords of WAYMO_HW FRONT JPEGs under ``root/waymo`` (a coarse
+    scene panning by 32 pixels a frame, plus noise, so the JPEGs carry
+    detail) and their mask cache under ``root/seg_cache``, built by
+    build_cache with a stub segmenter seeded from ``seed``: 1-3
+    rectangles a frame, of kept and dropped classes."""
+    from ssgvc_tpu_torch.data import tfrecord, waymo_proto
+    from ssgvc_tpu_torch.data.build_cache import build_cache
+
+    rng = np.random.default_rng(seed + 140)
+    h, w = WAYMO_HW
+    (root / "waymo").mkdir()
+    for i, n in enumerate(CLI_RECORDS):
+        scene = rng.uniform(30, 225, (h // 32, w // 32 + n, 3))
+        records = []
+        for t in range(n):
+            coarse = scene[:, t:t + w // 32]
+            rgb = np.repeat(np.repeat(coarse, 32, 0), 32, 1)
+            rgb = np.clip(rgb + rng.normal(0, 4, rgb.shape), 0, 255)
+            records.append(waymo_proto.build_frame_proto(
+                waymo_proto.encode_jpeg(rgb.astype(np.uint8)),
+                context_name=f"fixture-{i}"))
+        tfrecord.write_records(str(root / "waymo" / f"seg{i}.tfrecord"),
+                               records)
+    seg_rng = np.random.default_rng(seed + 141)
+
+    def segment(rgb):
+        out = []
+        for _ in range(int(seg_rng.integers(1, 4))):
+            m = np.zeros(rgb.shape[:2], np.float32)
+            ph, pw = (int(v) for v in seg_rng.integers(60, 160, 2))
+            y = int(seg_rng.integers(0, rgb.shape[0] - ph))
+            x = int(seg_rng.integers(0, rgb.shape[1] - pw))
+            m[y:y + ph, x:x + pw] = 0.9
+            out.append((m, int(seg_rng.choice((0, 2, 5, 7)))))
+        return out
+
+    stats = build_cache(str(root / "waymo" / "*.tfrecord"),
+                        str(root / "seg_cache"), segmenter=segment)
+    if stats != {"written": sum(CLI_RECORDS), "skipped": 0}:
+        fail(f"mask cache: {stats}")
+
+
+def phase_train_cli(torch, seed, card):
+    """The trainer CLI from data on disk (module docstring, phase 19)."""
+    import csv
+    import tempfile
+    from unittest import mock
+
+    from ssgvc_tpu_torch import trainer_seg_video_model as cli
+    from ssgvc_tpu_torch.data import dataset as ds_mod
+    from ssgvc_tpu_torch.training.trainer import Trainer
+    from ssgvc_tpu_torch.utils.checkpoint import restore_checkpoint
+    from ssgvc_tpu_torch.utils.logging import TRAIN_HEADERS, VAL_HEADERS
+
+    timing = {"data_ms": [], "step_ms": [], "wall_ms": [], "start": []}
+    train_iter, train_step = ds_mod.ClipDataModule.train_iter, \
+        Trainer.train_step
+
+    def timed_iter(self, loop=True):
+        t0 = time.perf_counter()
+        for batch in train_iter(self, loop):
+            timing["data_ms"].append(1e3 * (time.perf_counter() - t0))
+            timing["start"].append(t0)
+            yield batch
+            t0 = time.perf_counter()
+
+    def timed_step(self, state, batch, qp, generator):
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, aux = train_step(self, state, batch, qp, generator)
+        e1.record()
+        e1.synchronize()
+        timing["step_ms"].append(e0.elapsed_time(e1))
+        timing["wall_ms"].append(1e3 * (time.perf_counter()
+                                        - timing["start"][-1]))
+        row = {k: float(v) for k, v in aux.items()}
+        if not all(math.isfinite(v) for v in row.values()):
+            fail(f"train CLI step {state.step}: not finite: {row}")
+        return state, aux
+
+    reset, read = launch_counts()
+    argv = [f"--device={DEVICE}", f"model_profile={CLI_PROFILE}",
+            "precision=bf16-mixed", "dmc_variant=performance",
+            f"dataset.batch_size={TRAIN_B}", f"dataset.crop_size={TRAIN_HW}",
+            f"dataset.seq_len={TRAIN_T}", "dataset.dataset_type=waymo",
+            "dataset.data_dir=waymo", "dataset.seg_cache_dir=seg_cache",
+            "dataset.train_val_test_split=[0.8, 0.2, 0.0]",
+            f"epochs={CLI_EPOCHS}", f"val_check_interval={CLI_VAL_EVERY}",
+            f"save_top_k={CLI_TOP_K}", "log_interval=1", f"seed={seed}"]
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp), \
+            mock.patch.object(ds_mod.ClipDataModule, "train_iter",
+                              timed_iter), \
+            mock.patch.object(Trainer, "train_step", timed_step):
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        waymo_fixture(root, seed)
+        fixture_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        t0 = time.perf_counter()
+        trainer, state, log_dir = cli.main(argv)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = read()
+        peak = torch.cuda.max_memory_allocated()
+        steps = len(timing["step_ms"])
+        windows = sum(n - TRAIN_T + 1 for n in CLI_RECORDS)
+        want_steps = CLI_EPOCHS * (round(0.8 * windows) // TRAIN_B)
+        launched = ("dcb", "dcb_chain", *BWD_REPLACES)
+        if steps != want_steps or not all(counts[k] for k in launched):
+            fail(f"train CLI: {steps} steps (expected {want_steps}), "
+                 f"launches {counts}")
+        log = root / log_dir
+        files = sorted(str(p.relative_to(log)) for p in log.rglob("*")
+                       if p.is_file())
+        vals = [s for s in range(steps) if (s + 1) % CLI_VAL_EVERY == 0]
+        tops = [f for f in files if f.startswith("checkpoints/step")]
+        want = ({"checkpoints/last", "config.json", "train_metrics.csv",
+                 "val_metrics.csv"}
+                | {f"images/recon{p}_step{s}.png" for s in vals
+                   for p in ("", "_p")})
+        if not (want <= set(files) and 1 <= len(tops) <= CLI_TOP_K
+                and set(files) == want | set(tops)):
+            fail(f"train CLI wrote {files}")
+        for name, headers, n in (("train_metrics.csv", TRAIN_HEADERS, steps),
+                                 ("val_metrics.csv", VAL_HEADERS, len(vals))):
+            with open(log / name) as f:
+                rows = list(csv.reader(f))
+            if not (rows[0] == headers and len(rows) == n + 1
+                    and all(math.isfinite(float(v)) for r in rows[1:]
+                            for v in r)):
+                fail(f"train CLI {name}: {rows[:3]}... ({len(rows)} rows)")
+        grads = [p.grad for p in trainer.dmc.parameters()
+                 if p.grad is not None]
+        if not (grads and all(torch.isfinite(g).all() for g in grads)):
+            fail("train CLI: a gradient is not finite")
+
+        # checkpoints/last into a new Trainer: the same state
+        last = str(log / "checkpoints" / "last")
+        other = Trainer(trainer.cfg, total_iters=steps, device=DEVICE)
+        other.init_state(torch.Generator().manual_seed(seed + 1))
+        restored = restore_checkpoint(last, other)
+
+        def tensors(tr, st):
+            opt = tr.tx.state_dict()
+            out = {f"dmc/{k}": v for k, v in tr.dmc.state_dict().items()}
+            out.update({f"dmci/{k}": v
+                        for k, v in tr.dmci.state_dict().items()})
+            out.update({f"acc/{k}": v for k, v in (opt["acc"] or {}).items()})
+            out.update({f"opt/{n}/{k}": v for n, sd in opt["state"].items()
+                        for k, v in sd.items()})
+            out.update({k: getattr(st, k) for k in ("alm_mu", "alm_h_accum",
+                                                     "alm_h_count")})
+            return out, (st.step, opt["count"], opt["mini_step"])
+
+        live, live_n = tensors(trainer, state)
+        got, got_n = tensors(other, restored)
+        differ = [k for k in live if k not in got
+                  or not torch.equal(got[k].cpu(), live[k].cpu())]
+        if live_n != got_n or set(got) != set(live) or differ:
+            fail(f"train CLI: the restored state differs from the live one: "
+                 f"counts {got_n} vs {live_n}, {differ[:5]}")
+        batch = next(ds_mod.make_datamodule(trainer.cfg).val_iter(loop=True))
+        evals = [tr.eval_step(st, batch, QP,
+                              torch.Generator().manual_seed(seed + 2))
+                 for tr, st in ((trainer, state), (other, restored))]
+        if not all(torch.equal(evals[0][k], evals[1][k]) for k in evals[0]):
+            fail(f"train CLI: eval_step from the restored state differs: "
+                 f"{evals}")
+        del other, restored
+
+        # the CLI again, resuming from last for CLI_RESUME_STEPS steps
+        n_before = len(timing["step_ms"])
+        # 2 steps an epoch
+        trainer2, state2, log_dir2 = cli.main(
+            argv + [f"epochs={CLI_RESUME_STEPS // 2}", "exp_name=resumed",
+                    f"resume_from_checkpoint={last}"])
+        resumed_steps = len(timing["step_ms"]) - n_before
+        if not (resumed_steps == CLI_RESUME_STEPS
+                and state2.step == state.step + CLI_RESUME_STEPS
+                and (root / log_dir2 / "checkpoints" / "last").is_file()):
+            fail(f"train CLI resume: {resumed_steps} steps to step "
+                 f"{state2.step} from {state.step}")
+        del trainer, trainer2
+    med = lambda xs: float(np.median(xs[:steps]))
+    out = dict(source="waymo", steps=steps + resumed_steps,
+               ms_per_step=med(timing["wall_ms"]),
+               data_ms_per_step=med(timing["data_ms"]),
+               step_ms=med(timing["step_ms"]), val_runs=len(vals),
+               checkpoints=len(tops) + 1, resumed_step=state2.step,
+               peak_mib=peak / 2 ** 20, launches=counts,
+               data_ms_runs=timing["data_ms"][:steps],
+               step_ms_runs=timing["step_ms"][:steps],
+               wall_ms_runs=timing["wall_ms"][:steps],
+               run_s=run_s, fixture_s=fixture_s,
+               records=list(CLI_RECORDS), frame_hw=list(WAYMO_HW))
+    print(f"train CLI: {steps} steps of B={TRAIN_B} {TRAIN_HW}x{TRAIN_HW} "
+          f"T={TRAIN_T} clips of {WAYMO_HW[1]}x{WAYMO_HW[0]} Waymo JPEGs "
+          f"(fixture and mask cache {fixture_s:.1f} s), "
+          f"{out['ms_per_step']:.1f} ms per step (host, next() to the "
+          f"step's end; median), of which data {out['data_ms_per_step']:.1f}"
+          f" ms (host, inside next()) and train_step {out['step_ms']:.1f} ms"
+          f" (CUDA events); {len(vals)} validations, files {files}; whole "
+          f"run {run_s:.1f} s; peak {out['peak_mib']:.0f} MiB allocated; "
+          f"launches {counts}; restored state equal, eval_step equal bit "
+          f"for bit; resumed {resumed_steps} steps to step {state2.step} "
+          f"[{card}]")
+    return out
 
 
 def main() -> int:
@@ -2805,10 +3135,11 @@ def main() -> int:
     with torch.no_grad():
         simt = phase_simt_shapes(torch, args.seed, card,
                                  rd.pop("simt_counts"), prev)
-        rd_dw_fwd = phase_rd_dw_fwd(torch, args.seed, card,
-                                    rd["bwd_shape_launches"],
-                                    prev is not None)
+        rd_bwd = phase_rd_backward(torch, args.seed, card,
+                                   rd["bwd_shape_launches"],
+                                   prev is not None)
     coded32 = phase_coded_f32(torch, args.seed, card)
+    train_cli = phase_train_cli(torch, args.seed, card)
     for entry in kernels:
         entry["widths"] = widths[entry["name"]]
     for entry in kernels_f32:
@@ -2826,11 +3157,11 @@ def main() -> int:
     for entry in backward:
         entry["rd_recipe_launches"] = \
             rd["launches_per_micro_step"][entry["name"]]
-        if entry["name"] == "dw_fwd":
-            if rd_dw_fwd["launches"] != entry["rd_recipe_launches"]:
-                fail(f"dw_fwd: RD launches by shape {rd_dw_fwd['launches']} "
-                     f"!= the micro-step's {entry['rd_recipe_launches']}")
-            entry["rd_recipe"] = rd_dw_fwd
+        r = rd_bwd[entry["name"]]
+        if r["launches"] != entry["rd_recipe_launches"]:
+            fail(f"{entry['name']}: RD launches by shape {r['launches']} != "
+                 f"the micro-step's {entry['rd_recipe_launches']}")
+        entry["rd_recipe"] = r
     kernels += kernels_f32 + backward
     print(json.dumps({"main_path": {
         "ms_per_frame": main_path["ms_per_frame"],
@@ -2855,6 +3186,7 @@ def main() -> int:
     print(json.dumps({"rd_half": {**rd_half, "card": card}}))
     print(json.dumps({"rd_recipe": {**rd, "card": card}}))
     print(json.dumps({"coded_fp32": {**coded32, "card": card}}))
+    print(json.dumps({"train_cli": {**train_cli, "card": card}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

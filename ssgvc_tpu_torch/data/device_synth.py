@@ -21,18 +21,9 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
-from ..utils.transforms import KB, KG, KR
+from ..utils.transforms import rgb2ycbcr
 
 MAX_OBJ = 3
-
-
-def rgb2ycbcr(rgb: torch.Tensor) -> torch.Tensor:
-    """(..., 3) RGB in [0, 1] -> BT.709 YCbCr, chroma offset +0.5."""
-    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
-    y = KR * r + KG * g + KB * b
-    cb = 0.5 * (b - y) / (1.0 - KB) + 0.5
-    cr = 0.5 * (r - y) / (1.0 - KR) + 0.5
-    return torch.stack([y, cb, cr], dim=-1)
 
 
 def _uniform(shape, generator, device, lo=0.0, hi=1.0) -> torch.Tensor:

@@ -106,6 +106,7 @@ class TrainOptimizer:
                  optimizer_type: str = "adamw",
                  grad_clip: Optional[float] = 5.0, every_k: int = 1):
         named = list(named_params)
+        self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
         self.labels = [label_fn(tuple(n.split("."))) for n, _ in named]
         by_label: Dict[str, List[torch.Tensor]] = {}
@@ -156,6 +157,46 @@ class TrainOptimizer:
         self.optimizer.step()
         self.count += 1
         return True
+
+    def state_dict(self) -> Dict:
+        """Everything a resume needs, keyed by parameter name: the applied
+        update count, the micro-step count, the accumulated gradient mean
+        (``acc``: None before the first accumulated micro-batch) and each
+        parameter's inner-optimizer state (none before its first update).
+        The tensors are the live ones, not copies."""
+        order = self._inner_order()
+        return {"count": self.count, "mini_step": self.mini_step,
+                "acc": (None if self._acc is None
+                        else dict(zip(self.names, self._acc))),
+                "state": {order[i]: s for i, s in
+                          self.optimizer.state_dict()["state"].items()}}
+
+    def load_state_dict(self, sd: Dict) -> None:
+        """The inverse of :meth:`state_dict`: the inner state of exactly
+        the parameters ``sd`` names (others start afresh), on each
+        parameter's device."""
+        missing = [n for n in self.names
+                   if sd["acc"] is not None and n not in sd["acc"]]
+        if missing:
+            raise KeyError(f"optimizer state lacks the accumulated gradient "
+                           f"of {missing[:5]}")
+        self.count = int(sd["count"])
+        self.mini_step = int(sd["mini_step"])
+        self._acc = (None if sd["acc"] is None else
+                     [sd["acc"][n].to(p.device, p.dtype).clone()
+                      for n, p in zip(self.names, self.params)])
+        inner = self.optimizer.state_dict()
+        inner["state"] = {i: sd["state"][n]
+                          for i, n in enumerate(self._inner_order())
+                          if n in sd["state"]}
+        self.optimizer.load_state_dict(inner)
+
+    def _inner_order(self) -> List[str]:
+        """Parameter names in the order the inner optimizer's state_dict
+        numbers them (its groups', not ``self.params``')."""
+        name_of = {id(p): n for n, p in zip(self.names, self.params)}
+        return [name_of[id(p)] for g in self.optimizer.param_groups
+                for p in g["params"]]
 
 
 def create_optimizers(named_params, optimizer_type: str = "adamw",

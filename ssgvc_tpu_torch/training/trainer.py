@@ -20,13 +20,14 @@ card (or the CPU when asked).
     constraint, the dual ascent on the accumulation boundary.
 
 One device: ``num_devices`` other than 1 raises (``parallel/`` is ROADMAP
-§1 item 7); checkpoints and image logs (``ckpt_manager``,
-``image_log_dir``) are item 5.
+§1 item 7). ``fit`` saves checkpoints (``utils/checkpoint.py``) and writes
+recon panels (``utils/visualize.py``) after each validation.
 """
 
 from __future__ import annotations
 
 import functools
+import os
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
@@ -143,8 +144,10 @@ class Trainer:
                 "masks": torch.zeros((batch_size, seq_len, h, w, 1))}
 
     def _on_device(self, batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
-        return (batch["frames"].to(self.device, torch.float32),
-                batch["masks"].to(self.device, torch.float32))
+        """A batch's frames and masks (tensors or the data module's numpy
+        arrays) as float32 tensors on the trainer's device."""
+        return tuple(torch.as_tensor(batch[k]).to(self.device, torch.float32)
+                     for k in ("frames", "masks"))
 
     def _zero_feature(self, frames: torch.Tensor) -> torch.Tensor:
         p = self.dmc_cfg.patch_size
@@ -322,12 +325,11 @@ class Trainer:
             image_log_dir: Optional[str] = None) -> TrainState:
         """The host loop: a QP per batch from
         ``np.random.default_rng(seed).integers(0, 64)``, step, log,
-        validate. ``logger`` is duck-typed (``log_train(step, row)``,
-        ``log_val(step, row)``). Returns the final state."""
-        if ckpt_manager is not None or image_log_dir:
-            raise NotImplementedError(
-                "checkpoints and image logs are ROADMAP §1 item 5 "
-                "(utils/checkpoint.py, utils/visualize.py)")
+        validate; after each validation ``ckpt_manager``
+        (``utils.checkpoint.CheckpointManager``) saves the checkpoint with
+        the val loss, and ``image_log_dir`` gets the recon panels of the
+        last train batch. ``logger`` is duck-typed (``log_train(step,
+        row)``, ``log_val(step, row)``). Returns the final state."""
         gen = torch.Generator().manual_seed(seed)
         batches = []
         if state is None:
@@ -351,11 +353,44 @@ class Trainer:
                 logger.log_train(step, row)
             if (val_iter is not None and val_every
                     and (step + 1) % val_every == 0):
-                self.validate(state, val_iter, logger=logger, step=step,
-                              seed=seed + step,
-                              epoch=(step // steps_per_epoch
-                                     if steps_per_epoch else 0))
+                val = self.validate(state, val_iter, logger=logger,
+                                    step=step, seed=seed + step,
+                                    epoch=(step // steps_per_epoch
+                                           if steps_per_epoch else 0))
+                if ckpt_manager is not None and val:
+                    from ..utils.checkpoint import train_checkpoint
+                    ckpt_manager.save(train_checkpoint(self, state),
+                                      {"val/loss": val.get("loss")}, step)
+                if image_log_dir and val:
+                    self._log_recon_images(batch, image_log_dir, step)
         return state
+
+    @torch.no_grad()
+    def _log_recon_images(self, batch: Dict, out_dir: str, step: int):
+        """Recon panels of the batch's first clip at QP 32, on the main
+        process: the I-frame (``recon_step<N>.png``), then the trained
+        model's first P-frame from that I-frame, the ROI tinted
+        (``recon_p_step<N>.png``)."""
+        from ..utils.logging import is_main_process
+        from ..utils.visualize import save_recon_panel
+
+        if not is_main_process():
+            return
+        frames, masks = self._on_device({"frames": batch["frames"][:1],
+                                         "masks": batch["masks"][:1]})
+        i_out = self.dmci(frames[:, 0], 32, train=False)
+        host = lambda t: t[0].float().cpu().numpy()
+        os.makedirs(out_dir, exist_ok=True)
+        save_recon_panel(host(frames[:, 0]), host(i_out["dpb"]["frame"]),
+                         os.path.join(out_dir, f"recon_step{step}.png"))
+        if frames.shape[1] > 1:
+            dpb = {"frame": i_out["dpb"]["frame"],
+                   "feature": self._zero_feature(frames)}
+            p_out = self.dmc(frames[:, 1], 32, dpb, after_i=True,
+                             mask=masks[:, 1], train=False)
+            save_recon_panel(host(frames[:, 1]), host(p_out["dpb"]["frame"]),
+                             os.path.join(out_dir, f"recon_p_step{step}.png"),
+                             mask=host(masks[:, 1]))
 
     def validate(self, state: TrainState, val_iter, n_batches: int = 8,
                  logger=None, step: int = 0, seed: int = 0,

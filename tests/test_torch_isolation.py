@@ -36,9 +36,15 @@ TRAINING_MODULES = ("ops.dcb_grad", "data.device_synth", "training.loss",
                     "training.schedule", "training.optimizers",
                     "training.calibrate", "training.trainer", "config",
                     "training.evaluate", "ops.dcb", "ops.dcb_chain")
+#: the training entry point from data on disk
+DATA_MODULES = ("utils.transforms", "data.tfrecord", "data.waymo_proto",
+                "data.lidar", "data.build_cache", "data.video_transform",
+                "data.vimeo", "data.dataset", "utils.logging",
+                "utils.torch_import", "utils.checkpoint", "utils.visualize",
+                "trainer_seg_video_model")
 
 
-@pytest.mark.parametrize("module", TRAINING_MODULES)
+@pytest.mark.parametrize("module", TRAINING_MODULES + DATA_MODULES)
 def test_training_modules_import_without_jax(module):
     """Each module of the training path imports, in a fresh interpreter,
     with JAX, flax, optax and the JAX package made unimportable."""

@@ -699,7 +699,7 @@ def test_mask_train_updates_only_the_mask_predictor():
     assert np.isfinite(float(aux["loss"]))
 
 
-def test_fit_runs_three_steps_and_validates():
+def test_fit_runs_three_steps_and_validates(tmp_path):
     tr = _tiny_trainer()
 
     def batches(seed):
@@ -723,8 +723,22 @@ def test_fit_runs_three_steps_and_validates():
     assert all(np.isfinite(v) for _, r in rows["train"] for v in r.values())
     assert [s for s, _ in rows["val"]] == [2]
     assert rows["train"][-1][1]["epoch"] == 1
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tr.fit(batches(0), steps=1, ckpt_manager=object(), state=state)
+    # after each validation: the checkpoint, with the val loss, and the
+    # recon panels
+    saved = []
+
+    class Ckpt:
+        def save(self, ckpt, metrics, step):
+            saved.append((sorted(ckpt), metrics, step))
+
+    tr.fit(batches(0), val_iter=batches(1), steps=1, val_every=1,
+           ckpt_manager=Ckpt(), image_log_dir=str(tmp_path), state=state)
+    assert [(keys, step) for keys, _, step in saved] == [(
+        ["alm_h_accum", "alm_h_count", "alm_mu", "opt_state", "params_i",
+         "params_p", "step"], 0)]
+    assert np.isfinite(saved[0][1]["val/loss"])
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "recon_p_step0.png", "recon_step0.png"]
 
 
 def test_trainer_takes_one_device_and_defaults_to_the_card():

@@ -63,3 +63,54 @@ def drawn_params(model, seed, heads):
 
     chip_smoke.random_weights(torch, model, seed, heads)
     return flax_from_state_dict(model.state_dict())
+
+
+def reference_state_dict(params, prefix=""):
+    """A reference-style (DCVC-RT) state dict of a flax params tree:
+    Sequential indices as their own key components, OIHW conv weights,
+    (Q, C, 1, 1) tables, ``prefix`` on every key; ``z_gain`` (which the
+    reference lacks) left out."""
+    import re
+
+    import torch
+
+    from ssgvc_tpu.utils.torch_import import flatten
+
+    sd = {}
+    for path, arr in flatten(params).items():
+        if path[-1] == "z_gain":
+            continue
+        comps = []
+        for comp in path[:-1]:
+            idx = []
+            while (m := re.fullmatch(r"(.+)_(\d+)", comp)):
+                comp, d = m.groups()
+                idx.insert(0, d)
+            comps += [comp, *idx]
+        arr = np.asarray(arr, np.float32)
+        leaf = path[-1]
+        if leaf == "kernel":
+            leaf, arr = "weight", arr.transpose(3, 2, 0, 1)
+        elif arr.ndim == 2:
+            arr = arr[:, :, None, None]
+        sd[prefix + ".".join(comps + [leaf])] = torch.from_numpy(
+            np.ascontiguousarray(arr))
+    return sd
+
+
+def tiny_params(seed=3):
+    """The JAX tiny DMC (raw io, so its input conv takes the 3-channel
+    frame) and the params trees of the tiny DMC and DMCI, drawn through the
+    port (no flax init: it takes half a minute op by op)."""
+    from chip_smoke import DMC_HEADS, DMCI_HEADS
+    from ssgvc_tpu.config import DMCConfig as JaxDMCConfig
+    from ssgvc_tpu.models.dmc import DMC as JaxDMC
+    from ssgvc_tpu_torch.config import DMCConfig, DMCIConfig
+    from ssgvc_tpu_torch.models.dmc import DMC
+    from ssgvc_tpu_torch.models.dmci import DMCI
+
+    p = drawn_params(DMC(DMCConfig.variant("performance", **TINY),
+                         device="cpu"), seed, DMC_HEADS)
+    i = drawn_params(DMCI(DMCIConfig(**DMCI_TINY), device="cpu"), seed + 1,
+                     DMCI_HEADS)
+    return JaxDMC(JaxDMCConfig.variant("performance", **TINY)), p, i
