@@ -176,11 +176,41 @@ Phases (any failure exits non-zero and prints no result line):
      decode, colour conversion, mask load and crop), CUDA events around
      train_step as in phase 13, and the host time from a step's next() to
      its train_step's end.
+ 20. image CLI: ssgvc_tpu_torch.trainer_image_model.main in a temporary
+     working directory (its default YAML written there: full DMCI,
+     bf16-mixed, B=16 256x256) on phase 19's fixture, IMAGE_EPOCHS steps;
+     the YAML, the config snapshot, the CSV with the JAX header (every
+     logged value finite) and checkpoints/last holding params_i equal to
+     the model; every parameter moved from the init; launches per step
+     (counts set to 0 just before main, read just after: dcb 42, the chain
+     0, each backward kernel 42); checkpoints/last imported through
+     load_pretrained (image_checkpoint_path) into a fresh full-profile
+     Trainer, its DMCI equal (torch.equal); dcb at every forward shape of
+     the step (forward hooks) and each backward kernel at every shape the
+     step launched it at (ops.dcb_grad.shape_launches), against their
+     plain versions as phases 11-12 hold them (the partials row by row),
+     timed beside the plain version, library call and bound, with
+     --prev-port the other checkout's in turns; the image loss and its
+     DMCI gradient on one batch (B=2, 128x128, QP 32, train=False, the
+     same weights) on the card in bf16 against the CPU port in fp32 and
+     bf16 (loss within 5e-2, cosine >= XTRAIN_COSINE / XTRAIN_KERNEL_COSINE);
+     timed as phase 19: data, train_step, the whole step; peak memory;
+ 21. scripts: SCRIPT_FRAMES 1920x1280 frames of the fixture written as
+     im%05d.png by the port's PNGWriter, then scripts.encode.main with
+     phase 19's checkpoints/last (full profile, performance, float32 as
+     profile_model_cfgs gives it, QP 32, GOP SCRIPT_GOP: I + 3 P twice) and
+     scripts.decode.main on the .bin it wrote: every decoded PNG equal,
+     array for array, to the encoder's reconstruction written through
+     ycbcr2rgb_np and PNGWriter; the bits per frame equal to the
+     container's unit sizes; the kernels' launches per side (3xTF32:
+     script_launches); host seconds around each main and ms per frame;
+     bpp and PSNR per frame.
 
 The last lines are JSON objects: {"main_path": ...}, {"variants": ...},
 {"coded": ...}, {"training": ...}, {"cross_check": ...}, {"fp32": ...},
 {"rd_half": ...}, {"rd_recipe": ...}, {"coded_fp32": ...},
-{"train_cli": ...}, {"kernels": [...]}, and last {"ok": true, "device":
+{"train_cli": ...}, {"image_cli": ...}, {"scripts": ...}, {"kernels":
+[...]}, and last {"ok": true, "device":
 {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -195,6 +225,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -1716,27 +1747,30 @@ def dw_fwd_text(r):
             f"max abs {r['max_abs_err']:.3g}")
 
 
-def phase_backward_kernels(torch, seed, card, prev=False):
-    """Each backward kernel at every training shape, B = TRAIN_B, against
-    its plain version; timed beside its plain version, its bound and a
-    library call, once per operand shape it counts launches by; with
+def phase_backward_kernels(torch, seed, card, prev=False, shapes=None):
+    """Each backward kernel at every block-backward shape (``shapes``:
+    (B, rows, cols, C, q, sites); by default BWD_SHAPES at B = TRAIN_B),
+    against its plain version; timed beside its plain version, its bound
+    and a library call, once per operand shape it counts launches by; with
     ``prev`` (--prev-port loaded) also the other checkout's kernels on the
     same inputs (gate_bwd and dw_bwd on their own partials), in turns
     (prev, new, new, prev). dw_fwd also with an fp32 g (its row's "f32"),
     and its g equal to the other checkout's in both dtypes. Returns
-    {kernel: [rows]}; :func:`backward_entries` weighs them by the launches
-    a micro-step makes at each."""
+    {kernel: [rows]}; :func:`weigh_bwd` weighs them by the launches a step
+    makes at each."""
     import importlib
 
     from ssgvc_tpu_torch.ops import dcb_grad as dg
 
+    if shapes is None:
+        shapes = [(TRAIN_B, *s) for s in BWD_SHAPES]
     pdg = importlib.import_module("prev_port.ops.dcb_grad") if prev else None
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(seed + 50)
     names = list(BWD_REPLACES)
     rows = {k: [] for k in names}
-    for h, w, c, with_q, sites in BWD_SHAPES:
-        case = bwd_case(torch, rng, TRAIN_B, h, w, c, with_q, dev)
+    for b, h, w, c, with_q, sites in shapes:
+        case = bwd_case(torch, rng, b, h, w, c, with_q, dev)
         errs = check_backward_kernels(torch, case)
         a0, taps, b2, q = case["a0"], case["taps"], case["b2"], case["q"]
         cols = (dg.GATE_COLS + dg.DW_COLS) * c
@@ -1772,11 +1806,10 @@ def phase_backward_kernels(torch, seed, card, prev=False):
                                                               0),
                         "dw_bwd": lambda: pdg.dw_bwd_cuda(*dw, part_q, col),
                         "grad_reduce": lambda: pdg.grad_reduce_cuda(part_q)}
-        nbytes = bwd_bytes(TRAIN_B, h, w, c, with_q)
+        nbytes = bwd_bytes(b, h, w, c, with_q)
         for k in names:
-            key = bwd_key(k, TRAIN_B, h, w, c, with_q)
-            r = dict(key=key, shape=[TRAIN_B, h, w, c], q=with_q,
-                     sites=sites)
+            key = bwd_key(k, b, h, w, c, with_q)
+            r = dict(key=key, shape=[b, h, w, c], q=with_q, sites=sites)
             if k == "dw_fwd":
                 # g in bf16 (the default micro-step's) and in fp32
                 r.update(dw_fwd_row(torch, a0, taps, b2, torch.bfloat16,
@@ -1786,7 +1819,7 @@ def phase_backward_kernels(torch, seed, card, prev=False):
                 r["max_abs_err"] = max(r["max_abs_err"], errs[k])
                 rows[k].append(r)
                 for dt, x in (("bf16", r), ("fp32", r["f32"])):
-                    print(f"  dw_fwd {TRAIN_B}x{h}x{w}x{c} g {dt}: "
+                    print(f"  dw_fwd {b}x{h}x{w}x{c} g {dt}: "
                           f"{dw_fwd_text(x)} [{card}]")
                 continue
             kern, plain, lib = fns[k]
@@ -1809,7 +1842,7 @@ def phase_backward_kernels(torch, seed, card, prev=False):
             lib_txt = (f", library {r['library_ms']:.4f}" if lib else "")
             prev_txt = (f", prev {r['prev_ms']:.4f} ({r['prev_rows']} rows)"
                         if "prev_ms" in r else "")
-            print(f"  {k} {TRAIN_B}x{h}x{w}x{c} q={int(with_q)}: kernel "
+            print(f"  {k} {b}x{h}x{w}x{c} q={int(with_q)}: kernel "
                   f"{r['ms']:.4f} ms ({r['rows']} partial rows){prev_txt}, "
                   f"plain {r['plain_ms']:.4f}{lib_txt}, bound "
                   f"{1e3 * r['bound_ms']:.2f} us ({nbytes[k]} B at 3.35 "
@@ -1817,20 +1850,22 @@ def phase_backward_kernels(torch, seed, card, prev=False):
     return rows
 
 
-def backward_entries(rows, shape_counts, card):
-    """One {"kernels"} entry per backward kernel: each timed shape's
-    numbers times the block backwards a training micro-step ran at it
-    (``shape_counts``, phase 13: gate_bwd's launches by shape and q, one
-    per block backward), summed. Fails if the micro-step ran a block
-    backward at a shape phase 12 did not time, or launched a kernel at an
-    operand shape that its timed rows do not hold."""
+def weigh_bwd(rows, shape_counts, what):
+    """Each backward kernel's timed rows (:func:`phase_backward_kernels`)
+    weighed by the block backwards one step ran at each shape
+    (``shape_counts``: ``ops.dcb_grad.shape_launches`` of one step; one
+    gate_bwd launch per block backward, keyed by shape and q), summed:
+    {kernel: {launches, ms, plain_ms, bound_ms, library_ms, max_abs_err,
+    [prev_ms], shapes}}. Fails if the step ran a block backward at a shape
+    that was not timed, or launched a kernel at an operand shape that its
+    timed rows do not hold."""
     blocks = {key: n for (name, key), n in shape_counts.items()
               if name == "gate_bwd"}
-    timed = {(TRAIN_B, h, w, c, q) for h, w, c, q, _ in BWD_SHAPES}
+    timed = {(*r["shape"], r["q"]) for r in rows["gate_bwd"]}
     if set(blocks) - timed:
-        fail(f"a training micro-step ran block backwards at "
-             f"{sorted(set(blocks) - timed)}, shapes phase 12 did not time")
-    entries = []
+        fail(f"{what} ran block backwards at {sorted(set(blocks) - timed)},"
+             " shapes that were not timed")
+    out = {}
     for k, rs in rows.items():
         counted = {key: n for (name, key), n in shape_counts.items()
                    if name == k}
@@ -1838,21 +1873,32 @@ def backward_entries(rows, shape_counts, card):
             r["per_step"] = blocks.get((*r["shape"], r["q"]), 0)
         if (set(counted) - {r["key"] for r in rs}
                 or sum(counted.values()) != sum(r["per_step"] for r in rs)):
-            fail(f"{k}: launches by operand shape {counted} are not the "
-                 "block backwards' at the timed shapes")
+            fail(f"{k} in {what}: launches by operand shape {counted} are "
+                 "not the block backwards' at the timed shapes")
         per = lambda key: sum(r[key] * r["per_step"] for r in rs)
-        entries.append(dict(
-            name=k, route="cuda", source="ssgvc_tpu_torch/csrc/dcb_bwd.cu",
-            replaces=BWD_REPLACES[k], launches=sum(counted.values()),
-            max_abs_err=max(r["max_abs_err"] for r in rs), ms=per("ms"),
+        out[k] = dict(
+            launches=sum(counted.values()), ms=per("ms"),
             plain_ms=per("plain_ms"), bound_ms=per("bound_ms"),
-            bound_by="bytes",
             library_ms=(per("library_ms") if rs[0]["library_ms"] is not None
                         else None),
+            max_abs_err=max(r["max_abs_err"] for r in rs), shapes=rs)
+        if "prev_ms" in rs[0]:
+            out[k]["prev_ms"] = per("prev_ms")
+    return out
+
+
+def backward_entries(rows, shape_counts, card):
+    """One {"kernels"} entry per backward kernel: each timed shape's
+    numbers times the block backwards a training micro-step ran at it
+    (``shape_counts``, phase 13), summed (:func:`weigh_bwd`)."""
+    entries = []
+    for k, s in weigh_bwd(rows, shape_counts, "a training micro-step").items():
+        rs = s.pop("shapes")
+        entries.append(dict(
+            name=k, route="cuda", source="ssgvc_tpu_torch/csrc/dcb_bwd.cu",
+            replaces=BWD_REPLACES[k], bound_by="bytes", **s,
             per="training micro-step: per-shape time x block backwards per "
                 "micro-step at that shape (counted), summed", shapes=rs))
-        if "prev_ms" in rs[0]:
-            entries[-1]["prev_ms"] = per("prev_ms")
         print(f"  {k} launches per micro-step by shape: "
               + ", ".join(f"{r['shape']} q={int(r['q'])} x{r['per_step']}"
                           for r in rs)
@@ -2889,10 +2935,30 @@ def waymo_fixture(root: Path, seed: int) -> None:
         fail(f"mask cache: {stats}")
 
 
-def phase_train_cli(torch, seed, card):
-    """The trainer CLI from data on disk (module docstring, phase 19)."""
+def timed_train_iter(timing):
+    """``ClipDataModule.train_iter`` that records each batch's host time
+    inside next() in ``timing["data_ms"]`` and when that next() began in
+    ``timing["start"]``: the data path, timed without a CLI option."""
+    from ssgvc_tpu_torch.data import dataset as ds_mod
+
+    train_iter = ds_mod.ClipDataModule.train_iter
+
+    def timed_iter(self, loop=True):
+        t0 = time.perf_counter()
+        for batch in train_iter(self, loop):
+            timing["data_ms"].append(1e3 * (time.perf_counter() - t0))
+            timing["start"].append(t0)
+            yield batch
+            t0 = time.perf_counter()
+    return timed_iter
+
+
+def phase_train_cli(torch, seed, card, root: Path):
+    """The trainer CLI from data on disk (module docstring, phase 19), in
+    ``root / "video"``, on the fixture it writes under ``root`` (kept there
+    for phases 20-21, as is the run's checkpoints/last: the result's
+    "last")."""
     import csv
-    import tempfile
     from unittest import mock
 
     from ssgvc_tpu_torch import trainer_seg_video_model as cli
@@ -2902,16 +2968,8 @@ def phase_train_cli(torch, seed, card):
     from ssgvc_tpu_torch.utils.logging import TRAIN_HEADERS, VAL_HEADERS
 
     timing = {"data_ms": [], "step_ms": [], "wall_ms": [], "start": []}
-    train_iter, train_step = ds_mod.ClipDataModule.train_iter, \
-        Trainer.train_step
-
-    def timed_iter(self, loop=True):
-        t0 = time.perf_counter()
-        for batch in train_iter(self, loop):
-            timing["data_ms"].append(1e3 * (time.perf_counter() - t0))
-            timing["start"].append(t0)
-            yield batch
-            t0 = time.perf_counter()
+    timed_iter = timed_train_iter(timing)
+    train_step = Trainer.train_step
 
     def timed_step(self, state, batch, qp, generator):
         torch.cuda.synchronize()
@@ -2934,18 +2992,20 @@ def phase_train_cli(torch, seed, card):
             "precision=bf16-mixed", "dmc_variant=performance",
             f"dataset.batch_size={TRAIN_B}", f"dataset.crop_size={TRAIN_HW}",
             f"dataset.seq_len={TRAIN_T}", "dataset.dataset_type=waymo",
-            "dataset.data_dir=waymo", "dataset.seg_cache_dir=seg_cache",
+            f"dataset.data_dir={root / 'waymo'}",
+            f"dataset.seg_cache_dir={root / 'seg_cache'}",
             "dataset.train_val_test_split=[0.8, 0.2, 0.0]",
             f"epochs={CLI_EPOCHS}", f"val_check_interval={CLI_VAL_EVERY}",
             f"save_top_k={CLI_TOP_K}", "log_interval=1", f"seed={seed}"]
-    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp), \
+    work = root / "video"
+    work.mkdir()
+    t0 = time.perf_counter()
+    waymo_fixture(root, seed)
+    fixture_s = time.perf_counter() - t0
+    with contextlib.chdir(work), \
             mock.patch.object(ds_mod.ClipDataModule, "train_iter",
                               timed_iter), \
             mock.patch.object(Trainer, "train_step", timed_step):
-        root = Path(tmp)
-        t0 = time.perf_counter()
-        waymo_fixture(root, seed)
-        fixture_s = time.perf_counter() - t0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset()
@@ -2962,7 +3022,7 @@ def phase_train_cli(torch, seed, card):
         if steps != want_steps or not all(counts[k] for k in launched):
             fail(f"train CLI: {steps} steps (expected {want_steps}), "
                  f"launches {counts}")
-        log = root / log_dir
+        log = work / log_dir
         files = sorted(str(p.relative_to(log)) for p in log.rglob("*")
                        if p.is_file())
         vals = [s for s in range(steps) if (s + 1) % CLI_VAL_EVERY == 0]
@@ -3030,7 +3090,7 @@ def phase_train_cli(torch, seed, card):
         resumed_steps = len(timing["step_ms"]) - n_before
         if not (resumed_steps == CLI_RESUME_STEPS
                 and state2.step == state.step + CLI_RESUME_STEPS
-                and (root / log_dir2 / "checkpoints" / "last").is_file()):
+                and (work / log_dir2 / "checkpoints" / "last").is_file()):
             fail(f"train CLI resume: {resumed_steps} steps to step "
                  f"{state2.step} from {state.step}")
         del trainer, trainer2
@@ -3045,7 +3105,8 @@ def phase_train_cli(torch, seed, card):
                step_ms_runs=timing["step_ms"][:steps],
                wall_ms_runs=timing["wall_ms"][:steps],
                run_s=run_s, fixture_s=fixture_s,
-               records=list(CLI_RECORDS), frame_hw=list(WAYMO_HW))
+               records=list(CLI_RECORDS), frame_hw=list(WAYMO_HW),
+               last=last)
     print(f"train CLI: {steps} steps of B={TRAIN_B} {TRAIN_HW}x{TRAIN_HW} "
           f"T={TRAIN_T} clips of {WAYMO_HW[1]}x{WAYMO_HW[0]} Waymo JPEGs "
           f"(fixture and mask cache {fixture_s:.1f} s), "
@@ -3059,6 +3120,519 @@ def phase_train_cli(torch, seed, card):
           f"[{card}]")
     return out
 
+
+#: Phase 20: the image CLI's run on phase 19's fixture, at its default
+#: YAML's model and data (full DMCI, bf16-mixed, B=16 256x256 crops of
+#: T=4 clips; 9 training windows, so one step an epoch); a step's launches
+#: (one forward and one backward of each of the DMCI's 42 blocks)
+IMAGE_EPOCHS = 3
+IMAGE_B, IMAGE_HW = 16, 256
+IMAGE_LAUNCHES = {"dcb": 42, "dcb_chain": 0, "dcb_f32": 0,
+                  "dcb_chain_f32": 0, "dcb_tf32": 0, "dcb_chain_tf32": 0,
+                  "dw_fwd": 42, "gate_bwd": 42, "dw_bwd": 42,
+                  "grad_reduce": 42}
+IMAGE_LOGGED = ("loss", "bpp", "bpp_y", "bpp_z", "mse", "psnr")
+# The shapes an image step's block backwards give their kernels at the
+# full profile (B = 16, 256x256 crops): (rows, cols, C, q, sites)
+IMAGE_BWD_SHAPES = [
+    (32, 32, 368, False, "enc.enc_2_0..5, dec.dec_1_0.conv, "
+     "dec.dec_1_1..11"),
+    (32, 32, 368, True, "enc.enc_1 (* q_scale_enc), dec.dec_1_12 (* q)"),
+    (32, 32, 192, False, "dec.dec_2"),
+    (16, 16, 512, False, "y_prior_fusion_0..2, y_spatial_prior_adaptor_1..3"
+     ", y_spatial_prior_0..2 (three passes)"),
+    (16, 16, 256, False, "hyper_dec_2"),
+    (16, 16, 128, False, "hyper_enc_0, hyper_dec_1.conv"),
+    (8, 8, 128, False, "hyper_enc_1.conv, hyper_dec_0.conv"),
+    (4, 4, 128, False, "hyper_enc_2.conv"),
+]
+
+
+def dcb_forward_shapes(torch, model, x):
+    """{(B, rows, cols, C, shortcut, q): blocks} of every DepthConvBlock
+    launch of one forward of ``model`` on ``x`` (no graph)."""
+    shapes = {}
+
+    def hook(mod, args, out):
+        key = (*out.shape, mod.shortcut, len(args) > 1 and args[1] is not None)
+        shapes[key] = shapes.get(key, 0) + 1
+
+    handles = [m.register_forward_hook(hook) for _, m in dcb_modules(model)]
+    try:
+        with torch.no_grad():
+            model(x, QP)
+    finally:
+        for h in handles:
+            h.remove()
+    return shapes
+
+
+def dcb_step_rows(torch, seed, card, shapes, prev=None):
+    """The bf16 single-block kernel at each forward shape of ``shapes``
+    ({(B, rows, cols, C, shortcut, q): launches per step}): against its
+    plain version (REL_TOL), timed beside it and its bound, with
+    ``prev`` (--prev-port's layers.blocks) the other checkout's block in
+    turns. Returns the step's sums (time x launches) with the rows."""
+    from ssgvc_tpu_torch.ops import dcb as dcb_ops
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(seed + 150)
+    bf16 = torch.bfloat16
+    rows = []
+    for (b, h, w, c, sc, with_q), n in sorted(shapes.items()):
+        x = torch.tensor(rng.standard_normal((b, h, w, c)), dtype=bf16,
+                         device=dev)
+        q = (torch.linspace(0.5, 1.5, c, device=dev).to(bf16) if with_q
+             else None)
+        params = block_params(torch, c, rng, dev)
+        packed = dcb_ops.pack_kernel(params, bf16)
+        fns = {"new": lambda: dcb_ops.dcb_cuda(x, packed, q, sc)}
+        if prev is not None:
+            mod = prev_modules(torch, prev, c, sc, [params], bf16)[0]
+            fns["prev"] = lambda: mod(x, q)
+        plain = lambda: dcb_ops.dcb_plain(x, params, q, sc)
+        ref = plain()
+        what = f"dcb {b}x{h}x{w}x{c} sc={int(sc)} q={int(with_q)}"
+        rel, err = check_close(torch, what, fns["new"](), ref)
+        if "prev" in fns:
+            check_close(torch, f"the other checkout's {what}", fns["prev"](),
+                        ref)
+        means, turns = timed_turns(torch, fns, 20)
+        r = dict(shape=[b, h, w, c], shortcut=sc, q=with_q, per_step=n,
+                 ms=means["new"], plain_ms=cuda_ms(torch, plain, 5),
+                 bound_ms=bound_ms(h, w, c, 1, b=b),
+                 bound_by=bound_by(h, w, c, 1, b=b), rel_err=rel,
+                 max_abs_err=err)
+        if "prev" in means:
+            r.update(prev_ms=means["prev"], turns=turns)
+        rows.append(r)
+        prev_txt = (f", parent {r['prev_ms']:.4f} in turns"
+                    if "prev_ms" in r else "")
+        print(f"  {what} (x{n} per image step): kernel {r['ms']:.4f} ms"
+              f"{prev_txt}, plain {r['plain_ms']:.4f}, bound "
+              f"{1e3 * r['bound_ms']:.1f} us ({r['bound_by']}), rel "
+              f"{rel:.2e}, max abs {err:.3g} [{card}]")
+    per = lambda k: sum(r[k] * r["per_step"] for r in rows)
+    out = dict(launches=sum(r["per_step"] for r in rows), ms=per("ms"),
+               plain_ms=per("plain_ms"), bound_ms=per("bound_ms"),
+               library_ms=None, max_abs_err=max(r["max_abs_err"]
+                                                for r in rows),
+               per="image-CLI step (phase 20): per-shape time x launches "
+                   "per step, summed", shapes=rows)
+    if prev is not None:
+        out["prev_ms"] = per("prev_ms")
+    return out
+
+
+#: The image cross-check's reconstruction head scale (unsaturated_recon):
+#: the largest of 0.1, 0.03, 0.01 whose full-width reconstruction keeps
+#: >= 95% of its pixels inside (0, 1) at CPU fp32 (97.3% at 0.1,
+#: experiments/dmci_grad_gap.py on the card)
+IMAGE_RECON_SCALE = 0.1
+
+
+def unsaturated_recon(torch, model, scale):
+    """Draw ``model``'s (a DMCI's) reconstruction head small: dec.dec_2's
+    adaptor and residual tails (dc_3, ffn_2) times ``scale`` and the
+    adaptor's bias at 0.5, so the reconstruction sits inside the [0, 1]
+    clamp around mid-grey, as a trained codec's does, instead of
+    saturating it at most pixels."""
+    blk = model.dec.dec_2
+    with torch.no_grad():
+        for conv in (blk.adaptor, blk.dc_3, blk.ffn_2):
+            conv.weight.mul_(scale)
+        blk.adaptor.bias.fill_(0.5)
+    return model
+
+
+def image_cross_check(torch, seed, hw=128, b=2):
+    """The image loss and its DMCI gradient at full width, train=False, on
+    the same weights (DMCI_HEADS, the reconstruction head unsaturated:
+    :func:`unsaturated_recon`; at random weights the clamp saturates most
+    pixels, and which ones flips with bf16's rounding): the card in bf16
+    against the CPU port in fp32, beside the CPU port's own bf16 (the same
+    rounding points) and the card against that CPU bf16. Passes when the loss agrees with fp32
+    within 5e-2 and the card's gradient cosine is >= XTRAIN_COSINE to
+    fp32's and >= XTRAIN_KERNEL_COSINE to the CPU bf16 one."""
+    from ssgvc_tpu_torch.config import CompressionConfig, DMCIConfig
+    from ssgvc_tpu_torch.models.dmci import DMCI
+    from ssgvc_tpu_torch.trainer_image_model import image_loss
+
+    rng = np.random.default_rng(seed + 160)
+    x = torch.tensor(rng.uniform(0, 1, (b, hw, hw, 3)), dtype=torch.float32)
+    out, state = {}, None
+    for name, dev, dtype in (("cpu32", "cpu", "float32"),
+                             ("cpu16", "cpu", "bfloat16"),
+                             ("card", DEVICE, "bfloat16")):
+        t0 = time.perf_counter()
+        model = DMCI(DMCIConfig(dtype=dtype), device=dev)
+        if state is None:
+            random_weights(torch, model, seed, DMCI_HEADS)
+            unsaturated_recon(torch, model, IMAGE_RECON_SCALE)
+            state = model.state_dict()
+        else:
+            model.load_state_dict(state, strict=True)
+        loss, _ = image_loss(model, x.to(dev), QP, CompressionConfig(),
+                             train=False)
+        loss.backward()
+        # float64: an fp32 dot over the ~60M entries drifts by ~0.4%
+        grad = torch.cat([(p.grad if p.grad is not None
+                           else torch.zeros_like(p)).double().reshape(-1).cpu()
+                          for p in model.parameters()])
+        out[name] = (float(loss.detach()), grad, time.perf_counter() - t0)
+        del model
+
+    def gap(a, ref):
+        (la, ga, _), (lr, gr, _) = out[a], out[ref]
+        cos = torch.dot(ga, gr) / (torch.linalg.vector_norm(ga)
+                                   * torch.linalg.vector_norm(gr))
+        return dict(loss_rel=abs(la - lr) / abs(lr), grad_cosine=float(cos),
+                    grad_rel=float(torch.linalg.vector_norm(ga - gr)
+                                   / torch.linalg.vector_norm(gr)))
+
+    r = dict(card_vs_cpu32=gap("card", "cpu32"),
+             cpu16_vs_cpu32=gap("cpu16", "cpu32"),
+             card_vs_cpu16=gap("card", "cpu16"),
+             loss={k: v[0] for k, v in out.items()},
+             seconds={k: v[2] for k, v in out.items()})
+    c, g, k = r["card_vs_cpu32"], r["cpu16_vs_cpu32"], r["card_vs_cpu16"]
+    print(f"cross-check image loss {hw}x{hw} B={b} QP {QP} (recon head at "
+          f"{IMAGE_RECON_SCALE}): card-bf16 vs "
+          f"cpu-fp32 loss rel {c['loss_rel']:.2e} (tol 5e-2), DMCI gradient"
+          f" cosine {c['grad_cosine']:.5f} (tol >= {XTRAIN_COSINE}; rel "
+          f"{c['grad_rel']:.3f}); card-bf16 vs cpu-bf16 cosine "
+          f"{k['grad_cosine']:.5f} (tol >= {XTRAIN_KERNEL_COSINE}; rel "
+          f"{k['grad_rel']:.3f}); the CPU's own bf16 vs fp32: loss rel "
+          f"{g['loss_rel']:.2e}, cosine {g['grad_cosine']:.5f}; seconds "
+          f"{r['seconds']}")
+    if not (c["loss_rel"] <= 5e-2 and c["grad_cosine"] >= XTRAIN_COSINE
+            and k["grad_cosine"] >= XTRAIN_KERNEL_COSINE):
+        fail("image CLI: the card's bf16 image loss or DMCI gradient is too "
+             "far from the CPU port's fp32 or bf16 one")
+    return r
+
+
+def phase_image_cli(torch, seed, card, root: Path, prev=None):
+    """The image trainer CLI (module docstring, phase 20) in ``root /
+    "image"`` on phase 19's fixture under ``root``. Returns its numbers,
+    with "dcb" (the forward kernel's rows) and "backward" (each backward
+    kernel's, weighed by a step's launches) for the kernels line."""
+    import csv
+    from unittest import mock
+
+    from ssgvc_tpu_torch import trainer_image_model as icli
+    from ssgvc_tpu_torch.config import DMCIConfig, TrainConfig
+    from ssgvc_tpu_torch.data import dataset as ds_mod
+    from ssgvc_tpu_torch.models.dmci import DMCI
+    from ssgvc_tpu_torch.ops import dcb_grad as dg
+    from ssgvc_tpu_torch.training.trainer import Trainer
+    from ssgvc_tpu_torch.utils.checkpoint import (load_pretrained,
+                                                  restore_checkpoint)
+    from ssgvc_tpu_torch.utils.logging import TRAIN_HEADERS
+
+    timing = {"data_ms": [], "step_ms": [], "wall_ms": [], "start": []}
+    timed_iter = timed_train_iter(timing)
+    train_step = icli.train_step
+
+    def timed_step(*args):
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        aux = train_step(*args)
+        e1.record()
+        e1.synchronize()
+        timing["step_ms"].append(e0.elapsed_time(e1))
+        timing["wall_ms"].append(1e3 * (time.perf_counter()
+                                        - timing["start"][-1]))
+        return aux
+
+    reset, read = launch_counts()
+    work = root / "image"
+    work.mkdir()
+    argv = [f"--device={DEVICE}", f"dataset.data_dir={root / 'waymo'}",
+            f"dataset.seg_cache_dir={root / 'seg_cache'}",
+            f"epochs={IMAGE_EPOCHS}", "log_interval=1", f"seed={seed}"]
+    with contextlib.chdir(work), \
+            mock.patch.object(ds_mod.ClipDataModule, "train_iter",
+                              timed_iter), \
+            mock.patch.object(icli, "train_step", timed_step):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        t0 = time.perf_counter()
+        res = icli.main(argv)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = read()
+        shape_counts = dict(dg.shape_launches)
+    peak = torch.cuda.max_memory_allocated()
+    model, steps = res["model"], res["steps"]
+    want = {k: v * steps for k, v in IMAGE_LAUNCHES.items()}
+    if not (steps == IMAGE_EPOCHS == len(timing["step_ms"])
+            and counts == want):
+        fail(f"image CLI: {steps} steps ({len(timing['step_ms'])} timed; "
+             f"expected {IMAGE_EPOCHS}), launches {counts}, expected {want}")
+    per_step = {}
+    for key, n in shape_counts.items():
+        if n % steps:
+            fail(f"image CLI: {n} launches of {key} in {steps} steps")
+        per_step[key] = n // steps
+
+    # the files the JAX CLI writes
+    if (work / icli.CONFIG_PATH).read_text() != icli.DEFAULT_YAML:
+        fail("image CLI: the YAML it wrote is not its default")
+    log = work / res["log_dir"]
+    files = sorted(str(p.relative_to(log)) for p in log.rglob("*")
+                   if p.is_file())
+    if files != ["checkpoints/last", "config.json", "train_metrics.csv"]:
+        fail(f"image CLI wrote {files}")
+    with open(log / "train_metrics.csv") as f:
+        rows = list(csv.reader(f))
+    cols = [rows[0].index(k) for k in IMAGE_LOGGED]
+    if not (rows[0] == TRAIN_HEADERS and len(rows) == steps + 1
+            and all(math.isfinite(float(r[i])) for r in rows[1:]
+                    for i in cols)):
+        fail(f"image CLI train_metrics.csv: {rows}")
+    ckpt = restore_checkpoint(res["checkpoint"])
+    live = model.state_dict()
+    if not (list(ckpt) == ["params_i"] and ckpt["params_i"].keys()
+            == live.keys() and all(torch.equal(ckpt["params_i"][k],
+                                               v.cpu())
+                                   for k, v in live.items())):
+        fail("image CLI: checkpoints/last is not the model's params_i")
+    # the parameters moved from the init the CLI drew
+    init = DMCI(DMCIConfig(dtype="bfloat16"), device="cpu").init_(
+        torch.Generator().manual_seed(seed)).state_dict()
+    still = [k for k, v in live.items() if torch.equal(v.cpu(), init[k])]
+    if still:
+        fail(f"image CLI: {len(still)} of {len(live)} parameters did not "
+             f"move: {still[:6]}")
+    # checkpoints/last imported into the video trainer's DMCI
+    cfg = TrainConfig(image_checkpoint_path=res["checkpoint"], seed=seed,
+                      model_profile=CLI_PROFILE)
+    tr = Trainer(cfg, total_iters=1, device=DEVICE)
+    load_pretrained(tr, cfg)
+    differ = [k for k, v in tr.dmci.state_dict().items()
+              if not torch.equal(v, live[k])]
+    if differ:
+        fail(f"image CLI: the imported DMCI differs: {differ[:6]}")
+    del tr
+    # every forward and backward kernel at every shape the step gave it
+    x = torch.rand((IMAGE_B, IMAGE_HW, IMAGE_HW, 3), device=DEVICE,
+                   generator=torch.Generator(DEVICE).manual_seed(seed))
+    fwd_shapes = dcb_forward_shapes(torch, model, x)
+    if sum(fwd_shapes.values()) != IMAGE_LAUNCHES["dcb"]:
+        fail(f"image CLI: forward shapes {fwd_shapes}")
+    del model, res, x
+    with torch.no_grad():
+        dcb_rows = dcb_step_rows(torch, seed, card, fwd_shapes, prev)
+        blocks = sorted(key for (k, key) in per_step if k == "gate_bwd")
+        sites = {(IMAGE_B, *x[:4]): x[4] for x in IMAGE_BWD_SHAPES}
+        bwd_rows = phase_backward_kernels(
+            torch, seed + 1, card, prev is not None,
+            [(*key, sites.get(key, "image step")) for key in blocks])
+    if CLI_PROFILE == "full" and blocks != sorted(
+            (IMAGE_B, *x[:4]) for x in IMAGE_BWD_SHAPES):
+        fail(f"image CLI: block backwards at {blocks}, not at "
+             "IMAGE_BWD_SHAPES")
+    backward = weigh_bwd(bwd_rows, per_step, "an image-CLI step")
+    for k, r in backward.items():
+        r["per"] = ("image-CLI step (phase 20): per-shape time x block "
+                    "backwards per step at that shape (counted), summed")
+        print(f"  {k} per image step: {r['launches']} launches, "
+              f"{r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, bound "
+              f"{r['bound_ms']:.4f}"
+              + (f", library {r['library_ms']:.3f}"
+                 if r["library_ms"] is not None else "")
+              + (f", parent {r['prev_ms']:.3f} in turns" if "prev_ms" in r
+                 else "") + f") [{card}]")
+    print(f"  dcb per image step: {dcb_rows['launches']} launches, "
+          f"{dcb_rows['ms']:.3f} ms (plain {dcb_rows['plain_ms']:.3f}, bound"
+          f" {dcb_rows['bound_ms']:.4f}"
+          + (f", parent {dcb_rows['prev_ms']:.3f} in turns"
+             if "prev_ms" in dcb_rows else "") + f") [{card}]")
+    xcheck = image_cross_check(torch, seed)
+    med = lambda xs: float(np.median(xs))
+    out = dict(source="waymo", steps=steps, batch=IMAGE_B, crop=IMAGE_HW,
+               ms_per_step=med(timing["wall_ms"]),
+               data_ms_per_step=med(timing["data_ms"]),
+               step_ms=med(timing["step_ms"]),
+               data_ms_runs=timing["data_ms"],
+               step_ms_runs=timing["step_ms"],
+               wall_ms_runs=timing["wall_ms"], run_s=run_s,
+               peak_mib=peak / 2 ** 20, launches_per_step=IMAGE_LAUNCHES,
+               losses=[{k: float(r[i]) for k, i in zip(IMAGE_LOGGED, cols)}
+                       for r in rows[1:]],
+               cross_check=xcheck, dcb=dcb_rows, backward=backward)
+    print(f"image CLI: {steps} steps of B={IMAGE_B} {IMAGE_HW}x{IMAGE_HW} "
+          f"crops of {WAYMO_HW[1]}x{WAYMO_HW[0]} Waymo JPEGs, "
+          f"{out['ms_per_step']:.1f} ms per step (host, next() to the step's"
+          f" end; median), of which data {out['data_ms_per_step']:.1f} ms "
+          f"(host, inside next()) and train_step {out['step_ms']:.1f} ms "
+          f"(CUDA events); whole run {run_s:.1f} s; peak "
+          f"{out['peak_mib']:.0f} MiB allocated; launches per step "
+          f"{IMAGE_LAUNCHES}; files {files}; every parameter moved; "
+          f"checkpoints/last imported into the video trainer exactly "
+          f"[{card}]")
+    return out
+
+
+#: Phase 21: the scripts on the first SCRIPT_FRAMES frames of the fixture
+#: (one record file's) at phase 10's QP, an I-frame every SCRIPT_GOP
+#: frames: the GOP phase 19's checkpoint trained on (T=4). Its 10 steps
+#: leave a DPB that grows with each P-frame (the tiny profile's feature
+#: ~500x a frame, NaN by the sixth: a CPU rehearsal), so a longer GOP codes
+#: overflowed frames. Launches per side: the full profile in fp32
+#: (profile_model_cfgs' default dtype) takes the 3xTF32 kernels, per
+#: I-frame 42 / 32 and per P-frame 19+5 / 12+4 after the I-frame, 18+5 /
+#: 11+4 after (encoder / decoder, as phase 10)
+SCRIPT_FRAMES, SCRIPT_GOP = 8, TRAIN_T
+
+
+def script_launches():
+    """{side: {kernel: launches}} of SCRIPT_FRAMES frames, SCRIPT_GOP a
+    GOP."""
+    per = {"encode": ((42, 0), (19, 5), (18, 5)),
+           "decode": ((32, 0), (12, 4), (11, 4))}
+    out = {}
+    for side, (i, after, other) in per.items():
+        kinds = [i if t % SCRIPT_GOP == 0 else after if t % SCRIPT_GOP == 1
+                 else other for t in range(SCRIPT_FRAMES)]
+        out[side] = {"dcb_tf32": sum(k[0] for k in kinds),
+                     "dcb_chain_tf32": sum(k[1] for k in kinds)}
+    return out
+
+
+def phase_scripts(torch, seed, card, root: Path, checkpoint: str):
+    """The encode and decode scripts (module docstring, phase 21) in
+    ``root / "scripts"`` on the fixture under ``root``, with phase 19's
+    ``checkpoint``."""
+    from unittest import mock
+
+    from ssgvc_tpu_torch.coding.bitstream import BitstreamReader
+    from ssgvc_tpu_torch.coding.session import CodingSession
+    from ssgvc_tpu_torch.data import tfrecord, waymo_proto
+    from ssgvc_tpu_torch.scripts import decode, encode
+    from ssgvc_tpu_torch.utils.metrics import calc_psnr
+    from ssgvc_tpu_torch.utils.transforms import rgb2ycbcr_np, ycbcr2rgb_np
+    from ssgvc_tpu_torch.utils.video_io import PNGReader, PNGWriter
+
+    work = root / "scripts"
+    writer = PNGWriter(str(work / "frames"))
+    with contextlib.closing(tfrecord.read_records(
+            str(root / "waymo" / "seg0.tfrecord"))) as records:
+        for _, rec in zip(range(SCRIPT_FRAMES), records):
+            rgb = np.asarray(waymo_proto.decode_jpeg(
+                waymo_proto.parse_front_jpeg(rec)), np.float32) / 255.0
+            writer.write_one_frame(rgb)
+    reader = PNGReader(str(work / "frames"))
+    frames = [reader.read_one_frame() for _ in range(SCRIPT_FRAMES)]
+    if reader.read_one_frame() is not None or any(f is None or f.shape != (
+            *WAYMO_HW, 3) for f in frames):
+        fail("scripts: the frames written are not the fixture's")
+    frames = np.stack([rgb2ycbcr_np(f) for f in frames])
+    model = ["--checkpoint", checkpoint, "--profile", CLI_PROFILE,
+             "--variant", "performance", f"--device={DEVICE}"]
+    reset, read = launch_counts()
+    # the host clock inside encode_sequence / decode_sequence: the coding
+    # alone, without the checkpoint, the models and the PNG files
+    coding_s = {}
+
+    def timed(side, fn):
+        def run(self, *args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(self, *args, **kw)
+            torch.cuda.synchronize()
+            coding_s[side] = time.perf_counter() - t0
+            return out
+        return run
+
+    sides = {}
+    with mock.patch.object(CodingSession, "encode_sequence",
+                           timed("encode", CodingSession.encode_sequence)), \
+            mock.patch.object(CodingSession, "decode_sequence",
+                              timed("decode",
+                                    CodingSession.decode_sequence)):
+        for side, fn, args in (
+                ("encode", encode.main,
+                 ["--input", str(work / "frames"), "--output",
+                  str(work / "seq.bin"), "--qp", str(QP), "--gop",
+                  str(SCRIPT_GOP)]),
+                ("decode", decode.main,
+                 ["--input", str(work / "seq.bin"), "--output",
+                  str(work / "decoded")])):
+            torch.cuda.synchronize()
+            reset()
+            t0 = time.perf_counter()
+            result = fn(args + model)
+            torch.cuda.synchronize()
+            s = time.perf_counter() - t0
+            got = read()
+            sides[side] = dict(result=result, s=s, launches=got,
+                               ms_per_frame=1e3 * s / SCRIPT_FRAMES,
+                               coding_ms_per_frame=1e3 * coding_s[side]
+                               / SCRIPT_FRAMES)
+            want = script_launches()[side]
+            if not all(got[k] == want.get(k, 0) for k in got):
+                fail(f"scripts: {side} launches {got}, expected {want}")
+    stats, decoded = sides["encode"]["result"], sides["decode"]["result"]
+    if stats["frame_types"] != ["P" if t % SCRIPT_GOP else "I"
+                                for t in range(SCRIPT_FRAMES)]:
+        fail(f"scripts: frame types {stats['frame_types']}")
+    if not all(np.isfinite(r).all() for r in stats["recons"]):
+        fail("scripts: an encoder reconstruction is not finite")
+    # the encoder's reconstructions written as decode writes its frames
+    recons = PNGWriter(str(work / "recons"))
+    for rec in stats["recons"]:
+        recons.write_one_frame(ycbcr2rgb_np(rec))
+    dec_png, rec_png = (PNGReader(str(work / d)) for d in ("decoded",
+                                                           "recons"))
+    for t in range(SCRIPT_FRAMES):
+        a, b = dec_png.read_one_frame(), rec_png.read_one_frame()
+        if a is None or b is None or not np.array_equal(a, b):
+            fail(f"scripts: decoded PNG {t + 1} differs from the "
+                 "encoder's reconstruction")
+    if dec_png.read_one_frame() is not None or len(decoded) != SCRIPT_FRAMES:
+        fail(f"scripts: decode wrote {len(decoded)} frames")
+    with open(work / "seq.bin", "rb") as f:
+        bs = BitstreamReader(f)
+        units = [bs.read_frame() for _ in range(SCRIPT_FRAMES)]
+        if bs.read_frame() is not None:
+            fail("scripts: the stream holds more units than frames")
+    if [len(u["payload"]) * 8 for u in units] != stats["frame_bits"]:
+        fail(f"scripts: bits per frame {stats['frame_bits']} are not the "
+             "container's unit sizes")
+    pixels = WAYMO_HW[0] * WAYMO_HW[1]
+    bpp = [b / pixels for b in stats["frame_bits"]]
+    psnr = [calc_psnr(frames[t], stats["recons"][t])
+            for t in range(SCRIPT_FRAMES)]
+    if not all(math.isfinite(p) for p in psnr):
+        fail(f"scripts: PSNR {psnr}")
+    out = dict(frames=SCRIPT_FRAMES, frame_hw=list(WAYMO_HW), qp=QP,
+               gop=SCRIPT_GOP, profile=CLI_PROFILE, dtype="float32",
+               frame_types=stats["frame_types"],
+               frame_bits=stats["frame_bits"], bpp=bpp, psnr=psnr,
+               bytes=(work / "seq.bin").stat().st_size,
+               **{f"{side}_{k}": v[k] for side, v in sides.items()
+                  for k in ("s", "ms_per_frame", "coding_ms_per_frame",
+                            "launches")})
+    print(f"scripts: {SCRIPT_FRAMES} frames {WAYMO_HW[1]}x{WAYMO_HW[0]} PNG "
+          f"-> {out['bytes']} bytes -> PNG (profile {CLI_PROFILE}, float32,"
+          f" QP {QP}, GOP {SCRIPT_GOP}); encode {out['encode_s']:.2f} s "
+          f"({out['encode_ms_per_frame']:.1f} ms per frame, host clock "
+          f"around main: checkpoint, models and PNG reads included; "
+          f"encode_sequence {out['encode_coding_ms_per_frame']:.1f}), "
+          f"decode {out['decode_s']:.2f} s ({out['decode_ms_per_frame']:.1f}"
+          f" ms per frame, PNG writes included; decode_sequence "
+          f"{out['decode_coding_ms_per_frame']:.1f}); bpp "
+          f"{', '.join(f'{v:.4f}' for v in bpp)}; PSNR "
+          f"{', '.join(f'{v:.2f}' for v in psnr)} dB; every decoded PNG "
+          f"equal to the encoder's reconstruction; launches encode "
+          f"{sides['encode']['launches']}, decode "
+          f"{sides['decode']['launches']} [{card}]")
+    return out
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3139,7 +3713,18 @@ def main() -> int:
                                    rd["bwd_shape_launches"],
                                    prev is not None)
     coded32 = phase_coded_f32(torch, args.seed, card)
-    train_cli = phase_train_cli(torch, args.seed, card)
+    # phases 19-21 share the Waymo fixture; 21 codes with 19's checkpoint
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        train_cli = phase_train_cli(torch, args.seed, card, root)
+        image_cli = phase_image_cli(torch, args.seed, card, root, prev)
+        scripts = phase_scripts(torch, args.seed, card, root,
+                                train_cli.pop("last"))
+    next(e for e in kernels if e["name"] == "dcb")["image_step"] = \
+        image_cli.pop("dcb")
+    for entry in backward:
+        entry["image_step"] = image_cli["backward"].pop(entry["name"])
+    image_cli.pop("backward")
     for entry in kernels:
         entry["widths"] = widths[entry["name"]]
     for entry in kernels_f32:
@@ -3153,6 +3738,8 @@ def main() -> int:
         entry["training"] = dict(
             launches=rd["launches_per_micro_step"][entry["name"]],
             per="launches per RD-recipe micro-step (rd-mid fp32, phase 17)")
+        entry["scripts"] = {side: scripts[f"{side}_launches"][entry["name"]]
+                            for side in ("encode", "decode")}
     kernels_f32 += simt_entries(widths, rd["launches_per_micro_step"], simt)
     for entry in backward:
         entry["rd_recipe_launches"] = \
@@ -3187,6 +3774,8 @@ def main() -> int:
     print(json.dumps({"rd_recipe": {**rd, "card": card}}))
     print(json.dumps({"coded_fp32": {**coded32, "card": card}}))
     print(json.dumps({"train_cli": {**train_cli, "card": card}}))
+    print(json.dumps({"image_cli": {**image_cli, "card": card}}))
+    print(json.dumps({"scripts": {**scripts, "card": card}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

@@ -161,10 +161,13 @@ def build_indexes_decoder(scales: torch.Tensor, scale_min: float = 0.11,
                           scale_max: float = 16.0,
                           levels: int = 128) -> torch.Tensor:
     """Scale -> int32 table row: clamp, then the log-scale index, in fp32
-    whatever the scales' dtype."""
+    whatever the scales' dtype. A NaN scale takes row 0, as XLA's float to
+    int conversion gives it in the JAX package (torch's gives INT_MIN, a
+    row outside the table)."""
     log_min, recip = scale_index_params(scale_min, scale_max, levels)
     s = torch.clamp(scales.float(), scale_min, scale_max)
-    return ((torch.log(s) - log_min) * recip).to(torch.int32)
+    idx = torch.nan_to_num((torch.log(s) - log_min) * recip, nan=0.0)
+    return idx.to(torch.int32)
 
 
 def build_indexes_encoder(symbols: torch.Tensor, scales: torch.Tensor,

@@ -51,6 +51,12 @@ def train_checkpoint(trainer, state: TrainState) -> Dict:
                  **{k: getattr(state, k) for k in SCALARS}})
 
 
+def image_checkpoint(dmci) -> Dict:
+    """The image trainer's checkpoint: the DMCI's state_dict under
+    ``params_i`` (what :func:`load_pretrained` imports), as CPU copies."""
+    return _cpu({"params_i": dmci.state_dict()})
+
+
 def save_checkpoint(path: str, ckpt: Dict) -> str:
     """Write ``ckpt`` (from :func:`train_checkpoint`) to ``path``, through a
     temporary file and a rename, so a reader never sees a partial file."""

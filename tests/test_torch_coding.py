@@ -318,6 +318,25 @@ def test_index_builders_match_jax(profile):
                                               jnp.asarray(scales), **kw)))
 
 
+def test_index_builders_take_non_finite_values_as_jax_does():
+    """A NaN scale (a DPB overflowed past fp32) is row 0 in both packages,
+    a table row, and never a read outside the table; +-inf scales and
+    symbols clamp to the ends."""
+    scales = np.array([np.nan, np.inf, -np.inf, 0.5, 100.0, np.nan],
+                      np.float32)
+    symbols = np.array([np.nan, np.inf, -np.inf, 3.4, -200.0, 7.0],
+                       np.float32)
+    idx = tcdf.build_indexes_decoder(torch.from_numpy(scales)).numpy()
+    np.testing.assert_array_equal(
+        idx, np.asarray(jcdf.build_indexes_decoder(jnp.asarray(scales))))
+    assert idx.min() >= 0 and idx.max() < 128 and idx[0] == idx[-1] == 0
+    np.testing.assert_array_equal(
+        tcdf.build_indexes_encoder(torch.from_numpy(symbols),
+                                   torch.from_numpy(scales)).numpy(),
+        np.asarray(jcdf.build_indexes_encoder(jnp.asarray(symbols),
+                                              jnp.asarray(scales))))
+
+
 # ------------------------------------------------------------ container ----
 
 

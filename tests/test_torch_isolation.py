@@ -42,9 +42,13 @@ DATA_MODULES = ("utils.transforms", "data.tfrecord", "data.waymo_proto",
                 "data.vimeo", "data.dataset", "utils.logging",
                 "utils.torch_import", "utils.checkpoint", "utils.visualize",
                 "trainer_seg_video_model")
+#: the image trainer and the coding command lines
+CLI_MODULES = ("trainer_image_model", "utils.video_io", "scripts.encode",
+               "scripts.decode")
 
 
-@pytest.mark.parametrize("module", TRAINING_MODULES + DATA_MODULES)
+@pytest.mark.parametrize("module",
+                         TRAINING_MODULES + DATA_MODULES + CLI_MODULES)
 def test_training_modules_import_without_jax(module):
     """Each module of the training path imports, in a fresh interpreter,
     with JAX, flax, optax and the JAX package made unimportable."""

@@ -1,8 +1,8 @@
 """Training on the card (marked ``gpu``; skipped where no CUDA device is
 present): the DepthConvBlock backward kernels (csrc/dcb_bwd.cu) against
-their plain versions at every shape a training micro-step gives them
-(dw_fwd also at the RD recipe's shapes and on edge tiles, image by image
-and rerun bit for bit), both
+their plain versions at every shape a training micro-step and an image
+trainer's step give them (dw_fwd also at the RD recipe's shapes and on
+edge tiles, image by image and rerun bit for bit), both
 forward kernels at B = 4 against four B = 1 launches bit for bit, and the
 card's bf16 gop_loss and gradient against the CPU port's fp32 and bf16 at
 full width.
@@ -66,6 +66,27 @@ def test_backward_kernels_match_plain(h, w, c, with_q, act):
     errs = chip_smoke.check_backward_kernels(
         torch, chip_smoke.bwd_case(torch, rng, 4, h, w, c, with_q, dev,
                                    getattr(torch, act)))
+    assert set(errs) == set(dg.launches)
+    assert all(dg.launches[k] > before[k] for k in dg.launches)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ["bfloat16", "float32"])
+@pytest.mark.parametrize("h,w,c,with_q",
+                         [s[:4] for s in chip_smoke.IMAGE_BWD_SHAPES])
+def test_backward_kernels_match_plain_at_the_image_step(h, w, c, with_q,
+                                                        act):
+    """The same at every shape the image trainer's step gives the backward
+    kernels: the DMCI at full width, B = 16 crops of 256x256 (C = 368, a
+    partial 32-channel stripe; 512; 192)."""
+    from ssgvc_tpu_torch.ops import dcb_grad as dg
+
+    dev = _card()
+    rng = np.random.default_rng(h * w + c + with_q)
+    before = dict(dg.launches)
+    errs = chip_smoke.check_backward_kernels(
+        torch, chip_smoke.bwd_case(torch, rng, chip_smoke.IMAGE_B, h, w, c,
+                                   with_q, dev, getattr(torch, act)))
     assert set(errs) == set(dg.launches)
     assert all(dg.launches[k] > before[k] for k in dg.launches)
 
