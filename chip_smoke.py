@@ -108,7 +108,8 @@ Phases (any failure exits non-zero and prints no result line):
      width, recon_residual, 128x128, B = 2, train=False): loss within
      5e-2, gradient cosine >= XTRAIN_COSINE to the CPU's fp32 one and >=
      XTRAIN_KERNEL_COSINE to the CPU port's own bf16 one (the same
-     rounding points, so what is left is the card's kernels);
+     rounding points, so what is left is the card's kernels), the dots
+     and norms over the whole gradient in float64;
  14. widths: both kernels in bf16 and fp32 at every width of every profile
      and every computed width (WIDTH_SINGLE to 512, WIDTH_CHAIN to 384), on
      B=4 8x8 (a 64x64 crop), B=4 24x24 (a 192x192 clip) and B=1 136x240
@@ -204,13 +205,34 @@ Phases (any failure exits non-zero and prints no result line):
      ycbcr2rgb_np and PNGWriter; the bits per frame equal to the
      container's unit sizes; the kernels' launches per side (3xTF32:
      script_launches); host seconds around each main and ms per frame;
-     bpp and PSNR per frame.
+     bpp and PSNR per frame. Then the scripts' default GOP
+     (SCRIPT_LONG_GOP = 32) over all SCRIPT_LONG_FRAMES frames of the
+     fixture (I + 15 P) from a checkpoint of drawn weights (random_weights,
+     the prior heads at 0.01) that the phase writes in the port's format:
+     the same checks, and every P-frame's DPB finite on both sides, the
+     decoder's DPB feature maxima equal to the encoder's, printed per
+     frame;
+ 22. tools: the graft entry (ssgvc_tpu_torch.graft_entry.entry() with no
+     device: its params, args and outputs on the card; ENTRY_LAUNCHES dcb
+     / dcb_chain launches per call; ms per call by profiling.timed; and
+     debug.cpu_cross_check of its example args, then of drawn weights on
+     seeded frames, each gated as phase 8: bpp within 5e-2, frame PSNR >=
+     30 dB, every output finite); debug.layer_forensics of the entry's
+     model on the card (no module non-finite; the module count and the
+     top 5 by norm); profiling.trace around one warm 1088x1920 P-frame of
+     phase 5's model, the exported trace's device time split into the
+     port's kernels (their launches equal to the counters') and the top
+     10 other device ops; profiling.device_memory_stats after phase 5's
+     first GOP (its peak equal to phase 5's peak_bytes: both read the
+     caching allocator's one peak counter, so this checks only the
+     helper's mapping of torch.cuda.memory_stats keys, not a second
+     measurement).
 
 The last lines are JSON objects: {"main_path": ...}, {"variants": ...},
 {"coded": ...}, {"training": ...}, {"cross_check": ...}, {"fp32": ...},
 {"rd_half": ...}, {"rd_recipe": ...}, {"coded_fp32": ...},
-{"train_cli": ...}, {"image_cli": ...}, {"scripts": ...}, {"kernels":
-[...]}, and last {"ok": true, "device":
+{"train_cli": ...}, {"image_cli": ...}, {"scripts": ...}, {"tools": ...},
+{"kernels": [...]}, and last {"ok": true, "device":
 {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -876,6 +898,7 @@ def phase_main_path(torch, seed, frames_n, card, dpb_frame, prev=None):
     port) also that checkout's DMC on the same weights, timed in turns
     with this one's (prev, new, new, prev)."""
     from ssgvc_tpu_torch.config import DMCConfig
+    from ssgvc_tpu_torch.utils.profiling import device_memory_stats
     from ssgvc_tpu_torch.models.dmc import DMC
     from ssgvc_tpu_torch.ops import dcb as dcb_ops
     from ssgvc_tpu_torch.ops import dcb_chain as chain_ops
@@ -947,6 +970,12 @@ def phase_main_path(torch, seed, frames_n, card, dpb_frame, prev=None):
                 fail(f"GOP launches {launches}, expected {want}")
             if k == 0:
                 peak = torch.cuda.max_memory_allocated()
+                # the same allocator counter under another key: this holds
+                # the helper's key mapping, it measures nothing anew
+                memory = device_memory_stats()
+                if memory["cuda:0"]["peak_bytes_in_use"] != peak:
+                    fail(f"device_memory_stats {memory} disagrees with "
+                         f"max_memory_allocated {peak}")
     b = check_frame(torch, "main path", bpps, dpb["frame"])
     if not torch.isfinite(dpb["feature"].float()).all():
         fail("DPB feature not finite")
@@ -960,7 +989,8 @@ def phase_main_path(torch, seed, frames_n, card, dpb_frame, prev=None):
           f"dcb_chain {launches[1]}, bpp {np.round(b, 4).tolist()} [{card}]")
     state = {k: v.detach().clone() for k, v in model.state_dict().items()}
     result = dict(launches=launches, ms_per_frame=ms, ms_runs=runs,
-                  queued_ms_runs=queued, peak_bytes=peak, bpps=b, outs=outs,
+                  queued_ms_runs=queued, peak_bytes=peak,
+                  memory_stats=memory, bpps=b, outs=outs,
                   state=state, frames=frames[:3], masks=masks[:3],
                   dpb_frame=dpb_frame)
     if prev is not None:
@@ -1175,19 +1205,20 @@ def phase_cross_check(torch, main, iframe, seed, card_dtype="bfloat16",
 
 
 def cross_check_pair(what, b_cpu, f_cpu, b_gpu, f_gpu, psnr_tol=30.0,
-                     label="bf16", extra=""):
+                     label="bf16", extra="", hw="128x128", cpu="fp32"):
     """bpp within 5e-2 relative and the frames within ``psnr_tol`` dB of
-    each other, CPU fp32 against the card; returns the PSNR."""
+    each other, the CPU (in ``cpu``) against the card; returns the
+    PSNR."""
     rel = abs(b_gpu - b_cpu) / b_cpu
     mse = float(((f_gpu - f_cpu) ** 2).mean())
     psnr = 10 * math.log10(1.0 / max(mse, 1e-20))
-    print(f"cross-check {what} 128x128: bpp cpu-fp32 {b_cpu:.5f} "
+    print(f"cross-check {what} {hw}: bpp cpu-{cpu} {b_cpu:.5f} "
           f"card-{label} {b_gpu:.5f} (rel {rel:.2e}, tol 5e-2), frame PSNR "
           f"between them {psnr:.1f} dB (tol >= {psnr_tol:g}){extra}")
     # bf16 rounds activations to 8 bits of mantissa and flips some
     # round() decisions of the quantizer, so the two agree only loosely
     if rel > 5e-2 or psnr < psnr_tol:
-        fail(f"{what}: card {label} and CPU fp32 disagree beyond the "
+        fail(f"{what}: card {label} and CPU {cpu} disagree beyond the "
              "tolerance")
     return psnr
 
@@ -2112,7 +2143,8 @@ def train_cross_check(torch, seed, device=DEVICE, hw=TRAIN_HW, b=2, t=3):
                               QP, torch.Generator().manual_seed(seed),
                               train=False, eval_mode=False)
         loss.backward()
-        grad = torch.cat([p.grad.float().reshape(-1).cpu()
+        # float64, as phase 20: an fp32 dot over the whole gradient drifts
+        grad = torch.cat([p.grad.double().reshape(-1).cpu()
                           for p in tr.dmc.parameters()])
         out[name] = (float(loss.detach()), grad, time.perf_counter() - t0)
 
@@ -3481,63 +3513,85 @@ def phase_image_cli(torch, seed, card, root: Path, prev=None):
 #: Phase 21: the scripts on the first SCRIPT_FRAMES frames of the fixture
 #: (one record file's) at phase 10's QP, an I-frame every SCRIPT_GOP
 #: frames: the GOP phase 19's checkpoint trained on (T=4). Its 10 steps
-#: leave a DPB that grows with each P-frame (the tiny profile's feature
-#: ~500x a frame, NaN by the sixth: a CPU rehearsal), so a longer GOP codes
-#: overflowed frames. Launches per side: the full profile in fp32
-#: (profile_model_cfgs' default dtype) takes the 3xTF32 kernels, per
-#: I-frame 42 / 32 and per P-frame 19+5 / 12+4 after the I-frame, 18+5 /
-#: 11+4 after (encoder / decoder, as phase 10)
+#: leave a DPB that grows with each P-frame, in the JAX package as in the
+#: port (F6, experiments/f6_dpb_growth.py: the tiny profile's feature
+#: ~4-10x a frame, past 1e7 by the ninth), so that checkpoint codes GOPs
+#: of 4. The scripts' default GOP of 32 (scripts/encode.py's --gop) is
+#: coded after it, over all SCRIPT_LONG_FRAMES frames of the fixture (I +
+#: 15 P), from weights drawn as random_weights draws them (the prior heads
+#: at 0.01) and written in the port's checkpoint format. Launches per side:
+#: the full profile in fp32 (profile_model_cfgs' default dtype) takes the
+#: 3xTF32 kernels, per I-frame 42 / 32 and per P-frame 19+5 / 12+4 after
+#: the I-frame, 18+5 / 11+4 after (encoder / decoder, as phase 10)
 SCRIPT_FRAMES, SCRIPT_GOP = 8, TRAIN_T
+SCRIPT_LONG_FRAMES, SCRIPT_LONG_GOP = sum(CLI_RECORDS), 32
 
 
-def script_launches():
-    """{side: {kernel: launches}} of SCRIPT_FRAMES frames, SCRIPT_GOP a
-    GOP."""
+def script_launches(frames=SCRIPT_FRAMES, gop=SCRIPT_GOP):
+    """{side: {kernel: launches}} of ``frames`` frames, ``gop`` a GOP."""
     per = {"encode": ((42, 0), (19, 5), (18, 5)),
            "decode": ((32, 0), (12, 4), (11, 4))}
     out = {}
     for side, (i, after, other) in per.items():
-        kinds = [i if t % SCRIPT_GOP == 0 else after if t % SCRIPT_GOP == 1
-                 else other for t in range(SCRIPT_FRAMES)]
+        kinds = [i if t % gop == 0 else after if t % gop == 1
+                 else other for t in range(frames)]
         out[side] = {"dcb_tf32": sum(k[0] for k in kinds),
                      "dcb_chain_tf32": sum(k[1] for k in kinds)}
     return out
 
 
-def phase_scripts(torch, seed, card, root: Path, checkpoint: str):
-    """The encode and decode scripts (module docstring, phase 21) in
-    ``root / "scripts"`` on the fixture under ``root``, with phase 19's
-    ``checkpoint``."""
+def script_pngs(root: Path, out_dir: Path, frames: int):
+    """The fixture's first ``frames`` frames (record files in order) as
+    im%05d.png under ``out_dir`` by the port's PNGWriter; returns them as
+    YCbCr, read back through PNGReader."""
+    from ssgvc_tpu_torch.data import tfrecord, waymo_proto
+    from ssgvc_tpu_torch.utils.transforms import rgb2ycbcr_np
+    from ssgvc_tpu_torch.utils.video_io import PNGReader, PNGWriter
+
+    writer = PNGWriter(str(out_dir))
+    left = frames
+    for i in range(len(CLI_RECORDS)):
+        with contextlib.closing(tfrecord.read_records(
+                str(root / "waymo" / f"seg{i}.tfrecord"))) as records:
+            for _, rec in zip(range(left), records):
+                rgb = np.asarray(waymo_proto.decode_jpeg(
+                    waymo_proto.parse_front_jpeg(rec)), np.float32) / 255.0
+                writer.write_one_frame(rgb)
+                left -= 1
+        if not left:
+            break
+    reader = PNGReader(str(out_dir))
+    out = [reader.read_one_frame() for _ in range(frames)]
+    if reader.read_one_frame() is not None or any(f is None or f.shape != (
+            *WAYMO_HW, 3) for f in out):
+        fail("scripts: the frames written are not the fixture's")
+    return np.stack([rgb2ycbcr_np(f) for f in out])
+
+
+def code_with_scripts(torch, work: Path, n: int, gop: int, checkpoint: str):
+    """scripts.encode.main on the ``n`` frames under ``work / "frames"``
+    (GOP ``gop``) and scripts.decode.main on the stream it wrote, with
+    ``checkpoint``: every decoded PNG equal to the encoder's
+    reconstruction, the bits per frame the container's unit sizes, the
+    launches per side script_launches'.
+    Each P-frame's DPB, as each side's codec returns it, is logged:
+    {side: [(finite, feature max |.|)]}. Returns (sides, stats, dpbs)."""
     from unittest import mock
 
     from ssgvc_tpu_torch.coding.bitstream import BitstreamReader
+    from ssgvc_tpu_torch.coding.codec import VideoCodec
     from ssgvc_tpu_torch.coding.session import CodingSession
-    from ssgvc_tpu_torch.data import tfrecord, waymo_proto
     from ssgvc_tpu_torch.scripts import decode, encode
-    from ssgvc_tpu_torch.utils.metrics import calc_psnr
-    from ssgvc_tpu_torch.utils.transforms import rgb2ycbcr_np, ycbcr2rgb_np
+    from ssgvc_tpu_torch.utils.transforms import ycbcr2rgb_np
     from ssgvc_tpu_torch.utils.video_io import PNGReader, PNGWriter
 
-    work = root / "scripts"
-    writer = PNGWriter(str(work / "frames"))
-    with contextlib.closing(tfrecord.read_records(
-            str(root / "waymo" / "seg0.tfrecord"))) as records:
-        for _, rec in zip(range(SCRIPT_FRAMES), records):
-            rgb = np.asarray(waymo_proto.decode_jpeg(
-                waymo_proto.parse_front_jpeg(rec)), np.float32) / 255.0
-            writer.write_one_frame(rgb)
-    reader = PNGReader(str(work / "frames"))
-    frames = [reader.read_one_frame() for _ in range(SCRIPT_FRAMES)]
-    if reader.read_one_frame() is not None or any(f is None or f.shape != (
-            *WAYMO_HW, 3) for f in frames):
-        fail("scripts: the frames written are not the fixture's")
-    frames = np.stack([rgb2ycbcr_np(f) for f in frames])
     model = ["--checkpoint", checkpoint, "--profile", CLI_PROFILE,
              "--variant", "performance", f"--device={DEVICE}"]
     reset, read = launch_counts()
     # the host clock inside encode_sequence / decode_sequence: the coding
     # alone, without the checkpoint, the models and the PNG files
     coding_s = {}
+    dpbs = {"encode": [], "decode": []}
 
     def timed(side, fn):
         def run(self, *args, **kw):
@@ -3549,17 +3603,32 @@ def phase_scripts(torch, seed, card, root: Path, checkpoint: str):
             return out
         return run
 
+    def logged(side, fn):
+        def run(self, *args, **kw):
+            out = fn(self, *args, **kw)
+            d = out["dpb"]
+            finite = bool(torch.isfinite(d["feature"].float()).all()
+                          and torch.isfinite(d["frame"].float()).all())
+            dpbs[side].append((finite, float(d["feature"].float().abs()
+                                              .max())))
+            return out
+        return run
+
     sides = {}
     with mock.patch.object(CodingSession, "encode_sequence",
                            timed("encode", CodingSession.encode_sequence)), \
             mock.patch.object(CodingSession, "decode_sequence",
                               timed("decode",
-                                    CodingSession.decode_sequence)):
+                                    CodingSession.decode_sequence)), \
+            mock.patch.object(VideoCodec, "dmc_compress",
+                              logged("encode", VideoCodec.dmc_compress)), \
+            mock.patch.object(VideoCodec, "dmc_decompress",
+                              logged("decode", VideoCodec.dmc_decompress)):
         for side, fn, args in (
                 ("encode", encode.main,
                  ["--input", str(work / "frames"), "--output",
                   str(work / "seq.bin"), "--qp", str(QP), "--gop",
-                  str(SCRIPT_GOP)]),
+                  str(gop)]),
                 ("decode", decode.main,
                  ["--input", str(work / "seq.bin"), "--output",
                   str(work / "decoded")])):
@@ -3571,39 +3640,69 @@ def phase_scripts(torch, seed, card, root: Path, checkpoint: str):
             s = time.perf_counter() - t0
             got = read()
             sides[side] = dict(result=result, s=s, launches=got,
-                               ms_per_frame=1e3 * s / SCRIPT_FRAMES,
-                               coding_ms_per_frame=1e3 * coding_s[side]
-                               / SCRIPT_FRAMES)
-            want = script_launches()[side]
+                               ms_per_frame=1e3 * s / n,
+                               coding_ms_per_frame=1e3 * coding_s[side] / n)
+            want = script_launches(n, gop)[side]
             if not all(got[k] == want.get(k, 0) for k in got):
                 fail(f"scripts: {side} launches {got}, expected {want}")
     stats, decoded = sides["encode"]["result"], sides["decode"]["result"]
-    if stats["frame_types"] != ["P" if t % SCRIPT_GOP else "I"
-                                for t in range(SCRIPT_FRAMES)]:
+    if stats["frame_types"] != ["P" if t % gop else "I" for t in range(n)]:
         fail(f"scripts: frame types {stats['frame_types']}")
-    if not all(np.isfinite(r).all() for r in stats["recons"]):
-        fail("scripts: an encoder reconstruction is not finite")
     # the encoder's reconstructions written as decode writes its frames
     recons = PNGWriter(str(work / "recons"))
     for rec in stats["recons"]:
         recons.write_one_frame(ycbcr2rgb_np(rec))
     dec_png, rec_png = (PNGReader(str(work / d)) for d in ("decoded",
                                                            "recons"))
-    for t in range(SCRIPT_FRAMES):
+    for t in range(n):
         a, b = dec_png.read_one_frame(), rec_png.read_one_frame()
         if a is None or b is None or not np.array_equal(a, b):
             fail(f"scripts: decoded PNG {t + 1} differs from the "
                  "encoder's reconstruction")
-    if dec_png.read_one_frame() is not None or len(decoded) != SCRIPT_FRAMES:
+    if dec_png.read_one_frame() is not None or len(decoded) != n:
         fail(f"scripts: decode wrote {len(decoded)} frames")
     with open(work / "seq.bin", "rb") as f:
         bs = BitstreamReader(f)
-        units = [bs.read_frame() for _ in range(SCRIPT_FRAMES)]
+        units = [bs.read_frame() for _ in range(n)]
         if bs.read_frame() is not None:
             fail("scripts: the stream holds more units than frames")
     if [len(u["payload"]) * 8 for u in units] != stats["frame_bits"]:
         fail(f"scripts: bits per frame {stats['frame_bits']} are not the "
              "container's unit sizes")
+    return sides, stats, dpbs
+
+
+def drawn_checkpoint(torch, seed, path: Path) -> str:
+    """The full profile's DMC and DMCI (float32, as profile_model_cfgs
+    gives them) with weights drawn from ``seed`` by random_weights (the
+    prior heads at 0.01), saved at ``path`` in the port's checkpoint
+    format (params_p, params_i)."""
+    from ssgvc_tpu_torch.config import profile_model_cfgs
+    from ssgvc_tpu_torch.models.dmc import DMC
+    from ssgvc_tpu_torch.models.dmci import DMCI
+    from ssgvc_tpu_torch.utils.checkpoint import save_checkpoint
+
+    dmc_cfg, dmci_cfg = profile_model_cfgs(CLI_PROFILE, "performance")
+    dmc = random_weights(torch, DMC(dmc_cfg, device="cpu"), seed + 21)
+    dmci = random_weights(torch, DMCI(dmci_cfg, device="cpu"), seed + 22,
+                          DMCI_HEADS)
+    return save_checkpoint(str(path), {"params_p": dmc.state_dict(),
+                                       "params_i": dmci.state_dict()})
+
+
+def phase_scripts(torch, seed, card, root: Path, checkpoint: str):
+    """The encode and decode scripts (module docstring, phase 21) in
+    ``root / "scripts"`` on the fixture under ``root``: GOPs of SCRIPT_GOP
+    with phase 19's ``checkpoint``, then the scripts' default GOP over the
+    whole fixture with drawn weights."""
+    from ssgvc_tpu_torch.utils.metrics import calc_psnr
+
+    work = root / "scripts"
+    frames = script_pngs(root, work / "frames", SCRIPT_FRAMES)
+    sides, stats, _ = code_with_scripts(torch, work, SCRIPT_FRAMES,
+                                        SCRIPT_GOP, checkpoint)
+    if not all(np.isfinite(r).all() for r in stats["recons"]):
+        fail("scripts: an encoder reconstruction is not finite")
     pixels = WAYMO_HW[0] * WAYMO_HW[1]
     bpp = [b / pixels for b in stats["frame_bits"]]
     psnr = [calc_psnr(frames[t], stats["recons"][t])
@@ -3632,7 +3731,225 @@ def phase_scripts(torch, seed, card, root: Path, checkpoint: str):
           f"equal to the encoder's reconstruction; launches encode "
           f"{sides['encode']['launches']}, decode "
           f"{sides['decode']['launches']} [{card}]")
+
+    # the scripts' default GOP over the whole fixture, from drawn weights
+    work = root / "scripts_gop32"
+    frames = script_pngs(root, work / "frames", SCRIPT_LONG_FRAMES)
+    ckpt = drawn_checkpoint(torch, seed, work / "drawn.ckpt")
+    sides, stats, dpbs = code_with_scripts(torch, work, SCRIPT_LONG_FRAMES,
+                                           SCRIPT_LONG_GOP, ckpt)
+    p_frames = SCRIPT_LONG_FRAMES - 1
+    if any(len(v) != p_frames for v in dpbs.values()):
+        fail(f"scripts GOP {SCRIPT_LONG_GOP}: DPBs logged "
+             f"{ {k: len(v) for k, v in dpbs.items()} }")
+    if not all(ok for v in dpbs.values() for ok, _ in v):
+        fail(f"scripts GOP {SCRIPT_LONG_GOP}: a DPB is not finite: {dpbs}")
+    if dpbs["encode"] != dpbs["decode"]:
+        fail(f"scripts GOP {SCRIPT_LONG_GOP}: the decoder's DPB feature "
+             "maxima differ from the encoder's")
+    feature_max = [m for _, m in dpbs["encode"]]
+    psnr = [calc_psnr(frames[t], stats["recons"][t])
+            for t in range(SCRIPT_LONG_FRAMES)]
+    out["gop32"] = dict(
+        frames=SCRIPT_LONG_FRAMES, gop=SCRIPT_LONG_GOP, weights="drawn",
+        frame_types=stats["frame_types"], frame_bits=stats["frame_bits"],
+        dpb_feature_max=feature_max, psnr=psnr,
+        **{f"{side}_{k}": v[k] for side, v in sides.items()
+           for k in ("s", "ms_per_frame", "coding_ms_per_frame",
+                     "launches")})
+    print(f"scripts GOP {SCRIPT_LONG_GOP}: {SCRIPT_LONG_FRAMES} frames (I + "
+          f"{p_frames} P) from drawn weights (prior heads at 0.01) in a port "
+          f"checkpoint; every DPB finite on both sides, the decoder's "
+          f"feature maxima equal to the encoder's; DPB feature max per "
+          f"P-frame {', '.join(f'{v:.4g}' for v in feature_max)}; PSNR "
+          f"{', '.join(f'{v:.2f}' for v in psnr)} dB; every decoded PNG "
+          f"equal to the encoder's reconstruction; encode "
+          f"{sides['encode']['ms_per_frame']:.1f} ms per frame "
+          f"(encode_sequence {sides['encode']['coding_ms_per_frame']:.1f}),"
+          f" decode {sides['decode']['ms_per_frame']:.1f} "
+          f"({sides['decode']['coding_ms_per_frame']:.1f}); launches encode "
+          f"{sides['encode']['launches']}, decode "
+          f"{sides['decode']['launches']} [{card}]")
     return out
+
+#: Phase 22: the graft entry's P-frame (raw io, 256x256, after an I-frame:
+#: 19 dcb + 5 dcb_chain launches a call), the debug and profiling tools on
+#: the card
+ENTRY_LAUNCHES = {"dcb": 19, "dcb_chain": 5}
+ENTRY_TIMED = 20              # profiling.timed calls; ms per call the median
+#: kernel names of the port's bf16 forward kernels in a profiler trace
+PORT_KERNELS = re.compile(r"\b(dcb_kernel|chain_kernel)\b")
+
+
+def entry_cross_check(torch, what, fn, args):
+    """debug.cpu_cross_check of ``fn(*args)``; gated as phase 8 gates a
+    bf16 P-frame (cross_check_pair), the CPU in bf16 too (the same
+    function on CPU copies of the arguments). Returns (max |diff| per
+    output, PSNR)."""
+    from ssgvc_tpu_torch.utils.debug import cpu_cross_check
+
+    outs = []
+
+    def run(*a):
+        with torch.no_grad():
+            outs.append(fn(*a))
+        return outs[-1]
+
+    diffs = cpu_cross_check(run, *args, atol=float("inf"))
+    card, cpu = outs
+    if not all(torch.isfinite(v.float()).all() for o in outs
+               for v in (o["bpp"], o["dpb"]["frame"], o["dpb"]["feature"])):
+        fail(f"{what}: an output is not finite")
+    psnr = cross_check_pair(
+        what, float(cpu["bpp"].sum()), cpu["dpb"]["frame"].float().numpy(),
+        float(card["bpp"].sum()), card["dpb"]["frame"].float().cpu().numpy(),
+        hw="256x256", cpu="bf16",
+        extra=f"; cpu_cross_check max |diff| {diffs}")
+    return diffs, psnr
+
+
+def trace_split(trace_dir: Path):
+    """Device time of the exported trace by kernel name: the port's kernels
+    and every other device op (kernels, copies, sets), in ms."""
+    files = sorted(trace_dir.glob("*.pt.trace.json"))
+    if len(files) != 1:
+        fail(f"trace: expected one trace file in {trace_dir}, got {files}")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    port, other = {}, {}
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in ("kernel", "gpu_memcpy",
+                                                      "gpu_memset"):
+            continue
+        name = e["name"]
+        m = PORT_KERNELS.search(name)
+        key, into = (m.group(1), port) if m else (name, other)
+        n, ms = into.get(key, (0, 0.0))
+        into[key] = (n + 1, ms + e["dur"] / 1e3)
+    return port, other
+
+
+def phase_tools(torch, seed, card, main, root: Path):
+    """The graft entry, layer_forensics and a torch.profiler trace of a
+    full-width P-frame (module docstring, phase 22)."""
+    from ssgvc_tpu_torch import graft_entry
+    from ssgvc_tpu_torch.config import DMCConfig
+    from ssgvc_tpu_torch.models.dmc import DMC
+    from ssgvc_tpu_torch.ops.pixel import pixel_unshuffle
+    from ssgvc_tpu_torch.utils import debug, profiling
+
+    out = {}
+    # the entry, on the card without being asked
+    fn, args = graft_entry.entry()
+    params, frame, mask, qp, dpb = args
+    if not all(t.is_cuda for t in (*params.values(), frame, mask,
+                                   *dpb.values())):
+        fail("graft entry: its params and example args are not on the card")
+    reset, read = launch_counts()
+    with torch.no_grad():
+        fn(*args)                                   # warm-up
+        torch.cuda.synchronize()
+        reset()
+        res = fn(*args)
+        torch.cuda.synchronize()
+        got = read()
+        if not all(v.is_cuda for _, v in debug.keyed_leaves(res)):
+            fail("graft entry: its outputs are not on the card")
+        if any(got[k] != ENTRY_LAUNCHES.get(k, 0) for k in got):
+            fail(f"graft entry: launches per call {got}, expected "
+                 f"{ENTRY_LAUNCHES}")
+        ms = 1e3 * profiling.timed(fn, *args, iters=ENTRY_TIMED)
+    out["entry"] = dict(ms_per_call=ms, launches_per_call=ENTRY_LAUNCHES)
+    diffs, psnr = entry_cross_check(torch, "graft entry (its example args)",
+                                    fn, args)
+    out["entry"]["cpu_cross_check"] = diffs
+    # the same fn on drawn weights and seeded frames: a cross-check that
+    # moves every kernel's inputs off zero
+    cfg = DMCConfig.variant("performance", dtype="bfloat16")
+    model = random_weights(torch, DMC(cfg, device=DEVICE), seed + 22).eval()
+    drawn = dict(model.state_dict())
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 22)
+    hw = (1, graft_entry.H, graft_entry.W)
+    seeded = (torch.rand(hw + (3,), generator=g, device=DEVICE),
+              (torch.rand(hw + (1,), generator=g, device=DEVICE)
+               > 0.8).float(), graft_entry.QP,
+              {"frame": torch.rand(hw + (3,), generator=g, device=DEVICE),
+               "feature": torch.zeros_like(dpb["feature"])})
+    diffs, psnr = entry_cross_check(
+        torch, "graft entry (drawn weights, seeded frames)", fn,
+        (drawn,) + seeded)
+    out["entry"]["cpu_cross_check_drawn"] = dict(max_abs_diff=diffs,
+                                                 frame_psnr=psnr)
+    print(f"graft entry: entry() on {params['q_recon'].device}, "
+          f"{ms:.3f} ms per P-frame call (1x256x256 bf16, median of "
+          f"{ENTRY_TIMED}, CUDA events), launches per call {got['dcb']} dcb "
+          f"+ {got['dcb_chain']} dcb_chain [{card}]")
+
+    # layer_forensics of the entry's model, on its params and the seeded
+    # frames
+    model.load_state_dict(params, strict=True)
+    stats = debug.layer_forensics(model, seeded[0], graft_entry.QP,
+                                  seeded[3], top_k=10 ** 6, after_i=True,
+                                  mask=seeded[1], train=False)
+    bad = {k: v for k, v in stats.items() if v["nonfinite"]}
+    if bad:
+        fail(f"layer_forensics: non-finite outputs {bad}")
+    top = list(stats.items())[:5]
+    out["forensics"] = dict(modules=len(stats), top5={
+        k: {"norm": v["norm"], "max_abs": v["max_abs"]} for k, v in top})
+    print(f"layer_forensics of the entry's model on the card: {len(stats)} "
+          f"modules, none non-finite; top 5 by norm: "
+          + "; ".join(f"{k} {v['norm']:.4g} (max {v['max_abs']:.4g}, "
+                      f"{v['dtype']})" for k, v in top))
+
+    # one warm full-width P-frame of phase 5's model under torch.profiler
+    pcfg = DMCConfig.variant("performance", dtype="bfloat16", packed_io=True)
+    pmodel = DMC(pcfg, device=DEVICE)
+    pmodel.load_state_dict(main["state"], strict=True)
+    pmodel.eval()
+    fp = pixel_unshuffle(main["frames"].reshape(-1, H, W, 3), 8)
+    mp = pixel_unshuffle(main["masks"].reshape(-1, H, W, 1), 8)
+    dpb = {"frame": pixel_unshuffle(main["dpb_frame"], 8),
+           "feature": torch.zeros((1, H // 8, W // 8, pcfg.ch_d),
+                                  dtype=torch.bfloat16, device=DEVICE)}
+    with torch.no_grad():
+        dpb = pmodel(fp[0:1], QP, dpb, after_i=True, mask=mp[0:1])["dpb"]
+        for _ in range(2):                         # warm
+            pmodel(fp[1:2], QP, dpb, after_i=False, mask=mp[1:2])
+        torch.cuda.synchronize()
+        reset()
+        with profiling.trace(str(root / "trace")) as trace_dir:
+            pmodel(fp[1:2], QP, dpb, after_i=False, mask=mp[1:2])
+        got = read()
+    port, other = trace_split(Path(trace_dir))
+    if (port.get("dcb_kernel", (0,))[0], port.get("chain_kernel", (0,))[0]
+            ) != (got["dcb"], got["dcb_chain"]) or got["dcb"] != 18:
+        fail(f"trace: port kernels {port} against launches {got}")
+    ranked = sorted(other.items(), key=lambda kv: -kv[1][1])
+    port_ms = sum(v[1] for v in port.values())
+    other_ms = sum(v[1] for v in other.values())
+    out["trace"] = dict(
+        frame_hw=[H, W], port_kernels={k: dict(launches=n, ms=t)
+                                       for k, (n, t) in port.items()},
+        port_ms=port_ms, other_ms=other_ms, other_ops=len(other),
+        other_launches=sum(v[0] for v in other.values()),
+        top10=[dict(name=k[:160], launches=n, ms=t)
+               for k, (n, t) in ranked[:10]])
+    print(f"trace of one warm {H}x{W} bf16 P-frame (phase 5's model; "
+          f"torch.profiler, device time from the exported trace): port "
+          f"kernels {port_ms:.3f} ms ("
+          + ", ".join(f"{k} {n} x, {t:.3f} ms" for k, (n, t) in port.items())
+          + f"); other device ops {other_ms:.3f} ms in "
+          f"{out['trace']['other_launches']} launches of {len(other)} "
+          f"kinds; top 10: "
+          + "; ".join(f"{k[:90]} {n} x {t:.3f} ms"
+                      for k, (n, t) in ranked[:10]) + f" [{card}]")
+    out["memory_after_phase5"] = main["memory_stats"]
+    print(f"device_memory_stats after phase 5's first GOP: "
+          f"{main['memory_stats']} (peak_bytes_in_use equals phase 5's "
+          f"peak_bytes {main['peak_bytes']}, the same allocator counter) "
+          f"[{card}]")
+    return out
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3720,6 +4037,7 @@ def main() -> int:
         image_cli = phase_image_cli(torch, args.seed, card, root, prev)
         scripts = phase_scripts(torch, args.seed, card, root,
                                 train_cli.pop("last"))
+        tools = phase_tools(torch, args.seed, card, main_path, root)
     next(e for e in kernels if e["name"] == "dcb")["image_step"] = \
         image_cli.pop("dcb")
     for entry in backward:
@@ -3776,6 +4094,7 @@ def main() -> int:
     print(json.dumps({"train_cli": {**train_cli, "card": card}}))
     print(json.dumps({"image_cli": {**image_cli, "card": card}}))
     print(json.dumps({"scripts": {**scripts, "card": card}}))
+    print(json.dumps({"tools": {**tools, "card": card}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

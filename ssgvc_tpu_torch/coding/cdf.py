@@ -15,12 +15,12 @@ CDF values.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..models.entropy import BitEstimator
+from ..models.entropy import BitEstimator, scale_index_params
 from .rans import pmf_to_quantized_cdf
 
 
@@ -150,21 +150,17 @@ def build_y_cdf_tables(scale_min: float = 0.11, scale_max: float = 16.0,
     return _quantize_rows(pmf, tail, lengths, offsets, precision)
 
 
-def scale_index_params(scale_min: float = 0.11, scale_max: float = 16.0,
-                       levels: int = 128) -> Tuple[float, float]:
-    log_min = math.log(scale_min)
-    log_step = (math.log(scale_max) - log_min) / (levels - 1)
-    return log_min, 1.0 / log_step
-
-
 def build_indexes_decoder(scales: torch.Tensor, scale_min: float = 0.11,
                           scale_max: float = 16.0,
                           levels: int = 128) -> torch.Tensor:
     """Scale -> int32 table row: clamp, then the log-scale index, in fp32
     whatever the scales' dtype. A NaN scale takes row 0, as XLA's float to
     int conversion gives it in the JAX package (torch's gives INT_MIN, a
-    row outside the table)."""
-    log_min, recip = scale_index_params(scale_min, scale_max, levels)
+    row outside the table). The JAX package's public scale -> index map,
+    ported as ``models/entropy.build_scale_indexes`` and run by no path,
+    takes the same bins from :func:`scale_index_params`."""
+    log_min, log_step = scale_index_params(scale_min, scale_max, levels)
+    recip = 1.0 / log_step
     s = torch.clamp(scales.float(), scale_min, scale_max)
     idx = torch.nan_to_num((torch.log(s) - log_min) * recip, nan=0.0)
     return idx.to(torch.int32)

@@ -5,7 +5,9 @@ dtype of the conv stacks.
     (4 stacked ``Bitparm`` layers, params (QP, C), rows picked per QP);
   * ``gaussian_bits``: zero-mean Gaussian bits for y, erf-based, hardened
     against NaN/inf and clipped;
-  * ``gaussian_bits_cdf``: the CDF-difference variant.
+  * ``gaussian_bits_cdf``: the CDF-difference variant;
+  * ``make_scale_table`` / ``build_scale_indexes``: the log-spaced Gaussian
+    scale table and the scale -> table index map.
 
 Both Gaussian estimates use :func:`erf32`, the fp32 erf of the XLA
 lowering the JAX package runs on (clamp at +-3.7439, then a rational
@@ -169,3 +171,87 @@ class BitEstimator(nn.Module):
         z = z.float()
         return probs_to_bits(self.get_cdf(z + 0.5, index)
                              - self.get_cdf(z - 0.5, index))
+
+
+#: XLA's CPU log (the Cephes polynomial of Eigen's plog): coefficients in
+#: the order its three Horner runs take them
+_LOG_P = (0.070376836292, -0.1151461031, 0.1167699874, -0.12420140846,
+          0.14249322787, -0.16668057665, 0.20000714765, -0.24999993993,
+          0.33333331174)
+_LOG_Q1, _LOG_Q2 = -2.12194440e-4, 0.693359375
+
+
+def _log32_xla(x: torch.Tensor) -> torch.Tensor:
+    """fp32 log of positive, finite ``x`` as XLA's CPU backend computes it:
+    the exponent split off, the mantissa in [sqrt(1/2), sqrt(2)), the
+    Cephes polynomial, with the multiply-adds its compiler contracts to
+    fused ones. torch's log differs from it by an ulp at ~10% of inputs,
+    which moves a log-scale index at a bin edge."""
+    f32 = torch.float32
+    x = torch.clamp(x.to(f32), min=2.0 ** -126)
+    bits = x.view(torch.int32)
+    e = ((bits >> 23) - 127).to(f32) + 1.0
+    m = ((bits & 0x807FFFFF) | 0x3F000000).view(f32)
+    small = m < 0.70710677
+    e = e - small.to(f32)
+    x = (m - 1.0) + torch.where(small, m, torch.zeros_like(m))
+    x2 = x * x
+    x3 = x2 * x
+    c = [torch.tensor(v, dtype=f32, device=x.device) for v in _LOG_P]
+    y = _fma32(_fma32(x, c[0], c[1]), x, c[2])
+    y1 = _fma32(_fma32(x, c[3], c[4]), x, c[5])
+    y2 = _fma32(_fma32(x, c[6], c[7]), x, c[8])
+    y = _fma32(_fma32(y, x3, y1), x3, y2)
+    y = _fma32(y, x3, e * torch.tensor(_LOG_Q1, dtype=f32, device=x.device))
+    x = _fma32(x2, torch.tensor(-0.5, dtype=f32, device=x.device), x) + y
+    return _fma32(e, torch.tensor(_LOG_Q2, dtype=f32, device=x.device), x)
+
+
+def make_scale_table(scale_min: float = 0.11, scale_max: float = 16.0,
+                     levels: int = 128, device=None) -> torch.Tensor:
+    """Log-spaced Gaussian scale table (fp32, ``levels`` entries from
+    ``scale_min`` to ``scale_max``) on ``device``. The log-spaced line is
+    ``jnp.linspace``'s as XLA compiles it (start * (1 - i * (1 / n)) +
+    i * (stop * (1 / n)), the second product fused); its exp is torch's,
+    within an ulp of XLA's."""
+    f32 = torch.float32
+    start = torch.tensor(math.log(scale_min), dtype=f32, device=device)
+    stop = torch.tensor(math.log(scale_max), dtype=f32, device=device)
+    if levels > 1:
+        i = torch.arange(levels - 1, dtype=f32, device=device)
+        recip = torch.tensor(1.0 / (levels - 1), dtype=f32, device=device)
+        line = _fma32(i, stop * recip, start * (1.0 - i * recip))
+        line = torch.cat([line, stop[None]])
+    else:
+        line = start[None]
+    return torch.exp(line)
+
+
+def scale_index_params(scale_min: float = 0.11, scale_max: float = 16.0,
+                       levels: int = 128) -> tuple:
+    """(log_min, log_step) of the log-scale table: the one definition both
+    index maps, :func:`build_scale_indexes` and the coder's
+    ``coding/cdf.build_indexes_decoder``, take their bins from."""
+    log_min = math.log(scale_min)
+    return log_min, (math.log(scale_max) - log_min) / (levels - 1)
+
+
+def build_scale_indexes(scales: torch.Tensor, scale_min: float = 0.11,
+                        scale_max: float = 16.0,
+                        levels: int = 128) -> torch.Tensor:
+    """Scales -> int32 log-scale table indexes, on the scales' device, in
+    fp32 (the entropy math's dtype; a bfloat16 input is widened first):
+    clamp to [scale_min, scale_max], then (log(s) - log_min) / log_step
+    truncated, as the JAX package computes fp32 scales (XLA's log, a true
+    division). A NaN scale takes index 0, as XLA's float-to-int conversion
+    gives it (torch's gives INT_MIN).
+
+    A port of the JAX package's public function, which no path of either
+    package runs: the coder indexes its tables through
+    ``coding/cdf.build_indexes_decoder`` (torch's log times the reciprocal
+    step), over the same :func:`scale_index_params`."""
+    log_min, log_step = scale_index_params(scale_min, scale_max, levels)
+    s = torch.clamp(scales.float(), scale_min, scale_max)
+    logs = torch.where(torch.isnan(s), s, _log32_xla(s))
+    idx = (logs - log_min) / log_step
+    return torch.nan_to_num(idx, nan=0.0).to(torch.int32)

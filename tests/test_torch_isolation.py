@@ -45,10 +45,12 @@ DATA_MODULES = ("utils.transforms", "data.tfrecord", "data.waymo_proto",
 #: the image trainer and the coding command lines
 CLI_MODULES = ("trainer_image_model", "utils.video_io", "scripts.encode",
                "scripts.decode")
+#: the debug and profiling tools and the graft entry
+TOOL_MODULES = ("utils.debug", "utils.profiling", "graft_entry")
 
 
-@pytest.mark.parametrize("module",
-                         TRAINING_MODULES + DATA_MODULES + CLI_MODULES)
+@pytest.mark.parametrize("module", TRAINING_MODULES + DATA_MODULES
+                         + CLI_MODULES + TOOL_MODULES)
 def test_training_modules_import_without_jax(module):
     """Each module of the training path imports, in a fresh interpreter,
     with JAX, flax, optax and the JAX package made unimportable."""
