@@ -226,13 +226,41 @@ Phases (any failure exits non-zero and prints no result line):
      first GOP (its peak equal to phase 5's peak_bytes: both read the
      caching allocator's one peak counter, so this checks only the
      helper's mapping of torch.cuda.memory_stats keys, not a second
-     measurement).
+     measurement);
+ 23. parallel: (a) graft_entry.dryrun_multichip(1) on the card (NCCL,
+     world 1, one spawned rank): its ok line; (b) the default TrainConfig
+     (full, bf16-mixed) on phase 13's batches and weights, P23_STEPS
+     micro-steps (one update at the accumulation boundary) twice without a
+     process group and once through Trainer(mesh=make_mesh(1)) in an NCCL
+     group of 1: bit for bit where the two plain runs are, else within
+     their spread; ms per micro-step of each; (c) two ranks sharing cuda:0
+     over gloo (NCCL takes no two ranks on one device): the row-sharded
+     performance P-frame at full width (bf16, packed io, P23_H x 1920
+     frames, 64 packed rows a rank, phase 5's weights) over a GOP of
+     P23_FRAMES carrying the sharded DPB, against the unsharded P-frame on
+     the card on the same inputs: per frame the relative Frobenius error
+     and max |diff| of the gathered frame and feature (<= P23_REL), the
+     bpp's relative difference (<= P23_BPP_REL), each rank's launches
+     (those of the unsharded frame, 18 + 5); one frame again in fp32 (the
+     3xTF32 kernels) at tests/test_mesh.py's tolerances; ms per frame,
+     halo bytes each rank sent and each rank's peak memory above what it
+     held before the GOP, beside the unsharded ones, not gated (both
+     ranks share one card and the halos cross host memory: not a latency
+     result); (d) two ranks on cuda:0 over gloo, the full-width
+     data-parallel micro-step (accumulation 1, train=False, phase 13's
+     cross-check weights) with B=1 a rank against the world-1 step on the
+     same B=2 batch: the loss within
+     P23_DP_LOSS, the reduced gradient's cosine >= P23_DP_COSINE (fp64
+     dots), the parameters equal on both ranks after that update and after
+     a train_step whose noise is seeded per rank; that train_step's time
+     and the gradient's all-reduce's alone. Any failing rank fails the
+     phase.
 
 The last lines are JSON objects: {"main_path": ...}, {"variants": ...},
 {"coded": ...}, {"training": ...}, {"cross_check": ...}, {"fp32": ...},
 {"rd_half": ...}, {"rd_recipe": ...}, {"coded_fp32": ...},
 {"train_cli": ...}, {"image_cli": ...}, {"scripts": ...}, {"tools": ...},
-{"kernels": [...]}, and last {"ok": true, "device":
+{"parallel": ...}, {"kernels": [...]}, and last {"ok": true, "device":
 {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -3951,6 +3979,559 @@ def phase_tools(torch, seed, card, main, root: Path):
     return out
 
 
+# Phase 23: parallel/ on the card. One H100: NCCL at world 1, and two ranks
+# sharing cuda:0 over gloo (NCCL takes no two ranks on one device).
+P23_H = 1024                 # 1088 = 64 x 17 does not split in two under
+#                              the slab rule: 64 packed rows a rank
+P23_FRAMES = 3               # the sharded GOP (after_i=False)
+P23_STEPS = 8                # (b): the default accumulation, one update
+P23_REL = 1e-2               # (c) bf16: relative Frobenius, the kernels'
+P23_BPP_REL = 1e-3           # (c) bf16: bpp relative difference
+#: (c) fp32: tests/test_mesh.py's tolerances
+P23_F32_TOL = {"bpp": (3e-4, 1e-5), "frame": (2e-5, 1e-4),
+               "feature": (2e-5, 2e-4)}
+P23_DP_LOSS = 1e-3           # (d): loss, relative
+#: (d): the gradient's cosine (fp64 dots). The tiny profile's CPU
+#: rehearsal (bf16, plain versions) read 0.9952 (1.25e-4 on the loss);
+#: 0.99 is phase 13's bf16 gate (XTRAIN_KERNEL_COSINE)
+P23_DP_COSINE = XTRAIN_KERNEL_COSINE
+P23_WANT = (18, 5)           # launches per after_i=False P-frame
+#: graft_entry.dryrun_multichip's DMC widths, every one <= 64: fp32 runs
+#: them on the SIMT kernels
+P23_TINY = dict(ch_d=16, ch_y=8, ch_z=8, ch_recon=16)
+#: (c)'s runs of the performance variant, each against the unsharded
+#: P-frame on the same inputs and weights: at full width in bf16 over a GOP
+#: of P23_FRAMES and in fp32 (3xTF32) one frame; at the dry run's widths in
+#: fp32 (SIMT) one frame of the full frame (8x8 tiles) and one of the dry
+#: run's raw 128 x 64 frame (whole-image units on slabs of 4 rows at y's
+#: scale); "counters": the suffix of the launch counts the run reads
+P23_RUNS = (
+    dict(name="bf16", dtype="bfloat16", widths={}, h=P23_H, w=W,
+         packed=True, frames=P23_FRAMES, counters=""),
+    dict(name="fp32 3xTF32", dtype="float32", widths={}, h=P23_H, w=W,
+         packed=True, frames=1, counters="_tf32"),
+    dict(name="fp32 SIMT", dtype="float32", widths=P23_TINY, h=P23_H, w=W,
+         packed=True, frames=1, counters="_f32"),
+    dict(name="fp32 SIMT dry-run frame", dtype="float32", widths=P23_TINY,
+         h=128, w=64, packed=False, frames=1, counters="_f32"),
+)
+
+
+@contextlib.contextmanager
+def captured_fd1():
+    """File descriptor 1 (where spawned children write too) into a
+    temporary file for the duration; yields a list that gets its text."""
+    sys.stdout.flush()
+    saved = os.dup(1)
+    out = []
+    with tempfile.TemporaryFile() as f:
+        os.dup2(f.fileno(), 1)
+        try:
+            yield out
+        finally:
+            sys.stdout.flush()
+            os.dup2(saved, 1)
+            os.close(saved)
+            f.seek(0)
+            out.append(f.read().decode())
+
+
+def p23_peak(torch, reset=False):
+    """The allocator's peak (after ``reset``: the bytes allocated then)."""
+    if reset:
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated()
+    return torch.cuda.max_memory_allocated()
+
+
+def p23_dryrun():
+    """(a) graft_entry.dryrun_multichip(1): NCCL at world 1."""
+    from ssgvc_tpu_torch.graft_entry import dryrun_multichip
+
+    t0 = time.perf_counter()
+    with captured_fd1() as out:
+        dryrun_multichip(1)
+    text = out[0]
+    line = [ln for ln in text.splitlines()
+            if ln.startswith("dryrun_multichip ok: 1 devices, loss=")]
+    if len(line) != 1:
+        fail(f"dryrun_multichip(1) printed no ok line:\n{text[-2000:]}")
+    loss = float(line[0].split("loss=")[1].split(",")[0])
+    bpp = float(line[0].split("spatial_bpp=")[1])
+    if not (math.isfinite(loss) and math.isfinite(bpp)):
+        fail(f"dryrun_multichip(1): {line[0]}")
+    print(f"  (a) {line[0]} (NCCL, world 1; "
+          f"{time.perf_counter() - t0:.1f} s with the spawn)")
+    return dict(line=line[0], loss=loss, spatial_bpp=bpp)
+
+
+def p23_micro_steps(torch, tr, seed, batches, params):
+    """P23_STEPS micro-steps of ``tr`` from ``params`` (state dicts of the
+    DMC and DMCI) on ``batches`` at phase 13's QPs and noise: (losses, ms
+    each, the DMC's parameters after)."""
+    state = tr.init_state(torch.Generator().manual_seed(seed), batches[0],
+                          params_p=params[0], params_i=params[1])
+    host = np.random.default_rng(seed)
+    noise = torch.Generator().manual_seed(seed)
+    losses, ms = [], []
+    for b in batches:
+        qp = int(host.integers(0, 64))
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, aux = tr.train_step(state, b, qp, noise)
+        e1.record()
+        e1.synchronize()
+        ms.append(e0.elapsed_time(e1))
+        losses.append(float(aux["loss"]))
+    return losses, ms, {k: v.detach().clone()
+                        for k, v in tr.dmc.state_dict().items()}
+
+
+def p23_world1(torch, seed, card, tmp: Path):
+    """(b) the default TrainConfig through Trainer(mesh=make_mesh(1)) in an
+    NCCL group of 1 against the trainer with no group, phase 13's batch
+    and weights: P23_STEPS micro-steps (one update at the accumulation
+    boundary) twice without a group, once in the group."""
+    import torch.distributed as dist
+
+    from ssgvc_tpu_torch.config import TrainConfig
+    from ssgvc_tpu_torch.data.device_synth import synth_batch
+    from ssgvc_tpu_torch.parallel.mesh import make_mesh
+    from ssgvc_tpu_torch.training.trainer import Trainer
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 30)
+    batches = [synth_batch(g, batch=TRAIN_B, size=TRAIN_HW, seq_len=TRAIN_T)
+               for _ in range(P23_STEPS)]
+    plain = Trainer(TrainConfig(), device=DEVICE)
+    plain.init_state(torch.Generator().manual_seed(seed), batches[0])
+    params = tuple({k: v.detach().clone() for k, v in m.state_dict().items()}
+                   for m in (plain.dmc, plain.dmci))
+    runs = [p23_micro_steps(torch, plain, seed, batches, params)
+            for _ in range(2)]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp / 'rdzv_b'}",
+                            rank=0, world_size=1)
+    try:
+        grouped = Trainer(TrainConfig(), device=DEVICE,
+                          mesh=make_mesh(1, device=DEVICE))
+        if grouped.group is None:
+            fail("(b): the world-1 mesh has no NCCL group")
+        runs.append(p23_micro_steps(torch, grouped, seed, batches, params))
+    finally:
+        dist.destroy_process_group()
+
+    def gap(a, b):
+        """(max |loss diff|, max |param diff|) of two runs."""
+        lg = max(abs(x - y) for x, y in zip(a[0], b[0]))
+        pg = max(float((a[2][k].float() - b[2][k].float()).abs().max())
+                 for k in a[2])
+        return lg, pg
+
+    spread, dp = gap(runs[0], runs[1]), gap(runs[0], runs[2])
+    exact = spread == (0.0, 0.0)
+    moved = sum(not torch.equal(runs[2][2][k], params[0][k])
+                for k in params[0])
+    ms = [float(np.median(r[1][1:])) for r in runs]
+    print(f"  (b) world-1 data-parallel step: default TrainConfig, "
+          f"{P23_STEPS} micro-steps of B={TRAIN_B} {TRAIN_HW}x{TRAIN_HW} "
+          f"T={TRAIN_T} (one update); two plain runs differ by loss "
+          f"{spread[0]:.3g}, parameters {spread[1]:.3g}; the NCCL world-1 "
+          f"run from the first by {dp[0]:.3g} / {dp[1]:.3g} ("
+          f"{'bit for bit required' if exact else 'within the spread'}); "
+          f"{moved} parameters moved; ms per micro-step (median of steps "
+          f"2-{P23_STEPS}) plain {ms[0]:.1f} / {ms[1]:.1f}, NCCL world 1 "
+          f"{ms[2]:.1f} [{card}]")
+    if not moved:
+        fail("(b): no parameter moved at the accumulation boundary")
+    if exact and dp != (0.0, 0.0) or not exact and (
+            dp[0] > spread[0] or dp[1] > spread[1]):
+        fail(f"(b): the NCCL world-1 step differs from the plain one by "
+             f"{dp}; two plain runs by {spread}")
+    return dict(plain_deterministic=exact, plain_spread=list(spread),
+                world1_vs_plain=list(dp), ms_per_micro_step_plain=ms[:2],
+                ms_per_micro_step_world1=ms[2], losses=runs[2][0],
+                parameters_moved=moved)
+
+
+def p23_join(torch, rank, world, rdzv):
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{rdzv}", rank=rank,
+                            world_size=world)
+
+
+def p23_model(torch, run, seed, device):
+    """The performance DMC of a (c) run, drawn from ``seed``."""
+    from ssgvc_tpu_torch.config import DMCConfig
+    from ssgvc_tpu_torch.models.dmc import DMC
+
+    cfg = DMCConfig.variant("performance", dtype=run["dtype"],
+                            packed_io=run["packed"], **run["widths"])
+    return random_weights(torch, DMC(cfg, device=device), seed).eval()
+
+
+def p23_zero_counts():
+    from ssgvc_tpu_torch.ops import dcb as dcb_ops
+    from ssgvc_tpu_torch.ops import dcb_chain as chain_ops
+
+    for m in (dcb_ops, chain_ops):
+        m.launches = m.launches_f32 = m.launches_tf32 = 0
+
+
+def p23_counts(run):
+    """(dcb, dcb_chain) launches of the run's kernels since
+    :func:`p23_zero_counts`."""
+    from ssgvc_tpu_torch.ops import dcb as dcb_ops
+    from ssgvc_tpu_torch.ops import dcb_chain as chain_ops
+
+    return tuple(getattr(m, "launches" + run["counters"])
+                 for m in (dcb_ops, chain_ops))
+
+
+def p23_compare(torch, full, bpp, ref):
+    """The gathered DPB and bpp against the unsharded frame's: relative
+    Frobenius, max |diff| and the worst excess over P23_F32_TOL."""
+    row = {}
+    for k in ("frame", "feature"):
+        a, b = full[k].float().cpu(), ref[k].float()
+        row[k] = dict(
+            rel_fro=float(torch.linalg.vector_norm(a - b)
+                          / torch.linalg.vector_norm(b)),
+            max_abs=float((a - b).abs().max()),
+            excess=float(((a - b).abs() - P23_F32_TOL[k][1]
+                          - P23_F32_TOL[k][0] * b.abs()).max()))
+    b0, b1 = float(ref["bpp"][0]), float(bpp[0])
+    row.update(bpp=b1, bpp_ref=b0, bpp_rel=abs(b1 - b0) / abs(b0),
+               bpp_excess=(abs(b1 - b0) - P23_F32_TOL["bpp"][1]
+                           - P23_F32_TOL["bpp"][0] * abs(b0)))
+    return row
+
+
+def p23_rows_rank(rank, world, rdzv, path):
+    """(c) one rank of the row-sharded P-frame on cuda:0 over gloo, every
+    run of the case: the parent's weights (from the seed) and inputs;
+    writes rows<r>.json (rank 0 with the comparisons against the parent's
+    unsharded outputs)."""
+    import torch
+    import torch.distributed as dist
+
+    from ssgvc_tpu_torch.parallel import spatial
+    from ssgvc_tpu_torch.parallel.mesh import make_mesh
+    from ssgvc_tpu_torch.parallel.spatial import (gather_rows, shard_rows,
+                                                  spatial_pframe)
+
+    case = torch.load(Path(path) / "rows_case.pt")
+    p23_join(torch, rank, world, rdzv)
+    try:
+        mesh = make_mesh(world, device="cuda:0")
+        out = {"rank": rank, "runs": []}
+        for run in case["runs"]:
+            fn = spatial_pframe(p23_model(torch, run, case["seed"], "cuda:0"),
+                                mesh)
+            dpb = shard_rows(mesh, run["dpb"])
+            # warm-up (cuBLAS / cuDNN plans), its DPB dropped
+            fn(None, *shard_rows(mesh, (run["frames"][0], run["masks"][0])),
+               QP, dpb)
+            torch.cuda.synchronize()
+            base = p23_peak(torch, reset=True)
+            rows = []
+            for i, (x, m) in enumerate(zip(run["frames"], run["masks"])):
+                xs, ms = shard_rows(mesh, (x, m))
+                p23_zero_counts()
+                spatial.halo_bytes = 0
+                dist.barrier()
+                t0 = time.perf_counter()
+                dpb, bpp = fn(None, xs, ms, QP, dpb)
+                torch.cuda.synchronize()
+                dist.barrier()
+                row = dict(ms=1e3 * (time.perf_counter() - t0),
+                           launches=list(p23_counts(run)),
+                           slab=list(dpb["feature"].shape),
+                           halo_bytes=spatial.halo_bytes)
+                full = gather_rows(mesh, dpb)
+                if rank == 0:
+                    row.update(p23_compare(torch, full, bpp, run["ref"][i]))
+                rows.append(row)
+            out["runs"].append(dict(frames=rows,
+                                    peak=p23_peak(torch) - base))
+            del fn, dpb
+        (Path(path) / f"rows{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def p23_rows(torch, seed, card, tmp: Path):
+    """(c) the row-sharded P-frame on two ranks sharing cuda:0 over gloo,
+    each of P23_RUNS against the unsharded P-frame on the card on the same
+    inputs: the DPB after an I-frame-like frame, then the run's P-frames
+    carrying it."""
+    import torch.multiprocessing as mp
+
+    from ssgvc_tpu_torch.ops.pixel import pixel_unshuffle
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 23)
+    case = {"seed": seed, "runs": []}
+    for run in P23_RUNS:
+        dt = getattr(torch, run["dtype"])
+
+        def draw(c, mask=False):
+            t = torch.rand((1, run["h"], run["w"], c), generator=g,
+                           device=DEVICE)
+            t = (t > 0.8).float() if mask else t
+            return (pixel_unshuffle(t, 8) if run["packed"] else t).to(dt)
+
+        model = p23_model(torch, run, seed, DEVICE)
+        frames = [draw(3) for _ in range(run["frames"])]
+        masks = [draw(1, mask=True) for _ in range(run["frames"])]
+        with torch.no_grad():
+            zero = torch.zeros((1, run["h"] // 8, run["w"] // 8,
+                                model.cfg.ch_d), dtype=dt, device=DEVICE)
+            start = model(draw(3), QP, {"frame": draw(3), "feature": zero},
+                          after_i=True, mask=draw(1, mask=True))["dpb"]
+            model(frames[0], QP, start, after_i=False,
+                  mask=masks[0])                    # warm-up
+            torch.cuda.synchronize()
+            base = p23_peak(torch, reset=True)
+            dpb, refs, times = start, [], []
+            for i, (x, m) in enumerate(zip(frames, masks)):
+                p23_zero_counts()
+                t0 = time.perf_counter()
+                o = model(x, QP, dpb, after_i=False, mask=m)
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+                if p23_counts(run) != P23_WANT:
+                    fail(f"(c) unsharded {run['name']} frame {i}: launches "
+                         f"{p23_counts(run)}")
+                dpb = o["dpb"]
+                refs.append({"frame": dpb["frame"].cpu(),
+                             "feature": dpb["feature"].cpu(),
+                             "bpp": o["bpp"].float().cpu()})
+            peak = p23_peak(torch) - base
+        case["runs"].append(dict(
+            run, frames=[f.cpu() for f in frames],
+            masks=[m.cpu() for m in masks],
+            dpb={k: v.cpu() for k, v in start.items()}, ref=refs, ms=times,
+            peak=peak))
+        del model, start, dpb, o
+    torch.save(case, tmp / "rows_case.pt")
+    t0 = time.perf_counter()
+    mp.spawn(p23_rows_rank, args=(2, str(tmp / "rdzv_c"), str(tmp)),
+             nprocs=2, join=True)
+    spawn_s = time.perf_counter() - t0
+    ranks = [json.loads((tmp / f"rows{r}.json").read_text())
+             for r in range(2)]
+    bad, runs = [], []
+    for j, run in enumerate(case["runs"]):
+        bf16 = run["dtype"] == "bfloat16"
+        per_rank = [r["runs"][j] for r in ranks]
+        for i, row in enumerate(per_rank[0]["frames"]):
+            other = per_rank[1]["frames"][i]
+            for r, x in enumerate((row, other)):
+                if x["launches"] != list(P23_WANT):
+                    bad.append(f"{run['name']} frame {i} rank {r} launches "
+                               f"{x['launches']}")
+            gate = (f"tol rel {P23_REL}, bpp rel {P23_BPP_REL}" if bf16 else
+                    f"excess over test_mesh.py's tolerances: frame "
+                    f"{row['frame']['excess']:.3g}, feature "
+                    f"{row['feature']['excess']:.3g}, bpp "
+                    f"{row['bpp_excess']:.3g}")
+            print(f"  (c) {run['name']} {run['h']}x{run['w']} frame {i}: "
+                  f"frame rel {row['frame']['rel_fro']:.3g} max|d| "
+                  f"{row['frame']['max_abs']:.3g}, feature rel "
+                  f"{row['feature']['rel_fro']:.3g} max|d| "
+                  f"{row['feature']['max_abs']:.3g}, bpp {row['bpp']:.6f} vs "
+                  f"{row['bpp_ref']:.6f} (rel {row['bpp_rel']:.3g}; {gate});"
+                  f" launches rank 0 {row['launches']}, rank 1 "
+                  f"{other['launches']} (unsharded {list(P23_WANT)}); halo "
+                  f"bytes sent rank 0 {row['halo_bytes']}, rank 1 "
+                  f"{other['halo_bytes']}; {row['ms']:.1f} ms on the two "
+                  f"ranks, unsharded {run['ms'][i]:.2f} [{card}]")
+            if bf16 and not (row["frame"]["rel_fro"] <= P23_REL
+                             and row["feature"]["rel_fro"] <= P23_REL
+                             and row["bpp_rel"] <= P23_BPP_REL) or \
+                    not bf16 and (row["frame"]["excess"] > 0
+                                  or row["feature"]["excess"] > 0
+                                  or row["bpp_excess"] > 0):
+                bad.append(f"{run['name']} frame {i}: {row}")
+        print(f"  (c) {run['name']}: peak memory above what was allocated "
+              f"before the frames (weights, inputs, the DPB) rank 0 "
+              f"{per_rank[0]['peak'] / 2**20:.1f} / rank 1 "
+              f"{per_rank[1]['peak'] / 2**20:.1f} MiB, unsharded "
+              f"{run['peak'] / 2**20:.1f} MiB [{card}]")
+        runs.append(dict(name=run["name"], dtype=run["dtype"], h=run["h"],
+                         w=run["w"], widths=run["widths"],
+                         counters=run["counters"], ranks=per_rank,
+                         unsharded_ms=run["ms"],
+                         unsharded_peak=run["peak"]))
+    print(f"  (c) neither the times nor the peaks are gated, and the times "
+          f"are not a latency result: both ranks share one card and every "
+          f"halo crosses host memory (gloo); spawn and all {spawn_s:.1f} s "
+          f"[{card}]")
+    if bad:
+        fail("(c) row-sharded P-frame: " + "; ".join(bad))
+    return dict(runs=runs, spawn_s=spawn_s)
+
+
+def p23_dp_rank(rank, world, rdzv, path):
+    """(d) one rank of the data-parallel micro-step on cuda:0 over gloo:
+    its B=1 shard; the noise-free micro-step (train=False), then a
+    train_step with the noise seeded per rank."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from ssgvc_tpu_torch.config import TrainConfig
+    from ssgvc_tpu_torch.parallel.mesh import (all_reduce_mean_, make_mesh,
+                                               mean_metrics)
+    from ssgvc_tpu_torch.training.trainer import Trainer
+
+    case = torch.load(Path(path) / "dp_case.pt")
+    dev = "cuda:0"
+    p23_join(torch, rank, world, rdzv)
+    try:
+        cfg = TrainConfig(accumulation_steps=1, num_devices=world,
+                          recon_residual=True)
+        tr = Trainer(cfg, device=dev, mesh=make_mesh(world, device=dev))
+        per = case["batch"]["frames"].shape[0] // world
+        batch = {k: v[rank * per:(rank + 1) * per].to(dev)
+                 for k, v in case["batch"].items()}
+        state = tr.init_state(torch.Generator().manual_seed(0), batch,
+                              params_p=case["params"][0],
+                              params_i=case["params"][1])
+        tr.tx.zero_grad()
+        loss, _ = tr.gop_loss(batch["frames"], batch["masks"], QP,
+                              torch.Generator().manual_seed(1), train=False,
+                              eval_mode=False)
+        tr.backward(loss)
+        tr.tx.step()
+        mean = float(mean_metrics({"loss": loss.detach()}, tr.group)["loss"])
+        # the gradient's all-reduce alone, on copies (one flat buffer)
+        grads = [p.grad.clone() for p in tr.dmc.parameters()]
+        dist.barrier()
+        t0 = time.perf_counter()
+        all_reduce_mean_(grads, tr.group)
+        torch.cuda.synchronize()
+        reduce_ms = 1e3 * (time.perf_counter() - t0)
+
+        def digest():
+            h = hashlib.sha256()
+            for v in tr.dmc.state_dict().values():
+                h.update(v.detach().cpu().numpy().tobytes())
+            return h.hexdigest()
+
+        out = {"loss": mean, "local_loss": float(loss.detach()),
+               "after_step": digest(), "all_reduce_ms": reduce_ms,
+               "grad_bytes": sum(g.numel() * g.element_size()
+                                 for g in grads)}
+        if rank == 0:
+            torch.save(torch.cat([p.grad.double().reshape(-1).cpu()
+                                  for p in tr.dmc.parameters()]),
+                       Path(path) / "dp_grad.pt")
+        # the second micro-step of the process (cuDNN's and cuBLAS's plans
+        # made by the first), timed
+        dist.barrier()
+        t0 = time.perf_counter()
+        state, aux = tr.train_step(state, batch, QP,
+                                   torch.Generator().manual_seed(10 + rank))
+        torch.cuda.synchronize()
+        out.update(train_loss=float(aux["loss"]), after_train_step=digest(),
+                   step_ms=1e3 * (time.perf_counter() - t0))
+        (Path(path) / f"dp{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def p23_dp(torch, seed, card, tmp: Path):
+    """(d) the full-width data-parallel micro-step on two ranks sharing
+    cuda:0 over gloo, B=1 a rank, against the world-1 step on the same
+    B=2 batch (the default TrainConfig at accumulation 1, train=False:
+    the quantiser noise is seeded per rank), on phase 13's cross-check
+    weights (recon_residual, TRAIN_HEADS): a fresh init's reconstruction
+    sits on the [0, 1] clamp, and its bf16 gradient turns with each
+    rounding (cosine 0.004 between the two in the tiny CPU rehearsal,
+    0.99925 on these weights)."""
+    import torch.multiprocessing as mp
+
+    from ssgvc_tpu_torch.config import TrainConfig
+    from ssgvc_tpu_torch.data.device_synth import synth_batch
+    from ssgvc_tpu_torch.training.trainer import Trainer
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 30)
+    batch = synth_batch(g, batch=2, size=TRAIN_HW, seq_len=TRAIN_T)
+    tr = Trainer(TrainConfig(accumulation_steps=1, recon_residual=True),
+                 device=DEVICE)
+    random_weights(torch, tr.dmc, seed, TRAIN_HEADS)
+    random_weights(torch, tr.dmci, seed, DMCI_HEADS)
+    params = tuple({k: v.detach().cpu().clone()
+                    for k, v in m.state_dict().items()}
+                   for m in (tr.dmc, tr.dmci))
+    tr.init_state(torch.Generator().manual_seed(seed), batch,
+                  params_p=params[0], params_i=params[1])
+    tr.tx.zero_grad()
+    loss, _ = tr.gop_loss(batch["frames"], batch["masks"], QP,
+                          torch.Generator().manual_seed(1), train=False,
+                          eval_mode=False)
+    tr.backward(loss)
+    tr.tx.step()
+    ref = torch.cat([p.grad.double().reshape(-1).cpu()
+                     for p in tr.dmc.parameters()])
+    loss = float(loss.detach())
+    del tr
+    torch.save({"batch": {k: v.cpu() for k, v in batch.items()},
+                "params": params}, tmp / "dp_case.pt")
+    t0 = time.perf_counter()
+    mp.spawn(p23_dp_rank, args=(2, str(tmp / "rdzv_d"), str(tmp)), nprocs=2,
+             join=True)
+    spawn_s = time.perf_counter() - t0
+    ranks = [json.loads((tmp / f"dp{r}.json").read_text()) for r in range(2)]
+    dp = torch.load(tmp / "dp_grad.pt")
+    cos = float(torch.dot(dp, ref) / (torch.linalg.vector_norm(dp)
+                                      * torch.linalg.vector_norm(ref)))
+    rel = abs(ranks[0]["loss"] - loss) / abs(loss)
+    same = all(ranks[0][k] == ranks[1][k] for k in
+               ("loss", "after_step", "train_loss", "after_train_step"))
+    print(f"  (d) data-parallel micro-step, 2 ranks x B=1 on cuda:0 (gloo) "
+          f"vs world 1 on B=2 ({TRAIN_HW}x{TRAIN_HW} T={TRAIN_T}, "
+          f"train=False): loss {ranks[0]['loss']:.6f} vs {loss:.6f} (rel "
+          f"{rel:.3g}, tol {P23_DP_LOSS}; the ranks' own "
+          f"{ranks[0]['local_loss']:.6f} / {ranks[1]['local_loss']:.6f}), "
+          f"gradient cosine {cos:.6f} (fp64, tol >= {P23_DP_COSINE}); "
+          f"losses and parameters equal across the ranks after the update "
+          f"and after a train_step with per-rank noise: {same}; that "
+          f"train_step {ranks[0]['step_ms']:.1f} / {ranks[1]['step_ms']:.1f} "
+          f"ms on the two ranks, the gradient's all-reduce alone "
+          f"({ranks[0]['grad_bytes'] / 2**20:.1f} MiB, through host memory) "
+          f"{ranks[0]['all_reduce_ms']:.1f} / {ranks[1]['all_reduce_ms']:.1f}"
+          f" ms; spawn and all {spawn_s:.1f} s [{card}]")
+    if not (rel <= P23_DP_LOSS and cos >= P23_DP_COSINE and same):
+        fail(f"(d) data-parallel micro-step: loss rel {rel}, cosine {cos}, "
+             f"ranks equal {same}: {ranks}")
+    return dict(loss=ranks[0]["loss"], world1_loss=loss, loss_rel=rel,
+                grad_cosine=cos, ranks_equal=same, spawn_s=spawn_s,
+                step_ms=[r["step_ms"] for r in ranks],
+                all_reduce_ms=[r["all_reduce_ms"] for r in ranks],
+                grad_bytes=ranks[0]["grad_bytes"])
+
+
+def phase_parallel(torch, seed, card):
+    """parallel/ and dryrun_multichip on the card (module docstring, phase
+    23)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        out = {"dryrun": p23_dryrun()}
+        out["world1"] = p23_world1(torch, seed, card, tmp)
+        out["rows"] = p23_rows(torch, seed, card, tmp)
+        out["data_parallel"] = p23_dp(torch, seed, card, tmp)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"parallel: phase 23 in {out['seconds']:.1f} s [{card}]")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3969,7 +4550,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card, name, count = phase_device(torch)
+    card, kind, count = phase_device(torch)
     phase_build()
     prev = load_prev_port(args.prev_port) if args.prev_port else None
     with torch.no_grad():
@@ -4038,6 +4619,7 @@ def main() -> int:
         scripts = phase_scripts(torch, args.seed, card, root,
                                 train_cli.pop("last"))
         tools = phase_tools(torch, args.seed, card, main_path, root)
+    parallel = phase_parallel(torch, args.seed, card)
     next(e for e in kernels if e["name"] == "dcb")["image_step"] = \
         image_cli.pop("dcb")
     for entry in backward:
@@ -4068,6 +4650,23 @@ def main() -> int:
                  f"the micro-step's {entry['rd_recipe_launches']}")
         entry["rd_recipe"] = r
     kernels += kernels_f32 + backward
+    # the row-sharded frames' launches, per run, rank and frame (phase 23
+    # (c)), on the entries of the kernels each run's counters count
+    for entry in kernels:
+        kernel = entry["name"]
+        if not kernel.startswith("dcb"):
+            continue
+        suffix = next((x for x in ("_tf32", "_f32") if kernel.endswith(x)),
+                      "")
+        i = int(kernel.startswith("dcb_chain"))
+        runs = {r["name"]: [[f["launches"][i] for f in k["frames"]]
+                            for k in r["ranks"]]
+                for r in parallel["rows"]["runs"] if r["counters"] == suffix}
+        if runs:
+            entry["parallel"] = dict(
+                launches=runs,
+                per="row-sharded P-frame, per run of phase 23 (c), per rank "
+                    "(2 ranks on one card), per frame")
     print(json.dumps({"main_path": {
         "ms_per_frame": main_path["ms_per_frame"],
         "ms_per_frame_runs": main_path["ms_runs"],
@@ -4095,8 +4694,9 @@ def main() -> int:
     print(json.dumps({"image_cli": {**image_cli, "card": card}}))
     print(json.dumps({"scripts": {**scripts, "card": card}}))
     print(json.dumps({"tools": {**tools, "card": card}}))
+    print(json.dumps({"parallel": {**parallel, "card": card}}))
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
     return 0
 

@@ -27,6 +27,7 @@ from ..ops.dcb import pack_kernel, wsilu
 from ..ops.dcb_chain import pack_chain
 from ..ops.dcb_grad import dcb_chain_grad, dcb_grad
 from ..ops.pixel import patch_down_conv, patch_up_conv, pixel_shuffle
+from ..parallel import spatial
 
 __all__ = ["wsilu", "wsilu_chunk_add", "Conv", "PatchDownConv",
            "PatchUpConv", "Concat1x1", "DepthConvBlock", "run_chain",
@@ -104,7 +105,11 @@ def cudnn_fp32(dtype: torch.dtype, device: torch.device):
 
 class Conv(nn.Module):
     """A conv on NHWC tensors; 1x1 stride-1 convs run as a matmul, the rest
-    through cuDNN (in full fp32 for an fp32 module, :func:`cudnn_fp32`)."""
+    through cuDNN (in full fp32 for an fp32 module, :func:`cudnn_fp32`).
+    Under a row shard (``parallel/spatial.py``) a kernel > 1 takes its
+    padding's rows above and the rows its window reaches below the slab
+    from the neighbour slabs (zeros at the image's edges) and pads only
+    W."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 1,
                  stride: int = 1, padding: int = 0, groups: int = 1, *,
@@ -123,9 +128,13 @@ class Conv(nn.Module):
         w, b = self.weight.to(dt), self.bias.to(dt)
         if w.shape[-1] == 1 and self.stride == 1 and self.groups == 1:
             return F.linear(x, w[:, :, 0, 0], b)
+        k, s, p = w.shape[-1], self.stride, self.padding
+        x, up, _ = spatial.halo(x, p, max(0, k - s - p), zero_edges=True)
+        # a halo brings H's padding rows with it: conv2d pads W alone then
+        pad = (p - up, p)
         with cudnn_fp32(dt, x.device):
-            y = F.conv2d(x.permute(0, 3, 1, 2), w, b, self.stride,
-                         self.padding, groups=self.groups)
+            y = F.conv2d(x.permute(0, 3, 1, 2), w, b, self.stride, pad,
+                         groups=self.groups)
         return y.permute(0, 2, 3, 1).contiguous()
 
 
@@ -262,16 +271,19 @@ class DepthConvBlock(nn.Module):
 
     def forward(self, x, quant_step: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
-        x = self.adapt(x)
-        return dcb_grad(x, self.core_params(), quant_step, self.shortcut,
-                        packed=self.packed(x))
+        # under a row shard: the dw3x3's row of each neighbour slab
+        x, up, down = spatial.halo(self.adapt(x), 1, 1)
+        y = dcb_grad(x, self.core_params(), quant_step, self.shortcut,
+                     packed=self.packed(x))
+        return spatial.crop(y, up, down)
 
 
 def run_chain(x: torch.Tensor, blocks: Sequence[DepthConvBlock],
               q_last: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Adaptor-free, shortcut-free blocks back to back through
     ``ops.dcb_chain`` (one kernel launch on the card, with the gradient of
-    ``ops.dcb_grad``), ``q_last`` multiplying the last output."""
+    ``ops.dcb_grad``), ``q_last`` multiplying the last output. Under a row
+    shard the chain takes N rows of each neighbour slab and crops N."""
     for b in blocks:
         if b.adaptor is not None or b.shortcut or b.tuple_input:
             raise ValueError("a chain takes adaptor-free, shortcut-free "
@@ -288,7 +300,9 @@ def run_chain(x: torch.Tensor, blocks: Sequence[DepthConvBlock],
             head._chain_packed = pack_chain(params, x.dtype)
             head._chain_key = key
         packed = head._chain_packed
-    return dcb_chain_grad(x, params, q_last, packed=packed)
+    x, up, down = spatial.halo(x, len(blocks), len(blocks))
+    return spatial.crop(dcb_chain_grad(x, params, q_last, packed=packed), up,
+                        down)
 
 
 class SubpelConv2x(nn.Module):

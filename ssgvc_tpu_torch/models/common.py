@@ -11,6 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from ..layers.quant import noise_quant, ste_round
+from ..parallel import spatial
 
 
 def qp_gain_ramp_init(rows: int, channels: int, lo: float = 0.25,
@@ -109,7 +110,9 @@ def get_downsampled_shape(height: int, width: int, p: int) -> Tuple[int, int]:
 
 
 def pad_for_y(y: torch.Tensor, p: int = 4) -> torch.Tensor:
-    """Replicate-pad bottom/right to a multiple of p (NHWC)."""
+    """Replicate-pad bottom/right to a multiple of p (NHWC). Under a row
+    shard the slab rule keeps every slab's rows a multiple of 4 at y's
+    scale, so only the right is padded."""
     _, h, w, _ = y.shape
     pad_r, pad_b = get_padding_size(h, w, p)
     if pad_r == 0 and pad_b == 0:
@@ -212,5 +215,7 @@ def compress_prior_4x(y: torch.Tensor, common_params: torch.Tensor,
 
 
 def bpp_from_bits(bits: torch.Tensor, pixel_num: int) -> torch.Tensor:
-    """Sum bits over (H, W, C), divide by source pixels -> per-sample bpp."""
-    return bits.sum(dim=(1, 2, 3)) / pixel_num
+    """Sum bits over (H, W, C), divide by source pixels -> per-sample bpp.
+    Under a row shard the sum is the frame's (all-reduced over the slabs)
+    and ``pixel_num`` the frame's."""
+    return spatial.frame_sum(bits.sum(dim=(1, 2, 3))) / pixel_num

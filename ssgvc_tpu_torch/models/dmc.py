@@ -41,6 +41,7 @@ from ..layers.blocks import (Conv, DepthConvBlock, PatchDownConv,
                              run_chain, wsilu)
 from ..layers.quant import noise_quant, ste_round
 from ..ops.pixel import pixel_shuffle, pixel_unshuffle
+from ..parallel import spatial
 from .common import (bpp_from_bits, compress_prior_2x,
                      compute_dtype, pad_for_y, qp_gain_ramp_init)
 from .entropy import BitEstimator, gaussian_bits, gaussian_bits_cdf
@@ -275,6 +276,11 @@ class MaskPredictor(nn.Module):
         self.dtype = kw["dtype"]
 
     def forward(self, prev_mask, ctx, ctx_t):
+        if spatial.current() is not None:
+            raise ValueError(
+                "mask_prop's mask predictor resizes the mask with "
+                "antialiasing, whose reach is not a row or two: it does not "
+                "run under a row shard (parallel/spatial.py)")
         hm, wm = prev_mask.shape[1], prev_mask.shape[2]
         hf, wf = ctx.shape[1], ctx.shape[2]
         m = self.mask_embed(resize_bilinear(prev_mask, hf, wf))
@@ -479,7 +485,8 @@ class DMC(nn.Module):
             feature_out, q_recon,
             prev=dpb["frame"] if c.recon_residual else None)
 
-        pixel_num = x.shape[1] * x.shape[2]
+        # the frame's, under a row shard
+        pixel_num = spatial.frame_rows(x.shape[1]) * x.shape[2]
         if c.packed_io:
             pixel_num *= c.patch_size ** 2   # bpp is per source pixel
         scales_for_bit = (torch.clamp(prior.scales_hat,

@@ -1,7 +1,10 @@
-"""The I-frame (DMCI) trainer's command line, on one CUDA card:
+"""The I-frame (DMCI) trainer's command line, on one CUDA card or
+data-parallel on several:
 
     python3 -m ssgvc_tpu_torch.trainer_image_model [--device=cpu] \\
         dataset.batch_size=16 epochs=5 ...
+    torchrun --nproc_per_node=N -m ssgvc_tpu_torch.trainer_image_model \\
+        num_devices=N ...
 
 Reads ``image_compression_config.yaml`` from the working directory (written
 with the defaults below when missing) and the dotted overrides (an unknown
@@ -17,6 +20,14 @@ checkpoint, ``checkpoints/last``, holding the DMCI's state_dict under
 As in the JAX package's image trainer, ``optimizer_type`` and
 ``image_checkpoint_path`` are read by nothing here: the optimizer is
 always AdamW and training starts from a fresh init.
+
+Under torchrun (or SLURM, or ``SSGVC_DIST=1``) each process joins the
+process group (NCCL on ``cuda:LOCAL_RANK``, gloo with ``--device=cpu``) and
+steps its rank's stride of the data: rank 0's init on every rank, the
+gradient averaged over the ranks before the clip, the logged metrics the
+ranks' means, the quantiser noise seeded per rank (``seed`` on rank 0,
+``seed + NOISE_SEED_STRIDE * rank`` elsewhere); ``num_devices`` must be
+the process count. Rank 0 alone writes logs and the checkpoint.
 
 ``--device=cpu`` runs the plain versions on the CPU; without it the model
 is built on the card, and a host with no card raises.
@@ -88,29 +99,37 @@ def image_loss(model, x: torch.Tensor, qp: int, comp, train: bool,
     return loss, {k: v.detach() for k, v in aux.items()}
 
 
-def make_tx(model, cfg, total_iters: int):
+def make_tx(model, cfg, total_iters: int, group=None):
     """The optimizer over ``model``'s parameters: the global-norm clip,
     then AdamW on the warmup-cosine schedule for "main" and AdamW at
-    ``aux_lr`` for "aux" (the bit estimator's)."""
+    ``aux_lr`` for "aux" (the bit estimator's); the gradient averaged over
+    the data-parallel ``group`` first."""
     from .training.optimizers import aux_label, create_optimizers
 
     opt = cfg.optimizer
     return create_optimizers(model.named_parameters(), "adamw", opt.base_lr,
                              opt.min_lr, opt.aux_lr, opt.weight_decay,
                              opt.warmup_iters, total_iters, cfg.grad_clip,
-                             label_fn=aux_label)
+                             label_fn=aux_label, group=group)
 
 
 def train_step(model, tx, x: torch.Tensor, qp: int, comp,
                generator) -> Dict:
-    """One optimizer step on the image batch ``x``; returns the aux."""
+    """One optimizer step on the image batch ``x`` (the rank's shard);
+    returns the aux, averaged over the optimizer's data group (the PSNR
+    from the mean MSE)."""
     from .layers.blocks import cudnn_fp32
+    from .parallel.mesh import mean_metrics
+    from .training.loss import psnr_from_mse
 
     tx.zero_grad()
     loss, aux = image_loss(model, x, qp, comp, True, generator)
     with cudnn_fp32(model.dtype, x.device):
         loss.backward()
     tx.step()
+    if tx.group is not None:
+        aux = mean_metrics(aux, tx.group)
+        aux["psnr"] = psnr_from_mse(aux["mse"])
     return aux
 
 
@@ -120,8 +139,11 @@ def main(argv):
     from .config import DMCIConfig, load_config
     from .data.dataset import make_datamodule
     from .models.dmci import DMCI
+    from .parallel.mesh import make_mesh, maybe_init_distributed, replicate
+    from .training.trainer import NOISE_SEED_STRIDE
     from .utils.checkpoint import image_checkpoint, save_checkpoint
-    from .utils.logging import CSVLogger, save_config_snapshot
+    from .utils.logging import (CSVLogger, is_main_process,
+                                save_config_snapshot)
 
     device = "cuda"
     overrides = []
@@ -135,12 +157,13 @@ def main(argv):
             f.write(DEFAULT_YAML)
         print(f"[config] wrote default {CONFIG_PATH}")
     cfg = load_config(CONFIG_PATH, overrides)
-    if cfg.num_devices != 1:
-        raise NotImplementedError(
-            f"num_devices={cfg.num_devices}: the port trains on one "
-            "device; data parallelism is ROADMAP §1 item 7 (parallel/)")
-
-    dm = make_datamodule(cfg)
+    rank, world = 0, 1
+    if maybe_init_distributed(device):
+        rank = torch.distributed.get_rank()
+        world = torch.distributed.get_world_size()
+    dm = make_datamodule(cfg, rank=rank, world=world)
+    mesh = make_mesh(cfg.num_devices, device=device)
+    device = mesh.device
     steps_per_epoch = dm.steps_per_epoch()
     total_iters = cfg.epochs * steps_per_epoch
 
@@ -152,14 +175,15 @@ def main(argv):
     dtype = "bfloat16" if "bf16" in cfg.precision else "float32"
     model = DMCI(DMCIConfig(dtype=dtype), device=device)
     model.init_(torch.Generator().manual_seed(cfg.seed))
-    tx = make_tx(model, cfg, total_iters)
+    replicate(mesh, model)
+    tx = make_tx(model, cfg, total_iters, group=mesh.group("data"))
 
     comp = cfg.compression
     noise = torch.Generator(device=model.q_scale_enc.device).manual_seed(
-        cfg.seed)
+        cfg.seed + NOISE_SEED_STRIDE * rank)
     host_rng = np.random.default_rng(cfg.seed)
     train_it = dm.train_iter()
-    print(f"[image-trainer] steps={total_iters} devices=1")
+    print(f"[image-trainer] steps={total_iters} devices={mesh.size}")
     for step in range(total_iters):
         batch = next(train_it)
         # every frame of the clip is a training image
@@ -171,9 +195,10 @@ def main(argv):
         if step % cfg.log_interval == 0:
             logger.log_train(step, {k: float(v) for k, v in aux.items()})
 
-    path = save_checkpoint(os.path.join(log_dir, "checkpoints", "last"),
-                           image_checkpoint(model))
-    print(f"[done] checkpoint at {path}")
+    path = os.path.abspath(os.path.join(log_dir, "checkpoints", "last"))
+    if is_main_process():
+        save_checkpoint(path, image_checkpoint(model))
+        print(f"[done] checkpoint at {path}")
     return {"model": model, "tx": tx, "log_dir": log_dir,
             "checkpoint": path, "steps": total_iters}
 

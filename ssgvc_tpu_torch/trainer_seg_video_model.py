@@ -1,7 +1,10 @@
-"""The video trainer's command line, on one CUDA card:
+"""The video trainer's command line, on one CUDA card or data-parallel on
+several:
 
     python3 -m ssgvc_tpu_torch.trainer_seg_video_model [--device=cpu] \\
         key=value dataset.batch_size=8 ...
+    torchrun --nproc_per_node=N -m ssgvc_tpu_torch.trainer_seg_video_model \\
+        num_devices=N ...
 
 Reads ``video_compression_config.yaml`` from the working directory (written
 with the defaults below when missing) and the dotted overrides (an unknown
@@ -13,6 +16,15 @@ checkpoint after each validation (``checkpoints/last`` and the
 ``checkpoints/last`` again at the end. ``resume_from_checkpoint`` resumes
 from a port checkpoint; ``image_checkpoint_path`` /
 ``video_checkpoint_path`` import pretrained weights.
+
+Under torchrun (or SLURM, or ``SSGVC_DIST=1``) each process joins the
+process group (``parallel.mesh.maybe_init_distributed``: NCCL on
+``cuda:LOCAL_RANK``, gloo with ``--device=cpu``), iterates its rank's
+stride of every epoch with ``dataset.batch_size`` clips a step, and the
+trainer averages the gradient over the ranks; ``num_devices`` must be the
+process count. With ``build_cache``, local rank 0 of each host builds the
+mask cache while the other ranks wait. Rank 0 alone writes logs and
+checkpoints.
 
 ``--device=cpu`` runs the plain versions on the CPU; without it the models
 are built on the card, and a host with no card raises.
@@ -76,11 +88,14 @@ def main(argv):
 
     from .config import load_config
     from .data.dataset import make_datamodule
+    from .parallel.mesh import (local_rank, make_mesh,
+                                 maybe_init_distributed)
     from .training.trainer import Trainer
     from .utils.checkpoint import (CheckpointManager, load_pretrained,
                                    restore_checkpoint, save_checkpoint,
                                    train_checkpoint)
-    from .utils.logging import CSVLogger, save_config_snapshot
+    from .utils.logging import (CSVLogger, is_main_process,
+                                save_config_snapshot)
 
     device = "cuda"
     overrides = []
@@ -95,13 +110,24 @@ def main(argv):
         print(f"[config] wrote default {CONFIG_PATH}")
     cfg = load_config(CONFIG_PATH, overrides)
 
+    # join the process group before the cache and the data module: one
+    # process a host builds the cache, and each rank iterates its own
+    # stride of every epoch
+    rank, world = 0, 1
+    if maybe_init_distributed(device):
+        rank = torch.distributed.get_rank()
+        world = torch.distributed.get_world_size()
     if cfg.build_cache:
-        from .data.build_cache import build_cache
-        stats = build_cache(os.path.join(cfg.dataset.data_dir, "*.tfrecord"),
-                            cfg.dataset.seg_cache_dir)
-        print(f"[cache] {stats}")
-
-    dm = make_datamodule(cfg)
+        if local_rank() == 0:
+            from .data.build_cache import build_cache
+            stats = build_cache(
+                os.path.join(cfg.dataset.data_dir, "*.tfrecord"),
+                cfg.dataset.seg_cache_dir)
+            print(f"[cache] {stats}")
+        if world > 1:
+            torch.distributed.barrier()
+    dm = make_datamodule(cfg, rank=rank, world=world)
+    mesh = make_mesh(cfg.num_devices, device=device)
     steps_per_epoch = dm.steps_per_epoch()
     total_iters = cfg.epochs * steps_per_epoch
 
@@ -110,9 +136,11 @@ def main(argv):
     logger = CSVLogger(log_dir)
     save_config_snapshot(log_dir, cfg)
 
-    trainer = Trainer(cfg, total_iters=total_iters, device=device)
+    trainer = Trainer(cfg, total_iters=total_iters, device=mesh.device,
+                      mesh=mesh)
     print(f"[trainer] variant={cfg.dmc_variant} device={trainer.device} "
-          f"steps/epoch={steps_per_epoch} total={total_iters}")
+          f"devices={mesh.size} steps/epoch={steps_per_epoch} "
+          f"total={total_iters}")
 
     state = None
     if cfg.resume_from_checkpoint:
@@ -139,9 +167,10 @@ def main(argv):
                         image_log_dir=os.path.join(log_dir, "images"))
 
     ckpt_path = os.path.join(ckpt_dir, "last")
-    save_checkpoint(ckpt_path, train_checkpoint(trainer, state))
-    print(f"[done] checkpoint at {ckpt_path} "
-          f"(best: {ckpt_manager.best_path})")
+    if is_main_process():
+        save_checkpoint(ckpt_path, train_checkpoint(trainer, state))
+        print(f"[done] checkpoint at {ckpt_path} "
+              f"(best: {ckpt_manager.best_path})")
     return trainer, state, log_dir
 
 

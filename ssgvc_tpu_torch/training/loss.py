@@ -3,6 +3,14 @@ terms: the JAX package's ``training/loss.py`` in torch, fp32 throughout.
 
 ``weighted_mse`` is sum(w * se) / sum(w), the weighted-mean semantics of
 torch's ``F.mse_loss(..., weight=w, reduction='mean')``.
+
+Under data parallelism a rank holds a shard of the batch, and a ratio of
+sums over the batch is not the mean of the ranks' ratios. ``batch_sum``
+(``parallel.mesh.group_sum`` over the data group) takes those sums over the
+whole batch, differentiably, so every rank computes the global batch's
+value, as the JAX package does on its global array; a term that is a mean
+over the batch stays the rank's own, and the gradient's mean over the
+ranks makes it the global one.
 """
 
 from __future__ import annotations
@@ -10,7 +18,7 @@ from __future__ import annotations
 import csv
 import math
 import os
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -24,12 +32,20 @@ def compute_lambda(qp, lambda_min: float, lambda_max: float,
                      * (math.log(lambda_max) - math.log(lambda_min)))
 
 
+BatchSum = Optional[Callable[[torch.Tensor], torch.Tensor]]
+
+
 def weighted_mse(pred: torch.Tensor, target: torch.Tensor,
-                 weight: torch.Tensor) -> torch.Tensor:
-    """sum(w * (pred-target)^2) / sum(w)."""
+                 weight: torch.Tensor, batch_sum: BatchSum = None
+                 ) -> torch.Tensor:
+    """sum(w * (pred-target)^2) / sum(w), the sums over the whole batch
+    with ``batch_sum``."""
     se = (pred.float() - target.float()) ** 2
     w = torch.broadcast_to(weight.float(), se.shape)
-    return torch.sum(w * se) / torch.clamp(torch.sum(w), min=1e-12)
+    num, den = torch.sum(w * se), torch.sum(w)
+    if batch_sum is not None:
+        num, den = batch_sum(torch.stack([num, den])).unbind()
+    return num / torch.clamp(den, min=1e-12)
 
 
 class RDLoss(NamedTuple):
@@ -46,10 +62,12 @@ def rate_distortion_loss(results: dict, target: torch.Tensor, qp, w_t,
                          q_levels: int = 64,
                          mask: Optional[torch.Tensor] = None,
                          roi_weight: float = 100.0,
-                         lambda_normalize: bool = False) -> RDLoss:
+                         lambda_normalize: bool = False,
+                         batch_sum: BatchSum = None) -> RDLoss:
     """loss = bpp_y + bpp_z + w_t * lambda(qp) * wMSE(1 + roi_weight * m);
     mask (B, H, W, 1) binary. ``lambda_normalize`` divides the whole loss by
-    lambda(qp)."""
+    lambda(qp). ``batch_sum``: the wMSE's sums and the ROI's pixel count
+    are the whole batch's."""
     bpp = torch.mean(results["bpp"])
     bpp_y = torch.mean(results["bpp_y"])
     bpp_z = torch.mean(results["bpp_z"])
@@ -60,9 +78,12 @@ def rate_distortion_loss(results: dict, target: torch.Tensor, qp, w_t,
         mse = plain_mse
     else:
         m = (mask > 0).float()
-        wmse = weighted_mse(pred, target, 1.0 + roi_weight * m)
+        wmse = weighted_mse(pred, target, 1.0 + roi_weight * m, batch_sum)
+        roi = torch.sum(m)
+        if batch_sum is not None:
+            roi = batch_sum(roi)
         # no masked pixel: the plain MSE
-        mse = torch.where(torch.sum(m) > 0, wmse, plain_mse)
+        mse = torch.where(roi > 0, wmse, plain_mse)
 
     lam = compute_lambda(qp, lambda_min, lambda_max, q_levels).to(bpp.device)
     loss = bpp_y + bpp_z + w_t * lam * mse
@@ -72,14 +93,19 @@ def rate_distortion_loss(results: dict, target: torch.Tensor, qp, w_t,
 
 
 def roi_mse(pred: torch.Tensor, target: torch.Tensor,
-            mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """Mean MSE over the ROI only (the plain MSE where the ROI is empty)."""
+            mask: Optional[torch.Tensor], batch_sum: BatchSum = None
+            ) -> torch.Tensor:
+    """Mean MSE over the ROI only (the plain MSE where the ROI is empty);
+    with ``batch_sum`` over the whole batch's ROI (or pixels)."""
     se = (pred.float() - target.float()) ** 2
-    if mask is None:
-        return torch.mean(se)
-    m = torch.broadcast_to((mask > 0).float(), se.shape)
-    masked = torch.sum(m * se) / torch.clamp(torch.sum(m), min=1e-12)
-    return torch.where(torch.sum(m) > 0, masked, torch.mean(se))
+    m = (torch.ones_like(se) if mask is None else
+         torch.broadcast_to((mask > 0).float(), se.shape))
+    sums = torch.stack([torch.sum(m * se), torch.sum(m), torch.sum(se),
+                        se.new_full((), float(se.numel()))])
+    if batch_sum is not None:
+        sums = batch_sum(sums)
+    masked = sums[0] / torch.clamp(sums[1], min=1e-12)
+    return torch.where(sums[1] > 0, masked, sums[2] / sums[3])
 
 
 def mse_from_psnr_db(psnr_db, max_val: float = 1.0) -> torch.Tensor:

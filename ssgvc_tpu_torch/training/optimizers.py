@@ -13,7 +13,12 @@ with its own learning-rate schedule and weight decay), optionally behind
 optax's formula g * c / ||g|| when ||g|| >= c (``clip_grad_norm_`` adds
 1e-6 to the norm and is not the same), then each label's optimizer; with
 ``every_k`` > 1 it keeps the running mean of k micro-batches' gradients and
-applies it on the k-th, with no update and no weight decay between.
+applies it on the k-th, with no update and no weight decay between. Given
+a data-parallel ``group``, the gradient that the clip sees is the mean over
+the group's ranks (``parallel.mesh.all_reduce_mean_``: one all-reduce per
+flat buffer per dtype, on the accumulation boundary), what XLA's psum gives
+the JAX step: the ranks' local means of equal shards, averaged, are the
+global batch's mean.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..parallel.mesh import all_reduce_mean_
 from .schedule import warmup_cosine
 
 LrFn = Callable[[int], float]
@@ -98,13 +104,16 @@ class TrainOptimizer:
     each by its dotted name split into a path; ``groups`` maps a label to
     (lr schedule of the applied-update count, weight decay). A label
     missing from ``groups`` is frozen: its gradient counts in the clip's
-    norm, but it is never updated (optax.set_to_zero).
+    norm, but it is never updated (optax.set_to_zero). ``group``: the
+    data-parallel process group whose ranks' gradients are averaged before
+    the clip (None: one device).
     """
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]],
                  label_fn: Callable, groups: Dict[str, Tuple[LrFn, float]],
                  optimizer_type: str = "adamw",
-                 grad_clip: Optional[float] = 5.0, every_k: int = 1):
+                 grad_clip: Optional[float] = 5.0, every_k: int = 1,
+                 group=None):
         named = list(named_params)
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
@@ -122,6 +131,7 @@ class TrainOptimizer:
             lr=0.0)
         self.grad_clip = grad_clip
         self.every_k = max(int(every_k or 1), 1)
+        self.group = group
         self.count = 0          # applied updates
         self.mini_step = 0      # micro-batches accumulated since the last
         self._acc: Optional[List[torch.Tensor]] = None
@@ -148,6 +158,7 @@ class TrainOptimizer:
             grads = [a.clone() for a in self._acc]
             for a in self._acc:
                 a.zero_()
+        all_reduce_mean_(grads, self.group)
         if self.grad_clip is not None:
             clip_by_global_norm_(grads, self.grad_clip)
         for p, g in zip(self.params, grads):
@@ -204,12 +215,14 @@ def create_optimizers(named_params, optimizer_type: str = "adamw",
                       aux_lr: float = 5e-4, weight_decay: float = 0.01,
                       warmup_iters: int = 0, total_iters: int = 10000,
                       grad_clip: float = 5.0,
-                      label_fn: Optional[Callable] = None) -> TrainOptimizer:
+                      label_fn: Optional[Callable] = None,
+                      group=None) -> TrainOptimizer:
     """The main / aux split: warmup-cosine on 'main', the fixed ``aux_lr``
-    on 'aux', the global-norm clip in front."""
+    on 'aux', the global-norm clip in front; ``group`` as
+    :class:`TrainOptimizer`'s."""
     sched = warmup_cosine(base_lr, min_lr, warmup_iters, total_iters)
     return TrainOptimizer(
         named_params, label_fn or aux_label,
         {"main": (sched, weight_decay),
          "aux": (lambda _: aux_lr, weight_decay)},
-        optimizer_type, grad_clip)
+        optimizer_type, grad_clip, group=group)

@@ -1,5 +1,6 @@
 """The trainer: the JAX package's ``training/trainer.py`` in PyTorch, on one
-card (or the CPU when asked).
+card (or the CPU when asked) or data-parallel over the ranks of a
+``parallel.mesh.Mesh``.
 
   * A GOP: frame 0 through the frozen I-frame codec under ``no_grad``, then
     P-frames 1..T-1 (``after_i`` for frame 1), the DPB detached between
@@ -19,9 +20,25 @@ card (or the CPU when asked).
   * ``constraint_opt`` (ALM): rate + a dead-zone penalty on the ROI-MSE
     constraint, the dual ascent on the accumulation boundary.
 
-One device: ``num_devices`` other than 1 raises (``parallel/`` is ROADMAP
-§1 item 7). ``fit`` saves checkpoints (``utils/checkpoint.py``) and writes
-recon panels (``utils/visualize.py``) after each validation.
+Data parallelism (``mesh``, by default ``make_mesh(cfg.num_devices)``, whose
+data axis must hold ``num_devices`` ranks): each rank steps its shard of the
+batch, and the step is the global batch's, as the JAX step on its global
+array:
+
+  * the initial parameters are rank 0's (``replicate``), after gain
+    calibration on the global first batch (all-gathered);
+  * the loss's batch sums (the ROI-weighted MSE, the ROI count, the ALM
+    constraint's ROI MSE) are the global batch's (``loss.py``'s
+    ``batch_sum``); the gradient's mean over the ranks is taken on the
+    accumulation boundary, before the clip (``TrainOptimizer``);
+  * a step's metrics, and so the ALM accumulators, are means over the
+    ranks, the same on every rank; ``validate`` averages its means too;
+  * the QP comes from the host RNG seeded by ``seed``, the same on every
+    rank; the quantiser noise generator is seeded per rank: rank 0 keeps
+    the one the init drew from, as on one device, rank r > 0 draws from
+    ``seed + NOISE_SEED_STRIDE * r``;
+  * ``fit`` writes checkpoints (``utils/checkpoint.py``) and recon panels
+    (``utils/visualize.py``) after each validation, on rank 0 only.
 """
 
 from __future__ import annotations
@@ -40,6 +57,8 @@ from ..config import DMCConfig, DMCIConfig, TrainConfig
 from ..layers.blocks import cudnn_fp32
 from ..models.dmc import DMC
 from ..models.dmci import DMCI
+from ..parallel.mesh import (all_gather_cat, group_rank, group_sum, make_mesh,
+                             mean_metrics, replicate)
 from .loss import (alm_deadzone_penalty, alm_dual_update, init_psnrm_schedule,
                    mse_from_psnr_db, psnr_from_mse, rate_distortion_loss,
                    roi_mse)
@@ -47,6 +66,8 @@ from .optimizers import TrainOptimizer
 from .schedule import warmup_cosine
 
 METRICS = ("loss", "bpp", "bpp_y", "bpp_z", "mse", "prev_obj", "g_mean")
+#: rank r > 0 seeds its quantiser noise with seed + NOISE_SEED_STRIDE * r
+NOISE_SEED_STRIDE = 7919
 
 
 def param_label(path: Tuple[str, ...]) -> str:
@@ -78,16 +99,22 @@ class TrainState:
 class Trainer:
     """Owns the models and the optimizer, and runs the train and eval
     steps. ``device`` defaults to "cuda"; pass "cpu" to run the plain
-    versions."""
+    versions. ``mesh`` (default ``make_mesh(cfg.num_devices)``) spreads
+    the steps data-parallel over its data axis."""
 
     def __init__(self, cfg: TrainConfig, total_iters: int = 10000,
                  dmc_cfg: Optional[DMCConfig] = None,
-                 dmci_cfg: Optional[DMCIConfig] = None, device="cuda"):
-        if cfg.num_devices != 1:
-            raise NotImplementedError(
-                f"num_devices={cfg.num_devices}: the port trains on one "
-                "device; data parallelism is ROADMAP §1 item 7 (parallel/)")
+                 dmci_cfg: Optional[DMCIConfig] = None, device="cuda",
+                 mesh=None):
         self.cfg = cfg
+        self.mesh = (mesh if mesh is not None
+                     else make_mesh(cfg.num_devices, device=device))
+        if cfg.num_devices != self.mesh.shape["data"]:
+            raise ValueError(f"num_devices={cfg.num_devices}, but the mesh's "
+                             f"data axis has {self.mesh.shape['data']} ranks")
+        self.group = self.mesh.group("data")
+        self.batch_sum = (None if self.group is None else
+                          functools.partial(group_sum, group=self.group))
         self.device = torch.device(device)
         dtype = "bfloat16" if "bf16" in cfg.precision else "float32"
         if dmc_cfg is None:
@@ -136,7 +163,7 @@ class Trainer:
                       "aux": (lambda s: aux_lr, wd)}
         return TrainOptimizer(named_params, label_fn, groups,
                               cfg.optimizer.optimizer_type, cfg.grad_clip,
-                              cfg.accumulation_steps)
+                              cfg.accumulation_steps, group=self.group)
 
     def example_batch(self, batch_size=2, seq_len=4, hw=(64, 64)) -> Dict:
         h, w = hw
@@ -160,10 +187,12 @@ class Trainer:
                    params_i=None) -> TrainState:
         """Fresh weights drawn from ``generator`` (a CPU generator) unless
         state dicts are carried in; gain calibration only for a fresh init
-        and only on a batch with signal; a new optimizer."""
+        and only on a batch with signal (the global batch: every rank's
+        shard); rank 0's weights on every rank; a new optimizer."""
         from .calibrate import calibrate_dmc, calibrate_dmci
 
-        frames, masks = self._on_device(batch or self.example_batch())
+        frames, masks = (all_gather_cat(t, self.group) for t in
+                         self._on_device(batch or self.example_batch()))
         fresh_i = params_i is None
         if fresh_i:
             self.dmci.init_(generator)
@@ -181,6 +210,8 @@ class Trainer:
                 dpb = {"frame": frames[:, 0],
                        "feature": self._zero_feature(frames)}
                 calibrate_dmc(self.dmc, frames[:, 1], dpb, masks[:, 1])
+        replicate(self.mesh, self.dmci)
+        replicate(self.mesh, self.dmc)
         self.tx = self.make_tx(self.dmc.named_parameters())
         zero = torch.zeros((), device=self.device)
         return TrainState(step=0, alm_mu=torch.full(
@@ -214,8 +245,8 @@ class Trainer:
                                       mask=None, roi_weight=cfg.roi_weight)
             qp_eff = min(max(curr_qp, 0), 63)
             tau = mse_from_psnr_db(self.psnrm_targets[qp_eff]).to(g.device)
-            g = ((roi_mse(out["dpb"]["frame"], frame, gt_mask) - tau)
-                 / (tau + 1e-12))
+            g = ((roi_mse(out["dpb"]["frame"], frame, gt_mask,
+                          self.batch_sum) - tau) / (tau + 1e-12))
             rd = rd._replace(loss=rd.bpp_y + rd.bpp_z
                              + cfg.alm_penalty_scale
                              * alm_deadzone_penalty(g, cfg.lagr_rho))
@@ -224,7 +255,8 @@ class Trainer:
                                       comp.lambda_max, comp.q_levels,
                                       mask=gt_mask,
                                       roi_weight=cfg.roi_weight,
-                                      lambda_normalize=cfg.lambda_normalize)
+                                      lambda_normalize=cfg.lambda_normalize,
+                                      batch_sum=self.batch_sum)
         loss = rd.loss
         if cfg.mask_train and out.get("mask_pred") is not None:
             # the loss is the BCE alone; the optimizer trains only
@@ -275,6 +307,15 @@ class Trainer:
 
     # ----------------------------------------------------------------- steps
 
+    def _over_ranks(self, aux: Dict) -> Dict:
+        """A step's metrics as the global batch's: their means over the
+        data group's ranks, and the PSNR taken again from the mean MSE."""
+        if self.group is None:
+            return aux
+        aux = mean_metrics(aux, self.group)
+        aux["psnr"] = psnr_from_mse(aux["prev_obj"])
+        return aux
+
     def backward(self, loss: torch.Tensor) -> None:
         """``loss.backward()``, an fp32 model's conv gradients in full fp32
         too (cuDNN's TF32 default off for the backward, as for each
@@ -284,8 +325,9 @@ class Trainer:
 
     def train_step(self, state: TrainState, batch: Dict, qp: int,
                    generator: torch.Generator):
-        """One micro-batch: forward, backward, the optimizer (which applies
-        on the accumulation boundary), the ALM dual state."""
+        """One micro-batch (the rank's shard): forward, backward, the
+        optimizer (which applies on the accumulation boundary), the
+        metrics' mean over the ranks, the ALM dual state."""
         if self.tx is None:
             raise RuntimeError("init_state first")
         frames, masks = self._on_device(batch)
@@ -294,6 +336,7 @@ class Trainer:
                                   eval_mode=False)
         self.backward(loss)
         self.tx.step()
+        aux = self._over_ranks(aux)
         if self.cfg.constraint_opt:
             state.alm_h_accum = state.alm_h_accum + aux["g_mean"]
             state.alm_h_count = state.alm_h_count + 1.0
@@ -328,14 +371,21 @@ class Trainer:
         validate; after each validation ``ckpt_manager``
         (``utils.checkpoint.CheckpointManager``) saves the checkpoint with
         the val loss, and ``image_log_dir`` gets the recon panels of the
-        last train batch. ``logger`` is duck-typed (``log_train(step,
-        row)``, ``log_val(step, row)``). Returns the final state."""
+        last train batch, both on rank 0. ``logger`` is duck-typed
+        (``log_train(step, row)``, ``log_val(step, row)``). Returns the
+        final state."""
+        from ..utils.logging import is_main_process
+
         gen = torch.Generator().manual_seed(seed)
         batches = []
         if state is None:
             first = next(train_iter)
             state = self.init_state(gen, first)
             batches = [first]
+        rank = group_rank(self.group)
+        if rank:
+            gen = torch.Generator().manual_seed(seed
+                                                + NOISE_SEED_STRIDE * rank)
         host_rng = np.random.default_rng(seed)
         qp_sum, qp_cnt = 0.0, 0
         for step in range(steps):
@@ -357,7 +407,7 @@ class Trainer:
                                     step=step, seed=seed + step,
                                     epoch=(step // steps_per_epoch
                                            if steps_per_epoch else 0))
-                if ckpt_manager is not None and val:
+                if ckpt_manager is not None and val and is_main_process():
                     from ..utils.checkpoint import train_checkpoint
                     ckpt_manager.save(train_checkpoint(self, state),
                                       {"val/loss": val.get("loss")}, step)
@@ -405,7 +455,7 @@ class Trainer:
             except StopIteration:
                 break
             qp = int(host_rng.integers(0, 64))
-            aux = self.eval_step(state, batch, qp, gen)
+            aux = self._over_ranks(self.eval_step(state, batch, qp, gen))
             for k, v in aux.items():
                 agg[k] = agg.get(k, 0.0) + float(v)
             count += 1

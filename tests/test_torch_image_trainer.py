@@ -263,7 +263,9 @@ def test_cli_takes_one_device_and_defaults_to_the_card(tmp_path,
                                                        monkeypatch):
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(tcfg, "DMCIConfig", TINY_DMCI)
-    with pytest.raises(NotImplementedError, match="num_devices"):
+    # without a process group: make_mesh's refusal (two ranks take
+    # torchrun)
+    with pytest.raises(ValueError, match="requested but only"):
         cli.main(ARGV + ["num_devices=2"])
     if torch.cuda.is_available():
         return

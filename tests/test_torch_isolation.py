@@ -47,10 +47,12 @@ CLI_MODULES = ("trainer_image_model", "utils.video_io", "scripts.encode",
                "scripts.decode")
 #: the debug and profiling tools and the graft entry
 TOOL_MODULES = ("utils.debug", "utils.profiling", "graft_entry")
+#: data-parallel training and the row-sharded P-frame
+PARALLEL_MODULES = ("parallel.mesh", "parallel.spatial")
 
 
 @pytest.mark.parametrize("module", TRAINING_MODULES + DATA_MODULES
-                         + CLI_MODULES + TOOL_MODULES)
+                         + CLI_MODULES + TOOL_MODULES + PARALLEL_MODULES)
 def test_training_modules_import_without_jax(module):
     """Each module of the training path imports, in a fresh interpreter,
     with JAX, flax, optax and the JAX package made unimportable."""
@@ -177,3 +179,20 @@ def test_every_variant_constructs_on_the_cpu(variant):
     assert ("mask_film" in names) == (variant in ("fast", "mask_prop"))
     assert ("mask_predictor" in names) == (variant == "mask_prop")
     assert hasattr(model.encoder, "conv3") == (variant == "old")
+
+
+def test_parallel_defaults_to_the_card_and_never_falls_back():
+    """A mesh's device is the card unless the caller asks for the CPU; a
+    card-less host moving a batch there raises, and dryrun_multichip with
+    no device wants n cards (it names device="cpu")."""
+    from ssgvc_tpu_torch.graft_entry import dryrun_multichip
+    from ssgvc_tpu_torch.parallel.mesh import make_mesh, shard_batch
+
+    assert make_mesh().device.type == "cuda"
+    assert make_mesh(device="cpu").device.type == "cpu"
+    if torch.cuda.is_available():
+        return
+    with pytest.raises((RuntimeError, AssertionError)):
+        shard_batch(make_mesh(), {"x": torch.zeros(2)})
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        dryrun_multichip(1)

@@ -742,8 +742,10 @@ def test_fit_runs_three_steps_and_validates(tmp_path):
 
 
 def test_trainer_takes_one_device_and_defaults_to_the_card():
+    """num_devices=2 without a process group: make_mesh's refusal (two
+    ranks take torchrun, tests/test_torch_parallel.py)."""
     cfg = tcfg.TrainConfig(num_devices=2)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="requested but only"):
         Trainer(cfg, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
