@@ -254,13 +254,40 @@ Phases (any failure exits non-zero and prints no result line):
      dots), the parameters equal on both ranks after that update and after
      a train_step whose noise is seeded per rank; that train_step's time
      and the gradient's all-reduce's alone. Any failing rank fails the
-     phase.
+     phase;
+ 24. experiments: the JAX package's opt-in flags on the card. (a) The W8A8
+     int8 conv csrc/qconv.cu at every int8 site shape of the full-width
+     P-frame (packed io, both feature adaptors) and I-frame, and the
+     small-Cin sites of the fast and mask_prop P-frames, recorded from
+     their SSGVC_INT8=1 forwards: equal to qconv_plain bit for bit in bf16
+     and fp32 with mode 1's and mode 2's scales; timed (bf16) beside the
+     plain version, the bf16 route the port takes with int8 off and, at
+     the 1x1 sites, quantize + torch._int_mm + dequant (equal to the
+     kernel bit for bit), with its bound (int8 products at 1979 TOP/s or
+     the bytes, the larger). (b) Phase 5's P-frame GOP (P24_FRAMES
+     frames) under mode 2 (scales calibrated on two frames, saved and
+     loaded into a fresh model: its frames equal bit for bit), mode 1 and
+     mode 2 at scope 3x3 (dcb / dcb_chain 19 + 5 then 18 + 5 a frame),
+     each beside the bf16 GOP: ms per frame, qconv launches per frame,
+     PSNR against the bf16 recon and bpp, every frame finite and bpp in
+     P24_BPP. (c) Phase 10's codec on I + 2 P under mode 2 with scales
+     calibrated through the encoder and loaded on both sides: the decoded
+     frames equal the encoder's bit for bit. (d) SSGVC_DW=shiftadd in the
+     mode-2 P-frame against the grouped conv: every block's dw op on the
+     frame's own inputs within REL_TOL, both frames timed. (e) FUSE_DOWN /
+     FUSE_UP in phase 6's raw-io P-frame, bf16 and fp32: each patch conv
+     on the frame's own inputs within REL_TOL (bf16) or P24_F32_TOL
+     (fp32, max relative), both frames timed. The whole frames of (d) and
+     (e) are printed, not gated: a bf16 rounding anywhere flips latent
+     roundings (experiments/p24_cpu_rehearsal.py, this phase on the CPU at
+     the tiny profile, moves the frame 5-8% in relative Frobenius).
 
 The last lines are JSON objects: {"main_path": ...}, {"variants": ...},
 {"coded": ...}, {"training": ...}, {"cross_check": ...}, {"fp32": ...},
 {"rd_half": ...}, {"rd_recipe": ...}, {"coded_fp32": ...},
 {"train_cli": ...}, {"image_cli": ...}, {"scripts": ...}, {"tools": ...},
-{"parallel": ...}, {"kernels": [...]}, and last {"ok": true, "device":
+{"parallel": ...}, {"experiments": ...}, {"kernels": [...]}, and last
+{"ok": true, "device":
 {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -278,6 +305,7 @@ import sys
 import tempfile
 import time
 import traceback
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -535,7 +563,7 @@ def phase_build():
     from ssgvc_tpu_torch.ops import dcb as dcb_ops
 
     t0 = time.time()
-    names = ["dcb", "dcb_chain", "dcb_bwd", "dcb_f32", "dcb_tf32"]
+    names = ["dcb", "dcb_chain", "dcb_bwd", "dcb_f32", "dcb_tf32", "qconv"]
     logs = _build.build(names)
     print(f"build: {time.time() - t0:.1f} s")
     for name in names:
@@ -4532,6 +4560,677 @@ def phase_parallel(torch, seed, card):
     return out
 
 
+# ---- phase 24: the opt-in experiments (SSGVC_INT8, SSGVC_DW, FUSE_*) ----
+P24_FRAMES = 3               # P-frames of (b)'s int8 GOPs
+P24_RUNS = 2                 # timed GOPs per route in (b); ms their median
+P24_REPS = 10                # launches per cuda_ms in (a)
+P24_BPP = (0.0, 24.0)        # (b): bpp range, as tests/test_int8.py:91-96
+P24_F32_TOL = F32_TOL        # (e) fp32 fused vs unfused patch convs
+P24_WANT_3X3 = ((19, 5), (18, 5))   # (b) scope 3x3: the fused kernels'
+#                                     launches on the first P-frame, then
+H100_INT8_OPS = 1979e12      # dense int8 tensor-core peak, H100 SXM
+
+
+@contextlib.contextmanager
+def p24_env(**env):
+    """The experiment variables set as given (None: unset) for the body,
+    restored after."""
+    old = {k: os.environ.get(k) for k in env}
+    try:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def p24_psnr(torch, a, b) -> float:
+    mse = float(((a.float() - b.float()) ** 2).mean())
+    return 10 * math.log10(1.0 / max(mse, 1e-20))
+
+
+def p24_rel(torch, a, b) -> float:
+    return float(torch.linalg.vector_norm(a.float() - b.float())
+                 / torch.linalg.vector_norm(b.float()))
+
+
+def p24_sites(torch, iframe, main, variant_states):
+    """Every int8 site the full-width codecs reach under SSGVC_INT8=1,
+    recorded from their forwards (not listed by hand): the performance
+    P-frame (packed io; after_i True and False, so both feature adaptors),
+    the DMCI I-frame, and the sites of the fast and mask_prop P-frames
+    whose Cin is not a multiple of 16 (the kernel's per-element loads).
+    Returns {key: {"P": per P-frame, "I": per I-frame, ...}} with key
+    (B, H, W, Cin, O, k, stride, pads)."""
+    from ssgvc_tpu_torch.config import DMCConfig, DMCIConfig
+    from ssgvc_tpu_torch.layers import blocks
+    from ssgvc_tpu_torch.models.dmc import DMC
+    from ssgvc_tpu_torch.models.dmci import DMCI
+    from ssgvc_tpu_torch.ops.pixel import pixel_unshuffle
+
+    sites, where = {}, [None]
+    real = blocks.qconv
+
+    def record(x, wq, s_w, bias, s_x, kernel, stride, pads, out_dtype=None):
+        key = (*x.shape, wq.shape[0], kernel, stride, tuple(pads))
+        row = sites.setdefault(key, {})
+        row[where[0]] = row.get(where[0], 0) + 1
+        return real(x, wq, s_w, bias, s_x, kernel, stride, pads, out_dtype)
+
+    bf16 = torch.bfloat16
+    frame = pixel_unshuffle(main["frames"][0].to(bf16), 8)
+    mask = pixel_unshuffle(main["masks"][0].to(bf16), 8)
+    blocks.qconv = record
+    try:
+        with torch.no_grad(), p24_env(SSGVC_INT8="1",
+                                      SSGVC_INT8_SCOPE=None):
+            dmci = DMCI(DMCIConfig(dtype="bfloat16"), device=DEVICE)
+            dmci.load_state_dict(iframe["state"], strict=True)
+            where[0] = "I"
+            dmci.eval()(iframe["frame"].to(bf16), QP)
+            del dmci
+            for variant, state in (("performance", main["state"]),
+                                   ("fast", variant_states["fast"]),
+                                   ("mask_prop",
+                                    variant_states["mask_prop"])):
+                model = DMC(DMCConfig.variant(variant, dtype="bfloat16",
+                                              packed_io=True),
+                            device=DEVICE)
+                model.load_state_dict(state, strict=True)
+                model.eval()
+                dpb = {"frame": pixel_unshuffle(main["dpb_frame"], 8),
+                       "feature": torch.zeros(
+                           (1, H // 8, W // 8, model.cfg.ch_d), dtype=bf16,
+                           device=DEVICE)}
+                for after_i in (True, False):
+                    where[0] = (("P_after_i" if after_i else "P")
+                                if variant == "performance"
+                                else f"{variant}{'_after_i' * after_i}")
+                    model(frame, QP, dpb, after_i=after_i, mask=mask)
+                del model
+    finally:
+        blocks.qconv = real
+    torch.cuda.synchronize()
+    # the variants' sites with the 16-channel loads repeat the performance
+    # codec's widths: keep their small-Cin ones
+    return {k: v for k, v in sites.items()
+            if any(w in ("I", "P", "P_after_i") for w in v) or k[3] % 16}
+
+
+def p24_bound(key, size):
+    """(ms, bound_by): int8 products at the int8 peak, or x read once, wq
+    read once and y written once at the HBM rate, the larger."""
+    b, h, w, cin, o, k, s, (pt, pb, pl, pr) = key
+    ho = (h + pt + pb - k) // s + 1
+    wo = (w + pl + pr - k) // s + 1
+    m = b * ho * wo
+    ops = 2 * m * k * k * cin * o / H100_INT8_OPS
+    nbytes = (b * h * w * cin * size + o * k * k * cin + m * o * size
+              + 8 * o) / H100_BYTES_PER_S
+    return 1e3 * max(ops, nbytes), ("operations" if ops >= nbytes
+                                    else "bytes")
+
+
+def p24_kernel_rows(torch, seed, card, sites):
+    """(a) qconv against qconv_plain bit for bit at every site shape, in
+    bf16 and fp32, with mode 1's and mode 2's scales; timed in bf16 beside
+    the plain version, the bf16 route the port takes with int8 off
+    (F.linear / cuDNN) and, at the 1x1 sites, the library route (torch ops
+    quantize, torch._int_mm, dequant), which must equal the kernel."""
+    import torch.nn.functional as F
+
+    from ssgvc_tpu_torch.ops import qconv as Q
+
+    rng = np.random.default_rng(seed + 24)
+    rows, worst = [], 0.0
+    for key, per in sorted(sites.items()):
+        b, h, w, cin, o, k, s, pads = key
+        x32 = torch.tensor(rng.standard_normal((b, h, w, cin)),
+                           dtype=torch.float32, device=DEVICE)
+        wt = torch.tensor(rng.standard_normal((o, cin, k, k))
+                          * (k * k * cin) ** -0.5, dtype=torch.float32,
+                          device=DEVICE)
+        bias = torch.tensor(rng.standard_normal(o) * 0.1,
+                            dtype=torch.float32, device=DEVICE)
+        wq, s_w = Q.quantize_weight(wt)
+        row = dict(shape=list(key[:4]), out_ch=o, kernel=k, stride=s,
+                   pads=list(pads), per_frame=per)
+        for dt in (torch.bfloat16, torch.float32):
+            x = x32.to(dt)
+            absmax = 1.25 * float(x.float().abs().max())
+            for mode, s_x in (("1", Q.dynamic_scale(x)),
+                              ("2", torch.tensor(Q.static_scale(absmax),
+                                                 device=DEVICE))):
+                out = Q.qconv_cuda(x, wq, s_w, bias, s_x, k, s, pads, dt)
+                ref = Q.qconv_plain(x, wq, s_w, bias, s_x, k, s, pads, dt)
+                torch.cuda.synchronize()
+                d = float((out.float() - ref.float()).abs().max())
+                worst = max(worst, d)
+                if not torch.isfinite(out.float()).all() or \
+                        not torch.equal(out, ref):
+                    fail(f"qconv {key} {dt} mode {mode}: kernel != plain "
+                         f"(max |d| {d})")
+        x = x32.to(torch.bfloat16)
+        s_x = Q.dynamic_scale(x)
+        row["kernel_ms"] = cuda_ms(torch, lambda: Q.qconv_cuda(
+            x, wq, s_w, bias, s_x, k, s, pads, torch.bfloat16), P24_REPS)
+        row["plain_ms"] = cuda_ms(torch, lambda: Q.qconv_plain(
+            x, wq, s_w, bias, s_x, k, s, pads, torch.bfloat16), 3, 1)
+        wb, bb = wt.to(torch.bfloat16), bias.to(torch.bfloat16)
+        if k == 1 and s == 1:
+            bf16 = lambda: F.linear(x, wb[:, :, 0, 0], bb)
+        else:
+            bf16 = lambda: F.conv2d(
+                F.pad(x.permute(0, 3, 1, 2), (pads[2], pads[3], pads[0],
+                                              pads[1])), wb, bb,
+                s).permute(0, 2, 3, 1).contiguous()
+        row["bf16_ms"] = cuda_ms(torch, bf16, P24_REPS)
+        row["library_ms"] = None
+        if k == 1 and s == 1:
+            kk = cin
+            wt_k = wq[:, :kk].contiguous().t()
+
+            def library():
+                xq = torch.clamp(torch.round(x.float() / s_x), -127,
+                                 127).to(torch.int8).reshape(-1, kk)
+                acc = torch._int_mm(xq, wt_k)
+                y = acc.float() * (s_x * s_w) + bias
+                return y.to(torch.bfloat16).reshape(b, h, w, o)
+            try:
+                lib_out = library()
+            except RuntimeError as e:       # _int_mm's shape rules
+                row["library_refused"] = str(e).splitlines()[0][:120]
+            else:
+                out = Q.qconv_cuda(x, wq, s_w, bias, s_x, k, s, pads,
+                                   torch.bfloat16)
+                torch.cuda.synchronize()
+                if not torch.equal(lib_out, out):
+                    fail(f"qconv {key}: the library route (_int_mm) != the "
+                         "kernel")
+                row["library_ms"] = cuda_ms(torch, library, P24_REPS)
+        row["bound_ms"], row["bound_by"] = p24_bound(key, 2)
+        row["share"] = row["bound_ms"] / row["kernel_ms"]
+        rows.append(row)
+        lib = (f"{row['library_ms']:.4f}" if row["library_ms"] is not None
+               else row.get("library_refused", "n/a"))
+        print(f"  qconv {b}x{h}x{w}x{cin} -> {o} k{k} s{s} pads {pads} "
+              f"{per}: kernel {row['kernel_ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f}, bf16 route {row['bf16_ms']:.4f}, "
+              f"library (_int_mm) {lib}, bound {row['bound_ms']:.4f} "
+              f"({row['bound_by']}, share {row['share']:.3f}); bit for bit "
+              f"in bf16 and fp32, modes 1 and 2 [{card}]")
+    return rows, worst
+
+
+def p24_gop(torch, model, frames, masks, dpb, counters=None):
+    """The packed-io GOP as phase 5 runs it; returns (frames, bpps,
+    per-frame launch counts of ``counters`` (module, attribute) pairs)."""
+    outs, bpps, counts = [], [], []
+    for i in range(frames.shape[0]):
+        before = [getattr(m, a) for m, a in counters or ()]
+        out = model(frames[i:i + 1], QP, dpb, after_i=(i == 0),
+                    mask=masks[i:i + 1])
+        dpb = out["dpb"]
+        outs.append(dpb["frame"])
+        bpps.append(out["bpp"].float())
+        counts.append(tuple(getattr(m, a) - n
+                            for (m, a), n in zip(counters or (), before)))
+    return outs, torch.cat(bpps), counts
+
+
+def p24_timed(torch, fn, runs=P24_RUNS):
+    """(median ms of fn over ``runs`` calls after one warm-up, last
+    result)."""
+    fn()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times)), res
+
+
+def p24_pframe(torch, card, main, tmp: Path):
+    """(b) the full-width performance P-frame GOP under int8: mode 2 with
+    scales calibrated on the GOP's first two frames, saved and loaded into
+    a fresh model (bit for bit); mode 1; mode 2 at scope 3x3 (the fused
+    kernels' launches); each beside the bf16 GOP. Returns the numbers and
+    mode 2's scales."""
+    from ssgvc_tpu_torch.config import DMCConfig
+    from ssgvc_tpu_torch.layers import blocks
+    from ssgvc_tpu_torch.models.dmc import DMC
+    from ssgvc_tpu_torch.ops import dcb as dcb_ops
+    from ssgvc_tpu_torch.ops import dcb_chain as chain_ops
+    from ssgvc_tpu_torch.ops import qconv as Q
+    from ssgvc_tpu_torch.ops.pixel import pixel_shuffle, pixel_unshuffle
+
+    bf16 = torch.bfloat16
+    cfg = DMCConfig.variant("performance", dtype="bfloat16", packed_io=True)
+
+    def fresh():
+        m = DMC(cfg, device=DEVICE)
+        m.load_state_dict(main["state"], strict=True)
+        return m.eval()
+
+    n = P24_FRAMES
+    frames = pixel_unshuffle(main["frames"][:n].reshape(n, H, W, 3), 8)
+    masks = pixel_unshuffle(main["masks"][:n].reshape(n, H, W, 1), 8)
+    dpb = {"frame": pixel_unshuffle(main["dpb_frame"].to(bf16), 8),
+           "feature": torch.zeros((1, H // 8, W // 8, cfg.ch_d), dtype=bf16,
+                                  device=DEVICE)}
+    counters = ((Q, "launches"), (dcb_ops, "launches"),
+                (chain_ops, "launches"))
+    model = fresh()
+    raw = lambda f: pixel_shuffle(f, 8)
+    out = {}
+    with torch.no_grad():
+        with p24_env(SSGVC_INT8="0", SSGVC_INT8_SCOPE=None, SSGVC_DW=None):
+            ms, (ref, ref_bpp, _) = p24_timed(
+                torch, lambda: p24_gop(torch, model, frames, masks, dpb))
+        out["bf16"] = dict(ms_per_frame=ms / n, bpp=ref_bpp.tolist())
+        with p24_env(SSGVC_INT8="2", SSGVC_INT8_SCOPE=None, SSGVC_DW=None):
+            blocks.set_int8_scales({})
+            with warnings.catch_warnings(), \
+                    blocks.int8_calibration() as calib:
+                warnings.simplefilter("ignore")   # every site is missing
+                p24_gop(torch, model, frames[:2], masks[:2], dpb)
+            scales = blocks.collect_int8_scales(calib)
+            blocks.set_int8_scales(scales)
+            blocks.save_int8_scales(str(tmp / "scales.json"))
+            with warnings.catch_warnings():
+                warnings.simplefilter("error")    # no site without a scale
+                ms2, res2 = p24_timed(torch, lambda: p24_gop(
+                    torch, model, frames, masks, dpb, counters))
+                other = fresh()
+                blocks.set_int8_scales({})
+                loaded = blocks.load_int8_scales(str(tmp / "scales.json"))
+                res_b = p24_gop(torch, other, frames, masks, dpb)
+                del other
+            if loaded != scales or not all(
+                    torch.equal(a, b) for a, b in zip(res2[0], res_b[0])) \
+                    or not torch.equal(res2[1], res_b[1]):
+                fail("(b) mode 2: the fresh model with the reloaded scales "
+                     "differs from the calibrated one")
+        runs = {"mode2": (ms2, res2)}
+        for name, env in (("mode1", dict(SSGVC_INT8="1",
+                                         SSGVC_INT8_SCOPE=None)),
+                          ("mode2_3x3", dict(SSGVC_INT8="2",
+                                             SSGVC_INT8_SCOPE="3x3"))):
+            with p24_env(SSGVC_DW=None, **env):
+                for m, a in counters:
+                    setattr(m, a, 0)
+                runs[name] = p24_timed(torch, lambda: p24_gop(
+                    torch, model, frames, masks, dpb, counters))
+    for name, (ms, (recons, bpps, counts)) in runs.items():
+        for f in recons:
+            if not torch.isfinite(f.float()).all():
+                fail(f"(b) {name}: a frame is not finite")
+        b = bpps.cpu().numpy()
+        if not (np.isfinite(b).all() and (b > P24_BPP[0]).all()
+                and (b < P24_BPP[1]).all()):
+            fail(f"(b) {name}: bpp {b} outside {P24_BPP}")
+        psnr = [p24_psnr(torch, raw(a), raw(r)) for a, r in zip(recons, ref)]
+        qc = [c[0] for c in counts]
+        fused = [c[1:] for c in counts]
+        if not all(qc):
+            fail(f"(b) {name}: a frame launched no qconv: {qc}")
+        if name == "mode2_3x3":
+            want = [P24_WANT_3X3[0]] + [P24_WANT_3X3[1]] * (n - 1)
+            if fused != want:
+                fail(f"(b) scope 3x3: dcb / dcb_chain launches {fused}, "
+                     f"expected {want}")
+        elif any(f != (0, 0) for f in fused):
+            fail(f"(b) {name}: the fused kernels ran under scope all: "
+                 f"{fused}")
+        out[name] = dict(ms_per_frame=ms / n, qconv_per_frame=qc,
+                         fused_per_frame=fused, psnr_vs_bf16=psnr,
+                         bpp=b.tolist(),
+                         bpp_rel_vs_bf16=(b / ref_bpp.cpu().numpy()
+                                          - 1).tolist())
+        print(f"  (b) {name}: {n} P-frames {H}x{W} packed io bf16, "
+              f"{ms / n:.2f} ms/frame (bf16 default "
+              f"{out['bf16']['ms_per_frame']:.2f}; median of {P24_RUNS}), "
+              f"qconv launches per frame {qc}, dcb/dcb_chain {fused}, PSNR "
+              f"of the recon vs bf16's {[round(p, 2) for p in psnr]} dB, "
+              f"bpp {np.round(b, 4).tolist()} (rel vs bf16 "
+              f"{np.round(out[name]['bpp_rel_vs_bf16'], 4).tolist()}) "
+              f"[{card}]")
+    out["mode2"]["reloaded_equal"] = True
+    out["sites_calibrated"] = len(scales)
+    print(f"  (b) mode 2: {len(scales)} sites calibrated on 2 frames, "
+          f"saved, loaded into a fresh model: its GOP equal bit for bit")
+    out["qconv_launches"] = runs["mode1"][1][2]
+    return out, scales
+
+
+def p24_coded(torch, card, iframe, main):
+    """(c) phase 10's codec (full width, packed P-frames) on I + 2 P under
+    mode 2: scales calibrated through the encoder, saved, loaded before
+    encoding and again before decoding; the decoder's frames equal the
+    encoder's bit for bit."""
+    from ssgvc_tpu_torch.coding.codec import VideoCodec
+    from ssgvc_tpu_torch.config import DMCConfig, DMCIConfig
+    from ssgvc_tpu_torch.layers import blocks
+    from ssgvc_tpu_torch.models.dmc import DMC
+    from ssgvc_tpu_torch.models.dmci import DMCI
+    from ssgvc_tpu_torch.ops import qconv as Q
+
+    dmci = DMCI(DMCIConfig(dtype="bfloat16"), device=DEVICE)
+    dmci.load_state_dict(iframe["state"], strict=True)
+    cfg = DMCConfig.variant("performance", dtype="bfloat16")
+    dmc = DMC(cfg, device=DEVICE)
+    dmc.load_state_dict(main["state"], strict=True)
+    codec = VideoCodec(dmci.eval(), dmc.eval(), packed_dmc=True)
+    frames = [main["frames"][i].float() for i in range(3)]
+    mask = main["masks"][0].float()
+    feat0 = torch.zeros((1, H // 8, W // 8, cfg.ch_d), dtype=torch.bfloat16,
+                        device=DEVICE)
+
+    def encode():
+        enc = codec.dmci_compress(frames[0], QP)
+        dpb = {"frame": enc["x_hat"], "feature": feat0}
+        streams, recons = [enc["bit_stream"]], [enc["x_hat"]]
+        for t in (1, 2):
+            o = codec.dmc_compress(frames[t], QP, dpb, after_i=(t == 1),
+                                   mask=mask)
+            streams.append(o["bit_stream"])
+            recons.append(o["x_hat"])
+            dpb = o["dpb"]
+        return streams, recons
+
+    with tempfile.TemporaryDirectory() as tmp, \
+            p24_env(SSGVC_INT8="2", SSGVC_INT8_SCOPE=None, SSGVC_DW=None):
+        path = str(Path(tmp) / "scales.json")
+        blocks.set_int8_scales({})
+        with warnings.catch_warnings(), blocks.int8_calibration() as calib:
+            warnings.simplefilter("ignore")
+            encode()
+        blocks.set_int8_scales(blocks.collect_int8_scales(calib))
+        blocks.save_int8_scales(path)
+        blocks.set_int8_scales({})
+        blocks.load_int8_scales(path)
+        Q.launches = 0
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            streams, recons = encode()
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+        enc_launches = Q.launches
+        blocks.set_int8_scales({})
+        blocks.load_int8_scales(path)
+        Q.launches = 0
+        t0 = time.perf_counter()
+        dec = codec.dmci_decompress(streams[0], H, W, QP)
+        same = [torch.equal(dec["x_hat"], recons[0])]
+        dpb = {"frame": dec["x_hat"], "feature": feat0}
+        for t in (1, 2):
+            d = codec.dmc_decompress(streams[t], H, W, QP, dpb,
+                                     after_i=(t == 1))
+            same.append(torch.equal(d["x_hat"], recons[t])
+                        and bool(torch.isfinite(d["x_hat"].float()).all()))
+            dpb = d["dpb"]
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+        dec_launches = Q.launches
+        n_scales = len(blocks._INT8_SCALES)
+        blocks.set_int8_scales({})
+    nbytes = [len(s) for s in streams]
+    print(f"  (c) coded I + 2 P {H}x{W} under mode 2 ({n_scales} calibrated "
+          f"sites loaded on both sides): decoded frames equal the "
+          f"encoder's {same}; bytes {nbytes}; qconv launches encoder "
+          f"{enc_launches}, decoder {dec_launches}; encode {enc_s:.2f} s, "
+          f"decode {dec_s:.2f} s [{card}]")
+    if not all(same) or not enc_launches or not dec_launches:
+        fail(f"(c) int8 coded GOP: decoder equal {same}, qconv launches "
+             f"{enc_launches} / {dec_launches}")
+    return dict(equal=same, bytes=nbytes, sites=n_scales,
+                qconv_launches=[enc_launches, dec_launches],
+                encode_s=enc_s, decode_s=dec_s)
+
+
+def p24_shiftadd(torch, card, main, scales):
+    """(d) the scope-all mode-2 P-frame with SSGVC_DW=shiftadd against the
+    grouped conv (cuDNN's depthwise): every block's dw op on the frame's
+    own inputs (recorded from the conv run) within the kernels' bf16 gate;
+    the two frames timed; the whole frame's difference printed (a bf16
+    rounding anywhere flips latent roundings: experiments/
+    p24_cpu_rehearsal.py moves the frame 7.7% in relative Frobenius, PSNR
+    32.9 dB)."""
+    from ssgvc_tpu_torch.config import DMCConfig
+    from ssgvc_tpu_torch.layers import blocks
+    from ssgvc_tpu_torch.models.dmc import DMC
+    from ssgvc_tpu_torch.ops.pixel import pixel_shuffle, pixel_unshuffle
+
+    bf16 = torch.bfloat16
+    model = DMC(DMCConfig.variant("performance", dtype="bfloat16",
+                                  packed_io=True), device=DEVICE)
+    model.load_state_dict(main["state"], strict=True)
+    model.eval()
+    x = pixel_unshuffle(main["frames"][1].to(bf16), 8)
+    m = pixel_unshuffle(main["masks"][1].to(bf16), 8)
+    dpb = {"frame": pixel_unshuffle(main["dpb_frame"].to(bf16), 8),
+           "feature": torch.zeros((1, H // 8, W // 8, model.cfg.ch_d),
+                                  dtype=bf16, device=DEVICE)}
+    seen = []
+    hooks = [mod.register_forward_pre_hook(
+        lambda mod, args: seen.append((mod, args[0])))
+        for name, mod in model.named_modules() if name.endswith(".dc_2")]
+    blocks.set_int8_scales(scales)
+    res = {}
+    with torch.no_grad():
+        for dw in ("conv", "shiftadd"):
+            with p24_env(SSGVC_INT8="2", SSGVC_INT8_SCOPE=None, SSGVC_DW=dw):
+                res[dw] = p24_timed(torch, lambda: model(
+                    x, QP, dpb, after_i=False, mask=m), 3)
+            for h in hooks:
+                h.remove()
+            hooks = []
+        sites = seen[:len(seen) // 4]        # one forward's (4 ran)
+        worst, conv_ms, shift_ms = 0.0, 0.0, 0.0
+        for mod, h in sites:
+            w, b = mod.weight.to(bf16), mod.bias.to(bf16)
+            ref = mod(h)
+            out = blocks.dw3x3_shiftadd(h, w, b)
+            rel, _ = check_close(torch, "(d) dw3x3_shiftadd", out, ref)
+            worst = max(worst, rel)
+            conv_ms += cuda_ms(torch, lambda: mod(h), P24_REPS)
+            shift_ms += cuda_ms(torch, lambda: blocks.dw3x3_shiftadd(
+                h, w, b), P24_REPS)
+    blocks.set_int8_scales({})
+    a, c = res["shiftadd"][1], res["conv"][1]
+    for o in (a, c):
+        check_frame(torch, "(d) int8 P-frame", o["bpp"],
+                    pixel_shuffle(o["dpb"]["frame"], 8))
+    fa, fc = pixel_shuffle(a["dpb"]["frame"], 8), pixel_shuffle(
+        c["dpb"]["frame"], 8)
+    out = dict(ms_per_frame={"conv": res["conv"][0],
+                             "shiftadd": res["shiftadd"][0]},
+               dw_sites=len(sites), dw_rel_worst=worst,
+               dw_ms={"conv": conv_ms, "shiftadd": shift_ms},
+               frame_rel=p24_rel(torch, fa, fc),
+               frame_psnr=p24_psnr(torch, fa, fc),
+               bpp_rel=float(a["bpp"].float() / c["bpp"].float() - 1))
+    print(f"  (d) SSGVC_DW=shiftadd, int8 mode 2 P-frame {H}x{W}: "
+          f"{out['ms_per_frame']['shiftadd']:.2f} ms vs grouped conv "
+          f"{out['ms_per_frame']['conv']:.2f} ms; the {len(sites)} dw ops on "
+          f"the frame's own inputs: worst rel {worst:.3g} (tol {REL_TOL}), "
+          f"summed {shift_ms:.4f} ms vs cuDNN {conv_ms:.4f} ms; whole frame "
+          f"rel {out['frame_rel']:.3g}, PSNR {out['frame_psnr']:.2f} dB, bpp "
+          f"rel {out['bpp_rel']:.3g} (not gated) [{card}]")
+    return out
+
+
+def p24_fused(torch, card, main):
+    """(e) phase 6's raw-io P-frame with FUSE_DOWN and FUSE_UP on against
+    off, in bf16 and in fp32 (the 3xTF32 kernels): each patch conv on the
+    frame's own inputs (recorded from the unfused run) within the kernels'
+    gates (bf16 relative Frobenius REL_TOL, fp32 max relative
+    P24_F32_TOL); the frames timed; the whole frame's difference printed
+    (latent roundings flip: experiments/p24_cpu_rehearsal.py moves the
+    bf16 frame 5.1% in relative Frobenius)."""
+    from ssgvc_tpu_torch.config import DMCConfig
+    from ssgvc_tpu_torch.layers import blocks
+    from ssgvc_tpu_torch.models.dmc import DMC
+    from ssgvc_tpu_torch.ops import pixel
+
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        model = DMC(DMCConfig.variant("performance", dtype=dtype,
+                                      packed_io=False), device=DEVICE)
+        model.load_state_dict(main["state"], strict=True)
+        model.eval()
+        x, m = main["frames"][1].to(dt), main["masks"][1].to(dt)
+        dpb = {"frame": main["dpb_frame"].to(dt),
+               "feature": torch.zeros((1, H // 8, W // 8, model.cfg.ch_d),
+                                      dtype=dt, device=DEVICE)}
+        seen = []
+        hooks = [mod.register_forward_pre_hook(
+            lambda mod, args: seen.append((mod, args[0])))
+            for mod in model.modules()
+            if isinstance(mod, (blocks.PatchDownConv, blocks.PatchUpConv))]
+        res = {}
+        with torch.no_grad():
+            for fused in (False, True):
+                pixel.FUSE_DOWN = pixel.FUSE_UP = fused
+                try:
+                    res[fused] = p24_timed(torch, lambda: model(
+                        x, QP, dpb, after_i=False, mask=m), 3)
+                finally:
+                    pixel.FUSE_DOWN = pixel.FUSE_UP = False
+                for h in hooks:
+                    h.remove()
+                hooks = []
+            sites = seen[:len(seen) // 4]
+            worst, ms = 0.0, {False: 0.0, True: 0.0}
+            for mod, t in sites:
+                ref = mod(t)
+                pixel.FUSE_DOWN = pixel.FUSE_UP = True
+                try:
+                    got = mod(t)
+                    ms[True] += cuda_ms(torch, lambda: mod(t), P24_REPS)
+                finally:
+                    pixel.FUSE_DOWN = pixel.FUSE_UP = False
+                ms[False] += cuda_ms(torch, lambda: mod(t), P24_REPS)
+                rel = (check_f32(torch, "(e) fused patch conv", got, ref,
+                                 P24_F32_TOL)[0] if dt == torch.float32
+                       else check_close(torch, "(e) fused patch conv", got,
+                                        ref)[0])
+                worst = max(worst, rel)
+        fu, un = res[True][1], res[False][1]
+        for o in (fu, un):
+            check_frame(torch, f"(e) {dtype} raw-io P-frame", o["bpp"],
+                        o["dpb"]["frame"])
+        r = dict(ms_per_frame={"unfused": res[False][0],
+                               "fused": res[True][0]},
+                 sites=[type(mod).__name__ for mod, _ in sites],
+                 site_worst=worst, site_ms={"unfused": ms[False],
+                                            "fused": ms[True]},
+                 frame_rel=p24_rel(torch, fu["dpb"]["frame"],
+                                   un["dpb"]["frame"]),
+                 frame_psnr=p24_psnr(torch, fu["dpb"]["frame"],
+                                     un["dpb"]["frame"]),
+                 bpp_rel=float(fu["bpp"].float() / un["bpp"].float() - 1))
+        out[dtype] = r
+        tol = P24_F32_TOL if dt == torch.float32 else REL_TOL
+        print(f"  (e) FUSE_DOWN + FUSE_UP, raw-io P-frame {H}x{W} {dtype}: "
+              f"{r['ms_per_frame']['fused']:.2f} ms vs unfused "
+              f"{r['ms_per_frame']['unfused']:.2f} ms; the patch convs "
+              f"{r['sites']} on the frame's own inputs: worst "
+              f"{'max rel' if dt == torch.float32 else 'rel'} {worst:.3g} "
+              f"(tol {tol}), summed {ms[True]:.4f} ms fused vs "
+              f"{ms[False]:.4f} unfused; whole frame rel "
+              f"{r['frame_rel']:.3g}, PSNR {r['frame_psnr']:.2f} dB, bpp rel "
+              f"{r['bpp_rel']:.3g} (not gated) [{card}]")
+        del model, res, seen, sites
+    return out
+
+
+def phase_experiments(torch, seed, card, iframe, main, variant_states):
+    """The opt-in experiments on the card (module docstring, phase 24)."""
+    from ssgvc_tpu_torch.layers import blocks
+
+    t0 = time.perf_counter()
+    saved = dict(blocks._INT8_SCALES)
+    with tempfile.TemporaryDirectory() as tmp:
+        sites = p24_sites(torch, iframe, main, variant_states)
+        with torch.no_grad():
+            rows, worst = p24_kernel_rows(torch, seed, card, sites)
+        pframe, scales = p24_pframe(torch, card, main, Path(tmp))
+        coded = p24_coded(torch, card, iframe, main)
+        shiftadd = p24_shiftadd(torch, card, main, scales)
+        fused = p24_fused(torch, card, main)
+    blocks.set_int8_scales(saved)
+    # the kernels-line entry: per mode-1 P-frame (after the first) and per
+    # I-frame, each shape's time x its launches there, summed
+    p_rows = [r for r in rows if "P" in r["per_frame"]]
+    i_rows = [r for r in rows if "I" in r["per_frame"]]
+
+    def total(rs, key, frame):
+        return sum(r[key] * r["per_frame"][frame] for r in rs)
+
+    launches = [c[0] for c in pframe.pop("qconv_launches")]
+    if sum(r["per_frame"]["P"] for r in p_rows) != launches[-1]:
+        fail(f"qconv: the site list's launches per P-frame "
+             f"{sum(r['per_frame']['P'] for r in p_rows)} != (b)'s "
+             f"{launches[-1]}")
+    ops_ms = sum(p24_bound(tuple(r["shape"]) + (r["out_ch"], r["kernel"],
+                                                r["stride"],
+                                                tuple(r["pads"])), 2)[0]
+                 * r["per_frame"]["P"] for r in p_rows
+                 if r["bound_by"] == "operations")
+    bound = total(p_rows, "bound_ms", "P")
+    lib_rows = [r for r in p_rows if r["library_ms"] is not None]
+    entry = dict(
+        name="qconv", route="cuda", source="ssgvc_tpu_torch/csrc/qconv.cu",
+        replaces="ssgvc_tpu/layers/blocks.py:234",
+        replaces_what="QuantConv's XLA int8 conv (lax.conv_general_dilated "
+                      "on int8, :234-238); not a Pallas kernel",
+        launches=sum(launches), max_abs_err=worst,
+        ms=total(p_rows, "kernel_ms", "P"),
+        plain_ms=total(p_rows, "plain_ms", "P"),
+        bound_ms=bound,
+        bound_by="operations" if ops_ms >= bound / 2 else "bytes",
+        library_ms=(total(lib_rows, "library_ms", "P")
+                    if len(lib_rows) == len([r for r in p_rows
+                                             if r["kernel"] == 1
+                                             and r["stride"] == 1])
+                    else None),
+        library_sites="the 1x1 sites (torch._int_mm); the other sites have "
+                      "no PyTorch int8 conv",
+        library_1x1_kernel_ms=total(lib_rows, "kernel_ms", "P"),
+        bf16_route_ms=total(p_rows, "bf16_ms", "P"),
+        per="int8 mode-1 P-frame after the first (phase 24 (b)): per-shape "
+            "time x launches per frame, summed; 'launches' the mode-1 GOP's "
+            "total (per frame: launches_per_frame); 'iframe' the same per "
+            "DMCI I-frame",
+        launches_per_frame=launches,
+        iframe=dict(launches=sum(r["per_frame"]["I"] for r in i_rows),
+                    ms=total(i_rows, "kernel_ms", "I"),
+                    plain_ms=total(i_rows, "plain_ms", "I"),
+                    bound_ms=total(i_rows, "bound_ms", "I"),
+                    bf16_route_ms=total(i_rows, "bf16_ms", "I")),
+        shapes=rows)
+    seconds = time.perf_counter() - t0
+    print(f"experiments: phase 24 in {seconds:.1f} s; qconv per int8 "
+          f"P-frame {entry['ms']:.3f} ms (bound {entry['bound_ms']:.3f}, "
+          f"plain {entry['plain_ms']:.3f}, bf16 route "
+          f"{entry['bf16_route_ms']:.3f}, _int_mm at the 1x1 sites "
+          f"{entry['library_ms']}) [{card}]")
+    return dict(pframe=pframe, coded=coded, shiftadd=shiftadd, fused=fused,
+                sites=len(rows), seconds=seconds), entry
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4620,6 +5319,8 @@ def main() -> int:
                                 train_cli.pop("last"))
         tools = phase_tools(torch, args.seed, card, main_path, root)
     parallel = phase_parallel(torch, args.seed, card)
+    experiments, qconv_entry = phase_experiments(
+        torch, args.seed, card, iframe, main_path, variant_states)
     next(e for e in kernels if e["name"] == "dcb")["image_step"] = \
         image_cli.pop("dcb")
     for entry in backward:
@@ -4649,7 +5350,7 @@ def main() -> int:
             fail(f"{entry['name']}: RD launches by shape {r['launches']} != "
                  f"the micro-step's {entry['rd_recipe_launches']}")
         entry["rd_recipe"] = r
-    kernels += kernels_f32 + backward
+    kernels += kernels_f32 + backward + [qconv_entry]
     # the row-sharded frames' launches, per run, rank and frame (phase 23
     # (c)), on the entries of the kernels each run's counters count
     for entry in kernels:
@@ -4695,6 +5396,7 @@ def main() -> int:
     print(json.dumps({"scripts": {**scripts, "card": card}}))
     print(json.dumps({"tools": {**tools, "card": card}}))
     print(json.dumps({"parallel": {**parallel, "card": card}}))
+    print(json.dumps({"experiments": {**experiments, "card": card}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

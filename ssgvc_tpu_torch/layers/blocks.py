@@ -11,12 +11,32 @@ backward, their plain versions for a CPU tensor.
 
 :func:`init_` draws fresh weights as the JAX package's flax modules do
 (lecun-normal kernels, zero biases, zero residual tails).
+
+The JAX package's opt-in experiments, read from the environment at each
+forward (the eager forward is the port's trace, so a changed variable takes
+effect without rebuilding a model), all off by default:
+
+  * ``SSGVC_INT8`` = "1" (dynamic per-tensor activation scale) or "2"
+    (static calibrated scales, :func:`set_int8_scales`): every ``groups ==
+    1`` :class:`Conv` runs the W8A8 int8 conv of ``ops/qconv.py``;
+    ``SSGVC_INT8_SCOPE=3x3`` limits that to the 3x3 sites. While the 1x1s
+    are quantized (scope "all") a DepthConvBlock and :func:`run_chain` run
+    the JAX package's composition of the block, its 1x1s through
+    :class:`Conv`, instead of the fused kernels. Inference only, and not
+    under a row shard: the int8 route raises there.
+  * ``SSGVC_DW=shiftadd``: that composition's depthwise 3x3 as nine
+    shifted multiply-adds (:func:`dw3x3_shiftadd`).
+  * ``SSGVC_FUSE_DOWN`` / ``SSGVC_FUSE_UP``: the patching convs as one
+    strided conv (``ops/pixel.py``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import math
+import os
+import warnings
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
@@ -27,12 +47,17 @@ from ..ops.dcb import pack_kernel, wsilu
 from ..ops.dcb_chain import pack_chain
 from ..ops.dcb_grad import dcb_chain_grad, dcb_grad
 from ..ops.pixel import patch_down_conv, patch_up_conv, pixel_shuffle
+from ..ops.qconv import (dynamic_scale, qconv, quantize_weight,
+                         static_scale)
 from ..parallel import spatial
 
 __all__ = ["wsilu", "wsilu_chunk_add", "Conv", "PatchDownConv",
            "PatchUpConv", "Concat1x1", "DepthConvBlock", "run_chain",
            "SubpelConv2x", "ResidualBlockWithStride2",
-           "ResidualBlockUpsample", "lecun_normal_", "init_"]
+           "ResidualBlockUpsample", "lecun_normal_", "init_",
+           "dw3x3_shiftadd", "set_int8_scales", "save_int8_scales",
+           "load_int8_scales", "collect_int8_scales", "int8_calibration",
+           "name_int8_sites"]
 
 
 def wsilu_chunk_add(x: torch.Tensor) -> torch.Tensor:
@@ -40,6 +65,128 @@ def wsilu_chunk_add(x: torch.Tensor) -> torch.Tensor:
     x = wsilu(x)
     x1, x2 = x.chunk(2, dim=-1)
     return x1 + x2
+
+
+def dw3x3_shiftadd(h: torch.Tensor, weight: torch.Tensor,
+                   bias: torch.Tensor) -> torch.Tensor:
+    """Depthwise 3x3 conv (padding 1) on NHWC ``h`` as 9 shifted
+    multiply-adds, in the JAX package's order (``dy``, then ``dx``, then
+    the bias): the same function as ``Conv(C, C, 3, padding=1, groups=C)``
+    on the same weight (C, 1, 3, 3) and bias (C,), in ``h``'s dtype.
+
+    ``SSGVC_DW=shiftadd`` selects it wherever the port computes the dw3x3
+    as an op of its own: the int8 composition of :class:`DepthConvBlock`.
+    The fused ``dcb`` kernels have no separate dw op to switch: they sum
+    the nine taps inside the tile routine (``csrc/dcb_tile.cuh:344``, the
+    "depthwise 3x3 + b2" loop), as the JAX package's Pallas kernels do."""
+    hp = F.pad(h, (0, 0, 1, 1, 1, 1))
+    hh, ww = h.shape[1], h.shape[2]
+    acc = None
+    for dy in range(3):
+        for dx in range(3):
+            t = hp[:, dy:dy + hh, dx:dx + ww, :] * weight[:, 0, dy, dx]
+            acc = t if acc is None else acc + t
+    return acc + bias
+
+
+def _dw_shiftadd() -> bool:
+    """``SSGVC_DW``: "shiftadd" (:func:`dw3x3_shiftadd`) or "conv" (the
+    grouped conv) for the composition's depthwise 3x3."""
+    return os.environ.get("SSGVC_DW", "conv") == "shiftadd"
+
+
+def _int8_mode() -> str:
+    """``SSGVC_INT8``: "0" off, "1" dynamic per-tensor activation scale,
+    "2" static per-site scales (:func:`set_int8_scales`). Read at each
+    forward."""
+    return os.environ.get("SSGVC_INT8", "0")
+
+
+def int8_site(kernel_size: int, groups: int) -> bool:
+    """Whether a conv runs the int8 route now: ``groups == 1``, the mode on,
+    and ``SSGVC_INT8_SCOPE=3x3`` (if set) admitting ``kernel_size``."""
+    scope_ok = (os.environ.get("SSGVC_INT8_SCOPE", "all") != "3x3"
+                or kernel_size == 3)
+    return groups == 1 and _int8_mode() != "0" and scope_ok
+
+
+def _int8_blocks() -> bool:
+    """Whether the DepthConvBlocks' 1x1s are int8 sites now, so the blocks
+    run the JAX package's composition instead of the fused kernels."""
+    return int8_site(1, 1)
+
+
+# site ("/".join of the flax module path) -> calibrated activation abs-max;
+# consulted under SSGVC_INT8=2
+_INT8_SCALES: dict = {}
+# sites already warned about a missing mode-2 scale (once per site)
+_INT8_WARNED: set = set()
+# the calibration in progress (int8_calibration), or None
+_CALIB: Optional[dict] = None
+
+
+def set_int8_scales(scales: dict) -> None:
+    """Install the static activation abs-max of each int8 site (mode 2),
+    keyed as :func:`collect_int8_scales` keys them.
+
+    The JAX package refuses new scales once a jit trace has baked the old
+    ones in (its ``_INT8_BAKED`` guard). The port needs no such guard: its
+    eager forward reads this table at every call, so a forward after this
+    call uses these scales and nothing can hold stale ones."""
+    _INT8_SCALES.clear()
+    _INT8_SCALES.update(scales)
+
+
+def save_int8_scales(path: str) -> None:
+    """Write the installed scales as JSON next to a checkpoint, in the JAX
+    package's format (either package loads the other's file). An encoder
+    and a decoder that hold the same scales produce the same bits."""
+    with open(path, "w") as f:
+        json.dump(_INT8_SCALES, f, indent=0, sort_keys=True)
+
+
+def load_int8_scales(path: str) -> dict:
+    """Load scales saved by :func:`save_int8_scales` and install them."""
+    with open(path) as f:
+        scales = {k: float(v) for k, v in json.load(f).items()}
+    set_int8_scales(scales)
+    return scales
+
+
+@contextlib.contextmanager
+def int8_calibration():
+    """``with int8_calibration() as calib: model(...)``: every int8 site
+    the forwards reach records the running abs-max of its fp32 input under
+    its site key (the JAX package's ``mutable=["int8_calib"]`` apply, whose
+    sow reduces a site applied more than once by max). The forwards
+    compute as they would outside the context. ``calib`` then goes to
+    :func:`collect_int8_scales`."""
+    global _CALIB
+    if _CALIB is not None:
+        raise RuntimeError("int8_calibration contexts do not nest")
+    _CALIB = {}
+    try:
+        yield _CALIB
+    finally:
+        _CALIB = None
+
+
+def collect_int8_scales(calib: dict, margin: float = 1.25) -> dict:
+    """The site -> abs-max dict :func:`set_int8_scales` takes, from a
+    calibration: each recorded fp32 abs-max times ``margin``, in Python
+    floats as the JAX package multiplies."""
+    return {k: float(v) * margin for k, v in calib.items()}
+
+
+def name_int8_sites(root: nn.Module) -> None:
+    """Give every :class:`Conv` under ``root`` its int8 site key: its
+    parameters' flax path (``utils/weights.py`` maps ``a.b.weight`` to
+    ``("a", "b", "kernel")``) without ``kernel``, joined by "/", as the
+    JAX package keys ``"/".join(self.scope.path)``. The codecs name their
+    own sites when built."""
+    for name, m in root.named_modules():
+        if isinstance(m, Conv):
+            m.site = "/".join(name.split("."))
 
 
 def _param(shape, device) -> nn.Parameter:
@@ -121,8 +268,80 @@ class Conv(nn.Module):
         self.bias = _param((out_ch,), device)
         self.stride, self.padding, self.groups = stride, padding, groups
         self.dtype, self.zero_init = dtype, zero_init
+        self.site = None          # the int8 site key (name_int8_sites)
+        self._wq = self._wq_key = None
+        self._sx = None           # (abs-max, its s_x tensor) of mode 2
+
+    def int8_weight(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(wq, s_w) of ``ops.qconv.quantize_weight`` from the fp32
+        weight, rebuilt only when it changed (in place or by a move)."""
+        key = _pack_key(self.weight, (self.weight,))
+        if key != self._wq_key:
+            self._wq = quantize_weight(self.weight)
+            self._wq_key = key
+        return self._wq
+
+    def _act_scale(self, x: torch.Tensor) -> torch.Tensor:
+        if _int8_mode() == "2":
+            absmax = _INT8_SCALES.get(self._site_key())
+            if absmax is not None:
+                if self._sx is None or self._sx[0] != absmax \
+                        or self._sx[1].device != x.device:
+                    self._sx = (absmax, torch.tensor(
+                        static_scale(absmax), dtype=torch.float32,
+                        device=x.device))
+                return self._sx[1]
+            if self.site not in _INT8_WARNED:
+                _INT8_WARNED.add(self.site)
+                warnings.warn(
+                    f"SSGVC_INT8=2 but no calibrated scale for site "
+                    f"'{self.site}': falling back to the dynamic per-tensor "
+                    f"scale. Calibrate (int8_calibration) and "
+                    f"set_int8_scales() first.", stacklevel=3)
+        return dynamic_scale(x)
+
+    def _site_key(self) -> str:
+        if self.site is None:
+            raise ValueError("an int8 site without a key: name_int8_sites("
+                             "root) names a model's convs (the codecs do so "
+                             "when built)")
+        return self.site
+
+    def int8_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The JAX package's QuantConv on this conv's parameters: ``x``
+        quantized as given, the output in the module's dtype. Inference
+        only: the JAX package's int8 casts carry no gradient (``jax.grad``
+        flows only through its scales and the bias), which is left to
+        port, so this raises with grad enabled while ``x`` or a parameter
+        requires grad. It raises under a row shard too: mode 1's abs-max
+        would have to be the whole frame's."""
+        if spatial.current() is not None:
+            raise ValueError("SSGVC_INT8 under a row shard is not ported: "
+                             "mode 1's abs-max would have to be the whole "
+                             "frame's")
+        if torch.is_grad_enabled() and (x.requires_grad
+                                        or self.weight.requires_grad
+                                        or self.bias.requires_grad):
+            raise ValueError(
+                "SSGVC_INT8 is inference only in the port (run under "
+                "torch.no_grad()): the JAX package's int8 casts carry no "
+                "gradient, so jax.grad flows only through the scales and "
+                "the bias; that gradient is not ported")
+        if _CALIB is not None:
+            key = self._site_key()
+            absmax = x.detach().float().abs().amax()
+            prev = _CALIB.get(key)
+            _CALIB[key] = absmax if prev is None else torch.maximum(prev,
+                                                                    absmax)
+        wq, s_w = self.int8_weight()
+        p = self.padding
+        return qconv(x, wq, s_w, self.bias, self._act_scale(x),
+                     self.weight.shape[-1], self.stride, (p, p, p, p),
+                     self.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if int8_site(self.weight.shape[-1], self.groups):
+            return self.int8_forward(x)
         dt = self.dtype
         x = x.to(dt)
         w, b = self.weight.to(dt), self.bias.to(dt)
@@ -243,6 +462,7 @@ class DepthConvBlock(nn.Module):
         self._packed_key = None
         self._chain_packed = None     # set on the first block of a chain
         self._chain_key = None
+        name_int8_sites(self)         # a codec renames them from its root
 
     def core_params(self) -> Tuple[torch.Tensor, ...]:
         return (self.dc_0.weight, self.dc_0.bias, self.dc_2.weight,
@@ -269,8 +489,33 @@ class DepthConvBlock(nn.Module):
             x = torch.cat([p.to(self.dtype) for p in x], dim=-1)
         return x.to(self.dtype).contiguous()
 
+    def int8_forward(self, x, quant_step: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+        """The block as the JAX package composes it from convs
+        (``ssgvc_tpu/layers/blocks.py:483-513``), at its rounding points:
+        every conv's output in the compute dtype, the 1x1s (and a
+        :class:`Conv` adaptor) on the int8 route, the dw3x3 a grouped conv
+        or :func:`dw3x3_shiftadd`. Taken while the 1x1s are int8 sites."""
+        dt = self.dtype
+        x = self.adapt(x)
+        h = wsilu(self.dc_0(x))
+        if _dw_shiftadd():
+            h = dw3x3_shiftadd(h, self.dc_2.weight.to(dt),
+                               self.dc_2.bias.to(dt))
+        else:
+            h = self.dc_2(h)
+        out = self.dc_3(h) + x
+        out = self.ffn_2(wsilu_chunk_add(self.ffn_0(out))) + out
+        if self.shortcut:
+            out = out + x
+        if quant_step is not None:
+            out = out * quant_step.reshape(-1).to(dt)
+        return out
+
     def forward(self, x, quant_step: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
+        if _int8_blocks():
+            return self.int8_forward(x, quant_step)
         # under a row shard: the dw3x3's row of each neighbour slab
         x, up, down = spatial.halo(self.adapt(x), 1, 1)
         y = dcb_grad(x, self.core_params(), quant_step, self.shortcut,
@@ -288,6 +533,11 @@ def run_chain(x: torch.Tensor, blocks: Sequence[DepthConvBlock],
         if b.adaptor is not None or b.shortcut or b.tuple_input:
             raise ValueError("a chain takes adaptor-free, shortcut-free "
                              "blocks")
+    if _int8_blocks():
+        # the JAX package's int8 graph: block after block, q_last last
+        for i, b in enumerate(blocks):
+            x = b.int8_forward(x, q_last if i == len(blocks) - 1 else None)
+        return x
     x = x.to(blocks[0].dtype).contiguous()
     params = [b.core_params() for b in blocks]
     packed = None

@@ -38,7 +38,7 @@ from ..config import DMCConfig
 from ..layers.blocks import (Conv, DepthConvBlock, PatchDownConv,
                              PatchUpConv, ResidualBlockUpsample,
                              ResidualBlockWithStride2, SubpelConv2x, init_,
-                             run_chain, wsilu)
+                             name_int8_sites, run_chain, wsilu)
 from ..layers.quant import noise_quant, ste_round
 from ..ops.pixel import pixel_shuffle, pixel_unshuffle
 from ..parallel import spatial
@@ -344,6 +344,7 @@ class DMC(nn.Module):
         self.q_recon = table(c.ch_recon)
         self.z_gain = nn.Parameter(torch.ones(c.ch_z, device=device))
         self.bit_estimator_z = BitEstimator(qp_total, c.ch_z, device=device)
+        name_int8_sites(self)     # SSGVC_INT8 site keys, as flax paths
 
     def init_(self, generator: torch.Generator) -> "DMC":
         """Fresh weights as the flax module inits them, drawn on the CPU

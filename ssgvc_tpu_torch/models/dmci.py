@@ -24,7 +24,8 @@ import torch.nn as nn
 
 from ..config import DMCIConfig
 from ..layers.blocks import (Conv, DepthConvBlock, ResidualBlockUpsample,
-                             ResidualBlockWithStride2, init_)
+                             ResidualBlockWithStride2, init_,
+                             name_int8_sites)
 from ..layers.quant import noise_quant, ste_round
 from ..ops.pixel import pixel_shuffle
 from .common import (bpp_from_bits, compress_prior_4x,
@@ -119,6 +120,7 @@ class DMCI(nn.Module):
         self.q_scale_dec = table()
         self.z_gain = nn.Parameter(torch.ones(z, device=device))
         self.bit_estimator_z = BitEstimator(c.qp_num, z, device=device)
+        name_int8_sites(self)     # SSGVC_INT8 site keys, as flax paths
 
     def init_(self, generator: torch.Generator) -> "DMCI":
         """Fresh weights as the flax module inits them, drawn on the CPU

@@ -49,10 +49,13 @@ CLI_MODULES = ("trainer_image_model", "utils.video_io", "scripts.encode",
 TOOL_MODULES = ("utils.debug", "utils.profiling", "graft_entry")
 #: data-parallel training and the row-sharded P-frame
 PARALLEL_MODULES = ("parallel.mesh", "parallel.spatial")
+#: the opt-in experiments: the int8 conv, the patch convs, the blocks
+EXPERIMENT_MODULES = ("ops.qconv", "ops.pixel", "layers.blocks")
 
 
 @pytest.mark.parametrize("module", TRAINING_MODULES + DATA_MODULES
-                         + CLI_MODULES + TOOL_MODULES + PARALLEL_MODULES)
+                         + CLI_MODULES + TOOL_MODULES + PARALLEL_MODULES
+                         + EXPERIMENT_MODULES)
 def test_training_modules_import_without_jax(module):
     """Each module of the training path imports, in a fresh interpreter,
     with JAX, flax, optax and the JAX package made unimportable."""
@@ -196,3 +199,37 @@ def test_parallel_defaults_to_the_card_and_never_falls_back():
         shard_batch(make_mesh(), {"x": torch.zeros(2)})
     with pytest.raises(RuntimeError, match='device="cpu"'):
         dryrun_multichip(1)
+
+
+def test_int8_conv_defaults_to_the_card_and_never_falls_back(monkeypatch):
+    """Under SSGVC_INT8 a conv on the card launches ops/qconv.py's kernel
+    or raises: its wrapper takes no CPU tensor, and the routed op sends
+    every non-CPU tensor to the kernel (a half tensor is refused there,
+    not computed by the plain version)."""
+    from ssgvc_tpu_torch.layers import blocks
+    from ssgvc_tpu_torch.ops import qconv as Q
+
+    monkeypatch.setenv("SSGVC_INT8", "1")
+    if torch.cuda.is_available():
+        conv = blocks.Conv(8, 8, 3, padding=1)
+        assert conv.weight.device.type == "cuda"
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            blocks.Conv(8, 8, 3, padding=1)
+    wq, s_w = Q.quantize_weight(torch.ones((4, 2, 1, 1)))
+
+    class Half:                     # a CUDA half tensor, as the op sees it
+        device = torch.device("cuda")
+        dtype = torch.float16
+
+        def contiguous(self):
+            return self
+
+    with pytest.raises(TypeError):
+        Q.qconv(Half(), wq, s_w, torch.zeros(4), torch.ones(()), 1, 1,
+                (0, 0, 0, 0))
+    with pytest.raises(ValueError, match="CUDA"):
+        Q.qconv_cuda(torch.ones((1, 2, 2, 2)), wq, s_w, torch.zeros(4),
+                     torch.ones(()), 1, 1, (0, 0, 0, 0), torch.float32)
+    src = (ROOT / "ssgvc_tpu_torch" / "ops" / "qconv.py").read_text()
+    assert "except" not in src

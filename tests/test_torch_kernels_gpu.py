@@ -384,3 +384,68 @@ def test_simt_kernel_refuses_wider_blocks():
     before = dcb_ops.launches_tf32
     dcb_ops.dcb(x, p)
     assert dcb_ops.launches_tf32 == before + 1
+
+
+# ---- qconv: the W8A8 int8 conv (csrc/qconv.cu) ----
+# Its plain version sums the int8 products exactly and rounds the epilogue
+# as the kernel does, so the two agree bit for bit.
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("cin", [1, 40, 64])
+@pytest.mark.parametrize("site", [(1, 1, 0), (2, 2, 0), (3, 1, 1), (3, 2, 1)],
+                         ids=lambda s: "k%ds%dp%d" % s)
+def test_qconv_kernel_matches_plain_bit_for_bit(site, cin, dtype):
+    from ssgvc_tpu_torch.ops import qconv as Q
+
+    dev = _card()
+    k, s, p = site
+    rng = np.random.default_rng(cin * 10 + k)
+    x = torch.tensor(rng.standard_normal((2, 13, 21, cin)), dtype=dtype,
+                     device=dev)
+    w = torch.tensor(rng.standard_normal((72, cin, k, k)) * 0.2,
+                     dtype=torch.float32, device=dev)
+    b = torch.tensor(rng.standard_normal(72) * 0.1, dtype=torch.float32,
+                     device=dev)
+    wq, s_w = Q.quantize_weight(w)
+    for s_x in (Q.dynamic_scale(x),
+                torch.tensor(Q.static_scale(2.0), device=dev)):
+        for out_dtype in (dtype, torch.float32):
+            before = Q.launches
+            out = Q.qconv(x, wq, s_w, b, s_x, k, s, (p, p, p, p), out_dtype)
+            ref = Q.qconv_plain(x, wq, s_w, b, s_x, k, s, (p, p, p, p),
+                                out_dtype)
+            torch.cuda.synchronize()
+            assert Q.launches == before + 1
+            assert out.shape == ref.shape and out.dtype == out_dtype
+            assert torch.equal(out, ref)
+    # asymmetric padding and an input view off the 16-byte grid (the
+    # per-element loads)
+    xs = torch.empty(x.numel() + 1, dtype=dtype, device=dev)[1:].view(
+        x.shape)
+    xs.copy_(x)
+    for pads in ((0, p, p, 0), (p, 0, 0, p)):
+        out = Q.qconv_cuda(xs, wq, s_w, b, Q.dynamic_scale(x), k, s, pads,
+                           dtype)
+        ref = Q.qconv_plain(x, wq, s_w, b, Q.dynamic_scale(x), k, s, pads,
+                            dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.gpu
+def test_qconv_refuses_what_it_does_not_take():
+    from ssgvc_tpu_torch.ops import qconv as Q
+
+    dev = _card()
+    x = torch.zeros((1, 4, 4, 16), dtype=torch.float16, device=dev)
+    wq, s_w = Q.quantize_weight(torch.ones((8, 16, 1, 1), device=dev))
+    b = torch.zeros(8, device=dev)
+    s_x = torch.ones((), device=dev)
+    with pytest.raises(TypeError):
+        Q.qconv(x, wq, s_w, b, s_x, 1, 1, (0, 0, 0, 0))
+    with pytest.raises(ValueError):
+        Q.qconv(x.float(), wq[:, :16].contiguous(), s_w, b, s_x, 1, 1,
+                (0, 0, 0, 0))
+    with pytest.raises(ValueError):
+        Q.qconv(x.float(), wq, s_w, b, s_x.cpu(), 1, 1, (0, 0, 0, 0))
