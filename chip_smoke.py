@@ -235,18 +235,24 @@ Phases (any failure exits non-zero and prints no result line):
      group of 1: bit for bit where the two plain runs are, else within
      their spread; ms per micro-step of each; (c) two ranks sharing cuda:0
      over gloo (NCCL takes no two ranks on one device): the row-sharded
-     performance P-frame at full width (bf16, packed io, P23_H x 1920
-     frames, 64 packed rows a rank, phase 5's weights) over a GOP of
-     P23_FRAMES carrying the sharded DPB, against the unsharded P-frame on
-     the card on the same inputs: per frame the relative Frobenius error
-     and max |diff| of the gathered frame and feature (<= P23_REL), the
-     bpp's relative difference (<= P23_BPP_REL), each rank's launches
-     (those of the unsharded frame, 18 + 5); one frame again in fp32 (the
-     3xTF32 kernels) at tests/test_mesh.py's tolerances; ms per frame,
-     halo bytes each rank sent and each rank's peak memory above what it
-     held before the GOP, beside the unsharded ones, not gated (both
+     performance P-frame at full width (bf16, packed io, the main path's
+     1088 x 1920 frames handed out in even slabs of 544 rows and worked
+     on slabs of whole 64-row units, 576 and 512; phase 5's weights) over
+     a GOP of P23_FRAMES carrying the sharded DPB, against the unsharded
+     P-frame on the card on the same inputs: per frame the relative
+     Frobenius error and max |diff| of the gathered frame and feature (<=
+     P23_REL), the bpp's relative difference (<= P23_BPP_REL), each rank's
+     launches (those of the unsharded frame, 18 + 5); one frame again in
+     fp32 (the 3xTF32 and the SIMT kernels) at tests/test_mesh.py's
+     tolerances; then the bf16 frame over 4 and over 8 ranks (P23_WIDE;
+     largest slabs 320 and 192 rows); ms per frame, each rank's unit slab,
+     the halo bytes and the redistribution bytes (even slabs to units and
+     the DPB back) each rank sent and each rank's peak memory above what
+     it held before the GOP, beside the unsharded ones, not gated (the
      ranks share one card and the halos cross host memory: not a latency
-     result); (d) two ranks on cuda:0 over gloo, the full-width
+     result); (e) mask_prop's full-width frame over 2 ranks the same way
+     (its predictor resizes across the slabs); (d) two ranks on cuda:0
+     over gloo, the full-width
      data-parallel micro-step (accumulation 1, train=False, phase 13's
      cross-check weights) with B=1 a rank against the world-1 step on the
      same B=2 batch: the loss within
@@ -280,7 +286,19 @@ Phases (any failure exits non-zero and prints no result line):
      (fp32, max relative), both frames timed. The whole frames of (d) and
      (e) are printed, not gated: a bf16 rounding anywhere flips latent
      roundings (experiments/p24_cpu_rehearsal.py, this phase on the CPU at
-     the tiny profile, moves the frame 5-8% in relative Frobenius).
+     the tiny profile, moves the frame 5-8% in relative Frobenius). (f)
+     Modes 1 and 2 under the 2-rank row shard of (c): one full-width
+     1088 x 1920 frame against the unsharded int8 frame on the card (mode
+     1's abs-max the frame's over both slabs; mode 2 on scales calibrated
+     unsharded), within P24_SHARD_GATE, qconv's launches on each rank
+     those of the unsharded frame. (g) The int8 gradient: the tiny
+     profile's int8 micro-step records every qconv call, and each shape
+     the backward launched (the int32 sums recomputed from x's int8
+     values, unit scales, zero bias, fp32 out) runs against qconv_plain
+     bit for bit; then one default-TrainConfig micro-step under
+     SSGVC_INT8=1 at full width: finite loss and gradients, ms, peak
+     memory, qconv's launches forward and backward, and each recorded
+     shape timed (the kernels line's qconv "training").
 
 The last lines are JSON objects: {"main_path": ...}, {"variants": ...},
 {"coded": ...}, {"training": ...}, {"cross_check": ...}, {"fp32": ...},
@@ -4009,8 +4027,9 @@ def phase_tools(torch, seed, card, main, root: Path):
 
 # Phase 23: parallel/ on the card. One H100: NCCL at world 1, and two ranks
 # sharing cuda:0 over gloo (NCCL takes no two ranks on one device).
-P23_H = 1024                 # 1088 = 64 x 17 does not split in two under
-#                              the slab rule: 64 packed rows a rank
+P23_H = H                    # the main path's 1088 rows: 17 units of 64,
+#                              worked on uneven slabs of whole units
+P23_WIDE = (4, 8)            # (c): one bf16 frame over 4 and over 8 ranks
 P23_FRAMES = 3               # the sharded GOP (after_i=False)
 P23_STEPS = 8                # (b): the default accumulation, one update
 P23_REL = 1e-2               # (c) bf16: relative Frobenius, the kernels'
@@ -4034,14 +4053,20 @@ P23_TINY = dict(ch_d=16, ch_y=8, ch_z=8, ch_recon=16)
 #: run's raw 128 x 64 frame (whole-image units on slabs of 4 rows at y's
 #: scale); "counters": the suffix of the launch counts the run reads
 P23_RUNS = (
-    dict(name="bf16", dtype="bfloat16", widths={}, h=P23_H, w=W,
-         packed=True, frames=P23_FRAMES, counters=""),
-    dict(name="fp32 3xTF32", dtype="float32", widths={}, h=P23_H, w=W,
-         packed=True, frames=1, counters="_tf32"),
-    dict(name="fp32 SIMT", dtype="float32", widths=P23_TINY, h=P23_H, w=W,
-         packed=True, frames=1, counters="_f32"),
-    dict(name="fp32 SIMT dry-run frame", dtype="float32", widths=P23_TINY,
-         h=128, w=64, packed=False, frames=1, counters="_f32"),
+    dict(name="bf16", variant="performance", dtype="bfloat16", widths={},
+         h=P23_H, w=W, packed=True, frames=P23_FRAMES, counters=""),
+    dict(name="fp32 3xTF32", variant="performance", dtype="float32",
+         widths={}, h=P23_H, w=W, packed=True, frames=1, counters="_tf32"),
+    dict(name="fp32 SIMT", variant="performance", dtype="float32",
+         widths=P23_TINY, h=P23_H, w=W, packed=True, frames=1,
+         counters="_f32"),
+    dict(name="fp32 SIMT dry-run frame", variant="performance",
+         dtype="float32", widths=P23_TINY, h=128, w=64, packed=False,
+         frames=1, counters="_f32"),
+    # (e): the variant whose mask predictor resizes across the slabs
+    dict(name="mask_prop bf16", variant="mask_prop", dtype="bfloat16",
+         widths={}, h=P23_H, w=W, packed=True, frames=1, counters="",
+         label="e"),
 )
 
 
@@ -4192,31 +4217,47 @@ def p23_join(torch, rank, world, rdzv):
 
 
 def p23_model(torch, run, seed, device):
-    """The performance DMC of a (c) run, drawn from ``seed``."""
+    """The DMC of a row-sharded run (the performance variant unless the
+    run names another), drawn from ``seed``."""
     from ssgvc_tpu_torch.config import DMCConfig
     from ssgvc_tpu_torch.models.dmc import DMC
 
-    cfg = DMCConfig.variant("performance", dtype=run["dtype"],
-                            packed_io=run["packed"], **run["widths"])
+    cfg = DMCConfig.variant(run.get("variant", "performance"),
+                            dtype=run["dtype"], packed_io=run["packed"],
+                            **run["widths"])
     return random_weights(torch, DMC(cfg, device=device), seed).eval()
 
 
 def p23_zero_counts():
     from ssgvc_tpu_torch.ops import dcb as dcb_ops
     from ssgvc_tpu_torch.ops import dcb_chain as chain_ops
+    from ssgvc_tpu_torch.ops import qconv as Q
 
     for m in (dcb_ops, chain_ops):
         m.launches = m.launches_f32 = m.launches_tf32 = 0
+    Q.launches = 0
 
 
 def p23_counts(run):
     """(dcb, dcb_chain) launches of the run's kernels since
-    :func:`p23_zero_counts`."""
+    :func:`p23_zero_counts`, and qconv's for an int8 run."""
     from ssgvc_tpu_torch.ops import dcb as dcb_ops
     from ssgvc_tpu_torch.ops import dcb_chain as chain_ops
+    from ssgvc_tpu_torch.ops import qconv as Q
 
-    return tuple(getattr(m, "launches" + run["counters"])
-                 for m in (dcb_ops, chain_ops))
+    out = tuple(getattr(m, "launches" + run["counters"])
+                for m in (dcb_ops, chain_ops))
+    return out + (Q.launches,) if run.get("int8", "0") != "0" else out
+
+
+def p23_int8(run):
+    """The run's SSGVC_INT8 mode and mode-2 scales installed
+    (p24_env)."""
+    from ssgvc_tpu_torch.layers import blocks
+
+    blocks.set_int8_scales(run.get("scales", {}))
+    return p24_env(SSGVC_INT8=run.get("int8", "0"), SSGVC_INT8_SCOPE=None,
+                   SSGVC_DW=None)
 
 
 def p23_compare(torch, full, bpp, ref):
@@ -4238,71 +4279,78 @@ def p23_compare(torch, full, bpp, ref):
     return row
 
 
-def p23_rows_rank(rank, world, rdzv, path):
-    """(c) one rank of the row-sharded P-frame on cuda:0 over gloo, every
-    run of the case: the parent's weights (from the seed) and inputs;
-    writes rows<r>.json (rank 0 with the comparisons against the parent's
-    unsharded outputs)."""
+def p23_rows_rank(rank, world, rdzv, path, tag):
+    """One rank of a row-sharded spawn on cuda:0 over gloo, every run of
+    rows_<tag>_case.pt: the parent's weights (from the seed) and inputs;
+    writes rows_<tag><r>.json (rank 0 with the comparisons against the
+    parent's unsharded outputs)."""
     import torch
     import torch.distributed as dist
 
     from ssgvc_tpu_torch.parallel import spatial
     from ssgvc_tpu_torch.parallel.mesh import make_mesh
-    from ssgvc_tpu_torch.parallel.spatial import (gather_rows, shard_rows,
-                                                  spatial_pframe)
+    from ssgvc_tpu_torch.parallel.spatial import (gather_rows, row_sharding,
+                                                  shard_rows, spatial_pframe)
 
-    case = torch.load(Path(path) / "rows_case.pt")
+    case = torch.load(Path(path) / f"rows_{tag}_case.pt")
     p23_join(torch, rank, world, rdzv)
     try:
         mesh = make_mesh(world, device="cuda:0")
+        sh = row_sharding(mesh)
         out = {"rank": rank, "runs": []}
         for run in case["runs"]:
-            fn = spatial_pframe(p23_model(torch, run, case["seed"], "cuda:0"),
-                                mesh)
-            dpb = shard_rows(mesh, run["dpb"])
-            # warm-up (cuBLAS / cuDNN plans), its DPB dropped
-            fn(None, *shard_rows(mesh, (run["frames"][0], run["masks"][0])),
-               QP, dpb)
-            torch.cuda.synchronize()
-            base = p23_peak(torch, reset=True)
-            rows = []
-            for i, (x, m) in enumerate(zip(run["frames"], run["masks"])):
-                xs, ms = shard_rows(mesh, (x, m))
-                p23_zero_counts()
-                spatial.halo_bytes = 0
-                dist.barrier()
-                t0 = time.perf_counter()
-                dpb, bpp = fn(None, xs, ms, QP, dpb)
+            with p23_int8(run), warnings.catch_warnings():
+                warnings.simplefilter("error")    # no site without a scale
+                fn = spatial_pframe(p23_model(torch, run, case["seed"],
+                                              "cuda:0"), mesh)
+                dpb = shard_rows(mesh, run["dpb"])
+                rows = run["frames"][0].shape[1]
+                unit = spatial.SLAB_ROWS // (8 if run["packed"] else 1)
+                # warm-up (cuBLAS / cuDNN plans), its DPB dropped
+                fn(None, *shard_rows(mesh, (run["frames"][0],
+                                            run["masks"][0])), QP, dpb)
                 torch.cuda.synchronize()
-                dist.barrier()
-                row = dict(ms=1e3 * (time.perf_counter() - t0),
-                           launches=list(p23_counts(run)),
-                           slab=list(dpb["feature"].shape),
-                           halo_bytes=spatial.halo_bytes)
-                full = gather_rows(mesh, dpb)
-                if rank == 0:
-                    row.update(p23_compare(torch, full, bpp, run["ref"][i]))
-                rows.append(row)
-            out["runs"].append(dict(frames=rows,
+                base = p23_peak(torch, reset=True)
+                frames = []
+                for i, (x, m) in enumerate(zip(run["frames"],
+                                               run["masks"])):
+                    xs, ms = shard_rows(mesh, (x, m))
+                    p23_zero_counts()
+                    spatial.halo_bytes = spatial.move_bytes = 0
+                    dist.barrier()
+                    t0 = time.perf_counter()
+                    dpb, bpp = fn(None, xs, ms, QP, dpb)
+                    torch.cuda.synchronize()
+                    dist.barrier()
+                    row = dict(ms=1e3 * (time.perf_counter() - t0),
+                               launches=list(p23_counts(run)),
+                               slab=list(sh.rows(rows, unit)),
+                               halo_bytes=spatial.halo_bytes,
+                               move_bytes=spatial.move_bytes)
+                    full = gather_rows(mesh, dpb)
+                    if rank == 0:
+                        row.update(p23_compare(torch, full, bpp,
+                                               run["ref"][i]))
+                    frames.append(row)
+            out["runs"].append(dict(frames=frames,
                                     peak=p23_peak(torch) - base))
             del fn, dpb
-        (Path(path) / f"rows{rank}.json").write_text(json.dumps(out))
+        (Path(path) / f"rows_{tag}{rank}.json").write_text(json.dumps(out))
     finally:
         dist.destroy_process_group()
 
 
-def p23_rows(torch, seed, card, tmp: Path):
-    """(c) the row-sharded P-frame on two ranks sharing cuda:0 over gloo,
-    each of P23_RUNS against the unsharded P-frame on the card on the same
-    inputs: the DPB after an I-frame-like frame, then the run's P-frames
-    carrying it."""
-    import torch.multiprocessing as mp
-
+def p23_refs(torch, seed, runs):
+    """Each run's inputs drawn on the card (the DPB after an I-frame-like
+    frame, then the run's P-frames carrying it), mode 2's scales
+    calibrated on its first frame, and the unsharded P-frames' outputs,
+    launches, ms and peak memory, all under the run's int8 mode."""
+    from ssgvc_tpu_torch.layers import blocks
     from ssgvc_tpu_torch.ops.pixel import pixel_unshuffle
 
     g = torch.Generator(device=DEVICE).manual_seed(seed + 23)
-    case = {"seed": seed, "runs": []}
-    for run in P23_RUNS:
+    out = []
+    for run in runs:
         dt = getattr(torch, run["dtype"])
 
         def draw(c, mask=False):
@@ -4319,88 +4367,147 @@ def p23_rows(torch, seed, card, tmp: Path):
                                 model.cfg.ch_d), dtype=dt, device=DEVICE)
             start = model(draw(3), QP, {"frame": draw(3), "feature": zero},
                           after_i=True, mask=draw(1, mask=True))["dpb"]
-            model(frames[0], QP, start, after_i=False,
-                  mask=masks[0])                    # warm-up
-            torch.cuda.synchronize()
-            base = p23_peak(torch, reset=True)
-            dpb, refs, times = start, [], []
-            for i, (x, m) in enumerate(zip(frames, masks)):
-                p23_zero_counts()
-                t0 = time.perf_counter()
-                o = model(x, QP, dpb, after_i=False, mask=m)
+            if run.get("int8") == "2":
+                with p24_env(SSGVC_INT8="2", SSGVC_INT8_SCOPE=None), \
+                        warnings.catch_warnings(), \
+                        blocks.int8_calibration() as calib:
+                    warnings.simplefilter("ignore")   # no scale yet
+                    blocks.set_int8_scales({})
+                    model(frames[0], QP, start, after_i=False, mask=masks[0])
+                run = dict(run, scales=blocks.collect_int8_scales(calib))
+            with p23_int8(run):
+                model(frames[0], QP, start, after_i=False,
+                      mask=masks[0])                  # warm-up
                 torch.cuda.synchronize()
-                times.append(1e3 * (time.perf_counter() - t0))
-                if p23_counts(run) != P23_WANT:
-                    fail(f"(c) unsharded {run['name']} frame {i}: launches "
-                         f"{p23_counts(run)}")
-                dpb = o["dpb"]
-                refs.append({"frame": dpb["frame"].cpu(),
-                             "feature": dpb["feature"].cpu(),
-                             "bpp": o["bpp"].float().cpu()})
-            peak = p23_peak(torch) - base
-        case["runs"].append(dict(
+                base = p23_peak(torch, reset=True)
+                dpb, refs, times, counts = start, [], [], []
+                for x, m in zip(frames, masks):
+                    p23_zero_counts()
+                    t0 = time.perf_counter()
+                    o = model(x, QP, dpb, after_i=False, mask=m)
+                    torch.cuda.synchronize()
+                    times.append(1e3 * (time.perf_counter() - t0))
+                    counts.append(list(p23_counts(run)))
+                    dpb = o["dpb"]
+                    refs.append({"frame": dpb["frame"].cpu(),
+                                 "feature": dpb["feature"].cpu(),
+                                 "bpp": o["bpp"].float().cpu()})
+                peak = p23_peak(torch) - base
+        if run.get("variant", "performance") == "performance" and \
+                run.get("int8", "0") == "0" and \
+                any(tuple(c) != P23_WANT for c in counts):
+            fail(f"unsharded {run['name']}: launches {counts}, expected "
+                 f"{list(P23_WANT)} a frame")
+        out.append(dict(
             run, frames=[f.cpu() for f in frames],
             masks=[m.cpu() for m in masks],
             dpb={k: v.cpu() for k, v in start.items()}, ref=refs, ms=times,
-            peak=peak))
+            launches=counts, peak=peak))
         del model, start, dpb, o
-    torch.save(case, tmp / "rows_case.pt")
+    return out
+
+
+def p23_spawn_rows(torch, seed, card, tmp: Path, runs, world, tag):
+    """``runs`` (from :func:`p23_refs`) row-sharded over ``world`` ranks
+    sharing cuda:0 over gloo, each against its unsharded P-frames: printed
+    per frame with each rank's launches (those of the unsharded frame),
+    unit slab, halo and redistribution bytes and ms; gated per run by
+    dtype (bf16: P23_REL / P23_BPP_REL; fp32: tests/test_mesh.py's; int8:
+    the run's "gate"). Returns the runs' records and the spawn's time."""
+    import torch.multiprocessing as mp
+
+    case = {"seed": seed, "runs": runs}
+    torch.save(case, tmp / f"rows_{tag}_case.pt")
     t0 = time.perf_counter()
-    mp.spawn(p23_rows_rank, args=(2, str(tmp / "rdzv_c"), str(tmp)),
-             nprocs=2, join=True)
+    mp.spawn(p23_rows_rank, args=(world, str(tmp / f"rdzv_{tag}"),
+                                  str(tmp), tag),
+             nprocs=world, join=True)
     spawn_s = time.perf_counter() - t0
-    ranks = [json.loads((tmp / f"rows{r}.json").read_text())
-             for r in range(2)]
-    bad, runs = [], []
-    for j, run in enumerate(case["runs"]):
-        bf16 = run["dtype"] == "bfloat16"
+    ranks = [json.loads((tmp / f"rows_{tag}{r}.json").read_text())
+             for r in range(world)]
+    bad, out = [], []
+    for j, run in enumerate(runs):
+        label = run.get("label", tag)
         per_rank = [r["runs"][j] for r in ranks]
         for i, row in enumerate(per_rank[0]["frames"]):
-            other = per_rank[1]["frames"][i]
-            for r, x in enumerate((row, other)):
-                if x["launches"] != list(P23_WANT):
+            others = [k["frames"][i] for k in per_rank]
+            for r, x in enumerate(others):
+                if x["launches"] != run["launches"][i]:
                     bad.append(f"{run['name']} frame {i} rank {r} launches "
                                f"{x['launches']}")
-            gate = (f"tol rel {P23_REL}, bpp rel {P23_BPP_REL}" if bf16 else
-                    f"excess over test_mesh.py's tolerances: frame "
-                    f"{row['frame']['excess']:.3g}, feature "
-                    f"{row['feature']['excess']:.3g}, bpp "
-                    f"{row['bpp_excess']:.3g}")
-            print(f"  (c) {run['name']} {run['h']}x{run['w']} frame {i}: "
-                  f"frame rel {row['frame']['rel_fro']:.3g} max|d| "
+            if run.get("gate"):
+                gate = run["gate"]
+                ok = (row["frame"]["max_abs"] <= gate["max_abs"]
+                      and row["feature"]["max_abs"] <= gate["max_abs"]
+                      and row["bpp_rel"] <= gate["bpp_rel"])
+                text = (f"gate max|d| {gate['max_abs']}, bpp rel "
+                        f"{gate['bpp_rel']}")
+            elif run["dtype"] == "bfloat16":
+                ok = (row["frame"]["rel_fro"] <= P23_REL
+                      and row["feature"]["rel_fro"] <= P23_REL
+                      and row["bpp_rel"] <= P23_BPP_REL)
+                text = f"tol rel {P23_REL}, bpp rel {P23_BPP_REL}"
+            else:
+                ok = (row["frame"]["excess"] <= 0
+                      and row["feature"]["excess"] <= 0
+                      and row["bpp_excess"] <= 0)
+                text = (f"excess over test_mesh.py's tolerances: frame "
+                        f"{row['frame']['excess']:.3g}, feature "
+                        f"{row['feature']['excess']:.3g}, bpp "
+                        f"{row['bpp_excess']:.3g}")
+            per = "; ".join(
+                f"rank {r}: slab {x['slab']}, launches {x['launches']}, "
+                f"halo {x['halo_bytes']} B, moved {x['move_bytes']} B, "
+                f"{x['ms']:.1f} ms" for r, x in enumerate(others))
+            print(f"  ({label}) {run['name']} {run['h']}x{run['w']} over "
+                  f"{world} ranks, frame {i}: frame rel "
+                  f"{row['frame']['rel_fro']:.3g} max|d| "
                   f"{row['frame']['max_abs']:.3g}, feature rel "
                   f"{row['feature']['rel_fro']:.3g} max|d| "
                   f"{row['feature']['max_abs']:.3g}, bpp {row['bpp']:.6f} vs "
-                  f"{row['bpp_ref']:.6f} (rel {row['bpp_rel']:.3g}; {gate});"
-                  f" launches rank 0 {row['launches']}, rank 1 "
-                  f"{other['launches']} (unsharded {list(P23_WANT)}); halo "
-                  f"bytes sent rank 0 {row['halo_bytes']}, rank 1 "
-                  f"{other['halo_bytes']}; {row['ms']:.1f} ms on the two "
-                  f"ranks, unsharded {run['ms'][i]:.2f} [{card}]")
-            if bf16 and not (row["frame"]["rel_fro"] <= P23_REL
-                             and row["feature"]["rel_fro"] <= P23_REL
-                             and row["bpp_rel"] <= P23_BPP_REL) or \
-                    not bf16 and (row["frame"]["excess"] > 0
-                                  or row["feature"]["excess"] > 0
-                                  or row["bpp_excess"] > 0):
+                  f"{row['bpp_ref']:.6f} (rel {row['bpp_rel']:.3g}; {text});"
+                  f" unsharded launches {run['launches'][i]}, "
+                  f"{run['ms'][i]:.2f} ms; {per} [{card}]")
+            if not ok:
                 bad.append(f"{run['name']} frame {i}: {row}")
-        print(f"  (c) {run['name']}: peak memory above what was allocated "
-              f"before the frames (weights, inputs, the DPB) rank 0 "
-              f"{per_rank[0]['peak'] / 2**20:.1f} / rank 1 "
-              f"{per_rank[1]['peak'] / 2**20:.1f} MiB, unsharded "
-              f"{run['peak'] / 2**20:.1f} MiB [{card}]")
-        runs.append(dict(name=run["name"], dtype=run["dtype"], h=run["h"],
-                         w=run["w"], widths=run["widths"],
-                         counters=run["counters"], ranks=per_rank,
-                         unsharded_ms=run["ms"],
-                         unsharded_peak=run["peak"]))
-    print(f"  (c) neither the times nor the peaks are gated, and the times "
-          f"are not a latency result: both ranks share one card and every "
-          f"halo crosses host memory (gloo); spawn and all {spawn_s:.1f} s "
-          f"[{card}]")
+        print(f"  ({label}) {run['name']} over {world} ranks: peak memory "
+              f"above what was allocated before the frames (weights, "
+              f"inputs, the DPB) by rank "
+              f"{[round(k['peak'] / 2**20, 1) for k in per_rank]} MiB, "
+              f"unsharded {run['peak'] / 2**20:.1f} MiB [{card}]")
+        out.append(dict(name=run["name"], variant=run.get("variant"),
+                        dtype=run["dtype"], h=run["h"], w=run["w"],
+                        widths=run["widths"], counters=run["counters"],
+                        int8=run.get("int8", "0"), world=world,
+                        ranks=per_rank, unsharded_ms=run["ms"],
+                        unsharded_launches=run["launches"],
+                        unsharded_peak=run["peak"]))
+    print(f"  ({tag}) {world} ranks: neither the times nor the peaks are "
+          f"gated, and the times are not a latency result: the ranks share "
+          f"one card and every halo crosses host memory (gloo); spawn and "
+          f"all {spawn_s:.1f} s [{card}]")
     if bad:
-        fail("(c) row-sharded P-frame: " + "; ".join(bad))
-    return dict(runs=runs, spawn_s=spawn_s)
+        fail(f"({tag}) row-sharded P-frame over {world} ranks: "
+             + "; ".join(bad))
+    return out, spawn_s
+
+
+def p23_rows(torch, seed, card, tmp: Path):
+    """(c) the row-sharded P-frame on two ranks sharing cuda:0 over gloo,
+    each of P23_RUNS ((e): mask_prop's among them) against the unsharded
+    P-frame on the card on the same inputs; then the bf16 run's first
+    frame over each of P23_WIDE ranks."""
+    runs = p23_refs(torch, seed, P23_RUNS)
+    out, spawn_s = p23_spawn_rows(torch, seed, card, tmp, runs, 2, "c")
+    wide = {}
+    first = dict(runs[0], frames=runs[0]["frames"][:1],
+                 masks=runs[0]["masks"][:1], ref=runs[0]["ref"][:1],
+                 ms=runs[0]["ms"][:1], launches=runs[0]["launches"][:1])
+    for n in P23_WIDE:
+        rec, secs = p23_spawn_rows(torch, seed, card, tmp, [first], n,
+                                   f"c{n}")
+        wide[n] = dict(run=rec[0], spawn_s=secs)
+    return dict(runs=out, spawn_s=spawn_s, wide=wide)
 
 
 def p23_dp_rank(rank, world, rdzv, path):
@@ -4569,6 +4676,11 @@ P24_F32_TOL = F32_TOL        # (e) fp32 fused vs unfused patch convs
 P24_WANT_3X3 = ((19, 5), (18, 5))   # (b) scope 3x3: the fused kernels'
 #                                     launches on the first P-frame, then
 H100_INT8_OPS = 1979e12      # dense int8 tensor-core peak, H100 SXM
+#: (f) a whole int8 frame row-sharded against the unsharded one: room for
+#: a flipped latent rounding (the JAX package's own shards moved its int8
+#: frame 0.055 max |d|, bpp 1.7e-4 relative, at 1088 rows over 4 on the
+#: CPU)
+P24_SHARD_GATE = dict(max_abs=0.1, bpp_rel=1e-3)
 
 
 @contextlib.contextmanager
@@ -5156,6 +5268,201 @@ def p24_fused(torch, card, main):
     return out
 
 
+def p24_rows(torch, seed, card, tmp: Path):
+    """(f) SSGVC_INT8 modes 1 and 2 under the 2-rank row shard: one
+    full-width 1088 x 1920 performance P-frame (bf16, packed io; mode 2 on
+    scales calibrated on the unsharded frame), against the unsharded int8
+    frame on the card (P24_SHARD_GATE), qconv's launches on each rank
+    those of the unsharded frame."""
+    base = dict(P23_RUNS[0], frames=1, gate=P24_SHARD_GATE, label="f")
+    runs = p23_refs(torch, seed, [dict(base, name=f"int8 mode {m}", int8=m)
+                                  for m in ("1", "2")])
+    out, spawn_s = p23_spawn_rows(torch, seed, card, tmp, runs, 2, "f")
+    for r in out:
+        f = r["ranks"][0]["frames"][0]
+        r["bit_for_bit"] = (f["frame"]["max_abs"] == 0
+                            and f["feature"]["max_abs"] == 0
+                            and f["bpp_rel"] == 0)
+    return dict(runs=out, spawn_s=spawn_s)
+
+
+@contextlib.contextmanager
+def p24_qconv_calls():
+    """Every ops.qconv.qconv call in the body, keyed (x shape, O, kernel,
+    stride, pads, x dtype, out dtype, "bwd" inside the int8 backward
+    else "fwd") with its count; yields the dict."""
+    from ssgvc_tpu_torch.layers import blocks
+    from ssgvc_tpu_torch.ops import qconv as Q
+
+    calls, where = {}, ["fwd"]
+    real, real_bwd = Q.qconv, Q._QConvGrad.backward
+
+    def record(x, wq, s_w, bias, s_x, kernel, stride, pads, out_dtype=None):
+        out_dtype = out_dtype or x.dtype
+        key = (tuple(x.shape), wq.shape[0], kernel, stride, tuple(pads),
+               str(x.dtype), str(out_dtype), where[0])
+        calls[key] = calls.get(key, 0) + 1
+        return real(x, wq, s_w, bias, s_x, kernel, stride, pads, out_dtype)
+
+    def backward(ctx, g):
+        where[0] = "bwd"
+        try:
+            return real_bwd(ctx, g)
+        finally:
+            where[0] = "fwd"
+
+    Q.qconv = blocks.qconv = record
+    Q._QConvGrad.backward = staticmethod(backward)
+    try:
+        yield calls
+    finally:
+        Q.qconv = blocks.qconv = real
+        Q._QConvGrad.backward = staticmethod(real_bwd)
+
+
+def p24_call_inputs(torch, rng, key):
+    """Operands of a recorded qconv call: x (int8 values in fp32 for a
+    backward call, whose scales are units and bias zero), the quantized
+    weight, scales and bias."""
+    from ssgvc_tpu_torch.ops import qconv as Q
+
+    shape, o, k, s, pads, xdt, odt, where = key
+    cin = shape[-1]
+    wt = torch.tensor(rng.standard_normal((o, cin, k, k)),
+                      dtype=torch.float32, device=DEVICE)
+    wq, s_w = Q.quantize_weight(wt)
+    if where == "bwd":
+        x = torch.tensor(rng.integers(-127, 128, shape), dtype=torch.float32,
+                         device=DEVICE)
+        return x, wq, torch.ones_like(s_w), torch.zeros_like(s_w), \
+            torch.ones((), device=DEVICE)
+    x = torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                     device=DEVICE).to(getattr(torch, xdt.split(".")[-1]))
+    bias = torch.tensor(rng.standard_normal(o) * 0.1, dtype=torch.float32,
+                        device=DEVICE)
+    return x, wq, s_w, bias, Q.dynamic_scale(x)
+
+
+def p24_train(torch, seed, card):
+    """(g) the int8 gradient on the card: the tiny profile's int8 micro-
+    step (SSGVC_INT8=1) records every qconv call; each backward call's
+    shape (the recomputed int32 sums: x's int8 values, unit scales, zero
+    bias, fp32 out) launched against qconv_plain, bit for bit. Then one
+    default-TrainConfig micro-step under SSGVC_INT8=1 at full width (B=4
+    128x128 T=4, after one untimed): finite loss and gradients, ms, peak
+    memory, qconv's launches forward and backward, and each recorded
+    shape timed (kernel, plain), summed per micro-step."""
+    from ssgvc_tpu_torch.config import TrainConfig
+    from ssgvc_tpu_torch.data.device_synth import synth_batch
+    from ssgvc_tpu_torch.ops import qconv as Q
+    from ssgvc_tpu_torch.training.trainer import Trainer
+
+    rng = np.random.default_rng(seed + 25)
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 30)
+
+    def micro_step(tr, batch, gen):
+        tr.tx.zero_grad()
+        loss, _ = tr.gop_loss(batch["frames"], batch["masks"], QP, gen,
+                              train=True, eval_mode=False)
+        tr.backward(loss)
+        grads = [p.grad.detach().clone() for p in tr.dmc.parameters()
+                 if p.grad is not None]
+        tr.tx.step()
+        return loss.detach(), grads
+
+    with p24_env(SSGVC_INT8="1", SSGVC_INT8_SCOPE=None, SSGVC_DW=None):
+        cfg = TrainConfig()
+        cfg.model_profile = "tiny"
+        tiny = Trainer(cfg, device=DEVICE)
+        batch = synth_batch(g, batch=2, size=64, seq_len=3)
+        tiny.init_state(torch.Generator().manual_seed(seed), batch)
+        with p24_qconv_calls() as tiny_calls:
+            loss, _ = micro_step(tiny, batch,
+                                 torch.Generator().manual_seed(seed))
+        bwd = {k: n for k, n in tiny_calls.items() if k[-1] == "bwd"}
+        if not bwd or not math.isfinite(float(loss)):
+            fail(f"(g) tiny int8 micro-step: loss {float(loss)}, backward "
+                 f"qconv calls {bwd}")
+        for key in sorted(bwd):
+            x, wq, s_w, bias, s_x = p24_call_inputs(torch, rng, key)
+            shape, o, k, s, pads = key[:5]
+            out = Q.qconv_cuda(x, wq, s_w, bias, s_x, k, s, pads,
+                               torch.float32)
+            ref = Q.qconv_plain(x, wq, s_w, bias, s_x, k, s, pads,
+                                torch.float32)
+            torch.cuda.synchronize()
+            if not torch.equal(out, ref):
+                fail(f"(g) qconv backward shape {key}: kernel != plain "
+                     f"(max |d| {float((out - ref).abs().max())})")
+        print(f"  (g) tiny int8 micro-step: {sum(bwd.values())} backward "
+              f"qconv launches at {len(bwd)} shapes, each equal to "
+              f"qconv_plain bit for bit (fp32 out, x's int8 values, unit "
+              f"scales) [{card}]")
+        del tiny
+
+        tr = Trainer(TrainConfig(), device=DEVICE)
+        batch = synth_batch(g, batch=TRAIN_B, size=TRAIN_HW,
+                            seq_len=TRAIN_T)
+        tr.init_state(torch.Generator().manual_seed(seed), batch)
+        micro_step(tr, batch, torch.Generator().manual_seed(seed))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        Q.launches = 0
+        with p24_qconv_calls() as calls:
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            loss, grads = micro_step(tr, batch,
+                                     torch.Generator().manual_seed(seed + 1))
+            e1.record()
+            e1.synchronize()
+        ms = e0.elapsed_time(e1)
+        peak = torch.cuda.max_memory_allocated()
+        launches = Q.launches
+        finite = all(bool(torch.isfinite(x).all()) for x in grads)
+        nonzero = sum(bool((x != 0).any()) for x in grads)
+        if not (math.isfinite(float(loss)) and finite and nonzero
+                and launches == sum(calls.values())):
+            fail(f"(g) full-width int8 micro-step: loss {float(loss)}, "
+                 f"gradients finite {finite}, {nonzero} nonzero, qconv "
+                 f"launches {launches} for {sum(calls.values())} calls")
+        rows = []
+        for key, n in sorted(calls.items()):
+            x, wq, s_w, bias, s_x = p24_call_inputs(torch, rng, key)
+            shape, o, k, s, pads, _, odt, where = key
+            odt = getattr(torch, odt.split(".")[-1])
+            rows.append(dict(
+                key=[list(shape), o, k, s, list(pads), key[5], key[6],
+                     where], launches=n,
+                kernel_ms=cuda_ms(torch, lambda: Q.qconv_cuda(
+                    x, wq, s_w, bias, s_x, k, s, pads, odt), P24_REPS),
+                plain_ms=cuda_ms(torch, lambda: Q.qconv_plain(
+                    x, wq, s_w, bias, s_x, k, s, pads, odt), 3, 1)))
+    by = lambda w, f: sum(r[f] * r["launches"] for r in rows
+                          if w in (None, r["key"][-1]))
+    out = dict(ms_per_micro_step=ms, peak_bytes=peak, loss=float(loss),
+               grads_nonzero=nonzero, grads=len(grads),
+               launches=launches,
+               forward_launches=sum(r["launches"] for r in rows
+                                    if r["key"][-1] == "fwd"),
+               backward_launches=sum(r["launches"] for r in rows
+                                     if r["key"][-1] == "bwd"),
+               qconv_ms=by(None, "kernel_ms"),
+               qconv_plain_ms=by(None, "plain_ms"),
+               qconv_backward_ms=by("bwd", "kernel_ms"),
+               tiny_backward_shapes=len(bwd), shapes=rows)
+    print(f"  (g) full-width default TrainConfig micro-step under "
+          f"SSGVC_INT8=1 (B={TRAIN_B} {TRAIN_HW}x{TRAIN_HW} T={TRAIN_T}): "
+          f"loss {float(loss):.5f}, {nonzero} of {len(grads)} gradients "
+          f"nonzero, all finite; {ms:.1f} ms, peak {peak / 2**20:.1f} MiB; "
+          f"qconv launches {launches} ({out['forward_launches']} forward, "
+          f"{out['backward_launches']} backward recomputing the sums) at "
+          f"{len(rows)} shapes: {out['qconv_ms']:.3f} ms of kernel time per "
+          f"micro-step ({out['qconv_backward_ms']:.3f} of it backward), "
+          f"plain {out['qconv_plain_ms']:.3f} [{card}]")
+    return out
+
+
 def phase_experiments(torch, seed, card, iframe, main, variant_states):
     """The opt-in experiments on the card (module docstring, phase 24)."""
     from ssgvc_tpu_torch.layers import blocks
@@ -5170,6 +5477,8 @@ def phase_experiments(torch, seed, card, iframe, main, variant_states):
         coded = p24_coded(torch, card, iframe, main)
         shiftadd = p24_shiftadd(torch, card, main, scales)
         fused = p24_fused(torch, card, main)
+        sharded = p24_rows(torch, seed, card, Path(tmp))
+        train = p24_train(torch, seed, card)
     blocks.set_int8_scales(saved)
     # the kernels-line entry: per mode-1 P-frame (after the first) and per
     # I-frame, each shape's time x its launches there, summed
@@ -5215,6 +5524,14 @@ def phase_experiments(torch, seed, card, iframe, main, variant_states):
             "total (per frame: launches_per_frame); 'iframe' the same per "
             "DMCI I-frame",
         launches_per_frame=launches,
+        training=dict(
+            launches=train["launches"],
+            forward_launches=train["forward_launches"],
+            backward_launches=train["backward_launches"],
+            ms=train["qconv_ms"], plain_ms=train["qconv_plain_ms"],
+            backward_ms=train["qconv_backward_ms"],
+            per="int8 (SSGVC_INT8=1) default-TrainConfig micro-step at full "
+                "width (phase 24 (g)): per-shape time x launches, summed"),
         iframe=dict(launches=sum(r["per_frame"]["I"] for r in i_rows),
                     ms=total(i_rows, "kernel_ms", "I"),
                     plain_ms=total(i_rows, "plain_ms", "I"),
@@ -5228,7 +5545,8 @@ def phase_experiments(torch, seed, card, iframe, main, variant_states):
           f"{entry['bf16_route_ms']:.3f}, _int_mm at the 1x1 sites "
           f"{entry['library_ms']}) [{card}]")
     return dict(pframe=pframe, coded=coded, shiftadd=shiftadd, fused=fused,
-                sites=len(rows), seconds=seconds), entry
+                sharded=sharded, train=train, sites=len(rows),
+                seconds=seconds), entry
 
 
 def main() -> int:
@@ -5360,14 +5678,18 @@ def main() -> int:
         suffix = next((x for x in ("_tf32", "_f32") if kernel.endswith(x)),
                       "")
         i = int(kernel.startswith("dcb_chain"))
-        runs = {r["name"]: [[f["launches"][i] for f in k["frames"]]
-                            for k in r["ranks"]]
-                for r in parallel["rows"]["runs"] if r["counters"] == suffix}
+        rows = parallel["rows"]
+        every = [(r["name"], r) for r in rows["runs"]] + [
+            (f"{w['run']['name']} over {n} ranks", w["run"])
+            for n, w in rows["wide"].items()]
+        runs = {name: [[f["launches"][i] for f in k["frames"]]
+                       for k in r["ranks"]]
+                for name, r in every if r["counters"] == suffix}
         if runs:
             entry["parallel"] = dict(
                 launches=runs,
-                per="row-sharded P-frame, per run of phase 23 (c), per rank "
-                    "(2 ranks on one card), per frame")
+                per="row-sharded P-frame, per run of phase 23 (c) and (e), "
+                    "per rank (2, 4 or 8 ranks on one card), per frame")
     print(json.dumps({"main_path": {
         "ms_per_frame": main_path["ms_per_frame"],
         "ms_per_frame_runs": main_path["ms_runs"],

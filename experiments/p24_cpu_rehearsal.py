@@ -12,7 +12,11 @@ SSGVC_INT8=1 forwards, (a) the int8 conv against its plain version
 (trivially equal here) with the library route, (b) the int8 P-frame in
 modes 1 / 2 and scope 3x3 beside bf16 with the fused-kernel launches,
 (c) the int8 coded GOP decoded bit for bit, (d) shiftadd against the
-grouped conv, (e) the fused patch convs in bf16 and fp32. It prints the
+grouped conv, (e) the fused patch convs in bf16 and fp32, (g) the int8
+gradient's backward launches and the default TrainConfig's int8
+micro-step at the tiny profile; (f), ranks sharing the card, is the
+card's alone (tests/test_torch_parallel.py runs the row-sharded int8
+frame on the CPU). It prints the
 phase's lines and its JSON: the whole-frame differences of (d) and (e)
 and the int8 frames' PSNR against bf16 (random weights), which set what
 phase 24 gates and what it only prints. Times are the CPU's, not the
@@ -71,9 +75,38 @@ def stub_card(torch, cs, hw):
         return run
 
     qconv_ops.qconv_cuda = counted(qconv_ops.qconv_plain, qconv_ops)
-    blocks.qconv = counted(blocks.qconv, qconv_ops)
+    # the forward's and the int8 backward's calls alike
+    qconv_ops.qconv = blocks.qconv = counted(qconv_ops.qconv, qconv_ops)
     blocks.dcb_grad = counted(blocks.dcb_grad, dcb_ops)
     blocks.dcb_chain_grad = counted(blocks.dcb_chain_grad, chain_ops)
+
+    class Event:                        # CUDA events on the host clock
+        def __init__(self, **kw):
+            self.t = None
+
+        def record(self):
+            self.t = time.perf_counter()
+
+        def synchronize(self):
+            pass
+
+        def elapsed_time(self, other):
+            return 1e3 * (other.t - self.t)
+
+    torch.cuda.Event = Event
+    torch.cuda.reset_peak_memory_stats = lambda *a, **k: None
+    torch.cuda.max_memory_allocated = lambda *a, **k: 0
+    train_init = config.TrainConfig.__init__
+
+    def tiny_train(self, *a, **kw):
+        train_init(self, *a, **kw)
+        self.model_profile = "tiny"
+
+    config.TrainConfig.__init__ = tiny_train
+    # (f) spawns ranks that share cuda:0 over gloo: the card's alone (the
+    # row shard's CPU runs are tests/test_torch_parallel.py's)
+    cs.p24_rows = lambda torch, seed, card, tmp: {"runs": [],
+                                                  "skipped": "no card"}
 
 
 def earlier_phases(torch, cs, hw, seed=0):

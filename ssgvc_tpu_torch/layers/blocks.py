@@ -22,8 +22,9 @@ effect without rebuilding a model), all off by default:
     ``SSGVC_INT8_SCOPE=3x3`` limits that to the 3x3 sites. While the 1x1s
     are quantized (scope "all") a DepthConvBlock and :func:`run_chain` run
     the JAX package's composition of the block, its 1x1s through
-    :class:`Conv`, instead of the fused kernels. Inference only, and not
-    under a row shard: the int8 route raises there.
+    :class:`Conv`, instead of the fused kernels. With grad enabled the
+    route carries ``jax.grad``'s gradient of QuantConv; under a row shard
+    and a data mesh mode 1's abs-max is the global tensor's.
   * ``SSGVC_DW=shiftadd``: that composition's depthwise 3x3 as nine
     shifted multiply-adds (:func:`dw3x3_shiftadd`).
   * ``SSGVC_FUSE_DOWN`` / ``SSGVC_FUSE_UP``: the patching convs as one
@@ -47,8 +48,8 @@ from ..ops.dcb import pack_kernel, wsilu
 from ..ops.dcb_chain import pack_chain
 from ..ops.dcb_grad import dcb_chain_grad, dcb_grad
 from ..ops.pixel import patch_down_conv, patch_up_conv, pixel_shuffle
-from ..ops.qconv import (dynamic_scale, qconv, quantize_weight,
-                         static_scale)
+from ..ops.qconv import (dynamic_scale, qconv, qconv_grad,
+                         quantize_weight, static_scale)
 from ..parallel import spatial
 
 __all__ = ["wsilu", "wsilu_chunk_add", "Conv", "PatchDownConv",
@@ -281,7 +282,8 @@ class Conv(nn.Module):
             self._wq_key = key
         return self._wq
 
-    def _act_scale(self, x: torch.Tensor) -> torch.Tensor:
+    def _act_scale(self, x: torch.Tensor) -> Tuple[torch.Tensor, bool]:
+        """(s_x, whether it is mode 1's abs-max of x) for ``x``."""
         if _int8_mode() == "2":
             absmax = _INT8_SCALES.get(self._site_key())
             if absmax is not None:
@@ -290,7 +292,7 @@ class Conv(nn.Module):
                     self._sx = (absmax, torch.tensor(
                         static_scale(absmax), dtype=torch.float32,
                         device=x.device))
-                return self._sx[1]
+                return self._sx[1], False
             if self.site not in _INT8_WARNED:
                 _INT8_WARNED.add(self.site)
                 warnings.warn(
@@ -298,7 +300,7 @@ class Conv(nn.Module):
                     f"'{self.site}': falling back to the dynamic per-tensor "
                     f"scale. Calibrate (int8_calibration) and "
                     f"set_int8_scales() first.", stacklevel=3)
-        return dynamic_scale(x)
+        return dynamic_scale(x, spatial.frame_max), True
 
     def _site_key(self) -> str:
         if self.site is None:
@@ -309,35 +311,32 @@ class Conv(nn.Module):
 
     def int8_forward(self, x: torch.Tensor) -> torch.Tensor:
         """The JAX package's QuantConv on this conv's parameters: ``x``
-        quantized as given, the output in the module's dtype. Inference
-        only: the JAX package's int8 casts carry no gradient (``jax.grad``
-        flows only through its scales and the bias), which is left to
-        port, so this raises with grad enabled while ``x`` or a parameter
-        requires grad. It raises under a row shard too: mode 1's abs-max
-        would have to be the whole frame's."""
-        if spatial.current() is not None:
-            raise ValueError("SSGVC_INT8 under a row shard is not ported: "
-                             "mode 1's abs-max would have to be the whole "
-                             "frame's")
-        if torch.is_grad_enabled() and (x.requires_grad
-                                        or self.weight.requires_grad
-                                        or self.bias.requires_grad):
-            raise ValueError(
-                "SSGVC_INT8 is inference only in the port (run under "
-                "torch.no_grad()): the JAX package's int8 casts carry no "
-                "gradient, so jax.grad flows only through the scales and "
-                "the bias; that gradient is not ported")
+        quantized as given, the output in the module's dtype. Mode 1's
+        abs-max is the global tensor's (``parallel.spatial.frame_max``:
+        over a row shard's slabs and a :func:`~parallel.spatial.batch_shard`
+        group); under a row shard the conv takes the float route's halo.
+        With grad enabled it is differentiable as ``jax.grad`` differentiates
+        QuantConv (``ops.qconv.qconv_grad``: the bias, and through the
+        scales the kernel's and mode 1's input's abs-max elements)."""
         if _CALIB is not None:
             key = self._site_key()
-            absmax = x.detach().float().abs().amax()
+            absmax = spatial.frame_max(x.detach().float().abs().amax())
             prev = _CALIB.get(key)
             _CALIB[key] = absmax if prev is None else torch.maximum(prev,
                                                                     absmax)
         wq, s_w = self.int8_weight()
-        p = self.padding
-        return qconv(x, wq, s_w, self.bias, self._act_scale(x),
-                     self.weight.shape[-1], self.stride, (p, p, p, p),
-                     self.dtype)
+        s_x, dynamic = self._act_scale(x)
+        k, s, p = self.weight.shape[-1], self.stride, self.padding
+        x, up, _ = spatial.halo(x, p, max(0, k - s - p), zero_edges=True)
+        # a halo brings H's padding rows with it, as on the float route
+        pads = (p - up, p - up, p, p)
+        if torch.is_grad_enabled() and (x.requires_grad
+                                        or self.weight.requires_grad
+                                        or self.bias.requires_grad):
+            return qconv_grad(x, self.weight, self.bias, wq, s_w, s_x, k, s,
+                              pads, self.dtype, dynamic,
+                              spatial.frame_groups() if dynamic else ())
+        return qconv(x, wq, s_w, self.bias, s_x, k, s, pads, self.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if int8_site(self.weight.shape[-1], self.groups):
@@ -500,8 +499,10 @@ class DepthConvBlock(nn.Module):
         x = self.adapt(x)
         h = wsilu(self.dc_0(x))
         if _dw_shiftadd():
-            h = dw3x3_shiftadd(h, self.dc_2.weight.to(dt),
-                               self.dc_2.bias.to(dt))
+            # under a row shard: the dw3x3's row of each neighbour slab
+            h, up, down = spatial.halo(h, 1, 1)
+            h = spatial.crop(dw3x3_shiftadd(h, self.dc_2.weight.to(dt),
+                                            self.dc_2.bias.to(dt)), up, down)
         else:
             h = self.dc_2(h)
         out = self.dc_3(h) + x

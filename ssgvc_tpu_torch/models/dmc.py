@@ -276,21 +276,40 @@ class MaskPredictor(nn.Module):
         self.dtype = kw["dtype"]
 
     def forward(self, prev_mask, ctx, ctx_t):
-        if spatial.current() is not None:
-            raise ValueError(
-                "mask_prop's mask predictor resizes the mask with "
-                "antialiasing, whose reach is not a row or two: it does not "
-                "run under a row shard (parallel/spatial.py)")
         hm, wm = prev_mask.shape[1], prev_mask.shape[2]
         hf, wf = ctx.shape[1], ctx.shape[2]
-        m = self.mask_embed(resize_bilinear(prev_mask, hf, wf))
+        m = self.mask_embed(_sharded_resize(prev_mask, hf, wf))
         fused = torch.cat([m, ctx.to(self.dtype), ctx_t.to(self.dtype)],
                           dim=-1)
         x = wsilu(self.net_0(fused))
         logits = self.net_4(wsilu(self.net_2(x)))
         if (hf, wf) != (hm, wm):
-            logits = resize_bilinear(logits, hm, wm)
+            logits = _sharded_resize(logits, hm, wm)
         return logits
+
+
+def _sharded_resize(x: torch.Tensor, height: int, width: int
+                    ) -> torch.Tensor:
+    """:func:`resize_bilinear` of a row slab under a row shard
+    (``parallel/spatial.py``), equal to the rows the whole frame's resize
+    gives: the antialiased downscale by f reaches f / 2 input rows past an
+    output row's own f, the upscale one low-resolution row. So the slab
+    takes f rows (one row when it grows) of each neighbour slab, which
+    keeps its offset a multiple of f and every kept row's weights the
+    whole frame's, is resized whole and cropped; at the image's edges no
+    row is added and the resize's own edge normalisation stands. Without a
+    row shard :func:`resize_bilinear` itself."""
+    h = x.shape[1]
+    if spatial.current() is None or height == h:
+        return resize_bilinear(x, height, width)
+    if max(h, height) % min(h, height):
+        raise ValueError(f"a row-sharded resize of {h} rows to {height}: "
+                         "not a whole factor")
+    # input rows a side: f to shrink by f, one to grow
+    reach = h // height if height < h else 1
+    x, up, down = spatial.halo(x, reach, reach)
+    y = resize_bilinear(x, x.shape[1] * height // h, width)
+    return spatial.crop(y, up * height // h, down * height // h)
 
 
 class DMC(nn.Module):

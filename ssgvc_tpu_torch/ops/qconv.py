@@ -23,6 +23,12 @@ CUDA tensor launches the kernel (:func:`qconv_cuda`) or raises.
 :func:`qconv_plain` sums the int8 products exactly (a float64 conv on the
 int8 values: |sum| <= K * 127^2 < 2^53, whatever the order), so on the card
 the kernel and the plain version agree bit for bit.
+
+:func:`qconv_grad` is the same conv with the gradient ``jax.grad`` takes
+through QuantConv: the int8 casts carry none, so it reaches the bias and,
+through the scales, the kernel's per-channel abs-max elements and (mode 1)
+x's abs-max elements. Its backward recomputes the int32 sums by a second
+launch of the same conv.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import all_reduce_max_, all_reduce_sum_
 from . import _build
 
 #: Kernel launches since the count was last set to 0.
@@ -75,11 +82,16 @@ def static_scale(absmax: float) -> float:
     return float(np.float32(max(absmax, 1e-12) / 127.0))
 
 
-def dynamic_scale(x: torch.Tensor) -> torch.Tensor:
+def dynamic_scale(x: torch.Tensor, reduce=None) -> torch.Tensor:
     """Mode 1's s_x: max(max |x|, 1e-12) / 127 in fp32, a 0-dim tensor on
-    x's device (no host sync)."""
-    return _div(torch.clamp_min(x.detach().float().abs().amax(), 1e-12),
-                127.0)
+    x's device (no host sync). ``reduce`` takes the local abs-max to the
+    global tensor's (``parallel.spatial.frame_max``). The value carries no
+    autograd graph: :func:`qconv_grad`'s backward routes the gradient of
+    s_x to x itself."""
+    absmax = x.detach().float().abs().amax()
+    if reduce is not None:
+        absmax = reduce(absmax)
+    return _div(torch.clamp_min(absmax, 1e-12), 127.0)
 
 
 def out_size(n: int, k: int, stride: int, lo: int, hi: int) -> int:
@@ -187,3 +199,96 @@ def qconv(x: torch.Tensor, wq: torch.Tensor, s_w: torch.Tensor,
                            out_dtype)
     return qconv_cuda(x.contiguous(), wq, s_w, bias, s_x, kernel, stride,
                       pads, out_dtype)
+
+
+#: the floor of the abs-max in s_w and s_x (``jnp.maximum(., 1e-12)``)
+ABSMAX_FLOOR = 1e-12
+
+
+def _floor_gate(m: torch.Tensor) -> torch.Tensor:
+    """d max(m, 1e-12) / dm as ``jax.grad`` gives it (lax.max's balanced
+    JVP): 1 above the floor, 1/2 on it, 0 below."""
+    floor = torch.tensor(ABSMAX_FLOOR, dtype=torch.float32, device=m.device)
+    return torch.where(m > floor, 1.0, torch.where(m == floor, 0.5, 0.0))
+
+
+def _absmax_grad(t: torch.Tensor, d_scale: torch.Tensor, m: torch.Tensor,
+                 count: torch.Tensor) -> torch.Tensor:
+    """The gradient that ``s = max(m, 1e-12) / 127``, with m = max |t| over
+    the dims m does not keep, sends to t: d_scale / 127 through the floor,
+    split evenly over the ``count`` elements at the abs-max (``jnp.max``'s
+    JVP), times sign(t) (``jnp.abs``'s). ``d_scale``, ``m``, ``count``
+    broadcast against t."""
+    at = (t.abs() == m).float()
+    per = _div(d_scale, 127.0) * _floor_gate(m) / count
+    return per * at * torch.sign(t)
+
+
+class _QConvGrad(torch.autograd.Function):
+    """:func:`qconv` with the gradient ``jax.grad`` takes through the JAX
+    package's QuantConv, whose int8 casts carry none: the bias's, and
+    through out = y * (s_x * s_w) + b the scales' (c = sum g * y per output
+    channel, y the int32 sums in fp32) on to the kernel elements at each
+    channel's abs-max and, in mode 1 (``dynamic``), to x's elements at the
+    global abs-max. y is recomputed in the backward by a second launch of
+    the same conv on x's int8 values with unit scales, a zero bias and an
+    fp32 output (exact), so nothing the size of an output is saved."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, wq, s_w, s_x, kernel, stride, pads,
+                out_dtype, dynamic, groups):
+        ctx.save_for_backward(x, weight, wq, s_w, s_x)
+        ctx.meta = (kernel, stride, tuple(pads), dynamic, tuple(groups))
+        return qconv(x, wq, s_w, bias, s_x, kernel, stride, pads, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight, wq, s_w, s_x = ctx.saved_tensors
+        kernel, stride, pads, dynamic, groups = ctx.meta
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        need_x = need_x and dynamic
+        gf = g.float()
+        dx = dw = db = None
+        if need_b:
+            db = gf.sum(dim=(0, 1, 2))
+        if need_w or need_x:
+            xq = torch.clamp(torch.round(x.detach().float() / s_x), -127,
+                             127)
+            y = qconv(xq, wq, torch.ones_like(s_w), torch.zeros_like(s_w),
+                      torch.ones_like(s_x), kernel, stride, pads,
+                      torch.float32)
+            c = (gf * y).sum(dim=(0, 1, 2))
+        if need_w:
+            w = weight.detach()
+            m = w.abs().amax(dim=(1, 2, 3), keepdim=True)
+            count = (w.abs() == m).float().sum(dim=(1, 2, 3), keepdim=True)
+            dw = _absmax_grad(w, (c * s_x).reshape(-1, 1, 1, 1), m, count)
+        if need_x:
+            xf = x.detach().float()
+            # the global abs-max and its tie count, and d s_x summed over
+            # the ranks the tensor is spread over (each rank's loss sends
+            # its own part)
+            m = xf.abs().amax()
+            for grp in groups:
+                all_reduce_max_([m], grp)
+            part = torch.stack([(c * s_w).sum(),
+                                (xf.abs() == m).float().sum()])
+            for grp in groups:
+                all_reduce_sum_([part], grp)
+            dx = _absmax_grad(xf, part[0], m, part[1]).to(x.dtype)
+        return (dx, dw, db) + (None,) * 9
+
+
+def qconv_grad(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               wq: torch.Tensor, s_w: torch.Tensor, s_x: torch.Tensor,
+               kernel: int, stride: int, pads: Sequence[int],
+               out_dtype: torch.dtype, dynamic: bool,
+               groups: Sequence = ()) -> torch.Tensor:
+    """:func:`qconv` differentiable as ``jax.grad`` differentiates the
+    JAX package's QuantConv (:class:`_QConvGrad`): ``weight`` (O, Cin, k,
+    k) fp32 is the parameter ``wq`` / ``s_w`` were quantized from,
+    ``dynamic`` says s_x is mode 1's abs-max of x (over ``groups``, the
+    process groups x is spread over: the tie count and d s_x are theirs
+    too) rather than a constant."""
+    return _QConvGrad.apply(x, weight, bias, wq, s_w, s_x, kernel, stride,
+                            pads, out_dtype, dynamic, list(groups))

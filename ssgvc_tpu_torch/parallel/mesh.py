@@ -36,7 +36,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["maybe_init_distributed", "local_rank", "Mesh", "make_mesh",
-           "shard_batch", "replicate", "all_reduce_sum_", "all_reduce_mean_",
+           "shard_batch", "replicate", "all_reduce_sum_", "all_reduce_max_",
+           "all_reduce_mean_",
            "group_sum", "all_gather_cat", "broadcast_", "mean_metrics",
            "group_size", "group_rank"]
 
@@ -255,6 +256,15 @@ def all_reduce_sum_(tensors: Sequence[torch.Tensor], group) -> None:
         return
     _flat_collective(tensors, group,
                      lambda buf, g: dist.all_reduce(buf, group=g))
+
+
+def all_reduce_max_(tensors: Sequence[torch.Tensor], group) -> None:
+    """Each tensor maxed over ``group`` in place, as
+    :func:`all_reduce_sum_` sums."""
+    if group is None or not tensors:
+        return
+    _flat_collective(tensors, group, lambda buf, g: dist.all_reduce(
+        buf, op=dist.ReduceOp.MAX, group=g))
 
 
 def all_reduce_mean_(tensors: Sequence[torch.Tensor], group) -> None:

@@ -5,66 +5,103 @@ partitioner.
 The data mesh (``parallel/mesh.py``) scales throughput: independent streams
 per rank. This module scales latency for one stream: the frame's rows are
 split over the ranks of a group, every op runs on the rank's slab, and only
-halo rows and the bits' sum cross between ranks. Under JAX, XLA's
-partitioner inserts those exchanges. Here the layers do it themselves: while
-a :func:`row_shard` context is active, an op with vertical reach k takes k
-rows from each neighbour slab, runs on the taller slab and crops its output
-by k. At the true image edge there is no neighbour and the op's own zero
-padding stands, so the result is the unsharded one: every other op is per
-pixel. The ops with reach:
+halo rows, a few boundary rows and the frame's reductions cross between
+ranks. Under JAX, XLA's partitioner inserts those exchanges. Here the
+layers do it themselves: while a :func:`row_shard` context is active, an op
+with vertical reach k takes k rows from each neighbour slab, runs on the
+taller slab and crops its output by k. At the true image edge there is no
+neighbour and the op's own padding stands, so the result is the unsharded
+one: every other op is per pixel. The ops with reach:
 
-  * ``layers/blocks.Conv`` with a kernel > 1 (the 3x3 stride-2 convs of
-    ``Encoder.down`` / ``SFT.down``, which need only the row above a slab,
-    the 3x3 conv of ``Decoder.up``, ``MaskFiLM.net_0``); the 2x2 stride-2
-    convs of the hyper encoder have no reach on slabs of even rows;
+  * ``layers/blocks.Conv`` with a kernel > 1, on the float and the int8
+    route (the 3x3 stride-2 convs of ``Encoder.down`` / ``SFT.down``, which
+    need only the row above a slab, the 3x3 conv of ``Decoder.up``,
+    ``MaskFiLM.net_0``, the mask predictor's 3x3s); the 2x2 stride-2 convs
+    of the hyper encoder have no reach on slabs of even rows;
   * ``layers/blocks.DepthConvBlock``: the dw3x3 inside the ``dcb`` kernel,
-    one row each side;
-  * ``layers/blocks.run_chain``: N rows each side for a chain of N blocks.
+    one row each side (or of the int8 composition's dw3x3);
+  * ``layers/blocks.run_chain``: N rows each side for a chain of N blocks;
+  * ``models/dmc.MaskPredictor`` (``mask_prop``): the antialiased bilinear
+    downscale by f takes f rows a side, the upscale one low-resolution row.
 
 The layers consult the context through :func:`halo` and :func:`crop`,
 which do nothing without one: with no context the layers run exactly as
 they do unsharded, the same launches and the same outputs.
 
 Global quantities: the bits' sum of ``models/common.bpp_from_bits`` is the
-frame's (:func:`frame_sum`) and ``DMC.forward`` divides by the frame's
-pixels (:func:`frame_rows`). ``mask_prop``'s predictor resizes the mask
-with antialiasing, whose reach is not a row or two: under a row shard that
-variant raises.
+frame's (:func:`frame_sum`), ``DMC.forward`` divides by the frame's pixels
+(:func:`frame_rows`), and the int8 route's mode-1 abs-max is the global
+tensor's (:func:`frame_max`): over the row group and, under a data mesh,
+over the batch group too, as ``jnp.max`` reduces an array sharded under
+``jit``. A :func:`batch_shard` context names that batch group; the
+``Trainer`` enters one with its data group.
 
-Slab rule: a rank holds a multiple of :data:`SLAB_ROWS` pixel rows (8 packed
-rows with packed io). Every scale down to z (1/64) then holds whole rows on
-every rank, a slab starts on an even row at every stride-2 conv and at y's
-scale (1/16), where the checkerboard prior's parity is therefore the
-slab's own, and ``pad_for_y`` never pads rows. Any other height raises.
+Slabs: :func:`shard_rows` hands out even slabs of H/n rows (the JAX
+package's partition). The layers run on slabs of whole :data:`SLAB_ROWS`
+pixel-row units (8 packed rows with packed io), so that every scale down to
+z (1/64) holds whole rows on every rank, a slab starts on an even row at
+every stride-2 conv and at y's scale (1/16), where the checkerboard prior's
+parity is therefore the slab's own, and ``pad_for_y`` never pads rows.
+:func:`spatial_pframe` moves rows between neighbours once on entry, from
+the even partition to whole units (:func:`unit_bounds`: each boundary at
+the unit nearest the even one, so a rank holds the floor or the ceiling of
+units / ranks), and the new DPB back on exit: 1088 rows over 8 ranks, 136
+each, run on slabs of 128 rows and one of 192 (rank 3). An H that is not a
+multiple of 64 pixel rows, or fewer units than ranks, raises.
 
-Halo rows go by ``torch.distributed.batch_isend_irecv`` with the up and down
-neighbours in the group; with a gloo group a CUDA tensor's rows are staged
-through host memory (gloo sends CPU tensors only), with NCCL they move
-device to device. Nothing all-gathers an activation: a rank's activation
-memory is its slab's plus the halos.
+Halo and boundary rows go by ``torch.distributed.batch_isend_irecv`` with
+the up and down neighbours in the group; with a gloo group a CUDA tensor's
+rows are staged through host memory (gloo sends CPU tensors only), with
+NCCL they move device to device. Nothing all-gathers an activation: a
+rank's activation memory is its slab's plus the halos.
 """
 
 from __future__ import annotations
 
 import contextlib
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
-from .mesh import (Mesh, _tree_map, all_gather_cat, all_reduce_sum_,
-                   group_rank, group_size)
+from .mesh import (Mesh, _tree_map, all_gather_cat, all_reduce_max_,
+                   all_reduce_sum_, group_rank, group_size)
 
 __all__ = ["SLAB_ROWS", "RowSharding", "row_sharding", "RowShard",
-           "row_shard", "current", "halo", "crop", "frame_sum", "frame_rows",
-           "spatial_pframe", "shard_rows", "gather_rows"]
+           "row_shard", "batch_shard", "current", "halo", "crop",
+           "frame_sum", "frame_max", "frame_groups", "frame_rows",
+           "unit_bounds", "spatial_pframe", "shard_rows", "gather_rows"]
 
-#: pixel rows of a rank's slab must be a multiple of this (z is 1/64)
+#: the pixel rows of the unit a rank's working slab is made of (z is 1/64)
 SLAB_ROWS = 64
 #: bytes of halo rows this process has sent (a counter, as the kernels'
 #: launch counts)
 halo_bytes = 0
+#: bytes of rows this process has sent moving slabs between the even
+#: partition and whole units (:func:`spatial_pframe`)
+move_bytes = 0
+
+
+def unit_bounds(rows: int, count: int, unit: int) -> List[int]:
+    """The ``count + 1`` boundaries of ``rows`` split into slabs of whole
+    ``unit`` rows, each at the unit nearest the even boundary r * rows /
+    count (a half rounds up): a slab holds the floor or the ceiling of
+    units / count. Raises unless ``rows`` is a multiple of ``unit`` with at
+    least one unit a rank."""
+    if rows % unit:
+        raise ValueError(
+            f"row shard: {rows} rows are not whole units of {unit} rows "
+            f"({SLAB_ROWS} pixel rows, so that every scale down to z "
+            "(1/64) holds whole rows): H must be a multiple of "
+            f"{SLAB_ROWS} pixel rows")
+    units = rows // unit
+    if units < count:
+        raise ValueError(
+            f"row shard: {units} units of {SLAB_ROWS} pixel rows over "
+            f"{count} ranks; each rank needs at least one")
+    return [unit * ((2 * r * units + count) // (2 * count))
+            for r in range(count + 1)]
 
 
 @dataclass(frozen=True)
@@ -79,13 +116,20 @@ class RowSharding:
     batch_index: int = 0
     batch_count: int = 1
 
-    def rows(self, h: int) -> Tuple[int, int]:
-        """This rank's [start, stop) of ``h`` rows."""
+    def bounds(self, h: int, unit: Optional[int] = None) -> List[int]:
+        """Every rank's slab boundaries of ``h`` rows: even slabs, or with
+        ``unit`` whole units (:func:`unit_bounds`)."""
+        if unit is not None:
+            return unit_bounds(h, self.count, unit)
         if h % self.count:
             raise ValueError(f"{h} rows do not split evenly over "
                              f"{self.count} ranks")
-        n = h // self.count
-        return self.index * n, (self.index + 1) * n
+        return [r * (h // self.count) for r in range(self.count + 1)]
+
+    def rows(self, h: int, unit: Optional[int] = None) -> Tuple[int, int]:
+        """This rank's [start, stop) of ``h`` rows (:meth:`bounds`)."""
+        b = self.bounds(h, unit)
+        return b[self.index], b[self.index + 1]
 
     def batch(self, b: int) -> Tuple[int, int]:
         """This rank's [start, stop) of a batch of ``b``."""
@@ -109,15 +153,81 @@ def row_sharding(mesh: Mesh, axis: str = "data",
                        **kw)
 
 
-class RowShard:
-    """The active row shard: the spatial ``group``, and in the model
-    input's rows (packed rows with packed io) this slab's ``local_rows``
-    and the frame's ``global_rows``."""
+def _exchange(x: torch.Tensor, group, index: int, recv_up: int,
+              recv_dn: int, send_dn: int, send_up: int,
+              counter: str = "halo_bytes"):
+    """Receive ``recv_up`` rows from the rank above (``index`` - 1 in
+    ``group``) and ``recv_dn`` from the rank below; send the bottom
+    ``send_dn`` rows down and the top ``send_up`` rows up, adding the bytes
+    sent to the module counter ``counter``. Returns the received (None
+    where 0)."""
+    if not (recv_up or recv_dn or send_dn or send_up):
+        return None, None
+    staged = x.device.type != "cpu" and dist.get_backend(group) == "gloo"
+    host = torch.device("cpu") if staged else x.device
+    peer = lambda i: dist.get_global_rank(group, i)
+    ops, got = [], {}
+    for name, n, src in (("up", recv_up, index - 1),
+                         ("dn", recv_dn, index + 1)):
+        if n:
+            buf = torch.empty((x.shape[0], n) + x.shape[2:], dtype=x.dtype,
+                              device=host)
+            got[name] = buf
+            ops.append(dist.P2POp(dist.irecv, buf, peer(src), group))
+    for rows, dst in ((x[:, x.shape[1] - send_dn:] if send_dn else None,
+                       index + 1),
+                      (x[:, :send_up] if send_up else None, index - 1)):
+        if rows is not None:
+            globals()[counter] += rows.numel() * rows.element_size()
+            ops.append(dist.P2POp(dist.isend, rows.contiguous().to(host),
+                                  peer(dst), group))
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    back = lambda k: got[k].to(x.device) if k in got else None
+    return back("up"), back("dn")
 
-    def __init__(self, group, global_rows: int, local_rows: int):
+
+def _move(x: torch.Tensor, group, have: Sequence[int],
+          want: Sequence[int]) -> torch.Tensor:
+    """This rank's slab of the ``want`` partition, from its slab ``x`` of
+    the ``have`` partition (boundaries in x's rows): the rows between the
+    two boundaries go to or come from the neighbour. Each boundary moves by
+    less than a neighbour's slab, so nothing crosses two ranks."""
+    i = group_rank(group)
+    (a0, a1), (b0, b1) = have[i:i + 2], want[i:i + 2]
+    if (i > 0 and b0 < have[i - 1]) or (i + 2 < len(have)
+                                        and b1 > have[i + 2]):
+        raise ValueError(f"row shard: slab [{b0}, {b1}) reaches past the "
+                         f"neighbours of [{a0}, {a1})")
+    up_cut, dn_cut = max(0, b0 - a0), max(0, a1 - b1)
+    got_up, got_dn = _exchange(x, group, i, max(0, a0 - b0),
+                               max(0, b1 - a1), dn_cut, up_cut,
+                               "move_bytes")
+    keep = x[:, up_cut:x.shape[1] - dn_cut]
+    parts = [t for t in (got_up, keep, got_dn) if t is not None]
+    return torch.cat(parts, dim=1) if len(parts) > 1 else keep.contiguous()
+
+
+class RowShard:
+    """The active row shard: the spatial ``group`` and every rank's slab
+    boundaries ``bounds`` in the model input's rows (packed rows with
+    packed io); this rank's slab is ``bounds[index]:bounds[index + 1]``."""
+
+    def __init__(self, group, bounds: Sequence[int]):
         self.group = group
         self.index, self.count = group_rank(group), group_size(group)
-        self.global_rows, self.local_rows = global_rows, local_rows
+        if len(bounds) != self.count + 1:
+            raise ValueError(f"{len(bounds) - 1} slabs for {self.count} "
+                             "ranks")
+        self.bounds = list(bounds)
+
+    @property
+    def local_rows(self) -> int:
+        return self.bounds[self.index + 1] - self.bounds[self.index]
+
+    @property
+    def global_rows(self) -> int:
+        return self.bounds[-1]
 
     def halo(self, x: torch.Tensor, up: int, down: int,
              zero_edges: bool = False) -> Tuple[torch.Tensor, int, int]:
@@ -129,10 +239,11 @@ class RowShard:
         has_up, has_dn = self.index > 0, self.index < self.count - 1
         # a rank receives from both neighbours and sends to both, top and
         # bottom ranks included: their sends are what the others receive
-        got_up, got_dn = self._exchange(x, up if has_up else 0,
-                                        down if has_dn else 0,
-                                        up if has_dn else 0,
-                                        down if has_up else 0)
+        got_up, got_dn = _exchange(x, self.group, self.index,
+                                   up if has_up else 0,
+                                   down if has_dn else 0,
+                                   up if has_dn else 0,
+                                   down if has_up else 0)
         if zero_edges:
             zeros = lambda n: x.new_zeros((x.shape[0], n) + x.shape[2:])
             got_up = zeros(up) if got_up is None and up else got_up
@@ -144,42 +255,9 @@ class RowShard:
                 0 if got_up is None else got_up.shape[1],
                 0 if got_dn is None else got_dn.shape[1])
 
-    def _exchange(self, x, recv_up: int, recv_dn: int, send_dn: int,
-                  send_up: int):
-        """Receive ``recv_up`` rows from the rank above and ``recv_dn`` from
-        the rank below; send the bottom ``send_dn`` rows down and the top
-        ``send_up`` rows up. Returns the received (None where 0)."""
-        group = self.group
-        if not (recv_up or recv_dn or send_dn or send_up):
-            return None, None
-        staged = x.device.type != "cpu" and dist.get_backend(group) == "gloo"
-        host = torch.device("cpu") if staged else x.device
-        peer = lambda i: dist.get_global_rank(group, i)
-        ops, got = [], {}
-        for name, n, src in (("up", recv_up, self.index - 1),
-                             ("dn", recv_dn, self.index + 1)):
-            if n:
-                buf = torch.empty((x.shape[0], n) + x.shape[2:],
-                                  dtype=x.dtype, device=host)
-                got[name] = buf
-                ops.append(dist.P2POp(dist.irecv, buf, peer(src), group))
-        for rows, dst in ((x[:, x.shape[1] - send_dn:] if send_dn else None,
-                           self.index + 1),
-                          (x[:, :send_up] if send_up else None,
-                           self.index - 1)):
-            if rows is not None:
-                global halo_bytes
-                halo_bytes += rows.numel() * rows.element_size()
-                ops.append(dist.P2POp(dist.isend,
-                                      rows.contiguous().to(host), peer(dst),
-                                      group))
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-        back = lambda k: got[k].to(x.device) if k in got else None
-        return back("up"), back("dn")
-
 
 _active: Optional[RowShard] = None
+_batch_group = None
 
 
 def current() -> Optional[RowShard]:
@@ -188,16 +266,30 @@ def current() -> Optional[RowShard]:
 
 
 @contextlib.contextmanager
-def row_shard(group, global_rows: int, local_rows: int):
+def row_shard(group, bounds: Sequence[int]):
     """Run the layers on a row slab of a frame (:class:`RowShard`)."""
     global _active
     if _active is not None:
         raise RuntimeError("row_shard contexts do not nest")
-    _active = RowShard(group, global_rows, local_rows)
+    _active = RowShard(group, bounds)
     try:
         yield _active
     finally:
         _active = None
+
+
+@contextlib.contextmanager
+def batch_shard(group):
+    """Tensors in the body are this rank's shard of a batch split over
+    ``group`` (None: not split): :func:`frame_max` reduces over it."""
+    global _batch_group
+    if _batch_group is not None and group is not None:
+        raise RuntimeError("batch_shard contexts do not nest")
+    prev, _batch_group = _batch_group, group
+    try:
+        yield
+    finally:
+        _batch_group = prev
 
 
 def halo(x: torch.Tensor, up: int, down: int, zero_edges: bool = False
@@ -227,6 +319,25 @@ def frame_sum(t: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def frame_groups() -> List[object]:
+    """The groups a tensor of the body is spread over: the active row
+    shard's and the :func:`batch_shard` group, where active."""
+    return [g for g in (None if _active is None else _active.group,
+                        _batch_group) if g is not None]
+
+
+def frame_max(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (a tensor of local maxima) maxed over :func:`frame_groups`
+    (a new tensor); ``t`` itself over none."""
+    groups = frame_groups()
+    if not groups:
+        return t
+    out = t.detach().clone()
+    for g in groups:
+        all_reduce_max_([out], g)
+    return out
+
+
 def frame_rows(h: int) -> int:
     """The frame's rows at a scale where the slab has ``h``: ``h`` without
     a row shard."""
@@ -239,47 +350,69 @@ def frame_rows(h: int) -> int:
     return rows // _active.local_rows
 
 
+def _scaled(bounds: Sequence[int], rows: int, base: int) -> List[int]:
+    """``bounds`` of ``base`` rows at a scale of ``rows`` rows."""
+    out = [b * rows for b in bounds]
+    if any(b % base for b in out):
+        raise ValueError(f"row shard: boundaries {list(bounds)} of {base} "
+                         f"rows are not whole rows at {rows}")
+    return [b // base for b in out]
+
+
 def spatial_pframe(model, mesh: Mesh, axis: str = "data",
                    batch_axis: Optional[str] = None):
     """The P-frame forward with row-sharded activations: the JAX package's
     ``jit_spatial_pframe``.
 
     Returns ``fn(params, frame, mask, qp, dpb) -> (new_dpb, bpp)``: frame,
-    mask and the DPB's entries are this rank's row slabs (:func:`shard_rows`)
-    in the model's input domain (packed rows with packed io), ``params`` a
-    state_dict (``torch.func.functional_call``) or None for the model's own,
-    ``after_i=False`` and ``train=False`` as there. The new DPB stays
-    row-sharded; bpp is per sample of the rank's batch shard and the same on
-    every rank of the spatial group. On a 2-D mesh pass ``axis="spatial",
-    batch_axis="data"``. Slabs follow the slab rule (:data:`SLAB_ROWS`)."""
+    mask and the DPB's entries are this rank's even row slabs
+    (:func:`shard_rows`) in the model's input domain (packed rows with
+    packed io), ``params`` a state_dict (``torch.func.functional_call``) or
+    None for the model's own, ``after_i=False`` and ``train=False`` as
+    there. The layers run on whole units (:func:`unit_bounds`); the new DPB
+    comes back in the even partition. bpp is per sample of the rank's batch
+    shard and the same on every rank of the spatial group. On a 2-D mesh
+    pass ``axis="spatial", batch_axis="data"``."""
     sh = row_sharding(mesh, axis, batch_axis)
     packed = getattr(model.cfg, "packed_io", False)
     scale = model.cfg.patch_size if packed else 1
 
     def fn(params, frame, mask, qp, dpb):
-        local = frame.shape[1]
-        if (local * scale) % SLAB_ROWS:
-            raise ValueError(
-                f"spatial_pframe: a slab of {local * scale} pixel rows; the "
-                f"slab rule wants a multiple of {SLAB_ROWS} pixel rows a "
-                f"rank ({SLAB_ROWS // scale} input rows), so every scale "
-                "down to z (1/64) holds whole rows")
+        rows = frame.shape[1] * sh.count
+        even = sh.bounds(rows)
+        units = sh.bounds(rows, SLAB_ROWS // scale)
+
+        def move(t, have, want):
+            """t, this rank's slab of the ``have`` partition (of ``rows``
+            input rows) at its own scale, as its slab of ``want``."""
+            if sh.group is None:
+                return t
+            # t's rows in the whole frame
+            total = _scaled([rows], t.shape[1],
+                            have[sh.index + 1] - have[sh.index])[0]
+            return _move(t, sh.group, _scaled(have, total, rows),
+                         _scaled(want, total, rows))
+
+        frame, mask = (move(t, even, units) for t in (frame, mask))
+        dpb = {k: move(v, even, units) for k, v in dpb.items()}
         kw = dict(after_i=False, mask=mask, train=False)
-        with torch.no_grad(), row_shard(sh.group, local * sh.count, local):
+        with torch.no_grad(), row_shard(sh.group, units), \
+                batch_shard(sh.batch_group):
             if params is None:
                 out = model(frame, qp, dpb, **kw)
             else:
                 out = torch.func.functional_call(model, params,
                                                  (frame, qp, dpb), kw)
-        return out["dpb"], out["bpp"]
+        return ({k: move(v, units, even) for k, v in out["dpb"].items()},
+                out["bpp"])
 
     return fn
 
 
 def shard_rows(mesh: Mesh, tree, axis: str = "data",
                batch_axis: Optional[str] = None):
-    """This rank's row slab (and batch shard) of every full NHWC tensor in
-    ``tree``, on the mesh's device."""
+    """This rank's even row slab (and batch shard) of every full NHWC
+    tensor in ``tree``, on the mesh's device."""
     sh = row_sharding(mesh, axis, batch_axis)
 
     def take(x):
@@ -293,8 +426,9 @@ def shard_rows(mesh: Mesh, tree, axis: str = "data",
 
 def gather_rows(mesh: Mesh, tree, axis: str = "data",
                 batch_axis: Optional[str] = None):
-    """The inverse of :func:`shard_rows`: every rank's slabs (and batch
-    shards) of each tensor in ``tree`` put back together, on every rank."""
+    """The inverse of :func:`shard_rows`: every rank's even slabs (and
+    batch shards) of each tensor in ``tree`` put back together, on every
+    rank."""
     sh = row_sharding(mesh, axis, batch_axis)
 
     def join(x):

@@ -120,12 +120,15 @@ def train_step(model, tx, x: torch.Tensor, qp: int, comp,
     from the mean MSE)."""
     from .layers.blocks import cudnn_fp32
     from .parallel.mesh import mean_metrics
+    from .parallel.spatial import batch_shard
     from .training.loss import psnr_from_mse
 
     tx.zero_grad()
-    loss, aux = image_loss(model, x, qp, comp, True, generator)
-    with cudnn_fp32(model.dtype, x.device):
-        loss.backward()
+    # the batch is the rank's shard of the group's (SSGVC_INT8's abs-max)
+    with batch_shard(tx.group):
+        loss, aux = image_loss(model, x, qp, comp, True, generator)
+        with cudnn_fp32(model.dtype, x.device):
+            loss.backward()
     tx.step()
     if tx.group is not None:
         aux = mean_metrics(aux, tx.group)

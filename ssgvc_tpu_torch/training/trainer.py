@@ -29,7 +29,9 @@ array:
     calibration on the global first batch (all-gathered);
   * the loss's batch sums (the ROI-weighted MSE, the ROI count, the ALM
     constraint's ROI MSE) are the global batch's (``loss.py``'s
-    ``batch_sum``); the gradient's mean over the ranks is taken on the
+    ``batch_sum``), and so is ``SSGVC_INT8``'s mode-1 abs-max
+    (``parallel.spatial.batch_shard`` around the forward and the
+    backward); the gradient's mean over the ranks is taken on the
     accumulation boundary, before the clip (``TrainOptimizer``);
   * a step's metrics, and so the ALM accumulators, are means over the
     ranks, the same on every rank; ``validate`` averages its means too;
@@ -59,6 +61,7 @@ from ..models.dmc import DMC
 from ..models.dmci import DMCI
 from ..parallel.mesh import (all_gather_cat, group_rank, group_sum, make_mesh,
                              mean_metrics, replicate)
+from ..parallel.spatial import batch_shard
 from .loss import (alm_deadzone_penalty, alm_dual_update, init_psnrm_schedule,
                    mse_from_psnr_db, psnr_from_mse, rate_distortion_loss,
                    roi_mse)
@@ -293,12 +296,15 @@ class Trainer:
                  train: bool, eval_mode: bool):
         """A whole GOP: the I-frame (frozen), then the P-frames. Returns
         (scalar loss, aux metrics of detached scalars)."""
-        with torch.no_grad():
-            i_out = self.dmci(frames[:, 0], qp, train=False)
-        dpb = {"frame": i_out["dpb"]["frame"],
-               "feature": self._zero_feature(frames)}
-        metrics = self._p_frame_losses(frames, masks, qp, dpb, generator,
-                                       train, eval_mode)
+        # the rank's batch is a shard of the data group's (SSGVC_INT8's
+        # mode-1 abs-max is the global batch's)
+        with batch_shard(self.group):
+            with torch.no_grad():
+                i_out = self.dmci(frames[:, 0], qp, train=False)
+            dpb = {"frame": i_out["dpb"]["frame"],
+                   "feature": self._zero_feature(frames)}
+            metrics = self._p_frame_losses(frames, masks, qp, dpb,
+                                           generator, train, eval_mode)
         mean = metrics.mean(dim=0)
         aux = {k: mean[i].detach() for i, k in enumerate(METRICS)}
         aux["psnr"] = psnr_from_mse(aux["prev_obj"])
@@ -320,7 +326,9 @@ class Trainer:
         """``loss.backward()``, an fp32 model's conv gradients in full fp32
         too (cuDNN's TF32 default off for the backward, as for each
         forward)."""
-        with cudnn_fp32(self.dmc.dtype, self.device):
+        # remat replays the frames' forwards here, over the same group
+        with cudnn_fp32(self.dmc.dtype, self.device), \
+                batch_shard(self.group):
             loss.backward()
 
     def train_step(self, state: TrainState, batch: Dict, qp: int,

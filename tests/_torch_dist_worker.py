@@ -34,44 +34,72 @@ def _dmc(variant: str, widths: dict, params):
 
 
 def pframe_rows(rank: int, world: int, rdzv: str, out: str, case: dict):
-    """A GOP of P-frames row-sharded over the spatial axis (1-D mesh, or a
+    """GOPs of P-frames row-sharded over the spatial axis (1-D mesh, or a
     data x spatial mesh with ``case["spatial"]`` < world): per frame the
-    gathered DPB and per-sample bpp, and this rank's slab rows."""
-    from ssgvc_tpu_torch.parallel.mesh import all_gather_cat, make_mesh
-    from ssgvc_tpu_torch.parallel.spatial import (gather_rows, row_sharding,
-                                                  shard_rows, spatial_pframe)
+    gathered DPB and per-sample bpp, and this rank's slab rows. ``case``
+    is one run, or holds a list of them under "runs" (each with its own
+    variant, weights, inputs and ``SSGVC_INT8`` mode and scales)."""
+    from ssgvc_tpu_torch.parallel.mesh import make_mesh
 
     _join(rank, world, rdzv)
     try:
         if case["spatial"] == world:
             mesh = make_mesh(world, device="cpu")
-            axis, batch_axis = "data", None
+            axes = ("data", None)
         else:
             mesh = make_mesh(axis_names=("data", "spatial"),
                              spatial=case["spatial"], device="cpu")
-            axis, batch_axis = "spatial", "data"
-        model = _dmc(case["variant"], case["widths"], case["params"])
-        fn = spatial_pframe(model, mesh, axis, batch_axis)
-        t = lambda a: torch.from_numpy(np.asarray(a))
-        dpb = shard_rows(mesh, {k: t(v) for k, v in case["dpb"].items()},
-                         axis, batch_axis)
-        sh = row_sharding(mesh, axis, batch_axis)
-        seen = {"rows": sh.rows(case["dpb"]["frame"].shape[1]),
-                "feature_rows": sh.rows(case["dpb"]["feature"].shape[1]),
-                "batch": sh.batch(case["dpb"]["frame"].shape[0]),
-                "slab_shapes": {k: tuple(v.shape) for k, v in dpb.items()},
-                "frames": []}
-        for x, m in zip(case["frames"], case["masks"]):
-            xs, ms = shard_rows(mesh, (t(x), t(m)), axis, batch_axis)
-            dpb, bpp = fn(None, xs, ms, case["qp"], dpb)
-            full = gather_rows(mesh, dpb, axis, batch_axis)
-            seen["frames"].append({
-                "frame": full["frame"].numpy(),
-                "feature": full["feature"].numpy(),
-                "bpp": all_gather_cat(bpp, sh.batch_group).numpy()})
+            axes = ("spatial", "data")
+        if "runs" in case:
+            seen = {"runs": [_rows_run(mesh, axes, run)
+                             for run in case["runs"]]}
+        else:
+            seen = _rows_run(mesh, axes, case)
         _save(out, rank, seen)
     finally:
         dist.destroy_process_group()
+
+
+def _rows_run(mesh, axes, run: dict) -> dict:
+    from ssgvc_tpu_torch.layers import blocks
+    from ssgvc_tpu_torch.parallel import spatial
+    from ssgvc_tpu_torch.parallel.mesh import all_gather_cat
+
+    axis, batch_axis = axes
+    mode = run.get("int8", "0")
+    os.environ["SSGVC_INT8"] = mode
+    blocks.set_int8_scales(run.get("scales", {}))
+    try:
+        model = _dmc(run["variant"], run["widths"], run["params"])
+        fn = spatial.spatial_pframe(model, mesh, axis, batch_axis)
+        t = lambda a: torch.from_numpy(np.asarray(a))
+        dpb = spatial.shard_rows(mesh, {k: t(v)
+                                        for k, v in run["dpb"].items()},
+                                 axis, batch_axis)
+        sh = spatial.row_sharding(mesh, axis, batch_axis)
+        h = run["dpb"]["frame"].shape[1]
+        seen = {"rows": sh.rows(h),
+                "unit_rows": sh.rows(h, spatial.SLAB_ROWS),
+                "feature_rows": sh.rows(run["dpb"]["feature"].shape[1]),
+                "batch": sh.batch(run["dpb"]["frame"].shape[0]),
+                "slab_shapes": {k: tuple(v.shape) for k, v in dpb.items()},
+                "frames": []}
+        for x, m in zip(run["frames"], run["masks"]):
+            xs, ms = spatial.shard_rows(mesh, (t(x), t(m)), axis,
+                                        batch_axis)
+            spatial.move_bytes = 0
+            dpb, bpp = fn(None, xs, ms, run["qp"], dpb)
+            full = spatial.gather_rows(mesh, dpb, axis, batch_axis)
+            seen["frames"].append({
+                "frame": full["frame"].numpy(),
+                "feature": full["feature"].numpy(),
+                "bpp": all_gather_cat(bpp, sh.batch_group).numpy(),
+                "slab_shapes": {k: tuple(v.shape) for k, v in dpb.items()},
+                "move_bytes": spatial.move_bytes})
+        return seen
+    finally:
+        os.environ.pop("SSGVC_INT8", None)
+        blocks.set_int8_scales({})
 
 
 def _tiny_trainer(world: int, **kw):
@@ -129,9 +157,46 @@ def dp_gradient(rank: int, world: int, rdzv: str, out: str, case: dict):
                           "loss": mean, "after_step": after_step,
                           "train_loss": float(aux["loss"]),
                           "after_train_step": _params(tr.dmc),
-                          "image": _image_step(rank, world, case["image"])})
+                          "image": _image_step(rank, world, case["image"]),
+                          "int8": _int8_step(rank, world, case)})
     finally:
         dist.destroy_process_group()
+
+
+def _int8_step(rank: int, world: int, case: dict) -> dict:
+    """The data-parallel step of :func:`dp_gradient` under SSGVC_INT8=1
+    (mode 1's abs-max the global batch's): the reduced gradient of
+    gop_loss (train=False) and the loss's mean, then one train_step (the
+    noise seeded per rank): its loss and the parameters after it."""
+    from ssgvc_tpu_torch.parallel.mesh import mean_metrics
+    from ssgvc_tpu_torch.utils.weights import load_flax_params
+
+    os.environ["SSGVC_INT8"] = "1"
+    try:
+        tr = _tiny_trainer(world, accumulation_steps=1, grad_clip=1e30)
+        load_flax_params(tr.dmc, case["params_p"])
+        load_flax_params(tr.dmci, case["params_i"])
+        batch = _shard(case["batch"], rank, world)
+        state = tr.init_state(torch.Generator().manual_seed(0), batch,
+                              params_p=tr.dmc.state_dict(),
+                              params_i=tr.dmci.state_dict())
+        tr.tx.zero_grad()
+        loss, _ = tr.gop_loss(batch["frames"], batch["masks"], case["qp"],
+                              torch.Generator().manual_seed(1), train=False,
+                              eval_mode=False)
+        tr.backward(loss)
+        tr.tx.step()
+        grads = {k: p.grad.detach().clone()
+                 for k, p in tr.dmc.named_parameters()}
+        mean = float(mean_metrics({"loss": loss.detach()}, tr.group)["loss"])
+        state, aux = tr.train_step(state, batch, case["qp"],
+                                   torch.Generator().manual_seed(10 + rank))
+        return {"grads": grads, "loss": mean,
+                "local_loss": float(loss.detach()),
+                "train_loss": float(aux["loss"]),
+                "after_train_step": _params(tr.dmc)}
+    finally:
+        os.environ.pop("SSGVC_INT8", None)
 
 
 def _image_step(rank: int, world: int, case: dict) -> dict:

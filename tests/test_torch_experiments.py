@@ -187,28 +187,44 @@ def test_missing_site_warns_once_then_is_dynamic(monkeypatch):
 
 
 def test_int8_route_is_inference_only_and_not_row_sharded(monkeypatch):
+    """The int8 route no longer refuses grad or a row shard. With grad on
+    it is differentiable (the bias's gradient is the output gradient's
+    sum; the scales' path is held against jax.grad in
+    tests/test_torch_int8_grad.py); under a world-1 row shard a conv, and
+    a whole codec through spatial_pframe, equal their unsharded int8
+    forwards bit for bit."""
     monkeypatch.setenv("SSGVC_INT8", "1")
     conv = pb.Conv(4, 8, 3, padding=1, device="cpu")
-    x = torch.ones((1, 8, 8, 4))
-    with pytest.raises(ValueError, match="inference only"):
-        conv(x)                                # grad on, parameters need it
-    conv.requires_grad_(False)
-    with pytest.raises(ValueError, match="inference only"):
-        conv(x.clone().requires_grad_(True))    # an input that needs it
+    torch.manual_seed(0)
     with torch.no_grad():
-        assert conv(x).shape == (1, 8, 8, 8)
-        with spatial.row_shard(None, 8, 8):
-            with pytest.raises(ValueError, match="row shard"):
-                conv(x)
-    # a whole codec under a row shard (world-1 mesh): the first int8 site
+        conv.weight.normal_()
+    x = torch.randn((1, 8, 8, 4), generator=torch.Generator().manual_seed(1))
+    xg = x.clone().requires_grad_(True)
+    out = conv(xg)
+    out.sum().backward()
+    torch.testing.assert_close(conv.bias.grad, torch.full((8,), 64.0))
+    assert (conv.weight.grad != 0).sum() == 8      # one abs-max a channel
+    assert (xg.grad != 0).sum() == 1                 # x's abs-max
+    with torch.no_grad():
+        assert torch.equal(conv(x), out)
+        with spatial.row_shard(None, [0, 8]):
+            assert torch.equal(conv(x), out)
+    # a whole codec under a world-1 row shard
     from ssgvc_tpu_torch.parallel.mesh import make_mesh
 
     model = DMC(DMCConfig.variant("performance", **TINY), device="cpu")
-    fn = spatial.spatial_pframe(model, make_mesh(device="cpu"))
-    z = lambda *s: torch.zeros(s)
-    with pytest.raises(ValueError, match="row shard"):
-        fn(None, z(1, 64, 64, 3), z(1, 64, 64, 1), 20,
-           {"frame": z(1, 64, 64, 3), "feature": z(1, 8, 8, 16)})
+    drawn_params(model, 4, DMC_HEADS)
+    rng = np.random.default_rng(4)
+    u = lambda *s: torch.from_numpy(rng.uniform(0, 1, s).astype(np.float32))
+    frame, mask = u(1, 64, 64, 3), (u(1, 64, 64, 1) > 0.7).float()
+    dpb = {"frame": u(1, 64, 64, 3), "feature": u(1, 8, 8, 16) * 0.1}
+    new, bpp = spatial.spatial_pframe(model, make_mesh(device="cpu"))(
+        None, frame, mask, 20, dpb)
+    with torch.no_grad():
+        ref = model(frame, 20, dpb, after_i=False, mask=mask)
+    for k in ("frame", "feature"):
+        assert torch.equal(new[k], ref["dpb"][k]), k
+    assert torch.equal(bpp, ref["bpp"])
 
 
 def test_qconv_routes_by_device_without_fallback():

@@ -21,7 +21,9 @@ at rtol 1e-6; gains and ALM state at rtol 1e-5 (one device's calibration
 sums in another order); across ranks, bit for bit.
 """
 
+import contextlib
 import functools
+import warnings
 
 import numpy as np
 import pytest
@@ -35,12 +37,14 @@ import _torch_dist_worker as worker
 from chip_smoke import DMC_HEADS, DMCI_HEADS
 from ssgvc_tpu import config as jcfg
 from ssgvc_tpu.config import DMCConfig as JaxDMCConfig
+from ssgvc_tpu.layers import blocks as jb
 from ssgvc_tpu.models.dmc import DMC as JaxDMC
 from ssgvc_tpu.training.trainer import Trainer as JaxTrainer
 from ssgvc_tpu_torch import trainer_image_model as image_cli
 from ssgvc_tpu_torch.config import (CompressionConfig, DMCConfig,
                                     DMCIConfig, TrainConfig)
 from ssgvc_tpu_torch.data.device_synth import synth_batch
+from ssgvc_tpu_torch.layers import blocks as pb
 from ssgvc_tpu_torch.models.dmc import DMC
 from ssgvc_tpu_torch.models.dmci import DMCI
 from ssgvc_tpu_torch.parallel import mesh as mesh_mod
@@ -120,18 +124,38 @@ def test_collectives_do_nothing_on_a_world_1_mesh():
 
 
 def test_slab_rule_and_mask_prop_refuse_a_row_shard():
+    """What the row shard still refuses: an H that is not whole 64-pixel-
+    row units, or fewer units than ranks (a ValueError naming the case).
+    The slab rule itself is gone: any even split of whole units runs, on
+    slabs of whole units (1088 rows over 2, 4 and 8 ranks below).
+    mask_prop no longer refuses: under a
+    world-1 row shard it equals its unsharded forward bit for bit."""
+    with pytest.raises(ValueError, match="multiple of 64 pixel rows"):
+        spatial.unit_bounds(96, 2, 64)
+    with pytest.raises(ValueError, match="each rank needs at least one"):
+        spatial.unit_bounds(64, 2, 64)
+    want = {2: [576, 512], 4: [256, 320, 256, 256],
+            8: [128, 128, 128, 192, 128, 128, 128, 128]}
+    for n, slabs in want.items():
+        b = spatial.unit_bounds(1088, n, 64)
+        assert [b[i + 1] - b[i] for i in range(n)] == slabs
+        even = 1088 // n
+        # every boundary within a neighbour's slab of the even one
+        assert all(abs(b[i] - i * even) < even for i in range(n + 1))
+        assert spatial.unit_bounds(1088 // 8, n, 8) == [x // 8 for x in b]
     m = mesh_mod.make_mesh(device="cpu")
-    model = DMC(DMCConfig.variant("performance", **TINY), device="cpu")
-    fn = spatial.spatial_pframe(model, m)
-    z = lambda *s: torch.zeros(s)
-    with pytest.raises(ValueError, match="slab rule"):
-        fn(None, z(1, 96, 64, 3), z(1, 96, 64, 1), 20,
-           {"frame": z(1, 96, 64, 3), "feature": z(1, 12, 8, 16)})
     prop = DMC(DMCConfig.variant("mask_prop", **TINY), device="cpu")
-    fn = spatial.spatial_pframe(prop, m)
-    with pytest.raises(ValueError, match="row shard"):
-        fn(None, z(1, 64, 64, 3), z(1, 64, 64, 1), 20,
-           {"frame": z(1, 64, 64, 3), "feature": z(1, 8, 8, 16)})
+    drawn_params(prop, 2, DMC_HEADS)
+    rng = np.random.default_rng(2)
+    u = lambda *s: torch.from_numpy(rng.uniform(0, 1, s).astype(np.float32))
+    x, mask = u(1, 128, 64, 3), (u(1, 128, 64, 1) > 0.7).float()
+    dpb = {"frame": u(1, 128, 64, 3), "feature": u(1, 16, 8, 16) * 0.1}
+    new_dpb, bpp = spatial.spatial_pframe(prop, m)(None, x, mask, 20, dpb)
+    with torch.no_grad():
+        ref = prop(x, 20, dpb, after_i=False, mask=mask)
+    for k in ("frame", "feature"):
+        assert torch.equal(new_dpb[k], ref["dpb"][k]), k
+    assert torch.equal(bpp, ref["bpp"])
 
 
 # ------------------------------------------------- the row-sharded frame --
@@ -232,6 +256,177 @@ def test_row_sharded_plain_pframe_on_a_data_x_spatial_mesh(tmp_path):
                                    "port": _port_gop("plain", *args)})
 
 
+def _int8_scales(params, case):
+    """Mode 2's scales: the port's unsharded calibration on the case's
+    first frame (collected as the JAX package collects them)."""
+    model = DMC(DMCConfig.variant(case["variant"], **TINY), device="cpu")
+    load_flax_params(model, params).eval()
+    t = lambda a: torch.from_numpy(np.asarray(a))
+    with pytest.MonkeyPatch.context() as mp, torch.no_grad():
+        mp.setenv("SSGVC_INT8", "2")
+        saved = dict(pb._INT8_SCALES)
+        pb.set_int8_scales({})
+        with warnings.catch_warnings(), pb.int8_calibration() as calib:
+            warnings.simplefilter("ignore")
+            model(t(case["frames"][0]), case["qp"],
+                  {k: t(v) for k, v in case["dpb"].items()},
+                  after_i=False, mask=t(case["masks"][0]))
+        pb.set_int8_scales(saved)
+    return pb.collect_int8_scales(calib)
+
+
+@contextlib.contextmanager
+def _int8_env(mode, scales):
+    """Both packages in SSGVC_INT8 ``mode`` with ``scales`` installed."""
+    saved = (dict(jb._INT8_SCALES), set(jb._INT8_BAKED),
+             dict(pb._INT8_SCALES))
+    with pytest.MonkeyPatch.context() as mp, warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        mp.setenv("SSGVC_INT8", mode)
+        jb._INT8_SCALES.clear()
+        jb._INT8_BAKED.clear()
+        jb._INT8_SCALES.update(scales)
+        pb.set_int8_scales(scales)
+        try:
+            yield
+        finally:
+            for table, old in zip((jb._INT8_SCALES, jb._INT8_BAKED,
+                                   pb._INT8_SCALES), saved):
+                table.clear()
+                table.update(old)
+
+
+#: the 2-rank runs of one spawn (:func:`rows2_seen`): the uneven slabs of
+#: 192 rows (units 128 + 64 against the even 96 + 96), a GOP of 2; each
+#: other variant at 128 rows, one frame; the performance frame in int8
+#: modes 1 and 2
+ROWS2_RUNS = (("uneven", "performance", 192, 2, "0"),
+              ("old", "old", 128, 1, "0"), ("fast", "fast", 128, 1, "0"),
+              ("mask_prop", "mask_prop", 128, 1, "0"),
+              ("int8_mode1", "performance", 128, 1, "1"),
+              ("int8_mode2", "performance", 128, 1, "2"))
+#: int8 frames: tests/test_torch_experiments.py's bound for a whole int8
+#: frame against JAX (one flipped rounding moves an int8 value a step)
+INT8_TOL = {"frame": dict(atol=1e-4, rtol=0), "feature": dict(atol=1e-4,
+                                                               rtol=0),
+            "bpp": dict(rtol=5e-3, atol=0)}
+
+
+@pytest.fixture(scope="module")
+def rows2_seen(tmp_path_factory):
+    """One 2-rank spawn of ``worker.pframe_rows`` over ROWS2_RUNS; returns
+    (what each rank saw, the runs with their references: the JAX
+    package's unsharded forward and the port's, in the run's int8
+    mode)."""
+    torch.set_num_threads(1)
+    runs = []
+    for i, (name, variant, h, frames, mode) in enumerate(ROWS2_RUNS):
+        case = _pframe_case(variant, 1, h, 64, frames, spatial_n=2,
+                            seed=10 + i)
+        case.update(name=name, int8=mode)
+        case["scales"] = (_int8_scales(case["params"], case)
+                          if mode == "2" else {})
+        args = (case["params"], case["frames"], case["masks"], case["dpb"],
+                case["qp"])
+        with _int8_env(mode, case["scales"]):
+            case["refs"] = {"JAX": _jax_gop(variant, *args),
+                            "port": _port_gop(variant, *args)}
+        runs.append(case)
+    seen = _spawn(worker.pframe_rows, 2, tmp_path_factory.mktemp("rows2"),
+                  {"spatial": 2, "runs": runs})
+    return seen, runs
+
+
+def _run(rows2_seen, name):
+    seen, runs = rows2_seen
+    j = [r["name"] for r in runs].index(name)
+    return [s["runs"][j] for s in seen], runs[j]
+
+
+@pytest.mark.parametrize("h,n", [(192, 2), (320, 4)])
+def test_uneven_slabs_match_jax(h, n, rows2_seen, tmp_path):
+    """H = 192 over 2 ranks (3 units: slabs of 128 and 64 rows against the
+    even 96) and 320 over 4 (5 units: 64, 128, 64, 64 against 80 each):
+    the even slabs in and out, each rank's unit slab, the rows moved
+    between neighbours, the gathered DPB and bpp of a 2-frame GOP against
+    the JAX package's unsharded forward and the port's."""
+    if n == 2:
+        seen, case = _run(rows2_seen, "uneven")
+        refs = case["refs"]
+    else:
+        case = _pframe_case("performance", 1, h, 64, 2, spatial_n=n,
+                            seed=20)
+        seen = _spawn(worker.pframe_rows, n, tmp_path, case)
+        args = (case["params"], case["frames"], case["masks"], case["dpb"],
+                32)
+        refs = {"JAX": _jax_gop("performance", *args),
+                "port": _port_gop("performance", *args)}
+    units = spatial.unit_bounds(h, n, 64)
+    even = h // n
+    for r, s in enumerate(seen):
+        assert s["rows"] == (even * r, even * (r + 1))
+        assert s["unit_rows"] == (units[r], units[r + 1])
+        assert s["slab_shapes"]["frame"] == (1, even, 64, 3)
+        for f in s["frames"]:
+            # the new DPB back in the even partition
+            assert f["slab_shapes"] == {"frame": (1, even, 64, 3),
+                                        "feature": (1, even // 8, 8, 16)}
+            # rows go between neighbours where a boundary moved
+            moved = any(units[i] != even * i for i in (r, r + 1))
+            assert (f["move_bytes"] > 0) == moved
+        for i in range(len(case["frames"])):
+            for k in ("frame", "feature", "bpp"):
+                np.testing.assert_array_equal(s["frames"][i][k],
+                                              seen[0]["frames"][i][k])
+    _check_gop(seen[0]["frames"], refs)
+
+
+def test_uneven_slabs_on_a_data_x_spatial_mesh(tmp_path):
+    """The uneven slabs on a 2 x 2 data x spatial mesh: b = 2 over data,
+    h = 192 over spatial (units of 128 and 64 rows against the even 96),
+    the performance variant, one frame: per-sample bpp and the DPB against
+    the JAX package's unsharded forward and the port's."""
+    case = _pframe_case("performance", 2, 192, 64, 1, spatial_n=2, seed=21)
+    seen = _spawn(worker.pframe_rows, 4, tmp_path, case)
+    for r, s in enumerate(seen):
+        d, sp = divmod(r, 2)
+        assert s["batch"] == (d, d + 1)
+        assert s["rows"] == (96 * sp, 96 * (sp + 1))
+        assert s["unit_rows"] == ((0, 128), (128, 192))[sp]
+        assert s["frames"][0]["bpp"].shape == (2,)
+    args = (case["params"], case["frames"], case["masks"], case["dpb"], 32)
+    _check_gop(seen[0]["frames"], {"JAX": _jax_gop("performance", *args),
+                                   "port": _port_gop("performance", *args)})
+
+
+@pytest.mark.parametrize("variant", ["old", "fast", "mask_prop"])
+def test_every_variant_under_a_row_shard_matches_jax(variant, rows2_seen):
+    """The variants PR-17's tests left out, one frame of 128 rows over 2
+    ranks (mask_prop's predictor resizes its slab with the resize's reach
+    of the neighbours' rows): the gathered DPB and bpp against the JAX
+    package's unsharded forward and the port's."""
+    seen, case = _run(rows2_seen, variant)
+    np.testing.assert_array_equal(seen[0]["frames"][0]["frame"],
+                                  seen[1]["frames"][0]["frame"])
+    _check_gop(seen[0]["frames"], case["refs"])
+
+
+@pytest.mark.parametrize("mode", ["1", "2"])
+def test_int8_under_a_row_shard_matches_one_device(mode, rows2_seen):
+    """SSGVC_INT8 under the 2-rank row shard (mode 1's abs-max the frame's,
+    over both slabs; mode 2 on scales calibrated unsharded): the gathered
+    DPB and bpp against the port's unsharded int8 frame (MESH_TOL) and
+    against the JAX package's (INT8_TOL, the int8 frame's bound)."""
+    seen, case = _run(rows2_seen, f"int8_mode{mode}")
+    if mode == "2":
+        assert len(case["scales"]) > 50
+    got = seen[0]["frames"]
+    _check_gop(got, {"port": case["refs"]["port"]})
+    for k, tol in INT8_TOL.items():
+        np.testing.assert_allclose(got[0][k], case["refs"]["JAX"][0][k],
+                                   **tol, err_msg=k)
+
+
 # --------------------------------------------------------- data parallel --
 
 def _tiny_trainer(**kw):
@@ -320,6 +515,41 @@ def test_data_parallel_gradient_matches_one_device_and_jax(dp_seen):
     assert err <= DP_GRAD_TOL * float(torch.linalg.vector_norm(ref)), err
     _hold_by_tensor(_flax_grads(seen[0]["grads"]), _flax_grads(one))
     _hold_by_tensor(_flax_grads(seen[0]["grads"]), jgrads)
+
+
+def test_int8_data_parallel_step_matches_one_device(dp_seen, monkeypatch):
+    """SSGVC_INT8=1 under the data mesh: 2 ranks with B=1 each, mode 1's
+    abs-max the global batch's at every site (Trainer's batch_shard), its
+    gradient's tie count and d s_x over both ranks. The loss's mean and
+    the reduced gradient against one device's on the global B=2 batch (as
+    the float step, DP_GRAD_TOL of the norm and GRAD_TENSOR_TOL a tensor);
+    a train_step with per-rank noise leaves the ranks equal."""
+    case, _ = _dp_case()
+    seen = [s["int8"] for s in dp_seen]
+    monkeypatch.setenv("SSGVC_INT8", "1")
+    tr = _tiny_trainer(accumulation_steps=1)
+    load_flax_params(tr.dmc, case["params_p"])
+    load_flax_params(tr.dmci, case["params_i"])
+    tr.dmc.zero_grad(set_to_none=True)
+    loss, _ = tr.gop_loss(torch.from_numpy(case["batch"]["frames"]),
+                          torch.from_numpy(case["batch"]["masks"]), 20,
+                          torch.Generator().manual_seed(1), train=False,
+                          eval_mode=False)
+    tr.backward(loss)
+    one = {k: torch.zeros_like(p) if p.grad is None else p.grad
+           for k, p in tr.dmc.named_parameters()}
+    assert seen[0]["loss"] == seen[1]["loss"]
+    assert seen[0]["local_loss"] != seen[1]["local_loss"]
+    np.testing.assert_allclose(seen[0]["loss"], float(loss.detach()),
+                               rtol=1e-6)
+    assert seen[0]["train_loss"] == seen[1]["train_loss"]
+    for k, v in seen[0]["after_train_step"].items():
+        assert torch.equal(v, seen[1]["after_train_step"][k]), k
+    dp = torch.cat([seen[0]["grads"][k].reshape(-1) for k in one])
+    ref = torch.cat([g.reshape(-1) for g in one.values()])
+    err = float(torch.linalg.vector_norm(dp - ref))
+    assert err <= DP_GRAD_TOL * float(torch.linalg.vector_norm(ref)), err
+    _hold_by_tensor(_flax_grads(seen[0]["grads"]), _flax_grads(one))
 
 
 def test_image_cli_step_on_two_ranks_matches_one_device(dp_seen):
