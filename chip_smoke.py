@@ -298,13 +298,42 @@ Phases (any failure exits non-zero and prints no result line):
      bit for bit; then one default-TrainConfig micro-step under
      SSGVC_INT8=1 at full width: finite loss and gradients, ms, peak
      memory, qconv's launches forward and backward, and each recorded
-     shape timed (the kernels line's qconv "training").
+     shape timed (the kernels line's qconv "training", beside its bound:
+     each shape's int8 products or bytes, p24_bound, x its launches).
+ 25. the RD harness (ssgvc_tpu_torch/experiments/) in a temporary working
+     directory. (a) rd_tpu.main at rd-half (ch_d 128, enc_dec 184), fp32,
+     the committed marathon recipe (--lnorm --recon-skip, B=32 64x64 T=4),
+     mega-steps of P25_K micro-steps, sized by P25_TPU's flags, the gate
+     after one mega-step (rd_full.GATE_STEP) and each DMCI init probed two
+     (rd_tpu.DMCI_PROBE_STEPS): rd_tpu.json with exactly the JAX runner's
+     keys, every stored curve finite with bpp > 0 (MS-SSIM at 192 px), the
+     BD fields equal to bd_rate / bd_psnr of the stored curves (NaN only
+     where the curves' ranges do not overlap), the DMCI
+     and both variants' checkpoints restored equal (torch.equal) to the
+     params the run kept, launches on the fp32 forward routes and all four
+     backward kernels and none in bf16 (counts set to 0 just before main,
+     read just after); every fp32 forward kernel (F32_TOL) and every
+     backward kernel (BWD_FP32_TOL) at each operand shape of each run's
+     last mega-step against its plain version on random inputs, timed;
+     ms per mega-step and micro-steps per second of the
+     DMCI pretrain and of each variant (host clock: a mega-step ends by
+     reading its means), the synchronising calls of one mega-step each
+     (torch.cuda.set_sync_debug_mode), s per in-run eval, peak memory. (b)
+     rd_eval.main on (a)'s checkpoints at 64 px with the coded check (every
+     decoded frame equal to the encoder's), real against estimated bpp.
+     (c) rd_continue.main for a few host-data steps (the .prev snapshots),
+     then rd_keep_best.main(0) (the .best snapshots equal to live) and
+     main(1) on curves DIVERGE_DB lower with live perturbed: live restored
+     equal to .best. (d) rd_full.main at rd-mid and rd_demo.main (its
+     fixed demo widths, DMCI_MIN_STEPS lowered) on the host data path:
+     their JSON with the JAX keys, finite.
 
 The last lines are JSON objects: {"main_path": ...}, {"variants": ...},
 {"coded": ...}, {"training": ...}, {"cross_check": ...}, {"fp32": ...},
 {"rd_half": ...}, {"rd_recipe": ...}, {"coded_fp32": ...},
 {"train_cli": ...}, {"image_cli": ...}, {"scripts": ...}, {"tools": ...},
-{"parallel": ...}, {"experiments": ...}, {"kernels": [...]}, and last
+{"parallel": ...}, {"experiments": ...}, {"rd_harness": ...},
+{"kernels": [...]}, and last
 {"ok": true, "device":
 {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -2404,49 +2433,57 @@ def phase_widths(torch, seed, card, prev=None):
     return rows
 
 
-def phase_simt_shapes(torch, seed, card, counts, prev=None):
-    """The SIMT fp32 kernels (C <= 64) at each operand shape an RD-recipe
-    micro-step launched them at (``counts``: {kernel: {key: launches}},
-    phase 17's last micro-step; keys (B, H, W, C, shortcut or N, q)), on
-    random inputs and weights, against their plain versions (F32_TOL) and
-    timed beside them and the bound; with ``prev`` (the other checkout's
-    layers.blocks) that checkout's kernel on the same inputs, in turns
-    (prev, new, new, prev). Returns {kernel: [rows]}."""
+def phase_f32_shapes(torch, seed, card, counts, prev=None,
+                     where="RD-recipe", reps=20):
+    """The fp32 kernels (SIMT ``dcb_f32`` / ``dcb_chain_f32``, 3xTF32
+    ``dcb_tf32`` / ``dcb_chain_tf32``) at each operand shape a training
+    step launched them at (``counts``: {kernel: {key: launches}}, phase
+    17's last micro-step or phase 25's last mega-steps; keys (B, H, W, C,
+    shortcut or N, q)), on random inputs and weights, against their plain
+    versions (F32_TOL) and timed beside them and the bound; with ``prev``
+    (the other checkout's layers.blocks) that checkout's block on the same
+    inputs, in turns (prev, new, new, prev). Returns {kernel: [rows]}."""
     from ssgvc_tpu_torch.ops import dcb as dcb_ops
     from ssgvc_tpu_torch.ops import dcb_chain as chain_ops
 
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(seed + 70)
+    run_fn = {"dcb_f32": dcb_ops.dcb_f32_cuda,
+              "dcb_tf32": dcb_ops.dcb_tf32_cuda,
+              "dcb_chain_f32": chain_ops.dcb_chain_f32_cuda,
+              "dcb_chain_tf32": chain_ops.dcb_chain_tf32_cuda}
     rows = {}
     for name, keyed in counts.items():
         rows[name] = []
+        single = not name.startswith("dcb_chain")
+        pack = (dcb_ops.pack_tf32 if name.endswith("_tf32")
+                else dcb_ops.pack_f32)
+        fn = run_fn[name]
         for key, launched in sorted(keyed.items()):
             b, h, w, c, extra, with_q = key
-            n = 1 if name == "dcb_f32" else extra
+            n = 1 if single else extra
             x = torch.tensor(rng.standard_normal((b, h, w, c)),
                              dtype=torch.float32, device=dev)
             q = (torch.linspace(0.5, 1.5, c, device=dev) if with_q
                  else None)
             blocks = [block_params(torch, c, rng, dev) for _ in range(n)]
-            if name == "dcb_f32":
-                packed = dcb_ops.pack_f32(blocks[0])
-                run = lambda: dcb_ops.dcb_f32_cuda(x, packed, q, extra)
+            packed = torch.cat([pack(p) for p in blocks])
+            if single:
+                run = lambda: fn(x, packed, q, extra)
                 plain = lambda: dcb_ops.dcb_plain(x, blocks[0], q, extra)
             else:
-                packed = torch.cat([dcb_ops.pack_f32(p) for p in blocks])
-                run = lambda: chain_ops.dcb_chain_f32_cuda(x, packed, q)
+                run = lambda: fn(x, packed, q)
                 plain = lambda: chain_ops.dcb_chain_plain(x, blocks, q)
             ref = plain()
             rel, max_err = check_f32(torch, f"{name} at {key}", run(), ref)
             fns = {"new": run}
             if prev is not None:
-                single = name == "dcb_f32"
                 mods = prev_modules(torch, prev, c, single and bool(extra),
                                     blocks, torch.float32)
                 fns["prev"] = ((lambda: mods[0](x, q)) if single
                                else (lambda: prev.run_chain(x, mods, q)))
                 check_f32(torch, f"prev {name} at {key}", fns["prev"](), ref)
-            means, turns = timed_turns(torch, fns, 20)
+            means, turns = timed_turns(torch, fns, reps)
             r = dict(key=list(key), blocks=n, per_step=launched,
                      ms=means["new"], plain_ms=cuda_ms(torch, plain, 5),
                      bound_ms=bound_ms(h, w, c, n, True, b),
@@ -2457,8 +2494,8 @@ def phase_simt_shapes(torch, seed, card, counts, prev=None):
                 r.update(prev_ms=means["prev"], turns=turns)
                 line = f", parent {r['prev_ms']:.4f} ms"
             rows[name].append(r)
-            print(f"  SIMT {name} at RD-recipe shape {key} (x{launched} per "
-                  f"micro-step): kernel {r['ms']:.4f} ms{line}, plain "
+            print(f"  {name} at {where} shape {key} (x{launched} per "
+                  f"step): kernel {r['ms']:.4f} ms{line}, plain "
                   f"{r['plain_ms']:.4f} ms, bound {1e3 * r['bound_ms']:.2f} "
                   f"us ({r['bound_by']}), max rel {rel:.2e} [{card}]")
     return rows
@@ -2467,7 +2504,7 @@ def phase_simt_shapes(torch, seed, card, counts, prev=None):
 def simt_entries(widths, rd_counts, shapes):
     """{"kernels"} entries of the SIMT fp32 kernel, the route of C <= 64
     (no full-width site), per RD-recipe micro-step (phase 17, its main
-    path): each shape's ms, plain ms and bound (:func:`phase_simt_shapes`)
+    path): each shape's ms, plain ms and bound (:func:`phase_f32_shapes`)
     times its launches there, summed; max_abs_err over those shapes and
     every SIMT width case of phase 14."""
     out = []
@@ -2737,7 +2774,7 @@ def phase_rd_recipe(torch, seed, card):
             fail(f"RD recipe micro-step {k + 1}: launches {c}")
     peak = torch.cuda.max_memory_allocated()
     # the last micro-step's SIMT launches by operand shape (timed by
-    # phase_simt_shapes)
+    # phase_f32_shapes)
     simt_counts = {"dcb_f32": dict(dcb_ops.shape_launches_f32),
                    "dcb_chain_f32": dict(chain_ops.shape_launches_f32)}
     # and the backward kernels' (timed by phase_rd_backward)
@@ -2810,6 +2847,11 @@ def phase_rd_recipe(torch, seed, card):
                     for (k, key), n in sorted(bwd_counts.items())])
 
 
+#: what phase_rd_backward's sums are per, at phase 17's shapes
+RD_BWD_PER = ("RD-recipe micro-step (rd-mid fp32, phase 17): each shape's "
+              "time x its launches there, summed")
+
+
 def rd_bwd_row(torch, k, key, rng, dev, pdg, reps=20):
     """gate_bwd, dw_bwd or grad_reduce with fp32 activations (the RD
     recipe's) at one operand shape ``key``, on random inputs: against its
@@ -2876,11 +2918,12 @@ def rd_bwd_row(torch, k, key, rng, dev, pdg, reps=20):
     return r
 
 
-def phase_rd_backward(torch, seed, card, shape_launches, prev=False):
+def phase_rd_backward(torch, seed, card, shape_launches, prev=False,
+                      where="RD-recipe", per=RD_BWD_PER, reps=20):
     """Each backward kernel with fp32 activations (the RD recipe's) at each
-    operand shape the RD micro-step launched it at (``shape_launches``:
-    phase 17's bwd_shape_launches), on random inputs: dw_fwd by
-    :func:`dw_fwd_row`, the others by :func:`rd_bwd_row`; with ``prev``
+    operand shape an fp32 training step launched it at (``shape_launches``:
+    phase 17's bwd_shape_launches, or phase 25's), on random inputs: dw_fwd
+    by :func:`dw_fwd_row`, the others by :func:`rd_bwd_row`; with ``prev``
     (--prev-port loaded) the other checkout's kernels in turns (dw_fwd's g
     equal to its). Returns {kernel: the kernels-line summary: each shape's
     times x its launches, summed}."""
@@ -2895,38 +2938,36 @@ def phase_rd_backward(torch, seed, card, shape_launches, prev=False):
         if k == "dw_fwd":
             case = bwd_case(torch, rng, *key, False, dev, torch.float32)
             r = dw_fwd_row(torch, case["a0"], case["taps"], case["b2"],
-                           torch.float32, pdg)
+                           torch.float32, pdg, reps)
         else:
-            r = rd_bwd_row(torch, k, key, rng, dev, pdg)
+            r = rd_bwd_row(torch, k, key, rng, dev, pdg, reps)
         r.update(shape=list(key), per_step=e["launches"])
         rows[k].append(r)
         prev_txt = (f", parent {r['prev_ms']:.4f} in turns"
                     if "prev_ms" in r else "")
         lib_txt = (f", library {r['library_ms']:.4f}"
                    if r["library_ms"] is not None else "")
-        print(f"  {k} at RD-recipe shape {list(key)} fp32 (x"
-              f"{e['launches']} per micro-step): kernel {r['ms']:.4f} ms"
+        print(f"  {k} at {where} shape {list(key)} fp32 (x"
+              f"{e['launches']} per step): kernel {r['ms']:.4f} ms"
               f"{prev_txt}, plain {r['plain_ms']:.4f}{lib_txt}, bound "
               f"{1e3 * r['bound_ms']:.2f} us ({r['bytes']} B at 3.35 TB/s), "
               f"max abs {r['max_abs_err']:.3g} [{card}]")
     out = {}
     for k, rs in rows.items():
         if not rs:
-            fail(f"{k}: no launch counted in the RD micro-step")
-        per = lambda f: sum(r[f] * r["per_step"] for r in rs)
-        out[k] = dict(launches=sum(r["per_step"] for r in rs), ms=per("ms"),
-                      plain_ms=per("plain_ms"),
-                      library_ms=(per("library_ms")
+            fail(f"{k}: no launch counted in the {where} step")
+        sum_of = lambda f: sum(r[f] * r["per_step"] for r in rs)
+        out[k] = dict(launches=sum(r["per_step"] for r in rs),
+                      ms=sum_of("ms"), plain_ms=sum_of("plain_ms"),
+                      library_ms=(sum_of("library_ms")
                                   if rs[0]["library_ms"] is not None
                                   else None),
-                      bound_ms=per("bound_ms"),
+                      bound_ms=sum_of("bound_ms"),
                       max_abs_err=max(r["max_abs_err"] for r in rs),
-                      per="RD-recipe micro-step (rd-mid fp32, phase 17): "
-                          "each shape's time x its launches there, summed",
-                      shapes=rs)
+                      per=per, shapes=rs)
         if pdg is not None:
-            out[k]["prev_ms"] = per("prev_ms")
-        print(f"  {k}: {out[k]['ms']:.3f} ms per RD-recipe micro-step "
+            out[k]["prev_ms"] = sum_of("prev_ms")
+        print(f"  {k}: {out[k]['ms']:.3f} ms per {where} step "
               f"({out[k]['launches']} launches), plain "
               f"{out[k]['plain_ms']:.3f}, bound {out[k]['bound_ms']:.4f} ms"
               + (f", parent {out[k]['prev_ms']:.3f} ms in turns"
@@ -5434,6 +5475,8 @@ def p24_train(torch, seed, card):
             rows.append(dict(
                 key=[list(shape), o, k, s, list(pads), key[5], key[6],
                      where], launches=n,
+                bound_ms=p24_bound((*shape, o, k, s, tuple(pads)),
+                                   x.element_size())[0],
                 kernel_ms=cuda_ms(torch, lambda: Q.qconv_cuda(
                     x, wq, s_w, bias, s_x, k, s, pads, odt), P24_REPS),
                 plain_ms=cuda_ms(torch, lambda: Q.qconv_plain(
@@ -5450,6 +5493,7 @@ def p24_train(torch, seed, card):
                qconv_ms=by(None, "kernel_ms"),
                qconv_plain_ms=by(None, "plain_ms"),
                qconv_backward_ms=by("bwd", "kernel_ms"),
+               qconv_bound_ms=by(None, "bound_ms"),
                tiny_backward_shapes=len(bwd), shapes=rows)
     print(f"  (g) full-width default TrainConfig micro-step under "
           f"SSGVC_INT8=1 (B={TRAIN_B} {TRAIN_HW}x{TRAIN_HW} T={TRAIN_T}): "
@@ -5459,7 +5503,8 @@ def p24_train(torch, seed, card):
           f"{out['backward_launches']} backward recomputing the sums) at "
           f"{len(rows)} shapes: {out['qconv_ms']:.3f} ms of kernel time per "
           f"micro-step ({out['qconv_backward_ms']:.3f} of it backward), "
-          f"plain {out['qconv_plain_ms']:.3f} [{card}]")
+          f"plain {out['qconv_plain_ms']:.3f}, bound "
+          f"{out['qconv_bound_ms']:.3f} [{card}]")
     return out
 
 
@@ -5530,6 +5575,7 @@ def phase_experiments(torch, seed, card, iframe, main, variant_states):
             backward_launches=train["backward_launches"],
             ms=train["qconv_ms"], plain_ms=train["qconv_plain_ms"],
             backward_ms=train["qconv_backward_ms"],
+            bound_ms=train["qconv_bound_ms"],
             per="int8 (SSGVC_INT8=1) default-TrainConfig micro-step at full "
                 "width (phase 24 (g)): per-shape time x launches, summed"),
         iframe=dict(launches=sum(r["per_frame"]["I"] for r in i_rows),
@@ -5547,6 +5593,495 @@ def phase_experiments(torch, seed, card, iframe, main, variant_states):
     return dict(pframe=pframe, coded=coded, shiftadd=shiftadd, fused=fused,
                 sharded=sharded, train=train, sites=len(rows),
                 seconds=seconds), entry
+
+
+# Phase 25: the RD harness (ssgvc_tpu_torch/experiments/), in a temporary
+# working directory. (a) rd_tpu.main: the committed marathon recipe
+# (--lnorm --recon-skip) at rd-half, fp32, B=32 64x64 crops, sized for the
+# smoke's time by its flags and two module constants; (b) rd_eval.main on
+# (a)'s checkpoints at one crop with the coded check; (c) rd_continue.main
+# for a few steps, then rd_keep_best.main(0) and (1) on its JSON; (d)
+# rd_full.main at rd-mid and rd_demo.main (its own fixed widths: it has no
+# profile flag) on the host data path.
+P25_K = 2                    # micro-steps per mega-step
+P25_TPU = ["--profile", "half", "--lnorm", "--recon-skip", "--batch", "32",
+           "--crop", "64", "--k", str(P25_K), "--dmci-steps", "8",
+           "--steps", "16", "--eval-every", "8", "--eval-clips", "2",
+           "--eval-crop", "192", "--budget-min", "3"]
+P25_GATE_STEP = 2            # rd_full.GATE_STEP: the gate after a mega-step
+P25_PROBE = 4                # rd_tpu.DMCI_PROBE_STEPS: 2 mega-steps an init
+P25_EVAL = ["--profile", "half", "--crops", "64"]
+P25_CONTINUE = ["4", "--profile", "half", "--lnorm", "--recon-skip",
+                "--budget-min", "1"]
+P25_FULL = ["4", "--profile", "mid", "--lnorm", "--recon-skip",
+            "--budget-min", "0.5"]
+P25_DEMO = ["4"]
+P25_DEMO_DMCI = 20           # rd_demo.DMCI_MIN_STEPS (800 in the recipe)
+P25_SYNC_SITES = 5           # the source lines most syncs came from
+P25_REPS = 5                 # timed launches a kernel shape in (a)
+#: the JAX scripts' JSON keys: experiments/rd_tpu.py:482-540,
+#: rd_eval.py:96-190, rd_continue.py:291-447, rd_full.py:287-391,
+#: rd_demo.py:590-631
+RD_TPU_KEYS = {"runner", "budget_min", "k", "crop", "batch", "profile",
+               "eval_crop", "steps_schedule", "lambda_normalize",
+               "recon_residual", "roi_subset", "roi_weight", "backend",
+               "variants", "bd_rate_roi_psnr_pct", "bd_psnr_roi_db",
+               "bd_rate_psnr_pct", "bd_psnr_db"}
+RD_TPU_VARIANT_KEYS = {"estimated_rd", "best_step", "score", "liveness",
+                       "bpp_monotone_increasing_in_qp"}
+CURVE_KEYS = {"qp", "bpp", "psnr", "roi_psnr", "msssim"}
+RD_EVAL_KEYS = {"profile", "crops", "ckpt_extra", "roi_subset"}
+RD_EVAL_CROP_KEYS = {"trivial_bounds", "performance", "plain",
+                     "bd_rate_roi_psnr_pct", "bd_rate_psnr_pct",
+                     "bd_psnr_roi_db"}
+RD_CONTINUED_KEYS = {"continued_steps", "budget_min", "variants",
+                     "bd_rate_roi_psnr_pct", "bd_psnr_roi_db",
+                     "bd_rate_psnr_pct", "bd_psnr_db"}
+RD_FULL_KEYS = {"steps", "budget_min", "lambda_normalize", "recon_residual",
+                "profile", "model", "variants", "bd_rate_roi_psnr_pct",
+                "bd_rate_psnr_pct", "bd_psnr_roi_db", "estimate_vs_real_bpp"}
+RD_DEMO_KEYS = {"steps", "variants", "coded_gop_qp24",
+                "estimate_vs_real_bpp_qp24"}
+
+
+def p25_keys(what, got, want):
+    if set(got) != set(want):
+        fail(f"{what}: keys {sorted(got)} != the JAX script's {sorted(want)}")
+
+
+def p25_curve(what, curve, msssim=False):
+    """A curve's keys, finite values, bpp > 0 (and MS-SSIM where asked)."""
+    p25_keys(what, [k for k in curve if k in CURVE_KEYS], CURVE_KEYS)
+    vals = curve["bpp"] + curve["psnr"] + curve["roi_psnr"]
+    if msssim:
+        vals = vals + [m if m is not None else math.nan
+                       for m in curve["msssim"]]
+    if not (all(math.isfinite(v) for v in vals)
+            and all(b > 0 for b in curve["bpp"])):
+        fail(f"{what}: curve not finite or bpp <= 0: {curve}")
+
+
+def p25_same(torch, what, a, b):
+    if a.keys() != b.keys() or not all(torch.equal(a[k], b[k]) for k in a):
+        fail(f"{what}: the restored checkpoint differs from the run's")
+
+
+#: the axis each BD field averages over: the overlap of the two curves'
+#: ranges on it (PSNR for a BD-rate, the rate for a BD-PSNR)
+P25_BD_AXIS = {"bd_rate_roi_psnr_pct": "roi_psnr", "bd_psnr_roi_db": "bpp",
+               "bd_rate_psnr_pct": "psnr", "bd_psnr_db": "bpp"}
+
+
+def p25_bd_fields(stored, want, perf, plain):
+    """Fail unless each stored BD field equals ``want``'s: finite where the
+    curves' ranges on its axis overlap, NaN (as bd_rate / bd_psnr give)
+    only where they do not."""
+    for k, v in want.items():
+        a, t = plain[P25_BD_AXIS[k]], perf[P25_BD_AXIS[k]]
+        overlap = min(max(a), max(t)) > max(min(a), min(t))
+        ok = (math.isfinite(v) and stored[k] == v if overlap
+              else math.isnan(v) and math.isnan(stored[k]))
+        if not ok:
+            fail(f"(a) {k} {stored[k]} against bd_rate / bd_psnr of the "
+                 f"stored curves {v} (ranges on {P25_BD_AXIS[k]} "
+                 f"{'overlap' if overlap else 'apart'}: {a}, {t})")
+
+
+def p25_shapes_clear():
+    from ssgvc_tpu_torch.ops import dcb as dcb_ops
+    from ssgvc_tpu_torch.ops import dcb_chain as chain_ops
+    from ssgvc_tpu_torch.ops import dcb_grad as dg
+
+    for d in (dcb_ops.shape_launches_f32, dcb_ops.shape_launches_tf32,
+              chain_ops.shape_launches_f32, chain_ops.shape_launches_tf32,
+              dg.shape_launches):
+        d.clear()
+
+
+def p25_shapes_read():
+    """The fp32 forward kernels' and the backward kernels' launches by
+    operand shape since :func:`p25_shapes_clear`: ({kernel: {key: n}},
+    {(kernel, key): n})."""
+    from ssgvc_tpu_torch.ops import dcb as dcb_ops
+    from ssgvc_tpu_torch.ops import dcb_chain as chain_ops
+    from ssgvc_tpu_torch.ops import dcb_grad as dg
+
+    fwd = {"dcb_f32": dcb_ops.shape_launches_f32,
+           "dcb_tf32": dcb_ops.shape_launches_tf32,
+           "dcb_chain_f32": chain_ops.shape_launches_f32,
+           "dcb_chain_tf32": chain_ops.shape_launches_tf32}
+    return ({k: dict(d) for k, d in fwd.items() if d},
+            dict(dg.shape_launches))
+
+
+def p25_kernel_shapes(torch, seed, card, shapes):
+    """Every fp32 forward kernel and every backward kernel at each operand
+    shape the last mega-step of each run of (a) launched it at (``shapes``:
+    {run: p25_shapes_read()}), against its plain version at phase 14's and
+    phase 17's gates (F32_TOL forward, BWD_FP32_TOL backward), timed.
+    Returns {kernel: summary}."""
+    fwd, bwd = {}, {}
+    for f, b in shapes.values():
+        for k, keyed in f.items():
+            for key, n in keyed.items():
+                fwd.setdefault(k, {})
+                fwd[k][key] = fwd[k].get(key, 0) + n
+        for kk, n in b.items():
+            bwd[kk] = bwd.get(kk, 0) + n
+    if "dcb_tf32" not in fwd:
+        fail(f"(a) no 3xTF32 launch by shape in the mega-steps: "
+             f"{sorted(fwd)}")
+    where = "rd-half harness"
+    per = ("the last mega-step of each run of phase 25 (a) (DMCI "
+           "pretrain, performance, plain): each shape's time x its "
+           "launches there, summed")
+    with torch.no_grad():
+        rows = phase_f32_shapes(torch, seed + 5, card, fwd, where=where,
+                                reps=P25_REPS)
+        out = phase_rd_backward(
+            torch, seed + 5, card,
+            [dict(kernel=k, key=list(key), launches=n)
+             for (k, key), n in sorted(bwd.items())],
+            where=where, per=per, reps=P25_REPS)
+    for k, rs in rows.items():
+        sum_of = lambda f: sum(r[f] * r["per_step"] for r in rs)
+        out[k] = dict(launches=sum(r["per_step"] for r in rs),
+                      ms=sum_of("ms"), plain_ms=sum_of("plain_ms"),
+                      bound_ms=sum_of("bound_ms"),
+                      max_abs_err=max(r["max_abs_err"] for r in rs),
+                      max_rel_err=max(r["rel_err"] for r in rs), per=per,
+                      shapes=rs)
+    for k in out:
+        out[k]["shapes"] = len(out[k]["shapes"])
+        print(f"  (a) {k} held against its plain version at "
+              f"{out[k]['shapes']} rd-half shapes ({out[k]['launches']} "
+              f"launches in the runs' last mega-steps), max abs "
+              f"{out[k]['max_abs_err']:.3g} [{card}]")
+    return out
+
+
+@contextlib.contextmanager
+def p25_instrument(torch, rd_tpu, evaluate):
+    """Wrap rd_tpu's mega-step makers (ms per call by the host clock: a
+    mega-step ends by reading its means back; the second call of each run
+    is watched by torch.cuda.set_sync_debug_mode and its synchronising
+    calls counted instead; each call's kernel launches by operand shape
+    kept, so the last of each run stays), its pretrain and variant runners
+    (their returned params kept) and evaluate_rd_batched (s per call)."""
+    rec = {"label": "dmci", "mega": {}, "syncs": {}, "sync_sites": {},
+           "evals": [], "best": {}, "shapes": {}}
+    real = {n: getattr(rd_tpu, n) for n in (
+        "make_dmci_megastep", "make_dmc_megastep", "pretrain_dmci_tpu",
+        "train_variant_tpu")}
+    real_eval = evaluate.evaluate_rd_batched
+
+    def timed(make):
+        def build(*a, **kw):
+            mega = make(*a, **kw)
+
+            def call(*args):
+                label = rec["label"]
+                times = rec["mega"].setdefault(label, [])
+                p25_shapes_clear()
+                try:
+                    return watched(label, times, *args)
+                finally:
+                    rec["shapes"][label] = p25_shapes_read()
+
+            def watched(label, times, *args):
+                if label in rec["syncs"] or not times:
+                    t0 = time.perf_counter()
+                    out = mega(*args)
+                    times.append(1e3 * (time.perf_counter() - t0))
+                    return out
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    torch.cuda.set_sync_debug_mode("warn")
+                    try:
+                        out = mega(*args)
+                    finally:
+                        torch.cuda.set_sync_debug_mode(0)
+                sites = [f"{os.path.relpath(w.filename)}:{w.lineno}"
+                         for w in caught
+                         if "synchroniz" in str(w.message)]
+                rec["syncs"][label] = len(sites)
+                rec["sync_sites"][label] = sorted(
+                    ((sites.count(x), x) for x in set(sites)),
+                    reverse=True)[:P25_SYNC_SITES]
+                return out
+            return call
+        return build
+
+    def pretrain(*a, **kw):
+        rec["label"] = "dmci"
+        model, params = real["pretrain_dmci_tpu"](*a, **kw)
+        rec["dmci_params"] = params
+        return model, params
+
+    def variant(name, *a, **kw):
+        rec["label"] = name
+        tr, out, ok = real["train_variant_tpu"](name, *a, **kw)
+        if ok:
+            rec["best"][name] = (out["best"]["params_p"],
+                                 {k: v.detach().cpu().clone() for k, v in
+                                  tr.dmci.state_dict().items()})
+        return tr, out, ok
+
+    def ev(*a, **kw):
+        t0 = time.perf_counter()
+        out = real_eval(*a, **kw)
+        rec["evals"].append((rec["label"], bool(kw.get("compute_msssim")),
+                             time.perf_counter() - t0))
+        return out
+
+    rd_tpu.make_dmci_megastep = timed(real["make_dmci_megastep"])
+    rd_tpu.make_dmc_megastep = timed(real["make_dmc_megastep"])
+    rd_tpu.pretrain_dmci_tpu = pretrain
+    rd_tpu.train_variant_tpu = variant
+    evaluate.evaluate_rd_batched = ev
+    try:
+        yield rec
+    finally:
+        for n, f in real.items():
+            setattr(rd_tpu, n, f)
+        evaluate.evaluate_rd_batched = real_eval
+
+
+def p25_rd_tpu(torch, card):
+    """(a): rd_tpu.main at rd-half; returns (its numbers, launches)."""
+    from ssgvc_tpu_torch.experiments import rd_full, rd_tpu
+    from ssgvc_tpu_torch.training import evaluate
+    from ssgvc_tpu_torch.training.evaluate import bd_psnr, bd_rate
+    from ssgvc_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    reset, read = launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with p25_instrument(torch, rd_tpu, evaluate) as rec:
+        reset()
+        rd_tpu.main(P25_TPU)
+        counts = read()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    with open(f"{rd_full.ARTIFACTS}/rd_tpu.json") as f:
+        stored = json.load(f)
+    p25_keys("(a) rd_tpu.json", stored, RD_TPU_KEYS)
+    for v in ("performance", "plain"):
+        p25_keys(f"(a) {v}", stored["variants"][v], RD_TPU_VARIANT_KEYS)
+        p25_curve(f"(a) {v}", stored["variants"][v]["estimated_rd"],
+                  msssim=True)
+    perf = stored["variants"]["performance"]["estimated_rd"]
+    plain = stored["variants"]["plain"]["estimated_rd"]
+    want = {"bd_rate_roi_psnr_pct": bd_rate(plain["bpp"], plain["roi_psnr"],
+                                            perf["bpp"], perf["roi_psnr"]),
+            "bd_psnr_roi_db": bd_psnr(plain["bpp"], plain["roi_psnr"],
+                                      perf["bpp"], perf["roi_psnr"]),
+            "bd_rate_psnr_pct": bd_rate(plain["bpp"], plain["psnr"],
+                                        perf["bpp"], perf["psnr"]),
+            "bd_psnr_db": bd_psnr(plain["bpp"], plain["psnr"], perf["bpp"],
+                                  perf["psnr"])}
+    p25_bd_fields(stored, want, perf, plain)
+    p25_same(torch, "(a) DMCI",
+             restore_checkpoint(rd_full.dmci_ckpt_path())["params_i"],
+             rec["dmci_params"])
+    for v, (params_p, params_i) in rec["best"].items():
+        ck = restore_checkpoint(rd_full.ckpt_path(v))
+        p25_same(torch, f"(a) {v} params_p", ck["params_p"], params_p)
+        p25_same(torch, f"(a) {v} params_i", ck["params_i"], params_i)
+    if set(rec["best"]) != {"performance", "plain"}:
+        fail(f"(a) variants trained: {sorted(rec['best'])}")
+    if counts["dcb"] or counts["dcb_chain"] or not all(
+            counts[k] for k in ("dcb_tf32", "dcb_chain_tf32",
+                                *BWD_REPLACES)):
+        fail(f"(a) launches {counts}: want the fp32 forward routes and the "
+             f"four backward kernels, no bf16 launch")
+    runs = {}
+    for label, times in rec["mega"].items():
+        warm = times[1:] or times
+        ms = float(np.median(warm))
+        runs[label] = dict(mega_steps=len(times) + (label in rec["syncs"]),
+                           ms_per_mega_step=ms, ms_runs=times,
+                           micro_steps_per_s=1e3 * P25_K / ms,
+                           syncs_per_mega_step=rec["syncs"].get(label),
+                           sync_sites=rec["sync_sites"].get(label))
+        print(f"  (a) {label}: {runs[label]['mega_steps']} mega-steps of "
+              f"{P25_K}, {ms:.1f} ms per mega-step (host clock, median of "
+              f"{len(warm)} after the first; one more watched for syncs), "
+              f"{runs[label]['micro_steps_per_s']:.2f} micro-steps/s, "
+              f"{runs[label]['syncs_per_mega_step']} synchronising calls in "
+              f"one mega-step (most from {runs[label]['sync_sites']}) "
+              f"[{card}]")
+    evals = [dict(variant=l, msssim=m, s=s) for l, m, s in rec["evals"]]
+    in_run = [e["s"] for e in evals if not e["msssim"]]
+    print(f"  (a) rd_tpu.main rd-half fp32 {' '.join(P25_TPU)}: "
+          f"{seconds:.1f} s; s per in-run eval (2 clips 192x192, 5 QPs, "
+          f"batched) {np.round(in_run, 3).tolist()}, with MS-SSIM "
+          f"{[round(e['s'], 3) for e in evals if e['msssim']]}; peak "
+          f"{peak / 2**20:.1f} MiB; launches {counts}; scores "
+          f"{[round(stored['variants'][v]['score'], 3) for v in rec['best']]}"
+          f", BD-rate ROI {stored['bd_rate_roi_psnr_pct']}; checkpoints "
+          f"restored equal (torch.equal) [{card}]")
+    return dict(seconds=seconds, peak_bytes=peak, launches=counts,
+                shapes=rec["shapes"], runs=runs, evals=evals,
+                s_per_eval=float(np.median(in_run)) if in_run else None,
+                scores={v: stored["variants"][v]["score"]
+                        for v in rec["best"]},
+                bd={k: stored[k] for k in want}), counts
+
+
+def p25_rd_eval(torch, card):
+    """(b): rd_eval.main on (a)'s checkpoints at one crop, the coded check
+    (evaluate_gop_coded raises unless every decoded frame equals the
+    encoder's)."""
+    from ssgvc_tpu_torch.experiments import rd_eval
+
+    t0 = time.perf_counter()
+    rd_eval.main(P25_EVAL)
+    seconds = time.perf_counter() - t0
+    with open(f"{rd_eval.ARTIFACTS}/rd_eval.json") as f:
+        res = json.load(f)
+    p25_keys("(b) rd_eval.json", res, RD_EVAL_KEYS)
+    crop = res["crops"][P25_EVAL[P25_EVAL.index("--crops") + 1]]
+    p25_keys("(b) crop", crop, RD_EVAL_CROP_KEYS)
+    gaps = {}
+    for v in ("performance", "plain"):
+        p25_curve(f"(b) {v}", crop[v])
+        gaps[v] = crop[v]["est_vs_real_bpp"]
+        if [int(q) for q in gaps[v]] != list(EVAL_QPS) or not all(
+                math.isfinite(g[k]) and g[k] > 0 for g in gaps[v].values()
+                for k in ("estimated", "real")):
+            fail(f"(b) {v}: coded check {gaps[v]}")
+    print(f"  (b) rd_eval.main {' '.join(P25_EVAL)}: {seconds:.1f} s; "
+          f"decoded frames equal the encoder's at every QP; real vs "
+          f"estimated bpp (clip 0, P-frames): " + "; ".join(
+              f"{v} " + ", ".join(f"QP {q} {g['real']:.4f} / "
+                                  f"{g['estimated']:.4f}"
+                                  for q, g in gaps[v].items())
+              for v in gaps) + f" [{card}]")
+    return dict(seconds=seconds, est_vs_real_bpp=gaps)
+
+
+def p25_continue(torch, card):
+    """(c): rd_continue.main for a few steps (the .prev snapshots), then
+    rd_keep_best.main(0) (the .best snapshots) and main(1) on a forced
+    regression: live restored from .best."""
+    import filecmp
+
+    from ssgvc_tpu_torch.experiments import rd_continue, rd_full, rd_keep_best
+    from ssgvc_tpu_torch.utils.checkpoint import save_checkpoint
+
+    t0 = time.perf_counter()
+    rd_continue.main(P25_CONTINUE)
+    seconds = time.perf_counter() - t0
+    with open(rd_keep_best.CONTINUED_JSON) as f:
+        res = json.load(f)
+    p25_keys("(c) rd_continued.json", res, RD_CONTINUED_KEYS)
+    live = {v: rd_full.ckpt_path(v) for v in rd_keep_best.VARIANTS}
+    for v, path in live.items():
+        p25_curve(f"(c) {v}", res["variants"][v]["estimated_rd"],
+                  msssim=True)
+        if not os.path.exists(path + ".prev"):
+            fail(f"(c) no .prev snapshot of {path}")
+    real_live = rd_keep_best.live_path
+    # the keep-best rotation names the marathon's tiny-skip files; here it
+    # rotates (c)'s rd-half checkpoints
+    rd_keep_best.live_path = lambda v: live[v]
+    try:
+        first = rd_keep_best.main(0)[-1]
+        for v, path in live.items():
+            if (first[v].get("action") != "new_best"
+                    or not filecmp.cmp(path, path + ".best", shallow=False)):
+                fail(f"(c) keep-best cycle 0 {v}: {first[v]}")
+        # a forced regression: each curve DIVERGE_DB lower in PSNR and in
+        # ROI-PSNR, and live checkpoints that differ from .best
+        for c in res["variants"].values():
+            for k in ("psnr", "roi_psnr"):
+                c["estimated_rd"][k] = [p - rd_keep_best.DIVERGE_DB
+                                        for p in c["estimated_rd"][k]]
+        with open(rd_keep_best.CONTINUED_JSON, "w") as f:
+            json.dump(res, f)
+        for path in live.values():
+            ck = torch.load(path, map_location="cpu", weights_only=True)
+            key = next(iter(ck["params_p"]))
+            ck["params_p"][key] = ck["params_p"][key] + 1.0
+            save_checkpoint(path, ck)
+            if filecmp.cmp(path, path + ".best", shallow=False):
+                fail("(c) the perturbed live checkpoint equals .best")
+        second = rd_keep_best.main(1)[-1]
+        for v, path in live.items():
+            if (second[v].get("action") != "diverged_restored_best"
+                    or not filecmp.cmp(path, path + ".best", shallow=False)):
+                fail(f"(c) keep-best cycle 1 {v}: {second[v]}")
+    finally:
+        rd_keep_best.live_path = real_live
+    print(f"  (c) rd_continue.main {' '.join(P25_CONTINUE)}: {seconds:.1f} s,"
+          f" .prev snapshots written; rd_keep_best cycle 0 "
+          f"{[first[v]['action'] for v in live]} (.best equal to live), "
+          f"cycle 1 on curves {rd_keep_best.DIVERGE_DB} dB lower in PSNR and "
+          f"ROI-PSNR "
+          f"{[second[v]['action'] for v in live]} (live equal to .best "
+          f"again) [{card}]")
+    return dict(seconds=seconds, cycle0=first, cycle1=second)
+
+
+def p25_host_runs(torch, card):
+    """(d): rd_full.main at rd-mid and rd_demo.main on the host data path."""
+    from ssgvc_tpu_torch.experiments import rd_demo, rd_full
+
+    out = {}
+    for name, fn, argv, keys in (
+            ("rd_full", rd_full.main, P25_FULL, RD_FULL_KEYS),
+            ("rd_demo", rd_demo.main, P25_DEMO, RD_DEMO_KEYS)):
+        t0 = time.perf_counter()
+        fn(list(argv))
+        seconds = time.perf_counter() - t0
+        with open(f"{rd_full.ARTIFACTS}/{name}.json") as f:
+            stored = json.load(f)
+        p25_keys(f"(d) {name}.json", stored, keys)
+        for v in ("performance", "plain"):
+            p25_curve(f"(d) {name} {v}",
+                      stored["variants"][v]["estimated_rd"],
+                      msssim=name == "rd_full")
+        real = (stored["estimate_vs_real_bpp"] if name == "rd_full"
+                else {"24": stored["estimate_vs_real_bpp_qp24"]})
+        if not all(math.isfinite(r["real"]) and r["real"] > 0
+                   for r in real.values()):
+            fail(f"(d) {name}: real bpp {real}")
+        out[name] = dict(seconds=seconds, est_vs_real_bpp=real)
+        print(f"  (d) {name}.main {' '.join(argv)}: {seconds:.1f} s, "
+              f"{name}.json with the JAX keys, finite; real vs estimated "
+              f"bpp {real} [{card}]")
+    return out
+
+
+def phase_rd_harness(torch, seed, card):
+    """Phase 25: the RD harness on the card (module docstring)."""
+    from ssgvc_tpu_torch.experiments import rd_demo, rd_full, rd_tpu
+
+    t0 = time.perf_counter()
+    saved = (rd_full.GATE_STEP, rd_tpu.DMCI_PROBE_STEPS,
+             rd_demo.DMCI_MIN_STEPS)
+    old = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        rd_full.GATE_STEP, rd_tpu.DMCI_PROBE_STEPS = P25_GATE_STEP, P25_PROBE
+        rd_demo.DMCI_MIN_STEPS = P25_DEMO_DMCI
+        try:
+            tpu, counts = p25_rd_tpu(torch, card)
+            ev = p25_rd_eval(torch, card)
+            cont = p25_continue(torch, card)
+            host = p25_host_runs(torch, card)
+        finally:
+            os.chdir(old)
+            (rd_full.GATE_STEP, rd_tpu.DMCI_PROBE_STEPS,
+             rd_demo.DMCI_MIN_STEPS) = saved
+    tpu["kernels"] = p25_kernel_shapes(torch, seed, card,
+                                       tpu.pop("shapes"))
+    seconds = time.perf_counter() - t0
+    print(f"rd harness: phase 25 in {seconds:.1f} s [{card}]")
+    return dict(rd_tpu=tpu, rd_eval=ev, rd_continue=cont, host=host,
+                seconds=seconds), counts
 
 
 def main() -> int:
@@ -5622,8 +6157,8 @@ def main() -> int:
     rd_half = phase_rdhalf(torch, args.seed, card)
     rd = phase_rd_recipe(torch, args.seed, card)
     with torch.no_grad():
-        simt = phase_simt_shapes(torch, args.seed, card,
-                                 rd.pop("simt_counts"), prev)
+        simt = phase_f32_shapes(torch, args.seed, card,
+                                rd.pop("simt_counts"), prev)
         rd_bwd = phase_rd_backward(torch, args.seed, card,
                                    rd["bwd_shape_launches"],
                                    prev is not None)
@@ -5639,6 +6174,7 @@ def main() -> int:
     parallel = phase_parallel(torch, args.seed, card)
     experiments, qconv_entry = phase_experiments(
         torch, args.seed, card, iframe, main_path, variant_states)
+    rd_harness, rd_counts = phase_rd_harness(torch, args.seed, card)
     next(e for e in kernels if e["name"] == "dcb")["image_step"] = \
         image_cli.pop("dcb")
     for entry in backward:
@@ -5669,6 +6205,12 @@ def main() -> int:
                  f"the micro-step's {entry['rd_recipe_launches']}")
         entry["rd_recipe"] = r
     kernels += kernels_f32 + backward + [qconv_entry]
+    for entry in kernels:
+        if entry["name"] in rd_counts:
+            entry["rd_harness"] = dict(
+                launches=rd_counts[entry["name"]],
+                per="launches in phase 25 (a)'s rd_tpu.main (rd-half fp32: "
+                    "the DMCI pretrain, two variants, their evals)")
     # the row-sharded frames' launches, per run, rank and frame (phase 23
     # (c)), on the entries of the kernels each run's counters count
     for entry in kernels:
@@ -5719,6 +6261,7 @@ def main() -> int:
     print(json.dumps({"tools": {**tools, "card": card}}))
     print(json.dumps({"parallel": {**parallel, "card": card}}))
     print(json.dumps({"experiments": {**experiments, "card": card}}))
+    print(json.dumps({"rd_harness": {**rd_harness, "card": card}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -73,9 +73,10 @@ SMEM_LIMIT = 232448
 launches = 0
 launches_f32 = 0
 launches_tf32 = 0
-#: The SIMT fp32 kernel's launches by operand shape since last cleared:
-#: (B, H, W, C, shortcut, q given) -> count.
+#: The SIMT and the 3xTF32 fp32 kernels' launches by operand shape since
+#: last cleared: (B, H, W, C, shortcut, q given) -> count.
 shape_launches_f32: Dict[tuple, int] = {}
+shape_launches_tf32: Dict[tuple, int] = {}
 
 Params = Tuple[torch.Tensor, ...]   # (w0, b0, w2, b2, w3, b3, wf0, bf0, wf2, bf2)
 
@@ -821,6 +822,8 @@ def dcb_tf32_cuda(x: torch.Tensor, packed: torch.Tensor,
     y = torch.empty_like(x)
     launch_f32(x, y, y, packed, q_ptr, 1, shortcut, "dcb_tf32", tf32=True)
     launches_tf32 += 1
+    key = (*x.shape, bool(shortcut), q is not None)
+    shape_launches_tf32[key] = shape_launches_tf32.get(key, 0) + 1
     return y
 
 

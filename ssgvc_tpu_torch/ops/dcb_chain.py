@@ -55,9 +55,10 @@ MAX_CHANNELS = 384
 launches = 0
 launches_f32 = 0
 launches_tf32 = 0
-#: The SIMT fp32 kernel's launches by operand shape since last cleared:
-#: (B, H, W, C, N, q given) -> count.
+#: The SIMT and the 3xTF32 fp32 kernels' launches by operand shape since
+#: last cleared: (B, H, W, C, N, q given) -> count.
 shape_launches_f32: Dict[tuple, int] = {}
+shape_launches_tf32: Dict[tuple, int] = {}
 
 
 def buffer_plan(n: int, in_smem: bool = False) -> List[Tuple[str, str]]:
@@ -138,9 +139,9 @@ def _chain_f32(x, packed, q_last, what, tf32):
     scratch = (torch.empty_like(x)
                if any(d == "s" for _, d in buffer_plan(n, in_smem)) else y)
     launch_f32(x, y, scratch, packed, q_ptr, n, False, what, tf32=tf32)
-    if not tf32:
-        key = (*x.shape, n, q_last is not None)
-        shape_launches_f32[key] = shape_launches_f32.get(key, 0) + 1
+    key = (*x.shape, n, q_last is not None)
+    shapes = shape_launches_tf32 if tf32 else shape_launches_f32
+    shapes[key] = shapes.get(key, 0) + 1
     return y
 
 

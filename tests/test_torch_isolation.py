@@ -4,6 +4,7 @@ coder; its entry points target the card unless asked for the CPU, with no
 fallback, and take bfloat16 and float32 there (any other dtype raises)."""
 
 import ast
+import os
 from pathlib import Path
 
 import pytest
@@ -51,11 +52,15 @@ TOOL_MODULES = ("utils.debug", "utils.profiling", "graft_entry")
 PARALLEL_MODULES = ("parallel.mesh", "parallel.spatial")
 #: the opt-in experiments: the int8 conv, the patch convs, the blocks
 EXPERIMENT_MODULES = ("ops.qconv", "ops.pixel", "layers.blocks")
+#: the RD experiment harness
+RD_MODULES = ("experiments.rd_keep_best", "experiments.rd_full",
+              "experiments.rd_tpu", "experiments.rd_eval",
+              "experiments.rd_continue", "experiments.rd_demo")
 
 
 @pytest.mark.parametrize("module", TRAINING_MODULES + DATA_MODULES
                          + CLI_MODULES + TOOL_MODULES + PARALLEL_MODULES
-                         + EXPERIMENT_MODULES)
+                         + EXPERIMENT_MODULES + RD_MODULES)
 def test_training_modules_import_without_jax(module):
     """Each module of the training path imports, in a fresh interpreter,
     with JAX, flax, optax and the JAX package made unimportable."""
@@ -233,3 +238,37 @@ def test_int8_conv_defaults_to_the_card_and_never_falls_back(monkeypatch):
                      torch.ones(()), 1, 1, (0, 0, 0, 0), torch.float32)
     src = (ROOT / "ssgvc_tpu_torch" / "ops" / "qconv.py").read_text()
     assert "except" not in src
+
+
+#: each RD entry point with the least arguments that reach a model
+RD_MAINS = {"rd_tpu": ["--profile", "tiny", "--eval-clips", "2"],
+            "rd_full": ["--profile", "tiny"], "rd_demo": ["1"],
+            "rd_eval": ["--profile", "tiny", "--crops", "64"],
+            "rd_continue": ["1", "--profile", "tiny", "--recon-skip"]}
+
+
+@pytest.mark.parametrize("name", sorted(RD_MAINS))
+def test_rd_harness_mains_default_to_the_card(name, tmp_path, monkeypatch):
+    """Without --device=cpu every RD entry point builds its models on the
+    card: a host with no card raises there (rd_eval and rd_continue once a
+    checkpoint of the profile exists to load)."""
+    import importlib
+
+    from ssgvc_tpu_torch.experiments import rd_full
+
+    mod = importlib.import_module(f"ssgvc_tpu_torch.experiments.{name}")
+    for attr in ("MID_DMC", "MID_DMCI", "PROFILE", "RECON_SKIP",
+                 "CKPT_EXTRA", "LNORM", "DEVICE"):
+        monkeypatch.setattr(rd_full, attr, getattr(rd_full, attr))
+    monkeypatch.chdir(tmp_path)
+    if name in ("rd_eval", "rd_continue"):
+        rd_full.set_profile("tiny")
+        rd_full.RECON_SKIP = True
+        os.makedirs(os.path.dirname(rd_full.ckpt_path("plain")))
+        torch.save({"params_p": {}, "params_i": {}},
+                   rd_full.ckpt_path("performance"))
+    assert rd_full.split_device(RD_MAINS[name]) == ("cuda", RD_MAINS[name])
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main(list(RD_MAINS[name]))
