@@ -206,8 +206,9 @@ Phases (any failure exits non-zero and prints no result line):
      container's unit sizes; the kernels' launches per side (3xTF32:
      script_launches); host seconds around each main and ms per frame;
      bpp and PSNR per frame. Then the scripts' default GOP
-     (SCRIPT_LONG_GOP = 32) over all SCRIPT_LONG_FRAMES frames of the
-     fixture (I + 15 P) from a checkpoint of drawn weights (random_weights,
+     (SCRIPT_LONG_GOP = 32) over the first record's SCRIPT_LONG_FRAMES
+     frames of the fixture (I + 7 P) from a checkpoint of drawn weights
+     (random_weights,
      the prior heads at 0.01) that the phase writes in the port's format:
      the same checks, and every P-frame's DPB finite on both sides, the
      decoder's DPB feature maxima equal to the encoder's, printed per
@@ -245,7 +246,14 @@ Phases (any failure exits non-zero and prints no result line):
      launches (those of the unsharded frame, 18 + 5); one frame again in
      fp32 (the 3xTF32 and the SIMT kernels) at tests/test_mesh.py's
      tolerances; then the bf16 frame over 4 and over 8 ranks (P23_WIDE;
-     largest slabs 320 and 192 rows); ms per frame, each rank's unit slab,
+     largest slabs 320 and 192 rows); the H the JAX package takes beyond
+     whole 64-row units (P23_RAGGED): bf16 GOPs of 2 against the
+     unsharded frame, the DPB bit for bit and the bpp within P23_SUM, at
+     1280 x 720 over 2 ranks (the fast variant; the
+     last slab holds the partial unit) and 1920 x 128 over 4 (two ranks
+     with an empty slab that launch nothing), and 2560 x 1440 over 2 and
+     4 one bf16 frame at the bf16 gate and over 2 one fp32 (3xTF32) frame
+     at tests/test_mesh.py's tolerances; ms per frame, each rank's unit slab,
      the halo bytes and the redistribution bytes (even slabs to units and
      the DPB back) each rank sent and each rank's peak memory above what
      it held before the GOP, beside the unsharded ones, not gated (the
@@ -327,13 +335,33 @@ Phases (any failure exits non-zero and prints no result line):
      equal to .best. (d) rd_full.main at rd-mid and rd_demo.main (its
      fixed demo widths, DMCI_MIN_STEPS lowered) on the host data path:
      their JSON with the JAX keys, finite.
+ 26. the mask_prop experiments, the journey and the report, in phase 25's
+     working directory, each script run with every launch count set to 0
+     just before and read just after, its seconds and peak memory printed
+     (no bf16 launch): (a) rd_tpu.main (P26_TPU: rd-half, fp32, roi_subset
+     clips, the fast and mask_prop variants one mega-step each on phase
+     25's DMCI): finite curves; (b) mask_train_phase.main (P26_MASK_TRAIN)
+     on (a)'s mask_prop checkpoint: the JAX keys, IoU before and after
+     finite, only mask_predictor tensors moved, the .premask backup equal
+     to the file it replaced; (c) mask_prop_value.main (P26_VALUE, 2 QPs,
+     P26_CLIPS clips): the JAX keys, finite curves; (d)
+     e2e_waymo_format.main at its own settings (tiny, fp32, the intra
+     pretrain cut to P26_E2E_DMCI steps; the CLI in a child process, whose
+     launches are its own): the JAX keys, every decoded frame equal to the
+     encoder's (evaluate_gop_coded raises otherwise); (e)
+     rd_trajectory.main on phase 25 (c)'s marathon log, then
+     rd_report.main: artifacts/torch/RESULTS.md names every artifact it
+     read, and the committed RESULTS.md is unchanged. Then every fp32
+     forward and backward kernel at each operand shape (a)-(d) launched it
+     at, against its plain version (F32_TOL, BWD_FP32_TOL), timed.
 
 The last lines are JSON objects: {"main_path": ...}, {"variants": ...},
 {"coded": ...}, {"training": ...}, {"cross_check": ...}, {"fp32": ...},
 {"rd_half": ...}, {"rd_recipe": ...}, {"coded_fp32": ...},
 {"train_cli": ...}, {"image_cli": ...}, {"scripts": ...}, {"tools": ...},
 {"parallel": ...}, {"experiments": ...}, {"rd_harness": ...},
-{"kernels": [...]}, and last
+{"mask_experiments": ...}, {"phase_seconds": ...} (each phase's seconds,
+also printed as it ends), {"kernels": [...]}, and last
 {"ok": true, "device":
 {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -3035,7 +3063,7 @@ def phase_coded_f32(torch, seed, card):
 #: "tiny")
 CLI_RECORDS = (8, 8)
 WAYMO_HW = (1280, 1920)
-CLI_EPOCHS, CLI_VAL_EVERY, CLI_TOP_K, CLI_RESUME_STEPS = 5, 5, 1, 2
+CLI_EPOCHS, CLI_VAL_EVERY, CLI_TOP_K, CLI_RESUME_STEPS = 3, 3, 1, 2
 CLI_PROFILE = "full"
 
 
@@ -3272,7 +3300,7 @@ def phase_train_cli(torch, seed, card, root: Path):
 #: YAML's model and data (full DMCI, bf16-mixed, B=16 256x256 crops of
 #: T=4 clips; 9 training windows, so one step an epoch); a step's launches
 #: (one forward and one backward of each of the DMCI's 42 blocks)
-IMAGE_EPOCHS = 3
+IMAGE_EPOCHS = 2
 IMAGE_B, IMAGE_HW = 16, 256
 IMAGE_LAUNCHES = {"dcb": 42, "dcb_chain": 0, "dcb_f32": 0,
                   "dcb_chain_f32": 0, "dcb_tf32": 0, "dcb_chain_tf32": 0,
@@ -3627,19 +3655,19 @@ def phase_image_cli(torch, seed, card, root: Path, prev=None):
 
 #: Phase 21: the scripts on the first SCRIPT_FRAMES frames of the fixture
 #: (one record file's) at phase 10's QP, an I-frame every SCRIPT_GOP
-#: frames: the GOP phase 19's checkpoint trained on (T=4). Its 10 steps
-#: leave a DPB that grows with each P-frame, in the JAX package as in the
-#: port (F6, experiments/f6_dpb_growth.py: the tiny profile's feature
-#: ~4-10x a frame, past 1e7 by the ninth), so that checkpoint codes GOPs
-#: of 4. The scripts' default GOP of 32 (scripts/encode.py's --gop) is
-#: coded after it, over all SCRIPT_LONG_FRAMES frames of the fixture (I +
-#: 15 P), from weights drawn as random_weights draws them (the prior heads
+#: frames: the GOP phase 19's checkpoint trained on (T=4). Trained
+#: weights can leave a DPB that grows with each P-frame, in the JAX
+#: package as in the port (F6, experiments/f6_dpb_growth.py: the tiny
+#: profile's feature ~4-10x a frame, past 1e7 by the ninth), so that
+#: checkpoint codes GOPs of 4. The scripts' default GOP of 32 (scripts/encode.py's --gop) is
+#: coded after it, over the first record's SCRIPT_LONG_FRAMES frames (I +
+#: 7 P), from weights drawn as random_weights draws them (the prior heads
 #: at 0.01) and written in the port's checkpoint format. Launches per side:
 #: the full profile in fp32 (profile_model_cfgs' default dtype) takes the
 #: 3xTF32 kernels, per I-frame 42 / 32 and per P-frame 19+5 / 12+4 after
 #: the I-frame, 18+5 / 11+4 after (encoder / decoder, as phase 10)
 SCRIPT_FRAMES, SCRIPT_GOP = 8, TRAIN_T
-SCRIPT_LONG_FRAMES, SCRIPT_LONG_GOP = sum(CLI_RECORDS), 32
+SCRIPT_LONG_FRAMES, SCRIPT_LONG_GOP = CLI_RECORDS[0], 32
 
 
 def script_launches(frames=SCRIPT_FRAMES, gop=SCRIPT_GOP):
@@ -4071,7 +4099,7 @@ def phase_tools(torch, seed, card, main, root: Path):
 P23_H = H                    # the main path's 1088 rows: 17 units of 64,
 #                              worked on uneven slabs of whole units
 P23_WIDE = (4, 8)            # (c): one bf16 frame over 4 and over 8 ranks
-P23_FRAMES = 3               # the sharded GOP (after_i=False)
+P23_FRAMES = 2               # the sharded GOP (after_i=False)
 P23_STEPS = 8                # (b): the default accumulation, one update
 P23_REL = 1e-2               # (c) bf16: relative Frobenius, the kernels'
 P23_BPP_REL = 1e-3           # (c) bf16: bpp relative difference
@@ -4109,6 +4137,41 @@ P23_RUNS = (
          widths={}, h=P23_H, w=W, packed=True, frames=1, counters="",
          label="e"),
 )
+#: (c) the shard at the H the JAX package takes beyond whole 64-row units,
+#: at full width with packed io, by world size: 1280 x 720 over 2 ranks
+#: (11 units and 16 rows: slabs of 384 and 336 rows) and 1920 x 128 over 4
+#: (2 units for 4 ranks: 64, 0, 64, 0), bf16 GOPs of 2 with the DPB bit
+#: for bit against the unsharded frame's and the bpp within P23_SUM (the
+#: bits' sum in another order: one ulp seen); 2560 x 1440 over 2 and 4 (22
+#: units and 32 rows: 704 + 736; 384, 320, 384, 352), where the bf16
+#: frame is not bit for bit (on the H100 frame 0 at 4e-3 relative, max
+#: 0.08, then 3% as latent roundings flip) while the fp32 (3xTF32) one is:
+#: one bf16 frame at phase 23's bf16 gate and one fp32 frame at
+#: tests/test_mesh.py's. The performance
+#: variant refuses an H whose y rows are not a multiple of 4, in both
+#: packages (its hyper input is not padded), so 720 and 1440 rows run the
+#: fast variant
+P23_SUM = 1e-6
+P23_EXACT = dict(max_abs=0.0, bpp_rel=P23_SUM)
+P23_RAGGED = {
+    2: (dict(name="fast 1280x720", variant="fast", h=720, w=1280,
+             frames=2, gate=P23_EXACT),
+        dict(name="fast 2560x1440", variant="fast", h=1440, w=2560,
+             frames=1),
+        dict(name="fast fp32 2560x1440", variant="fast", h=1440, w=2560,
+             frames=1, dtype="float32", counters="_tf32")),
+    4: (dict(name="fast 2560x1440", variant="fast", h=1440, w=2560,
+             frames=1),
+        dict(name="performance 1920x128", variant="performance", h=128,
+             w=1920, frames=2, gate=P23_EXACT)),
+}
+
+
+def p23_ragged(world):
+    """The P23_RAGGED runs over ``world`` ranks, as P23_RUNS entries."""
+    return tuple({**dict(dtype="bfloat16", widths={}, packed=True,
+                         counters="", label="c"), **run}
+                 for run in P23_RAGGED.get(world, ()))
 
 
 @contextlib.contextmanager
@@ -4473,9 +4536,12 @@ def p23_spawn_rows(torch, seed, card, tmp: Path, runs, world, tag):
         for i, row in enumerate(per_rank[0]["frames"]):
             others = [k["frames"][i] for k in per_rank]
             for r, x in enumerate(others):
-                if x["launches"] != run["launches"][i]:
+                # a rank whose unit slab is empty runs no layer
+                want = (run["launches"][i] if x["slab"][1] > x["slab"][0]
+                        else [0] * len(run["launches"][i]))
+                if x["launches"] != want:
                     bad.append(f"{run['name']} frame {i} rank {r} launches "
-                               f"{x['launches']}")
+                               f"{x['launches']}, want {want}")
             if run.get("gate"):
                 gate = run["gate"]
                 ok = (row["frame"]["max_abs"] <= gate["max_abs"]
@@ -4538,17 +4604,24 @@ def p23_rows(torch, seed, card, tmp: Path):
     each of P23_RUNS ((e): mask_prop's among them) against the unsharded
     P-frame on the card on the same inputs; then the bf16 run's first
     frame over each of P23_WIDE ranks."""
-    runs = p23_refs(torch, seed, P23_RUNS)
+    runs = p23_refs(torch, seed, P23_RUNS + p23_ragged(2))
     out, spawn_s = p23_spawn_rows(torch, seed, card, tmp, runs, 2, "c")
     wide = {}
     first = dict(runs[0], frames=runs[0]["frames"][:1],
                  masks=runs[0]["masks"][:1], ref=runs[0]["ref"][:1],
                  ms=runs[0]["ms"][:1], launches=runs[0]["launches"][:1])
+    ragged = {}
     for n in P23_WIDE:
-        rec, secs = p23_spawn_rows(torch, seed, card, tmp, [first], n,
-                                   f"c{n}")
+        extra = p23_refs(torch, seed, p23_ragged(n))
+        rec, secs = p23_spawn_rows(torch, seed, card, tmp, [first] + extra,
+                                   n, f"c{n}")
         wide[n] = dict(run=rec[0], spawn_s=secs)
-    return dict(runs=out, spawn_s=spawn_s, wide=wide)
+        ragged.update({f"{r['name']} over {n} ranks": r for r in rec[1:]})
+    names = {x["name"] for x in p23_ragged(2)}
+    ragged.update({f"{r['name']} over 2 ranks": r for r in out
+                   if r["name"] in names})
+    return dict(runs=[r for r in out if r["name"] not in names],
+                spawn_s=spawn_s, wide=wide, ragged=ragged)
 
 
 def p23_dp_rank(rank, world, rdzv, path):
@@ -5606,7 +5679,7 @@ def phase_experiments(torch, seed, card, iframe, main, variant_states):
 P25_K = 2                    # micro-steps per mega-step
 P25_TPU = ["--profile", "half", "--lnorm", "--recon-skip", "--batch", "32",
            "--crop", "64", "--k", str(P25_K), "--dmci-steps", "8",
-           "--steps", "16", "--eval-every", "8", "--eval-clips", "2",
+           "--steps", "8", "--eval-every", "4", "--eval-clips", "2",
            "--eval-crop", "192", "--budget-min", "3"]
 P25_GATE_STEP = 2            # rd_full.GATE_STEP: the gate after a mega-step
 P25_PROBE = 4                # rd_tpu.DMCI_PROBE_STEPS: 2 mega-steps an init
@@ -5619,6 +5692,7 @@ P25_DEMO = ["4"]
 P25_DEMO_DMCI = 20           # rd_demo.DMCI_MIN_STEPS (800 in the recipe)
 P25_SYNC_SITES = 5           # the source lines most syncs came from
 P25_REPS = 5                 # timed launches a kernel shape in (a)
+P25_LOG = "logs/rd_marathon.log"   # (c)'s cycle, as a marathon logs it
 #: the JAX scripts' JSON keys: experiments/rd_tpu.py:482-540,
 #: rd_eval.py:96-190, rd_continue.py:291-447, rd_full.py:287-391,
 #: rd_demo.py:590-631
@@ -5714,7 +5788,13 @@ def p25_shapes_read():
             dict(dg.shape_launches))
 
 
-def p25_kernel_shapes(torch, seed, card, shapes):
+P25_PER = ("the last mega-step of each run of phase 25 (a) (DMCI "
+           "pretrain, performance, plain): each shape's time x its "
+           "launches there, summed")
+
+
+def p25_kernel_shapes(torch, seed, card, shapes, label="(a)",
+                      where="rd-half harness", per=P25_PER):
     """Every fp32 forward kernel and every backward kernel at each operand
     shape the last mega-step of each run of (a) launched it at (``shapes``:
     {run: p25_shapes_read()}), against its plain version at phase 14's and
@@ -5729,12 +5809,7 @@ def p25_kernel_shapes(torch, seed, card, shapes):
         for kk, n in b.items():
             bwd[kk] = bwd.get(kk, 0) + n
     if "dcb_tf32" not in fwd:
-        fail(f"(a) no 3xTF32 launch by shape in the mega-steps: "
-             f"{sorted(fwd)}")
-    where = "rd-half harness"
-    per = ("the last mega-step of each run of phase 25 (a) (DMCI "
-           "pretrain, performance, plain): each shape's time x its "
-           "launches there, summed")
+        fail(f"{label} no 3xTF32 launch by shape in the runs: {sorted(fwd)}")
     with torch.no_grad():
         rows = phase_f32_shapes(torch, seed + 5, card, fwd, where=where,
                                 reps=P25_REPS)
@@ -5753,10 +5828,9 @@ def p25_kernel_shapes(torch, seed, card, shapes):
                       shapes=rs)
     for k in out:
         out[k]["shapes"] = len(out[k]["shapes"])
-        print(f"  (a) {k} held against its plain version at "
-              f"{out[k]['shapes']} rd-half shapes ({out[k]['launches']} "
-              f"launches in the runs' last mega-steps), max abs "
-              f"{out[k]['max_abs_err']:.3g} [{card}]")
+        print(f"  {label} {k} held against its plain version at "
+              f"{out[k]['shapes']} shapes ({out[k]['launches']} launches: "
+              f"{per}), max abs {out[k]['max_abs_err']:.3g} [{card}]")
     return out
 
 
@@ -5972,7 +6046,16 @@ def p25_continue(torch, card):
     from ssgvc_tpu_torch.utils.checkpoint import save_checkpoint
 
     t0 = time.perf_counter()
-    rd_continue.main(P25_CONTINUE)
+    # the marathon's log, framed as its driver frames a cycle: phase 26
+    # reads the cycle's eval lines back (rd_trajectory)
+    os.makedirs("logs", exist_ok=True)
+    with open(P25_LOG, "w") as log:
+        log.write(f"=== marathon start {time.strftime('%Y-%m-%dT%H:%M:%S')}"
+                  " (chip_smoke phase 25) ===\n")
+        with contextlib.redirect_stdout(Tee(sys.stdout, log)):
+            rd_continue.main(P25_CONTINUE)
+        log.write(f"=== continue cycle 1 done "
+                  f"{time.strftime('%Y-%m-%dT%H:%M:%S')} rc=0\n")
     seconds = time.perf_counter() - t0
     with open(rd_keep_best.CONTINUED_JSON) as f:
         res = json.load(f)
@@ -6055,33 +6138,254 @@ def p25_host_runs(torch, card):
     return out
 
 
-def phase_rd_harness(torch, seed, card):
-    """Phase 25: the RD harness on the card (module docstring)."""
+class Tee:
+    """A text stream writing to each of ``streams``."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for f in self.streams:
+            f.write(text)
+        return len(text)
+
+    def flush(self):
+        for f in self.streams:
+            f.flush()
+
+
+def phase_rd_harness(torch, seed, card, work: Path):
+    """Phase 25: the RD harness on the card (module docstring), in the
+    working directory ``work`` (phase 26 continues there)."""
     from ssgvc_tpu_torch.experiments import rd_demo, rd_full, rd_tpu
 
     t0 = time.perf_counter()
     saved = (rd_full.GATE_STEP, rd_tpu.DMCI_PROBE_STEPS,
              rd_demo.DMCI_MIN_STEPS)
     old = os.getcwd()
-    with tempfile.TemporaryDirectory() as tmp:
-        os.chdir(tmp)
-        rd_full.GATE_STEP, rd_tpu.DMCI_PROBE_STEPS = P25_GATE_STEP, P25_PROBE
-        rd_demo.DMCI_MIN_STEPS = P25_DEMO_DMCI
-        try:
-            tpu, counts = p25_rd_tpu(torch, card)
-            ev = p25_rd_eval(torch, card)
-            cont = p25_continue(torch, card)
-            host = p25_host_runs(torch, card)
-        finally:
-            os.chdir(old)
-            (rd_full.GATE_STEP, rd_tpu.DMCI_PROBE_STEPS,
-             rd_demo.DMCI_MIN_STEPS) = saved
+    os.chdir(work)
+    rd_full.GATE_STEP, rd_tpu.DMCI_PROBE_STEPS = P25_GATE_STEP, P25_PROBE
+    rd_demo.DMCI_MIN_STEPS = P25_DEMO_DMCI
+    try:
+        tpu, counts = p25_rd_tpu(torch, card)
+        ev = p25_rd_eval(torch, card)
+        cont = p25_continue(torch, card)
+        host = p25_host_runs(torch, card)
+    finally:
+        os.chdir(old)
+        (rd_full.GATE_STEP, rd_tpu.DMCI_PROBE_STEPS,
+         rd_demo.DMCI_MIN_STEPS) = saved
     tpu["kernels"] = p25_kernel_shapes(torch, seed, card,
                                        tpu.pop("shapes"))
     seconds = time.perf_counter() - t0
     print(f"rd harness: phase 25 in {seconds:.1f} s [{card}]")
     return dict(rd_tpu=tpu, rd_eval=ev, rd_continue=cont, host=host,
                 seconds=seconds), counts
+
+
+# ---- phase 26: the mask_prop experiments, the journey and the report ----
+# In phase 25's working directory, on its DMCI. (a) rd_tpu.main trains the
+# fast and mask_prop variants at rd-half, fp32, on roi_subset clips (the
+# mask experiments' "-roisub" checkpoints), one mega-step each; (b)
+# mask_train_phase.main a few BCE steps on (a)'s mask_prop; (c)
+# mask_prop_value.main on both at 2 QPs and P26_CLIPS clips; (d)
+# e2e_waymo_format.main at its own settings (tiny, fp32), the intra
+# pretrain cut to P26_E2E_DMCI steps; (e) rd_trajectory.main on phase 25
+# (c)'s marathon log, then rd_report.main.
+P26_TPU = ["--profile", "half", "--lnorm", "--recon-skip", "--roi-subset",
+           "--reuse-dmci", "--variants", "fast,mask_prop", "--batch", "32",
+           "--crop", "64", "--k", str(P25_K), "--steps", str(P25_K),
+           "--eval-every", str(P25_K), "--eval-clips", "2",
+           "--eval-crop", "192", "--budget-min", "3",
+           "--out", "artifacts/torch/rd_tpu_roisub.json"]
+P26_MASK_TRAIN = ["3", "--profile", "half", "--crop", "64", "--batch", "8"]
+P26_VALUE = ["--profile", "half", "--qps", "20,44"]
+P26_CLIPS = 2                # mask_prop_value.CLIPS (6 in the script)
+P26_E2E_DMCI = 40            # the journey's intra steps (4000 by default)
+MASK_TRAIN_KEYS = {"steps", "iou_before", "iou_after", "crop", "profile"}
+MASK_VALUE_KEYS = {"profile", "crop", "qps", "mask_side_channel_bpp_zlib",
+                   "variants", "summary"}
+E2E_KEYS = {"work_dir", "stages", "total_seconds"}
+E2E_STAGES = {"tfrecords", "cache", "dmci_pretrain", "train", "coded_eval"}
+
+
+def p26_run(torch, card, name, fn, reset, read, shapes):
+    """``fn()`` with every launch count set to 0 just before and read just
+    after, its fp32 and backward kernels' shapes kept under ``name``: its
+    seconds, peak memory and counts."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    p25_shapes_clear()
+    reset()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read()
+    shapes[name] = p25_shapes_read()
+    peak = torch.cuda.max_memory_allocated()
+    if counts["dcb"] or counts["dcb_chain"]:
+        fail(f"({name}) bf16 launches {counts}: the mask experiments run "
+             "fp32")
+    print(f"  ({name}) {seconds:.1f} s, peak {peak / 2**20:.1f} MiB, "
+          f"launches {counts} [{card}]")
+    return out, dict(seconds=seconds, peak_bytes=peak, launches=counts)
+
+
+def phase_mask_experiments(torch, seed, card, work: Path):
+    """Phase 26 (module docstring), in phase 25's working directory."""
+    import filecmp
+
+    from ssgvc_tpu_torch.experiments import (copy_checkpoint,
+                                             e2e_waymo_format,
+                                             mask_prop_value,
+                                             mask_train_phase, rd_full,
+                                             rd_report, rd_trajectory,
+                                             rd_tpu)
+    from ssgvc_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    t0 = time.perf_counter()
+    results = Path(__file__).resolve().parent / "RESULTS.md"
+    committed = results.read_bytes()
+    reset, read = launch_counts()
+    shapes, runs = {}, {}
+    old = os.getcwd()
+    os.chdir(work)
+    saved = (rd_full.GATE_STEP, rd_tpu.DMCI_PROBE_STEPS,
+             mask_prop_value.CLIPS)
+    rd_full.GATE_STEP, rd_tpu.DMCI_PROBE_STEPS = P25_GATE_STEP, P25_PROBE
+    mask_prop_value.CLIPS = P26_CLIPS
+    try:
+        # (a) phase 25's DMCI under the roi_subset name, reused
+        rd_full.set_profile(P26_TPU[P26_TPU.index("--profile") + 1])
+        rd_full.CKPT_EXTRA = ""
+        dmci = rd_full.dmci_ckpt_path()
+        rd_full.CKPT_EXTRA = "-roisub"
+        copy_checkpoint(dmci, rd_full.dmci_ckpt_path())
+        res, runs["a"] = p26_run(torch, card, "a",
+                                 lambda: rd_tpu.main(list(P26_TPU)), reset,
+                                 read, shapes)
+        for v in ("fast", "mask_prop"):
+            c = res["variants"].get(v, {})
+            if "estimated_rd" not in c:
+                fail(f"(a) {v}: {c}")
+            p25_curve(f"(a) {v}", c["estimated_rd"], msssim=True)
+        scores = [round(res["variants"][v]["score"], 3)
+                  for v in ("fast", "mask_prop")]
+        print(f"  (a) rd_tpu.main {' '.join(P26_TPU)}: scores {scores} "
+              f"[{card}]")
+
+        # (b) the BCE phase on (a)'s mask_prop checkpoint
+        path = rd_full.ckpt_path("mask_prop")
+        before = restore_checkpoint(path)
+        snapshot = path + ".before"
+        copy_checkpoint(path, snapshot)
+        res, runs["b"] = p26_run(
+            torch, card, "b",
+            lambda: mask_train_phase.main(list(P26_MASK_TRAIN)), reset,
+            read, shapes)
+        with open(f"{rd_full.ARTIFACTS}/mask_train_phase.json") as f:
+            p25_keys("(b) mask_train_phase.json", json.load(f),
+                     MASK_TRAIN_KEYS)
+        if not (math.isfinite(res["iou_before"])
+                and math.isfinite(res["iou_after"])):
+            fail(f"(b) IoU {res}")
+        after = restore_checkpoint(path)
+        moved = [k for k, v in after["params_p"].items()
+                 if not torch.equal(v, before["params_p"][k])]
+        if not moved or any(not k.startswith("mask_predictor.")
+                            for k in moved):
+            fail(f"(b) tensors that moved: {moved}")
+        p25_same(torch, "(b) params_i", after["params_i"],
+                 before["params_i"])
+        if not filecmp.cmp(path + ".premask", snapshot, shallow=False):
+            fail("(b) the .premask backup differs from the checkpoint it "
+                 "replaced")
+        print(f"  (b) mask_train_phase.main {' '.join(P26_MASK_TRAIN)}: "
+              f"IoU {res['iou_before']:.4f} -> {res['iou_after']:.4f} after "
+              f"{res['steps']} steps; {len(moved)} tensors moved, all "
+              f"mask_predictor's; .premask equal to the replaced file "
+              f"[{card}]")
+
+        # (c) predicted masks against a mask side channel
+        res, runs["c"] = p26_run(
+            torch, card, "c", lambda: mask_prop_value.main(list(P26_VALUE)),
+            reset, read, shapes)
+        with open(f"{rd_full.ARTIFACTS}/mask_prop_value.json") as f:
+            p25_keys("(c) mask_prop_value.json", json.load(f),
+                     MASK_VALUE_KEYS)
+        for v in ("fast", "mask_prop"):
+            p25_curve(f"(c) {v}", res["variants"][v])
+        print(f"  (c) mask_prop_value.main {' '.join(P26_VALUE)} on "
+              f"{P26_CLIPS} clips: side channel "
+              f"{res['mask_side_channel_bpp_zlib']:.4f} bpp, ROI-PSNR "
+              f"fast - mask_prop "
+              f"{res['summary']['roi_psnr_delta_fast_minus_maskprop']} dB "
+              f"[{card}]")
+
+        # (d) the journey (evaluate_gop_coded raises unless every decoded
+        # frame equals the encoder's)
+        res, runs["d"] = p26_run(
+            torch, card, "d",
+            lambda: e2e_waymo_format.main([], dmci_steps=P26_E2E_DMCI),
+            reset, read, shapes)
+        with open(f"{rd_full.ARTIFACTS}/e2e_waymo_format.json") as f:
+            stored = json.load(f)
+        p25_keys("(d) e2e_waymo_format.json", stored, E2E_KEYS)
+        p25_keys("(d) stages", stored["stages"], E2E_STAGES)
+        coded = stored["stages"]["coded_eval"]["frames"]
+        if not coded or not all(math.isfinite(r["bpp"]) and r["bpp"] > 0
+                                for r in coded):
+            fail(f"(d) coded eval {coded}")
+        st = stored["stages"]
+        print(f"  (d) e2e_waymo_format.main (tiny, fp32; {P26_E2E_DMCI} "
+              f"intra steps): pretrain {st['dmci_pretrain']}, CLI "
+              f"{st['train']['seconds']} s (its launches are the child "
+              f"process's, not counted here), coded I + "
+              f"{len(coded) - 1} P decoded equal to the encoder's, mean P "
+              f"{st['coded_eval']['mean_p_bpp']} bpp / "
+              f"{st['coded_eval']['mean_p_psnr']} dB [{card}]")
+
+        # (e) the marathon log's trajectory, then the report
+        t1 = time.perf_counter()
+        traj = rd_trajectory.main([P25_LOG])
+        if not traj["cycles"] or not traj["summary"]:
+            fail(f"(e) no cycle parsed from {P25_LOG}: {traj}")
+        dest = rd_report.main([])
+        text = Path(dest).read_text()
+        _, found = rd_report.report()
+        missing = [p for p in found if f"`{p}`" not in text]
+        want = {f"{rd_full.ARTIFACTS}/{n}" for n in (
+            "rd_tpu.json", "rd_eval.json", "rd_continued.json",
+            "rd_full.json", "rd_trajectory.json", "mask_prop_value.json",
+            "e2e_waymo_format.json", "rd_fresh_trajectory.json")}
+        if missing or not want <= set(found):
+            fail(f"(e) RESULTS.md misses {missing}; read {found}, want "
+                 f"{sorted(want)}")
+        if "TPU" in text:
+            fail("(e) the port's report names the TPU")
+        runs["e"] = dict(seconds=time.perf_counter() - t1, artifacts=found,
+                         bytes=len(text))
+        print(f"  (e) rd_trajectory.main: {len(traj['cycles'])} cycle(s); "
+              f"rd_report.main wrote {dest} ({len(text)} bytes) naming the "
+              f"{len(found)} artifacts it read [{card}]")
+    finally:
+        os.chdir(old)
+        (rd_full.GATE_STEP, rd_tpu.DMCI_PROBE_STEPS,
+         mask_prop_value.CLIPS) = saved
+    if results.read_bytes() != committed:
+        fail("the committed RESULTS.md changed")
+    counts = {k: sum(r["launches"][k] for r in runs.values()
+                     if "launches" in r) for k in runs["a"]["launches"]}
+    kernels = p25_kernel_shapes(
+        torch, seed + 26, card, shapes, label="(26)",
+        where="mask experiments",
+        per="the script runs of phase 26 (a)-(d): each shape's time x "
+            "its launches over the runs, summed")
+    seconds = time.perf_counter() - t0
+    print(f"mask experiments: phase 26 in {seconds:.1f} s; the committed "
+          f"RESULTS.md unchanged [{card}]")
+    return dict(runs=runs, kernels=kernels, seconds=seconds), counts
 
 
 def main() -> int:
@@ -6102,11 +6406,23 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    clock, mark = {}, [time.perf_counter()]
+
+    def lap(name):
+        """The seconds since the last lap, kept under ``name`` and
+        printed."""
+        now = time.perf_counter()
+        clock[name] = now - mark[0]
+        mark[0] = now
+        print(f"phase {name}: {clock[name]:.1f} s", flush=True)
+
     card, kind, count = phase_device(torch)
     phase_build()
+    lap("1-2 device and build")
     prev = load_prev_port(args.prev_port) if args.prev_port else None
     with torch.no_grad():
         kernels = phase_kernels(torch, args.seed, card, prev)
+    lap("3 kernels")
     iframe = phase_iframe(torch, args.seed, card)
     main_path = phase_main_path(torch, args.seed, args.frames, card,
                                 iframe["frame"], prev)
@@ -6114,18 +6430,23 @@ def main() -> int:
                                        iframe["launches"]):
         entry["launches"] = p_count
         entry["iframe"]["launches"] = i_count
+    lap("4-5 I-frame and main path")
     phase_streaming(torch, main_path)
     gop = phase_gop(torch, args.seed, iframe, main_path, card)
     xc16 = phase_cross_check(torch, main_path, iframe, args.seed)
+    lap("6-8 streaming, GOP, cross-check")
     variants, variant_states = phase_variants(torch, args.seed, card, iframe,
                                               main_path)
     signs = phase_variants_cross_check(torch, variant_states, args.seed)
+    lap("9 variants")
     coded = phase_coded(torch, args.seed, card, iframe, main_path, gop,
                         variant_states["mask_prop"])
+    lap("10 coded")
     with torch.no_grad():
         batch = phase_batch(torch, args.seed, card)
         bwd_rows = phase_backward_kernels(torch, args.seed, card,
                                           prev is not None)
+    lap("11-12 batch and backward kernels")
     training = phase_train(torch, args.seed, card)
     counts = training["launches_per_micro_step"]
     backward = backward_entries(bwd_rows, training.pop("shape_counts"), card)
@@ -6140,6 +6461,7 @@ def main() -> int:
         if not entry["launches"]:
             fail(f"{entry['name']}: no launch in a training micro-step")
     training["cross_check"] = train_cross_check(torch, args.seed)
+    lap("13 training")
 
     # every profile's widths, float32, the RD recipe (phases 14-18)
     with torch.no_grad():
@@ -6154,6 +6476,7 @@ def main() -> int:
               "i": xc16["i_psnr"] + 10}
     xc32 = phase_cross_check(torch, main_path, iframe, args.seed,
                              "float32", floors)
+    lap("14-15 widths and fp32")
     rd_half = phase_rdhalf(torch, args.seed, card)
     rd = phase_rd_recipe(torch, args.seed, card)
     with torch.no_grad():
@@ -6163,18 +6486,32 @@ def main() -> int:
                                    rd["bwd_shape_launches"],
                                    prev is not None)
     coded32 = phase_coded_f32(torch, args.seed, card)
+    lap("16-18 rd-half, RD recipe, coded fp32")
     # phases 19-21 share the Waymo fixture; 21 codes with 19's checkpoint
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
         train_cli = phase_train_cli(torch, args.seed, card, root)
+        lap("19 train CLI")
         image_cli = phase_image_cli(torch, args.seed, card, root, prev)
+        lap("20 image CLI")
         scripts = phase_scripts(torch, args.seed, card, root,
                                 train_cli.pop("last"))
+        lap("21 scripts")
         tools = phase_tools(torch, args.seed, card, main_path, root)
+        lap("22 tools")
     parallel = phase_parallel(torch, args.seed, card)
+    lap("23 parallel")
     experiments, qconv_entry = phase_experiments(
         torch, args.seed, card, iframe, main_path, variant_states)
-    rd_harness, rd_counts = phase_rd_harness(torch, args.seed, card)
+    lap("24 experiments")
+    # phase 26 continues in phase 25's working directory
+    with tempfile.TemporaryDirectory() as rd_work:
+        rd_harness, rd_counts = phase_rd_harness(torch, args.seed, card,
+                                                 Path(rd_work))
+        lap("25 rd harness")
+        mask_exp, mask_counts = phase_mask_experiments(
+            torch, args.seed, card, Path(rd_work))
+        lap("26 mask experiments")
     next(e for e in kernels if e["name"] == "dcb")["image_step"] = \
         image_cli.pop("dcb")
     for entry in backward:
@@ -6206,6 +6543,12 @@ def main() -> int:
         entry["rd_recipe"] = r
     kernels += kernels_f32 + backward + [qconv_entry]
     for entry in kernels:
+        if mask_counts.get(entry["name"]):
+            entry["mask_experiments"] = dict(
+                launches=mask_counts[entry["name"]],
+                per="launches in phase 26's script runs (a)-(d) (rd-half "
+                    "fp32 fast and mask_prop, the BCE phase, "
+                    "mask_prop_value, the journey's in-process part)")
         if entry["name"] in rd_counts:
             entry["rd_harness"] = dict(
                 launches=rd_counts[entry["name"]],
@@ -6223,7 +6566,7 @@ def main() -> int:
         rows = parallel["rows"]
         every = [(r["name"], r) for r in rows["runs"]] + [
             (f"{w['run']['name']} over {n} ranks", w["run"])
-            for n, w in rows["wide"].items()]
+            for n, w in rows["wide"].items()] + list(rows["ragged"].items())
         runs = {name: [[f["launches"][i] for f in k["frames"]]
                        for k in r["ranks"]]
                 for name, r in every if r["counters"] == suffix}
@@ -6262,6 +6605,8 @@ def main() -> int:
     print(json.dumps({"parallel": {**parallel, "card": card}}))
     print(json.dumps({"experiments": {**experiments, "card": card}}))
     print(json.dumps({"rd_harness": {**rd_harness, "card": card}}))
+    print(json.dumps({"mask_experiments": {**mask_exp, "card": card}}))
+    print(json.dumps({"phase_seconds": {**clock, "card": card}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -1,5 +1,6 @@
-"""The RD experiment harness: the JAX package's ``experiments/rd_*.py`` in
-PyTorch, each script's functions, flags and JSON keys kept.
+"""The RD experiment harness: the JAX package's ``experiments/rd_*.py``,
+``mask_train_phase.py``, ``mask_prop_value.py`` and ``e2e_waymo_format.py``
+in PyTorch, each script's functions, flags and JSON keys kept.
 
     python3 -m ssgvc_tpu_torch.experiments.rd_tpu --profile half --lnorm \\
         --recon-skip [--device=cpu] ...
@@ -8,8 +9,16 @@ PyTorch, each script's functions, flags and JSON keys kept.
     python3 -m ssgvc_tpu_torch.experiments.rd_keep_best <cycle>
     python3 -m ssgvc_tpu_torch.experiments.rd_full [steps] ...
     python3 -m ssgvc_tpu_torch.experiments.rd_demo [steps]
+    python3 -m ssgvc_tpu_torch.experiments.mask_train_phase [steps] ...
+    python3 -m ssgvc_tpu_torch.experiments.mask_prop_value [--qps ...] ...
+    python3 -m ssgvc_tpu_torch.experiments.e2e_waymo_format
+    python3 -m ssgvc_tpu_torch.experiments.rd_trajectory [logfile]
+    python3 -m ssgvc_tpu_torch.experiments.rd_report
 
-Every script runs on the card unless ``--device=cpu`` is given. Every
+Every script that runs a model runs on the card unless ``--device=cpu``
+is given; rd_keep_best, rd_trajectory and rd_report read and write files
+only. ``rd_report`` writes ``artifacts/torch/RESULTS.md``, never the
+committed ``RESULTS.md``. Every
 artifact lands under :data:`ARTIFACTS`, relative to the working directory,
 so no run of the port overwrites the JAX package's records in
 ``artifacts/``. A checkpoint is one file of the port's format

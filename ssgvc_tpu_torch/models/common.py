@@ -111,8 +111,9 @@ def get_downsampled_shape(height: int, width: int, p: int) -> Tuple[int, int]:
 
 def pad_for_y(y: torch.Tensor, p: int = 4) -> torch.Tensor:
     """Replicate-pad bottom/right to a multiple of p (NHWC). Under a row
-    shard the slab rule keeps every slab's rows a multiple of 4 at y's
-    scale, so only the right is padded."""
+    shard every slab but the frame's last holds whole units, a multiple of
+    4 rows at y's scale, so only its right is padded; the last slab holds
+    the frame's bottom and pads the rows the unsharded frame pads."""
     _, h, w, _ = y.shape
     pad_r, pad_b = get_padding_size(h, w, p)
     if pad_r == 0 and pad_b == 0:

@@ -39,18 +39,28 @@ over the batch group too, as ``jnp.max`` reduces an array sharded under
 Slabs: :func:`shard_rows` hands out even slabs of H/n rows (the JAX
 package's partition). The layers run on slabs of whole :data:`SLAB_ROWS`
 pixel-row units (8 packed rows with packed io), so that every scale down to
-z (1/64) holds whole rows on every rank, a slab starts on an even row at
+z (1/64) holds whole rows on every rank and a slab starts on an even row at
 every stride-2 conv and at y's scale (1/16), where the checkerboard prior's
-parity is therefore the slab's own, and ``pad_for_y`` never pads rows.
-:func:`spatial_pframe` moves rows between neighbours once on entry, from
-the even partition to whole units (:func:`unit_bounds`: each boundary at
-the unit nearest the even one, so a rank holds the floor or the ceiling of
-units / ranks), and the new DPB back on exit: 1088 rows over 8 ranks, 136
-each, run on slabs of 128 rows and one of 192 (rank 3). An H that is not a
-multiple of 64 pixel rows, or fewer units than ranks, raises.
+parity is therefore the slab's own. :func:`spatial_pframe` moves rows
+between ranks once on entry, from the even partition to units
+(:func:`unit_bounds`: each boundary at the unit nearest the even one, so a
+rank holds the floor or the ceiling of units / ranks), and the new DPB back
+on exit: 1088 rows over 8 ranks, 136 each, run on slabs of 128 rows and one
+of 192 (rank 3). Where H is not whole units, the last slab ends at the
+frame's bottom and holds the partial unit beside at least one whole unit:
+only there does ``pad_for_y`` pad rows, as it pads the unsharded frame's
+bottom (720 rows over 2 ranks: 384 and 336). Where units are fewer than
+ranks, some ranks hold no rows: the forward runs on the ranks that hold
+rows (their halos go between the nearest of them, the frame's sums and
+maxima over them alone, :meth:`RowShard.reduce`), and the others take the
+DPB's rows back on exit and the bpp by a broadcast (128 rows over 4 ranks:
+64, 0, 64, 0). The one H refused is the one the JAX
+package refuses: rows that do not split into even slabs of a multiple of 8
+pixel rows.
 
-Halo and boundary rows go by ``torch.distributed.batch_isend_irecv`` with
-the up and down neighbours in the group; with a gloo group a CUDA tensor's
+Halo rows go by ``torch.distributed.batch_isend_irecv`` with the up and
+down neighbours in the group, the moves' rows with each rank whose slab
+overlaps the wanted one; with a gloo group a CUDA tensor's
 rows are staged through host memory (gloo sends CPU tensors only), with
 NCCL they move device to device. Nothing all-gathers an activation: a
 rank's activation memory is its slab's plus the halos.
@@ -86,22 +96,24 @@ move_bytes = 0
 def unit_bounds(rows: int, count: int, unit: int) -> List[int]:
     """The ``count + 1`` boundaries of ``rows`` split into slabs of whole
     ``unit`` rows, each at the unit nearest the even boundary r * rows /
-    count (a half rounds up): a slab holds the floor or the ceiling of
-    units / count. Raises unless ``rows`` is a multiple of ``unit`` with at
-    least one unit a rank."""
-    if rows % unit:
+    count (a half rounds up), the last at ``rows``. Where ``rows`` is not
+    whole units, no boundary but the last passes the last whole unit but
+    one, so the last slab that holds rows holds the partial unit beside a
+    whole one (or the frame alone, below one unit). A slab is empty where
+    units are fewer than ranks. Raises where the JAX package refuses a
+    row shard: ``rows`` that do not split into even slabs of a multiple of
+    8 pixel rows (``unit`` is :data:`SLAB_ROWS` pixel rows)."""
+    pixel = rows // count * (SLAB_ROWS // unit)
+    if rows % count or pixel % 8:
         raise ValueError(
-            f"row shard: {rows} rows are not whole units of {unit} rows "
-            f"({SLAB_ROWS} pixel rows, so that every scale down to z "
-            "(1/64) holds whole rows): H must be a multiple of "
-            f"{SLAB_ROWS} pixel rows")
-    units = rows // unit
-    if units < count:
-        raise ValueError(
-            f"row shard: {units} units of {SLAB_ROWS} pixel rows over "
-            f"{count} ranks; each rank needs at least one")
-    return [unit * ((2 * r * units + count) // (2 * count))
-            for r in range(count + 1)]
+            f"row shard: {rows} rows over {count} ranks: the slabs must be "
+            "even and a multiple of 8 pixel rows (the JAX package's rule, "
+            "H / n_devices % 8 == 0)")
+    whole, part = divmod(rows, unit)
+    last = max(0, whole - 1) if part else whole
+    cut = lambda r: unit * min(last, (2 * r * rows + count * unit)
+                               // (2 * count * unit))
+    return [cut(r) for r in range(count)] + [rows]
 
 
 @dataclass(frozen=True)
@@ -153,65 +165,90 @@ def row_sharding(mesh: Mesh, axis: str = "data",
                        **kw)
 
 
-def _exchange(x: torch.Tensor, group, index: int, recv_up: int,
-              recv_dn: int, send_dn: int, send_up: int,
-              counter: str = "halo_bytes"):
-    """Receive ``recv_up`` rows from the rank above (``index`` - 1 in
-    ``group``) and ``recv_dn`` from the rank below; send the bottom
-    ``send_dn`` rows down and the top ``send_up`` rows up, adding the bytes
-    sent to the module counter ``counter``. Returns the received (None
-    where 0)."""
-    if not (recv_up or recv_dn or send_dn or send_up):
-        return None, None
+def _p2p(x: torch.Tensor, group, recvs: Sequence[Tuple[int, tuple]],
+         sends: Sequence[Tuple[int, torch.Tensor]],
+         counter: Optional[str] = None) -> List[torch.Tensor]:
+    """One batch of transfers in ``group``: receive a tensor of x's dtype
+    and each ``(index, shape)`` of ``recvs``, send each ``(index,
+    tensor)`` of ``sends``, adding the bytes sent to the module counter
+    ``counter`` (if any). With a gloo group a CUDA tensor is staged
+    through host memory. Returns the received in ``recvs``' order, on x's
+    device."""
+    if not (recvs or sends):
+        return []
     staged = x.device.type != "cpu" and dist.get_backend(group) == "gloo"
     host = torch.device("cpu") if staged else x.device
     peer = lambda i: dist.get_global_rank(group, i)
-    ops, got = [], {}
-    for name, n, src in (("up", recv_up, index - 1),
-                         ("dn", recv_dn, index + 1)):
-        if n:
-            buf = torch.empty((x.shape[0], n) + x.shape[2:], dtype=x.dtype,
-                              device=host)
-            got[name] = buf
-            ops.append(dist.P2POp(dist.irecv, buf, peer(src), group))
-    for rows, dst in ((x[:, x.shape[1] - send_dn:] if send_dn else None,
-                       index + 1),
-                      (x[:, :send_up] if send_up else None, index - 1)):
-        if rows is not None:
-            globals()[counter] += rows.numel() * rows.element_size()
-            ops.append(dist.P2POp(dist.isend, rows.contiguous().to(host),
-                                  peer(dst), group))
+    ops, got = [], []
+    for i, shape in recvs:
+        buf = torch.empty(shape, dtype=x.dtype, device=host)
+        got.append(buf)
+        ops.append(dist.P2POp(dist.irecv, buf, peer(i), group))
+    for i, t in sends:
+        if counter is not None:
+            globals()[counter] += t.numel() * t.element_size()
+        ops.append(dist.P2POp(dist.isend, t.contiguous().to(host), peer(i),
+                              group))
     for req in dist.batch_isend_irecv(ops):
         req.wait()
-    back = lambda k: got[k].to(x.device) if k in got else None
-    return back("up"), back("dn")
+    return [t.to(x.device) for t in got]
+
+
+def _rows(x: torch.Tensor, n: int) -> tuple:
+    """The shape of ``n`` rows of x's layout."""
+    return (x.shape[0], n) + tuple(x.shape[2:])
+
+
+def _exchange(x: torch.Tensor, group, up: Optional[int], dn: Optional[int],
+              recv_up: int, recv_dn: int, send_dn: int, send_up: int,
+              counter: str = "halo_bytes"):
+    """Receive ``recv_up`` rows from the rank ``up`` (its index in
+    ``group``) and ``recv_dn`` from the rank ``dn``; send the bottom
+    ``send_dn`` rows to ``dn`` and the top ``send_up`` rows to ``up``,
+    adding the bytes sent to the module counter ``counter``. Returns the
+    received (None where 0)."""
+    recvs = [(i, _rows(x, n)) for i, n in ((up, recv_up), (dn, recv_dn))
+             if n]
+    sends = [(i, r) for i, r in (
+        (dn, x[:, x.shape[1] - send_dn:] if send_dn else None),
+        (up, x[:, :send_up] if send_up else None)) if r is not None]
+    got = iter(_p2p(x, group, recvs, sends, counter))
+    return (next(got) if recv_up else None, next(got) if recv_dn else None)
 
 
 def _move(x: torch.Tensor, group, have: Sequence[int],
           want: Sequence[int]) -> torch.Tensor:
     """This rank's slab of the ``want`` partition, from its slab ``x`` of
-    the ``have`` partition (boundaries in x's rows): the rows between the
-    two boundaries go to or come from the neighbour. Each boundary moves by
-    less than a neighbour's slab, so nothing crosses two ranks."""
+    the ``have`` partition (boundaries in x's rows): each rank sends every
+    other the rows of its slab that the other's wanted slab holds, and
+    receives likewise, in one batch. Either slab may be empty."""
     i = group_rank(group)
     (a0, a1), (b0, b1) = have[i:i + 2], want[i:i + 2]
-    if (i > 0 and b0 < have[i - 1]) or (i + 2 < len(have)
-                                        and b1 > have[i + 2]):
-        raise ValueError(f"row shard: slab [{b0}, {b1}) reaches past the "
-                         f"neighbours of [{a0}, {a1})")
-    up_cut, dn_cut = max(0, b0 - a0), max(0, a1 - b1)
-    got_up, got_dn = _exchange(x, group, i, max(0, a0 - b0),
-                               max(0, b1 - a1), dn_cut, up_cut,
-                               "move_bytes")
-    keep = x[:, up_cut:x.shape[1] - dn_cut]
-    parts = [t for t in (got_up, keep, got_dn) if t is not None]
-    return torch.cat(parts, dim=1) if len(parts) > 1 else keep.contiguous()
+    recvs, sends, parts = [], [], []
+    for j in range(len(have) - 1):
+        lo, hi = max(b0, have[j]), min(b1, have[j + 1])
+        if hi > lo:
+            parts.append(x[:, lo - a0:hi - a0] if j == i else None)
+            if j != i:
+                recvs.append((j, _rows(x, hi - lo)))
+        lo, hi = max(a0, want[j]), min(a1, want[j + 1])
+        if hi > lo and j != i:
+            sends.append((j, x[:, lo - a0:hi - a0]))
+    got = iter(_p2p(x, group, recvs, sends, "move_bytes"))
+    parts = [next(got) if t is None else t for t in parts]
+    if not parts:
+        return x.new_empty((x.shape[0], 0) + x.shape[2:])
+    return torch.cat(parts, dim=1) if len(parts) > 1 else \
+        parts[0].contiguous()
 
 
 class RowShard:
     """The active row shard: the spatial ``group`` and every rank's slab
     boundaries ``bounds`` in the model input's rows (packed rows with
-    packed io); this rank's slab is ``bounds[index]:bounds[index + 1]``."""
+    packed io); this rank's slab is ``bounds[index]:bounds[index + 1]``.
+    Only the ranks whose slab holds rows (``members``) run the layers: a
+    halo comes from the nearest member above or below, and the frame's
+    reductions go over the members."""
 
     def __init__(self, group, bounds: Sequence[int]):
         self.group = group
@@ -220,6 +257,14 @@ class RowShard:
             raise ValueError(f"{len(bounds) - 1} slabs for {self.count} "
                              "ranks")
         self.bounds = list(bounds)
+        self.members = [i for i in range(self.count)
+                        if bounds[i + 1] > bounds[i]]
+        if self.index not in self.members:
+            raise ValueError(f"rank {self.index}'s slab holds no rows")
+        at = self.members.index(self.index)
+        self.up = self.members[at - 1] if at else None
+        self.dn = (self.members[at + 1] if at + 1 < len(self.members)
+                   else None)
 
     @property
     def local_rows(self) -> int:
@@ -229,6 +274,11 @@ class RowShard:
     def global_rows(self) -> int:
         return self.bounds[-1]
 
+    @property
+    def whole(self) -> bool:
+        """Whether every rank of the group holds rows."""
+        return len(self.members) == self.count
+
     def halo(self, x: torch.Tensor, up: int, down: int,
              zero_edges: bool = False) -> Tuple[torch.Tensor, int, int]:
         """(x with ``up`` rows of the slab above and ``down`` rows of the
@@ -236,16 +286,16 @@ class RowShard:
         top and bottom edges nothing is added, or zero rows with
         ``zero_edges``; the neighbour's rows go by one batched send and
         receive each way."""
-        has_up, has_dn = self.index > 0, self.index < self.count - 1
+        has_up, has_dn = self.up is not None, self.dn is not None
         # a rank receives from both neighbours and sends to both, top and
         # bottom ranks included: their sends are what the others receive
-        got_up, got_dn = _exchange(x, self.group, self.index,
+        got_up, got_dn = _exchange(x, self.group, self.up, self.dn,
                                    up if has_up else 0,
                                    down if has_dn else 0,
                                    up if has_dn else 0,
                                    down if has_up else 0)
         if zero_edges:
-            zeros = lambda n: x.new_zeros((x.shape[0], n) + x.shape[2:])
+            zeros = lambda n: x.new_zeros(_rows(x, n))
             got_up = zeros(up) if got_up is None and up else got_up
             got_dn = zeros(down) if got_dn is None and down else got_dn
         parts = [t for t in (got_up, x, got_dn) if t is not None]
@@ -254,6 +304,26 @@ class RowShard:
         return (torch.cat(parts, dim=1),
                 0 if got_up is None else got_up.shape[1],
                 0 if got_dn is None else got_dn.shape[1])
+
+    def reduce(self, t: torch.Tensor, op: str) -> torch.Tensor:
+        """``t`` summed (``op`` "sum") or maxed ("max") over the members,
+        a new tensor: by one all-reduce where every rank is a member, else
+        every member sends t to every other and combines them all in rank
+        order, so each holds the same result."""
+        out = t.detach().clone()
+        if self.whole:
+            (all_reduce_sum_ if op == "sum" else all_reduce_max_)(
+                [out], self.group)
+            return out
+        others = [j for j in self.members if j != self.index]
+        got = iter(_p2p(out, self.group, [(j, out.shape) for j in others],
+                        [(j, out) for j in others]))
+        parts = [out if j == self.index else next(got)
+                 for j in self.members]
+        acc = parts[0]
+        for p in parts[1:]:
+            acc = acc + p if op == "sum" else torch.maximum(acc, p)
+        return acc
 
 
 _active: Optional[RowShard] = None
@@ -314,14 +384,17 @@ def frame_sum(t: torch.Tensor) -> torch.Tensor:
     without one ``t``."""
     if _active is None:
         return t
-    out = t.clone()
-    all_reduce_sum_([out], _active.group)
-    return out
+    return _active.reduce(t, "sum")
 
 
 def frame_groups() -> List[object]:
     """The groups a tensor of the body is spread over: the active row
-    shard's and the :func:`batch_shard` group, where active."""
+    shard's and the :func:`batch_shard` group, where active. A row shard
+    whose slabs leave a rank without rows has no such group (its
+    reductions go by :meth:`RowShard.reduce`): it raises."""
+    if _active is not None and not _active.whole:
+        raise RuntimeError("a row shard with empty slabs reduces over its "
+                           "members, not a group")
     return [g for g in (None if _active is None else _active.group,
                         _batch_group) if g is not None]
 
@@ -329,12 +402,12 @@ def frame_groups() -> List[object]:
 def frame_max(t: torch.Tensor) -> torch.Tensor:
     """``t`` (a tensor of local maxima) maxed over :func:`frame_groups`
     (a new tensor); ``t`` itself over none."""
-    groups = frame_groups()
-    if not groups:
+    if _active is None and _batch_group is None:
         return t
     out = t.detach().clone()
-    for g in groups:
-        all_reduce_max_([out], g)
+    if _active is not None:
+        out = _active.reduce(out, "max")
+    all_reduce_max_([out], _batch_group)
     return out
 
 
@@ -359,6 +432,28 @@ def _scaled(bounds: Sequence[int], rows: int, base: int) -> List[int]:
     return [b // base for b in out]
 
 
+def _from_holder(dpb, bpp, group, src: int, like: torch.Tensor):
+    """The new DPB's slabs and the bpp on every rank of ``group`` from the
+    forward's on the ranks that held rows: a rank that held none gets
+    empty slabs of the DPB's layout and ``src``'s bpp (the same on every
+    rank that held rows), both by broadcast from group rank ``src``;
+    ``like`` gives the device."""
+    meta = [None if dpb is None else (
+        {k: ((v.shape[0], 0) + tuple(v.shape[2:]), v.dtype)
+         for k, v in dpb.items()}, (tuple(bpp.shape), bpp.dtype))]
+    root = dist.get_global_rank(group, src)
+    dist.broadcast_object_list(meta, src=root, group=group)
+    layout, (shape, dtype) = meta[0]
+    if dpb is None:
+        dpb = {k: torch.empty(s, dtype=d, device=like.device)
+               for k, (s, d) in layout.items()}
+        bpp = torch.empty(shape, dtype=dtype, device=like.device)
+    staged = bpp.device.type != "cpu" and dist.get_backend(group) == "gloo"
+    buf = bpp.detach().cpu() if staged else bpp.detach().clone()
+    dist.broadcast(buf, root, group=group)
+    return dpb, buf.to(like.device)
+
+
 def spatial_pframe(model, mesh: Mesh, axis: str = "data",
                    batch_axis: Optional[str] = None):
     """The P-frame forward with row-sharded activations: the JAX package's
@@ -369,42 +464,49 @@ def spatial_pframe(model, mesh: Mesh, axis: str = "data",
     (:func:`shard_rows`) in the model's input domain (packed rows with
     packed io), ``params`` a state_dict (``torch.func.functional_call``) or
     None for the model's own, ``after_i=False`` and ``train=False`` as
-    there. The layers run on whole units (:func:`unit_bounds`); the new DPB
-    comes back in the even partition. bpp is per sample of the rank's batch
-    shard and the same on every rank of the spatial group. On a 2-D mesh
-    pass ``axis="spatial", batch_axis="data"``."""
+    there. The layers run on units (:func:`unit_bounds`) on the ranks
+    whose unit slab holds rows (every rank unless units are fewer than
+    ranks); the new DPB comes back in the even partition. bpp is per
+    sample of the rank's batch shard and the same on every rank of the
+    spatial group. On a 2-D mesh pass ``axis="spatial",
+    batch_axis="data"``."""
     sh = row_sharding(mesh, axis, batch_axis)
     packed = getattr(model.cfg, "packed_io", False)
     scale = model.cfg.patch_size if packed else 1
-
     def fn(params, frame, mask, qp, dpb):
         rows = frame.shape[1] * sh.count
         even = sh.bounds(rows)
         units = sh.bounds(rows, SLAB_ROWS // scale)
+        # each DPB entry's rows in the whole frame, at its own scale
+        full = {k: v.shape[1] * sh.count for k, v in dpb.items()}
 
-        def move(t, have, want):
+        def move(t, t_rows, have, want):
             """t, this rank's slab of the ``have`` partition (of ``rows``
-            input rows) at its own scale, as its slab of ``want``."""
+            input rows) at a scale of ``t_rows`` rows, as its slab of
+            ``want``."""
             if sh.group is None:
                 return t
-            # t's rows in the whole frame
-            total = _scaled([rows], t.shape[1],
-                            have[sh.index + 1] - have[sh.index])[0]
-            return _move(t, sh.group, _scaled(have, total, rows),
-                         _scaled(want, total, rows))
+            return _move(t, sh.group, _scaled(have, t_rows, rows),
+                         _scaled(want, t_rows, rows))
 
-        frame, mask = (move(t, even, units) for t in (frame, mask))
-        dpb = {k: move(v, even, units) for k, v in dpb.items()}
-        kw = dict(after_i=False, mask=mask, train=False)
-        with torch.no_grad(), row_shard(sh.group, units), \
-                batch_shard(sh.batch_group):
-            if params is None:
-                out = model(frame, qp, dpb, **kw)
-            else:
-                out = torch.func.functional_call(model, params,
-                                                 (frame, qp, dpb), kw)
-        return ({k: move(v, units, even) for k, v in out["dpb"].items()},
-                out["bpp"])
+        x, m = (move(t, rows, even, units) for t in (frame, mask))
+        dpb = {k: move(v, full[k], even, units) for k, v in dpb.items()}
+        holds = [i for i in range(sh.count) if units[i + 1] > units[i]]
+        new = bpp = None
+        if sh.index in holds:
+            kw = dict(after_i=False, mask=m, train=False)
+            with torch.no_grad(), row_shard(sh.group, units), \
+                    batch_shard(sh.batch_group):
+                if params is None:
+                    out = model(x, qp, dpb, **kw)
+                else:
+                    out = torch.func.functional_call(model, params,
+                                                     (x, qp, dpb), kw)
+            new, bpp = out["dpb"], out["bpp"]
+        if len(holds) < sh.count:
+            new, bpp = _from_holder(new, bpp, sh.group, holds[0], frame)
+        return ({k: move(v, full[k], units, even) for k, v in new.items()},
+                bpp)
 
     return fn
 

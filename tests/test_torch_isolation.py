@@ -55,7 +55,10 @@ EXPERIMENT_MODULES = ("ops.qconv", "ops.pixel", "layers.blocks")
 #: the RD experiment harness
 RD_MODULES = ("experiments.rd_keep_best", "experiments.rd_full",
               "experiments.rd_tpu", "experiments.rd_eval",
-              "experiments.rd_continue", "experiments.rd_demo")
+              "experiments.rd_continue", "experiments.rd_demo",
+              "experiments.rd_trajectory", "experiments.rd_report",
+              "experiments.mask_train_phase", "experiments.mask_prop_value",
+              "experiments.e2e_waymo_format")
 
 
 @pytest.mark.parametrize("module", TRAINING_MODULES + DATA_MODULES
@@ -244,14 +247,22 @@ def test_int8_conv_defaults_to_the_card_and_never_falls_back(monkeypatch):
 RD_MAINS = {"rd_tpu": ["--profile", "tiny", "--eval-clips", "2"],
             "rd_full": ["--profile", "tiny"], "rd_demo": ["1"],
             "rd_eval": ["--profile", "tiny", "--crops", "64"],
-            "rd_continue": ["1", "--profile", "tiny", "--recon-skip"]}
+            "rd_continue": ["1", "--profile", "tiny", "--recon-skip"],
+            "mask_train_phase": ["1", "--profile", "tiny"],
+            "mask_prop_value": ["--profile", "tiny", "--crop", "64"],
+            "e2e_waymo_format": []}
+#: the entry points that load a checkpoint of the profile before a model
+#: (the mask experiments' under their default "-roisub" tag)
+RD_LOADERS = {"rd_eval": "", "rd_continue": "", "mask_train_phase": "-roisub",
+              "mask_prop_value": "-roisub"}
 
 
 @pytest.mark.parametrize("name", sorted(RD_MAINS))
 def test_rd_harness_mains_default_to_the_card(name, tmp_path, monkeypatch):
     """Without --device=cpu every RD entry point builds its models on the
     card: a host with no card raises there (rd_eval and rd_continue once a
-    checkpoint of the profile exists to load)."""
+    checkpoint of the profile exists to load, as the mask experiments
+    do)."""
     import importlib
 
     from ssgvc_tpu_torch.experiments import rd_full
@@ -261,12 +272,13 @@ def test_rd_harness_mains_default_to_the_card(name, tmp_path, monkeypatch):
                  "CKPT_EXTRA", "LNORM", "DEVICE"):
         monkeypatch.setattr(rd_full, attr, getattr(rd_full, attr))
     monkeypatch.chdir(tmp_path)
-    if name in ("rd_eval", "rd_continue"):
+    if name in RD_LOADERS:
         rd_full.set_profile("tiny")
         rd_full.RECON_SKIP = True
+        rd_full.CKPT_EXTRA = RD_LOADERS[name]
         os.makedirs(os.path.dirname(rd_full.ckpt_path("plain")))
-        torch.save({"params_p": {}, "params_i": {}},
-                   rd_full.ckpt_path("performance"))
+        for v in ("performance", "fast", "mask_prop"):
+            torch.save({"params_p": {}, "params_i": {}}, rd_full.ckpt_path(v))
     assert rd_full.split_device(RD_MAINS[name]) == ("cuda", RD_MAINS[name])
     if torch.cuda.is_available():
         return

@@ -123,17 +123,39 @@ def test_collectives_do_nothing_on_a_world_1_mesh():
     assert spatial.current() is None
 
 
-def test_slab_rule_and_mask_prop_refuse_a_row_shard():
-    """What the row shard still refuses: an H that is not whole 64-pixel-
-    row units, or fewer units than ranks (a ValueError naming the case).
-    The slab rule itself is gone: any even split of whole units runs, on
-    slabs of whole units (1088 rows over 2, 4 and 8 ranks below).
-    mask_prop no longer refuses: under a
-    world-1 row shard it equals its unsharded forward bit for bit."""
-    with pytest.raises(ValueError, match="multiple of 64 pixel rows"):
-        spatial.unit_bounds(96, 2, 64)
-    with pytest.raises(ValueError, match="each rank needs at least one"):
-        spatial.unit_bounds(64, 2, 64)
+def test_row_shard_takes_every_h_the_jax_rule_takes():
+    """The row shard's partition of H into unit slabs, and its one refusal.
+    Every boundary but the last is on a whole 64-pixel-row unit; an H that
+    is not whole units leaves the partial unit on the last slab that holds
+    rows, beside a whole one (208 rows over 2: 128 + 80); with fewer units
+    than ranks some slabs are empty (64 rows over 2: 64 + 0; 128 over 4:
+    64, 0, 64, 0). The one refusal left is the JAX package's rule
+    (ssgvc_tpu/parallel/spatial.py:16-18): slabs of H / n rows that are
+    not a multiple of 8 pixel rows (200 over 2: 100 each), or rows that do
+    not split evenly. mask_prop under a world-1 row shard equals its
+    unsharded forward bit for bit."""
+    assert spatial.unit_bounds(208, 2, 64) == [0, 128, 208]
+    assert spatial.unit_bounds(64, 2, 64) == [0, 64, 64]
+    assert spatial.unit_bounds(128, 4, 64) == [0, 64, 64, 128, 128]
+    # packed rows (units of 8): 720 over 2 and 1440 over 4
+    assert spatial.unit_bounds(90, 2, 8) == [0, 48, 90]
+    assert spatial.unit_bounds(180, 4, 8) == [0, 48, 88, 136, 180]
+    # below one unit the whole frame is the last rank's
+    assert spatial.unit_bounds(48, 2, 64) == [0, 0, 48]
+    for rows, n in ((200, 2), (96, 8), (100, 4), (65, 1)):
+        jax_takes = rows % n == 0 and (rows // n) % 8 == 0
+        assert not jax_takes
+        with pytest.raises(ValueError, match="multiple of 8 pixel rows"):
+            spatial.unit_bounds(rows, n, 64)
+    for rows, n in ((96, 2), (208, 2), (64, 2), (720, 2), (1440, 4),
+                    (192, 8), (24, 3), (1088, 8)):
+        b = spatial.unit_bounds(rows, n, 64)
+        assert b[0] == 0 and b[-1] == rows and b == sorted(b)
+        assert all(x % 64 == 0 for x in b[:-1])
+        last = max(i for i in range(n) if b[i + 1] > b[i])
+        # the last slab with rows holds the partial unit beside a whole one
+        if rows % 64 and rows > 64:
+            assert b[last + 1] - b[last] > 64
     want = {2: [576, 512], 4: [256, 320, 256, 256],
             8: [128, 128, 128, 192, 128, 128, 128, 128]}
     for n, slabs in want.items():
@@ -297,10 +319,15 @@ def _int8_env(mode, scales):
 
 
 #: the 2-rank runs of one spawn (:func:`rows2_seen`): the uneven slabs of
-#: 192 rows (units 128 + 64 against the even 96 + 96), a GOP of 2; each
-#: other variant at 128 rows, one frame; the performance frame in int8
-#: modes 1 and 2
+#: 192 rows (units 128 + 64 against the even 96 + 96), a GOP of 2; 208
+#: rows (3 units and 16 rows: 128 + 80 against 104 + 104; the fast
+#: variant, since the performance variant refuses an H whose y rows are
+#: not a multiple of 4 in both packages) and 64 rows (one unit for two
+#: ranks: 64 + 0 against 32 + 32), a GOP of 2 each; each other variant at
+#: 128 rows, one frame; the performance frame in int8 modes 1 and 2
 ROWS2_RUNS = (("uneven", "performance", 192, 2, "0"),
+              ("ragged", "fast", 208, 2, "0"),
+              ("one_unit", "performance", 64, 2, "0"),
               ("old", "old", 128, 1, "0"), ("fast", "fast", 128, 1, "0"),
               ("mask_prop", "mask_prop", 128, 1, "0"),
               ("int8_mode1", "performance", 128, 1, "1"),
@@ -343,15 +370,22 @@ def _run(rows2_seen, name):
     return [s["runs"][j] for s in seen], runs[j]
 
 
-@pytest.mark.parametrize("h,n", [(192, 2), (320, 4)])
+#: the 2-rank cases of test_uneven_slabs_match_jax, by their run
+ROWS2_BY_H = {192: "uneven", 208: "ragged", 64: "one_unit"}
+
+
+@pytest.mark.parametrize("h,n", [(192, 2), (320, 4), (208, 2), (64, 2)])
 def test_uneven_slabs_match_jax(h, n, rows2_seen, tmp_path):
     """H = 192 over 2 ranks (3 units: slabs of 128 and 64 rows against the
-    even 96) and 320 over 4 (5 units: 64, 128, 64, 64 against 80 each):
-    the even slabs in and out, each rank's unit slab, the rows moved
-    between neighbours, the gathered DPB and bpp of a 2-frame GOP against
-    the JAX package's unsharded forward and the port's."""
+    even 96), 320 over 4 (5 units: 64, 128, 64, 64 against 80 each), 208
+    over 2 (3 units and 16 rows: 128 and 80 against 104, the partial unit
+    on the last slab; the fast variant) and 64 over 2 (one unit for two
+    ranks: 64 and an empty slab against 32): the even slabs in and out,
+    each rank's unit slab, the rows moved between ranks, the gathered DPB
+    and bpp of a 2-frame GOP against the JAX package's unsharded forward
+    and the port's, equal on both ranks bit for bit."""
     if n == 2:
-        seen, case = _run(rows2_seen, "uneven")
+        seen, case = _run(rows2_seen, ROWS2_BY_H[h])
         refs = case["refs"]
     else:
         case = _pframe_case("performance", 1, h, 64, 2, spatial_n=n,
@@ -362,6 +396,7 @@ def test_uneven_slabs_match_jax(h, n, rows2_seen, tmp_path):
         refs = {"JAX": _jax_gop("performance", *args),
                 "port": _port_gop("performance", *args)}
     units = spatial.unit_bounds(h, n, 64)
+    assert len(case["frames"]) == 2
     even = h // n
     for r, s in enumerate(seen):
         assert s["rows"] == (even * r, even * (r + 1))
