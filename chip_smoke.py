@@ -312,7 +312,7 @@ Phases (any failure exits non-zero and prints no result line):
      directory. (a) rd_tpu.main at rd-half (ch_d 128, enc_dec 184), fp32,
      the committed marathon recipe (--lnorm --recon-skip, B=32 64x64 T=4),
      mega-steps of P25_K micro-steps, sized by P25_TPU's flags, the gate
-     after one mega-step (rd_full.GATE_STEP) and each DMCI init probed two
+     after one mega-step (rd_full.GATE_STEP) and each DMCI init probed one
      (rd_tpu.DMCI_PROBE_STEPS): rd_tpu.json with exactly the JAX runner's
      keys, every stored curve finite with bpp > 0 (MS-SSIM at 192 px), the
      BD fields equal to bd_rate / bd_psnr of the stored curves (NaN only
@@ -354,16 +354,32 @@ Phases (any failure exits non-zero and prints no result line):
      read, and the committed RESULTS.md is unchanged. Then every fp32
      forward and backward kernel at each operand shape (a)-(d) launched it
      at, against its plain version (F32_TOL, BWD_FP32_TOL), timed.
+ 27. the P-frame diagnostics, in phase 25's working directory, each run
+     with every launch count set to 0 just before and read just after (no
+     bf16 launch): (a) rd_tpu.main (P27_TPU: rd-tiny, fp32, without
+     --recon-skip, B = 4 64x64, one or two mega-steps a variant) writes the
+     checkpoints the diagnostics read; (b) diag_pframe.main at P27_RES on
+     performance and on plain: every number finite, the copy-previous PSNR
+     equal to numpy's on the same clips (P27_COPY_TOL), the I-frame rows of
+     both equal (one DMCI), the SIMT forward kernels launched and no
+     backward kernel; (c) probe_latent_liveness.main P27_STEPS: alive_y
+     and alive_z in [0, 1], dpb_dep and inp_dep finite; (d)
+     probe_dist_only.main plain P27_STEPS: lambda 1e5 at QP 32 within
+     P27_LAMBDA_REL and the same at QPs 0 and 63, the copy baseline equal to
+     numpy's, the loss finite; (a), (c) and (d) launch the SIMT forward and
+     the four backward kernels. Then every fp32 forward and backward kernel
+     at each operand shape (a)-(d) launched it at, against its plain
+     version (F32_TOL, BWD_FP32_TOL), timed.
 
 The last lines are JSON objects: {"main_path": ...}, {"variants": ...},
 {"coded": ...}, {"training": ...}, {"cross_check": ...}, {"fp32": ...},
 {"rd_half": ...}, {"rd_recipe": ...}, {"coded_fp32": ...},
 {"train_cli": ...}, {"image_cli": ...}, {"scripts": ...}, {"tools": ...},
 {"parallel": ...}, {"experiments": ...}, {"rd_harness": ...},
-{"mask_experiments": ...}, {"phase_seconds": ...} (each phase's seconds,
-also printed as it ends), {"kernels": [...]}, and last
-{"ok": true, "device":
-{"platform": "gpu", "kind": ..., "count": ...}}.
+{"mask_experiments": ...}, {"diagnostics": ...}, {"phase_seconds": ...}
+(each phase's seconds, also printed as it ends), {"kernels": [...]}, and
+last {"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
+...}}.
 """
 
 from __future__ import annotations
@@ -4061,6 +4077,11 @@ def phase_tools(torch, seed, card, main, root: Path):
         torch.cuda.synchronize()
         reset()
         with profiling.trace(str(root / "trace")) as trace_dir:
+            # one device op, waited for, before the frame: a trace once
+            # lost the frame's first port launch (a chain) while the
+            # profiler's device tracing started
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
             pmodel(fp[1:2], QP, dpb, after_i=False, mask=mp[1:2])
         got = read()
     port, other = trace_split(Path(trace_dir))
@@ -5678,11 +5699,11 @@ def phase_experiments(torch, seed, card, iframe, main, variant_states):
 # profile flag) on the host data path.
 P25_K = 2                    # micro-steps per mega-step
 P25_TPU = ["--profile", "half", "--lnorm", "--recon-skip", "--batch", "32",
-           "--crop", "64", "--k", str(P25_K), "--dmci-steps", "8",
+           "--crop", "64", "--k", str(P25_K), "--dmci-steps", "4",
            "--steps", "8", "--eval-every", "4", "--eval-clips", "2",
            "--eval-crop", "192", "--budget-min", "3"]
 P25_GATE_STEP = 2            # rd_full.GATE_STEP: the gate after a mega-step
-P25_PROBE = 4                # rd_tpu.DMCI_PROBE_STEPS: 2 mega-steps an init
+P25_PROBE = 2                # rd_tpu.DMCI_PROBE_STEPS: a mega-step an init
 P25_EVAL = ["--profile", "half", "--crops", "64"]
 P25_CONTINUE = ["4", "--profile", "half", "--lnorm", "--recon-skip",
                 "--budget-min", "1"]
@@ -5794,12 +5815,14 @@ P25_PER = ("the last mega-step of each run of phase 25 (a) (DMCI "
 
 
 def p25_kernel_shapes(torch, seed, card, shapes, label="(a)",
-                      where="rd-half harness", per=P25_PER):
+                      where="rd-half harness", per=P25_PER,
+                      route="dcb_tf32"):
     """Every fp32 forward kernel and every backward kernel at each operand
     shape the last mega-step of each run of (a) launched it at (``shapes``:
     {run: p25_shapes_read()}), against its plain version at phase 14's and
-    phase 17's gates (F32_TOL forward, BWD_FP32_TOL backward), timed.
-    Returns {kernel: summary}."""
+    phase 17's gates (F32_TOL forward, BWD_FP32_TOL backward), timed; fails
+    unless ``route`` (the widths' fp32 route) is among them. Returns
+    {kernel: summary}."""
     fwd, bwd = {}, {}
     for f, b in shapes.values():
         for k, keyed in f.items():
@@ -5808,8 +5831,8 @@ def p25_kernel_shapes(torch, seed, card, shapes, label="(a)",
                 fwd[k][key] = fwd[k].get(key, 0) + n
         for kk, n in b.items():
             bwd[kk] = bwd.get(kk, 0) + n
-    if "dcb_tf32" not in fwd:
-        fail(f"{label} no 3xTF32 launch by shape in the runs: {sorted(fwd)}")
+    if route not in fwd:
+        fail(f"{label} no {route} launch by shape in the runs: {sorted(fwd)}")
     with torch.no_grad():
         rows = phase_f32_shapes(torch, seed + 5, card, fwd, where=where,
                                 reps=P25_REPS)
@@ -6388,6 +6411,163 @@ def phase_mask_experiments(torch, seed, card, work: Path):
     return dict(runs=runs, kernels=kernels, seconds=seconds), counts
 
 
+# ---- phase 27: the P-frame diagnostics ----
+# In phase 25's working directory. (a) rd_tpu.main at rd-tiny without
+# --recon-skip (the checkpoints the diagnostics read), B = 4, 64x64, a
+# mega-step or two a variant; (b) diag_pframe.main at P27_RES for both
+# variants; (c) probe_latent_liveness.main and (d) probe_dist_only.main
+# plain, each P27_STEPS steps (1500 in the scripts).
+P27_TPU = ["--profile", "tiny", "--batch", "4", "--crop", "64", "--k",
+           str(P25_K), "--dmci-steps", "4", "--steps", "4",
+           "--eval-every", "4", "--eval-clips", "2", "--eval-crop", "64",
+           "--budget-min", "3", "--out", "artifacts/torch/rd_tpu_tiny.json"]
+P27_RES = 64
+P27_STEPS = 8
+P27_COPY_TOL = 1e-6          # (b): copy-previous PSNR against numpy's, dB
+P27_LAMBDA_REL = 1e-6        # (d): lambda at QP 32 against 1e5, relative
+#: what (a)-(d) must launch at the rd-tiny widths (fp32, every C <= 64:
+#: the SIMT route), forward only in (b)
+P27_FORWARD = ("dcb_f32", "dcb_chain_f32")
+
+
+def p27_copy_psnr(clips, t):
+    """The mean over ``clips`` of the PSNR of copying frame t - 1 to t,
+    recomputed with numpy."""
+    out = []
+    for frames, _ in clips:
+        f = np.asarray(frames, np.float32)
+        out.append(10.0 * np.log10(1.0 / max(float(np.mean(
+            (f[t] - f[t - 1]) ** 2)), 1e-10)))
+    return float(np.mean(out))
+
+
+def phase_diagnostics(torch, seed, card, work: Path):
+    """Phase 27 (module docstring), in phase 25's working directory."""
+    from ssgvc_tpu_torch.data.dataset import (ClipDataModule,
+                                              SyntheticClipDataset)
+    from ssgvc_tpu_torch.experiments import diag_pframe, rd_full, rd_tpu
+    from ssgvc_tpu_torch.experiments.probes import (probe_dist_only,
+                                                    probe_latent_liveness)
+    from ssgvc_tpu_torch.training.loss import compute_lambda
+
+    t0 = time.perf_counter()
+    reset, read = launch_counts()
+    shapes, runs = {}, {}
+    old = os.getcwd()
+    os.chdir(work)
+    saved = (rd_full.GATE_STEP, rd_tpu.DMCI_PROBE_STEPS)
+    rd_full.GATE_STEP, rd_tpu.DMCI_PROBE_STEPS = P25_GATE_STEP, P25_PROBE
+    try:
+        # (a) the rd-tiny checkpoints without --recon-skip, under no
+        # namespace (phase 26 left rd_full's at "-roisub")
+        rd_full.CKPT_EXTRA = ""
+        res, runs["a"] = p26_run(torch, card, "a",
+                                 lambda: rd_tpu.main(list(P27_TPU)), reset,
+                                 read, shapes)
+        for v in ("performance", "plain"):
+            if "estimated_rd" not in res["variants"].get(v, {}):
+                fail(f"(a) {v}: {res['variants'].get(v)}")
+            if not os.path.isfile(diag_pframe.tiny_ckpt_path(v)):
+                fail(f"(a) no checkpoint at {diag_pframe.tiny_ckpt_path(v)}")
+        print(f"  (a) rd_tpu.main {' '.join(P27_TPU)}: checkpoints "
+              f"{[diag_pframe.tiny_ckpt_path(v) for v in res['variants']]}"
+              f" [{card}]")
+
+        # (b) the P-frame PSNR three ways on both variants
+        diag = {}
+        for v in ("performance", "plain"):
+            argv = ["--res", str(P27_RES), "--variant", v]
+            diag[v], runs[f"b_{v}"] = p26_run(
+                torch, card, f"b_{v}", lambda: diag_pframe.main(argv),
+                reset, read, shapes)
+            counts = runs[f"b_{v}"]["launches"]
+            if not all(counts[k] for k in P27_FORWARD) or any(
+                    counts[k] for k in BWD_REPLACES):
+                fail(f"(b) {v} launches {counts}: want the SIMT forward "
+                     "kernels and no backward kernel")
+        clips = rd_full.eval_clip_set(P27_RES, diag_pframe.N_CLIPS)
+        copy = {t: p27_copy_psnr(clips, t) for t in (1, 2, 3)}
+        for v, report in diag.items():
+            for qp, row in report.items():
+                if not all(math.isfinite(x) for x in row.values()):
+                    fail(f"(b) {v} qp {qp}: {row}")
+                for t, want in copy.items():
+                    if abs(row[f"copy{t}"] - want) > P27_COPY_TOL:
+                        fail(f"(b) {v} qp {qp} copy{t} {row[f'copy{t}']} "
+                             f"!= numpy's {want}")
+                other = diag["plain"][qp]
+                if (row["I"], row["I_bpp"]) != (other["I"], other["I_bpp"]):
+                    fail(f"(b) qp {qp}: the I-frame rows of {v} and plain "
+                         f"differ ({row['I']}, {other['I']}): not one DMCI")
+        for qp in diag["performance"]:
+            print(f"  (b) qp {qp} (P1..P3, dB): " + "; ".join(
+                f"{v} model {[round(r[f'P{t}'], 2) for t in (1, 2, 3)]} "
+                f"oracle {[round(r[f'P{t}_oracle'], 2) for t in (1, 2, 3)]}"
+                for v, r in ((v, diag[v][qp]) for v in diag))
+                + f"; copy {[round(copy[t], 2) for t in (1, 2, 3)]}; I "
+                f"{diag['plain'][qp]['I']:.3f} in both [{card}]")
+
+        # (c) liveness after a few steps
+        live, runs["c"] = p26_run(
+            torch, card, "c",
+            lambda: probe_latent_liveness.main([str(P27_STEPS)]), reset,
+            read, shapes)
+        for qp, r in live["rows"].items():
+            if not (0.0 <= r["alive_y"] <= 1.0 and 0.0 <= r["alive_z"] <= 1.0
+                    and all(math.isfinite(x) for x in r.values())):
+                fail(f"(c) qp {qp}: {r}")
+        print(f"  (c) probe_latent_liveness.main {P27_STEPS}: " + "; ".join(
+            f"qp {qp} alive_y {r['alive_y']:.3f} alive_z "
+            f"{r['alive_z']:.3f} dpb_dep {r['dpb_dep']:+.2f} inp_dep "
+            f"{r['inp_dep']:.2f}" for qp, r in live["rows"].items())
+            + f" [{card}]")
+
+        # (d) distortion only, on (a)'s performance DMCI
+        comp = probe_dist_only.train_config("plain").compression
+        lam = [float(compute_lambda(qp, comp.lambda_min, comp.lambda_max,
+                                    comp.q_levels)) for qp in (0, 32, 63)]
+        if abs(lam[1] / probe_dist_only.LAMBDA - 1) > P27_LAMBDA_REL \
+                or len(set(lam)) != 1:
+            fail(f"(d) lambda at QPs 0, 32, 63: {lam}")
+        dist, runs["d"] = p26_run(
+            torch, card, "d",
+            lambda: probe_dist_only.main(["plain", str(P27_STEPS)]), reset,
+            read, shapes)
+        ds = SyntheticClipDataset(num_clips=512, seq_len=4, crop_size=64,
+                                  seed=3, texture="smooth")
+        f = next(ClipDataModule(ds, batch_size=4, split=(0.95, 0.05, 0.0),
+                                seed=3).train_iter())["frames"]
+        cp = float(10 * np.log10(1.0 / np.mean((f[:, 1:] - f[:, :-1]) ** 2)))
+        if dist["copy_baseline_psnr"] != cp:
+            fail(f"(d) copy baseline {dist['copy_baseline_psnr']} != "
+                 f"numpy's {cp}")
+        if not all(math.isfinite(r["loss"]) for r in dist["steps"]):
+            fail(f"(d) loss {dist['steps']}")
+        print(f"  (d) probe_dist_only.main plain {P27_STEPS}: lambda "
+              f"{lam[1]!r} at QP 32 (the same at 0 and 63), copy baseline "
+              f"{cp:.2f} dB, step 0 P-PSNR {dist['steps'][0]['psnr']:.2f} "
+              f"dB, loss {dist['steps'][0]['loss']:.1f} [{card}]")
+    finally:
+        os.chdir(old)
+        rd_full.GATE_STEP, rd_tpu.DMCI_PROBE_STEPS = saved
+    for name in ("a", "c", "d"):
+        counts = runs[name]["launches"]
+        if not all(counts[k] for k in P27_FORWARD + tuple(BWD_REPLACES)):
+            fail(f"({name}) launches {counts}: want the SIMT forward and "
+                 "the four backward kernels")
+    counts = {k: sum(r["launches"][k] for r in runs.values())
+              for k in runs["a"]["launches"]}
+    kernels = p25_kernel_shapes(
+        torch, seed + 27, card, shapes, label="(27)", where="diagnostics",
+        per="the runs of phase 27 (a)-(d): each shape's time x its "
+            "launches over the runs, summed", route="dcb_f32")
+    seconds = time.perf_counter() - t0
+    print(f"diagnostics: phase 27 in {seconds:.1f} s [{card}]")
+    return dict(runs=runs, diag_pframe=diag, liveness=live,
+                dist_only=dict(dist, lambda_qp32=lam[1]), copy_prev=copy,
+                kernels=kernels, seconds=seconds), counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6512,6 +6692,9 @@ def main() -> int:
         mask_exp, mask_counts = phase_mask_experiments(
             torch, args.seed, card, Path(rd_work))
         lap("26 mask experiments")
+        diagnostics, diag_counts = phase_diagnostics(torch, args.seed, card,
+                                                     Path(rd_work))
+        lap("27 diagnostics")
     next(e for e in kernels if e["name"] == "dcb")["image_step"] = \
         image_cli.pop("dcb")
     for entry in backward:
@@ -6549,6 +6732,12 @@ def main() -> int:
                 per="launches in phase 26's script runs (a)-(d) (rd-half "
                     "fp32 fast and mask_prop, the BCE phase, "
                     "mask_prop_value, the journey's in-process part)")
+        if diag_counts.get(entry["name"]):
+            entry["diagnostics"] = dict(
+                launches=diag_counts[entry["name"]],
+                per="launches in phase 27's runs (a)-(d) (rd-tiny fp32: "
+                    "rd_tpu for performance and plain, diag_pframe on "
+                    "both, the two probes' steps and tables)")
         if entry["name"] in rd_counts:
             entry["rd_harness"] = dict(
                 launches=rd_counts[entry["name"]],
@@ -6606,6 +6795,7 @@ def main() -> int:
     print(json.dumps({"experiments": {**experiments, "card": card}}))
     print(json.dumps({"rd_harness": {**rd_harness, "card": card}}))
     print(json.dumps({"mask_experiments": {**mask_exp, "card": card}}))
+    print(json.dumps({"diagnostics": {**diagnostics, "card": card}}))
     print(json.dumps({"phase_seconds": {**clock, "card": card}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

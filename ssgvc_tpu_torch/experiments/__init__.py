@@ -1,6 +1,7 @@
 """The RD experiment harness: the JAX package's ``experiments/rd_*.py``,
-``mask_train_phase.py``, ``mask_prop_value.py`` and ``e2e_waymo_format.py``
-in PyTorch, each script's functions, flags and JSON keys kept.
+``mask_train_phase.py``, ``mask_prop_value.py``, ``e2e_waymo_format.py``,
+``diag_pframe.py`` and ``probes/probe_{latent_liveness,dist_only}.py`` in
+PyTorch, each script's functions, flags, printed lines and JSON keys kept.
 
     python3 -m ssgvc_tpu_torch.experiments.rd_tpu --profile half --lnorm \\
         --recon-skip [--device=cpu] ...
@@ -14,6 +15,12 @@ in PyTorch, each script's functions, flags and JSON keys kept.
     python3 -m ssgvc_tpu_torch.experiments.e2e_waymo_format
     python3 -m ssgvc_tpu_torch.experiments.rd_trajectory [logfile]
     python3 -m ssgvc_tpu_torch.experiments.rd_report
+    python3 -m ssgvc_tpu_torch.experiments.diag_pframe [--res 64] \\
+        [--variant performance]
+    python3 -m ssgvc_tpu_torch.experiments.probes.probe_latent_liveness \\
+        [steps]
+    python3 -m ssgvc_tpu_torch.experiments.probes.probe_dist_only \\
+        [variant] [steps]
 
 Every script that runs a model runs on the card unless ``--device=cpu``
 is given; rd_keep_best, rd_trajectory and rd_report read and write files
@@ -63,3 +70,31 @@ def write_json(path: str, obj) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "w") as f:
         json.dump(obj, f, indent=2)
+
+
+def restore_fitting(path: str, **models) -> dict:
+    """The checkpoint file at ``path`` (``utils/checkpoint``), each entry
+    named by a keyword checked against its model (``params_i=dmci``,
+    ``params_p=dmc``): an entry the file lacks, a key missing or unexpected,
+    or a shape that differs raises ValueError naming ``path``, so a caller
+    that loads after this check never loads a checkpoint in part. Loads
+    nothing itself."""
+    from ..utils.checkpoint import restore_checkpoint
+
+    ck = restore_checkpoint(path)
+    for name, model in models.items():
+        if name not in ck:
+            raise ValueError(f"checkpoint {path} has no {name}")
+        want = model.state_dict()
+        got = ck[name]
+        missing = sorted(want.keys() - got.keys())
+        extra = sorted(got.keys() - want.keys())
+        shapes = sorted(k for k in want.keys() & got.keys()
+                        if tuple(want[k].shape) != tuple(got[k].shape))
+        if missing or extra or shapes:
+            raise ValueError(
+                f"checkpoint {path}: {name} does not fit the model "
+                f"({len(missing)} keys missing, {len(extra)} unexpected, "
+                f"{len(shapes)} of another shape; first: "
+                f"{(missing + extra + shapes)[:3]})")
+    return ck

@@ -23,17 +23,25 @@ TARGET_Y_STD = 3.0
 TARGET_Z_STD = 2.0
 
 
-def _capture(model, module, *args, **kw) -> torch.Tensor:
-    """``module``'s output during one no-grad forward of ``model``."""
-    seen = []
-    handle = module.register_forward_hook(
-        lambda _m, _a, out: seen.append(out.detach()))
+def capture(model, modules, *args, **kw):
+    """One no-grad forward of ``model``: (its output, the output of each of
+    ``modules`` in that forward, their first call's), by forward hooks."""
+    seen = {}
+    handles = [m.register_forward_hook(
+        lambda _m, _a, out, i=i: seen.setdefault(i, out.detach()))
+        for i, m in enumerate(modules)]
     try:
         with torch.no_grad():
-            model(*args, **kw)
+            out = model(*args, **kw)
     finally:
-        handle.remove()
-    return seen[0]
+        for h in handles:
+            h.remove()
+    return out, [seen[i] for i in range(len(modules))]
+
+
+def _capture(model, module, *args, **kw) -> torch.Tensor:
+    """``module``'s output during one no-grad forward of ``model``."""
+    return capture(model, (module,), *args, **kw)[1][0]
 
 
 def _channel_scale(arr: torch.Tensor, target: float, lo: float = 0.25,

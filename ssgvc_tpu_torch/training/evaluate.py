@@ -7,7 +7,8 @@ GOPs at once (``make_batched_gop_eval``) and its RD curve
 (``evaluate_rd_batched``); RD curves over QPs (``rd_sweep``) and the
 Bjontegaard deltas between two curves (``bd_rate``, ``bd_psnr``); the
 collapse tripwire of from-scratch training (``latent_liveness``,
-``liveness_collapsed``). The metrics run on the host, in RGB.
+``liveness_collapsed``, over ``code_tapped``). The metrics run on the
+host, in RGB.
 """
 
 from __future__ import annotations
@@ -162,6 +163,39 @@ def evaluate_rd_batched(run_fn, clips, qps: Sequence[int],
 
 
 @torch.no_grad()
+def code_tapped(dmc, frames, masks, qp: int, dpb_frame=None):
+    """Frame 1 of a clip coded by the P-frame codec ``dmc`` as the frame
+    after an I-frame, on ``dpb_frame`` (by default frame 0) with a zero DPB
+    feature, its latents tapped: (the reconstruction, bpp, ``alive_y``,
+    ``alive_z``), the last two the fractions of quantized latent positions
+    != 0.
+
+    ``dmc``: the port's P-frame codec (raw io) on its device. frames /
+    masks: (T, H, W, 3) / (T, H, W, 1) numpy. y and z are the encoder's and
+    the hyper encoder's outputs, taken by forward hooks
+    (``calibrate.capture``); z times ``z_gain``, as the codec scales it.
+    """
+    from .calibrate import capture
+
+    device = next(dmc.parameters()).device
+    dev = lambda a: torch.from_numpy(np.asarray(a, np.float32))[None].to(
+        device)
+    ps = dmc.cfg.patch_size
+    dpb = {"frame": dev(frames[0] if dpb_frame is None else dpb_frame),
+           "feature": torch.zeros(
+               (1, frames.shape[1] // ps, frames.shape[2] // ps,
+                dmc.cfg.ch_d), device=device)}
+    out, (y, z) = capture(dmc, (dmc.encoder, dmc.hyper_encoder),
+                          dev(frames[1]), qp, dpb, after_i=True,
+                          mask=dev(masks[1]))
+    y = y.float().cpu().numpy()
+    z = z.float().cpu().numpy() * dmc.z_gain.detach().float().cpu().numpy()
+    return (out["dpb"]["frame"][0].float().cpu().numpy(),
+            float(out["bpp"][0]), float(np.mean(np.round(y) != 0)),
+            float(np.mean(np.round(z) != 0)))
+
+
+@torch.no_grad()
 def latent_liveness(dmc, clip_a, clip_b,
                     qps: Sequence[int] = (8, 32, 56)) -> Dict:
     """Collapse tripwire of from-scratch training: per QP, the fraction of
@@ -170,53 +204,20 @@ def latent_liveness(dmc, clip_a, clip_b,
     (``recon_cross_clip_psnr``: high means the decoder emits a
     near-constant image, the collapse).
 
-    ``dmc``: the port's P-frame codec (raw io) on its device. clip_a /
-    clip_b: (frames, masks) with frames (T, H, W, 3) numpy YCbCr; frame 1
-    is coded on frame 0 as the DPB frame. y and z are the encoder's and
-    the hyper encoder's outputs, tapped by forward hooks; z times
-    ``z_gain``, as the codec scales it.
+    clip_a / clip_b: (frames, masks) with frames (T, H, W, 3) numpy YCbCr;
+    frame 1 is coded on frame 0 as the DPB frame (:func:`code_tapped`).
     """
-    device = next(dmc.parameters()).device
-    dev = lambda a: torch.from_numpy(np.asarray(a, np.float32))[None].to(
-        device)
-    taps = {}
-
-    def tap(name):
-        def hook(module, args, out):
-            taps[name] = out.float().cpu().numpy()
-        return hook
-
-    handles = [dmc.encoder.register_forward_hook(tap("y")),
-               dmc.hyper_encoder.register_forward_hook(tap("z"))]
-    z_gain = dmc.z_gain.detach().float().cpu().numpy()
-
-    def run(frames, masks, qp):
-        ps = dmc.cfg.patch_size
-        dpb = {"frame": dev(frames[0]),
-               "feature": torch.zeros(
-                   (1, frames.shape[1] // ps, frames.shape[2] // ps,
-                    dmc.cfg.ch_d), device=device)}
-        out = dmc(dev(frames[1]), qp, dpb, after_i=True, mask=dev(masks[1]))
-        z = taps["z"] * z_gain
-        return (out["dpb"]["frame"][0].float().cpu().numpy(),
-                float(np.mean(np.round(taps["y"]) != 0)),
-                float(np.mean(np.round(z) != 0)))
-
     report = {}
-    try:
-        for qp in qps:
-            ra, alive_y, alive_z = run(*clip_a, qp)
-            rb, _, _ = run(*clip_b, qp)
-            mse = float(np.mean((ra.astype(np.float64)
-                                 - rb.astype(np.float64)) ** 2))
-            report[str(qp)] = {
-                "alive_y": alive_y, "alive_z": alive_z,
-                "recon_cross_clip_psnr": float(min(
-                    99.9, 10 * np.log10(1.0 / max(mse, 1e-10)))),
-            }
-    finally:
-        for h in handles:
-            h.remove()
+    for qp in qps:
+        ra, _, alive_y, alive_z = code_tapped(dmc, *clip_a, qp)
+        rb = code_tapped(dmc, *clip_b, qp)[0]
+        mse = float(np.mean((ra.astype(np.float64)
+                             - rb.astype(np.float64)) ** 2))
+        report[str(qp)] = {
+            "alive_y": alive_y, "alive_z": alive_z,
+            "recon_cross_clip_psnr": float(min(
+                99.9, 10 * np.log10(1.0 / max(mse, 1e-10)))),
+        }
     return report
 
 

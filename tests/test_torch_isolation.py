@@ -58,7 +58,9 @@ RD_MODULES = ("experiments.rd_keep_best", "experiments.rd_full",
               "experiments.rd_continue", "experiments.rd_demo",
               "experiments.rd_trajectory", "experiments.rd_report",
               "experiments.mask_train_phase", "experiments.mask_prop_value",
-              "experiments.e2e_waymo_format")
+              "experiments.e2e_waymo_format", "experiments.diag_pframe",
+              "experiments.probes.probe_latent_liveness",
+              "experiments.probes.probe_dist_only")
 
 
 @pytest.mark.parametrize("module", TRAINING_MODULES + DATA_MODULES
@@ -250,7 +252,9 @@ RD_MAINS = {"rd_tpu": ["--profile", "tiny", "--eval-clips", "2"],
             "rd_continue": ["1", "--profile", "tiny", "--recon-skip"],
             "mask_train_phase": ["1", "--profile", "tiny"],
             "mask_prop_value": ["--profile", "tiny", "--crop", "64"],
-            "e2e_waymo_format": []}
+            "e2e_waymo_format": [], "diag_pframe": ["--res", "64"],
+            "probes.probe_latent_liveness": ["1"],
+            "probes.probe_dist_only": ["plain", "1"]}
 #: the entry points that load a checkpoint of the profile before a model
 #: (the mask experiments' under their default "-roisub" tag)
 RD_LOADERS = {"rd_eval": "", "rd_continue": "", "mask_train_phase": "-roisub",
@@ -259,10 +263,11 @@ RD_LOADERS = {"rd_eval": "", "rd_continue": "", "mask_train_phase": "-roisub",
 
 @pytest.mark.parametrize("name", sorted(RD_MAINS))
 def test_rd_harness_mains_default_to_the_card(name, tmp_path, monkeypatch):
-    """Without --device=cpu every RD entry point builds its models on the
-    card: a host with no card raises there (rd_eval and rd_continue once a
-    checkpoint of the profile exists to load, as the mask experiments
-    do)."""
+    """Without --device=cpu every RD entry point and diagnostic builds its
+    models on the card: a host with no card raises there (rd_eval and
+    rd_continue once a checkpoint of the profile exists to load, as the
+    mask experiments do; the diagnostics build their models before they
+    read a checkpoint)."""
     import importlib
 
     from ssgvc_tpu_torch.experiments import rd_full
