@@ -245,8 +245,8 @@ Phases (any failure exits non-zero and prints no result line):
      P23_REL), the bpp's relative difference (<= P23_BPP_REL), each rank's
      launches (those of the unsharded frame, 18 + 5); one frame again in
      fp32 (the 3xTF32 and the SIMT kernels) at tests/test_mesh.py's
-     tolerances; then the bf16 frame over 4 and over 8 ranks (P23_WIDE;
-     largest slabs 320 and 192 rows); the H the JAX package takes beyond
+     tolerances; then the bf16 frame over 4 ranks (P23_WIDE; largest
+     slab 320 rows); the H the JAX package takes beyond
      whole 64-row units (P23_RAGGED): bf16 GOPs of 2 against the
      unsharded frame, the DPB bit for bit and the bpp within P23_SUM, at
      1280 x 720 over 2 ranks (the fast variant; the
@@ -370,13 +370,31 @@ Phases (any failure exits non-zero and prints no result line):
      the four backward kernels. Then every fp32 forward and backward kernel
      at each operand shape (a)-(d) launched it at, against its plain
      version (F32_TOL, BWD_FP32_TOL), timed.
+ 28. the measuring scripts, in a working directory of their own, each run
+     with every launch count (qconv's too) set to 0 just before and read
+     just after, the kernels it must launch and may launch checked: (a)
+     profile_stages.main (1088x1920 bf16, every stage and the whole
+     frame): the frame counts P28_FRAME_FLOPS products (utils/flops.py)
+     and its stages sum to it; (b) bench_sweep.main at batches 1 and 2
+     and (c) trace_bench.main, both packed with P28_FRAMES frames: the
+     sweep's products a frame the same count, the trace's dcb and dcb_chain
+     launches by kernel name, at least one and at most the 18 and 5 a
+     frame launched (a trace can miss a few), a busy share in (0, 1]; (d) bench_coded.main (I + 2 P, bf16, packed): the
+     JSON entry's keys, every decoded frame equal to the encoder's; (e)
+     bench_rans.main on 0.2M symbols: no launch, its JSON written; (f)
+     smoke_128px.main --k 2 (rd-mid fp32, crop 128, batch 16): the SIMT
+     forward and the four backward kernels launched, no file written; (g)
+     probe_int8.main on short chains: qconv launched. Every number each
+     returns finite; the bf16 kernels' P-frame bounds (phase 3, from
+     utils/flops.dcb_flops) printed beside the frame's count.
 
 The last lines are JSON objects: {"main_path": ...}, {"variants": ...},
 {"coded": ...}, {"training": ...}, {"cross_check": ...}, {"fp32": ...},
 {"rd_half": ...}, {"rd_recipe": ...}, {"coded_fp32": ...},
 {"train_cli": ...}, {"image_cli": ...}, {"scripts": ...}, {"tools": ...},
 {"parallel": ...}, {"experiments": ...}, {"rd_harness": ...},
-{"mask_experiments": ...}, {"diagnostics": ...}, {"phase_seconds": ...}
+{"mask_experiments": ...}, {"diagnostics": ...}, {"measure_scripts":
+...}, {"phase_seconds": ...}
 (each phase's seconds, also printed as it ends), {"kernels": [...]}, and
 last {"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
 ...}}.
@@ -594,15 +612,17 @@ def block_params(torch, c, rng, device):
 
 
 def bound_times(h, w, c, n, f32=False, b=1):
-    """(seconds for the block products at the route's peak: bf16 tensor
+    """(seconds for the block products (``utils/flops.dcb_flops``, the
+    count the measuring scripts' GFLOP use) at the route's peak: bf16 tensor
     cores; for fp32, three TF32 products each on the 3xTF32 route
     (ops.dcb.uses_tf32), fp32 outside the tensor cores on the SIMT one;
     seconds for the bytes at the HBM rate: x read once, y written once, the
     weights read once), at the block's true C (not the width the kernel
     computes it at), for b images."""
     from ssgvc_tpu_torch.ops.dcb import uses_tf32
+    from ssgvc_tpu_torch.utils.flops import dcb_flops
 
-    flops = n * b * h * w * (16 * c * c + 18 * c)
+    flops = dcb_flops(b * h * w, c, n)
     size = 4 if f32 else 2
     nbytes = size * (2 * b * h * w * c) + n * size * (8 * c * c + 17 * c)
     if not f32:
@@ -3079,7 +3099,7 @@ def phase_coded_f32(torch, seed, card):
 #: "tiny")
 CLI_RECORDS = (8, 8)
 WAYMO_HW = (1280, 1920)
-CLI_EPOCHS, CLI_VAL_EVERY, CLI_TOP_K, CLI_RESUME_STEPS = 3, 3, 1, 2
+CLI_EPOCHS, CLI_VAL_EVERY, CLI_TOP_K, CLI_RESUME_STEPS = 2, 2, 1, 2
 CLI_PROFILE = "full"
 
 
@@ -4119,7 +4139,9 @@ def phase_tools(torch, seed, card, main, root: Path):
 # sharing cuda:0 over gloo (NCCL takes no two ranks on one device).
 P23_H = H                    # the main path's 1088 rows: 17 units of 64,
 #                              worked on uneven slabs of whole units
-P23_WIDE = (4, 8)            # (c): one bf16 frame over 4 and over 8 ranks
+#: (c): one bf16 frame over 4 ranks (over 8 too until the smoke's time
+#: needed the room: 1088 rows over 8 ranks was bit for bit in PRs 19-22)
+P23_WIDE = (4,)
 P23_FRAMES = 2               # the sharded GOP (after_i=False)
 P23_STEPS = 8                # (b): the default accumulation, one update
 P23_REL = 1e-2               # (c) bf16: relative Frobenius, the kernels'
@@ -6568,6 +6590,175 @@ def phase_diagnostics(torch, seed, card, work: Path):
                 kernels=kernels, seconds=seconds), counts
 
 
+# ---- phase 28: the measuring scripts --------------------------------------
+
+P28_STAGE_ITERS = ["--iters", "3"]
+P28_FRAMES = 4               # SSGVC_FRAMES for bench_sweep and trace_bench
+P28_SWEEP = ["1", "2"]       # bench_sweep's batches
+P28_CODED = ["3", "--dtype", "bfloat16", "--packed"]
+P28_RANS = ["0.2"]           # million symbols
+P28_SMOKE = ["--k", "2"]
+P28_PROBE = ["--chain", "20", "--reps", "2"]
+#: utils/flops.py's products of the performance P-frame at 1088x1920 (bf16,
+#: either packed_io): the JAX package's jaxpr counts the same
+P28_FRAME_FLOPS = 928_285_908_480
+#: single and chained launches of a P-frame after another P-frame; the
+#: trace may hold fewer: key_averages() held 140, 142 and 143 of 144 dcb
+#: launches in three 4-frame traces on the H100 (a 16-frame one all 576)
+P28_PFRAME_LAUNCHES = {"dcb": 18, "dcb_chain": 5}
+P28_CODED_KEYS = {
+    "backend", "device", "dtype", "profile", "resolution", "n_p_frames",
+    "ec_part", "skip_thres", "packed_dmc", "enc_ms_per_frame", "enc_fps",
+    "dec_ms_per_frame", "dec_fps", "i_frame_bytes", "p_frame_bytes_median",
+    "p_bpp_median", "bit_exact"}
+
+
+def p28_run(torch, card, name, fn, reset, read, want, allow=()):
+    """``fn()`` with every launch count (``qconv``'s too) set to 0 just
+    before and read just after: fails unless each kernel of ``want``
+    launched and no kernel outside ``want`` and ``allow`` did. Returns (its
+    output, {seconds, peak_bytes, launches})."""
+    from ssgvc_tpu_torch.ops import qconv as Q
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    Q.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {**read(), "qconv": Q.launches}
+    peak = torch.cuda.max_memory_allocated()
+    missing = [k for k in want if not counts[k]]
+    extra = [k for k, n in counts.items()
+             if n and k not in want and k not in allow]
+    if missing or extra:
+        fail(f"({name}) launches {counts}: want {sorted(want)}, missing "
+             f"{missing}, unexpected {extra}")
+    print(f"  ({name}) {seconds:.1f} s, peak {peak / 2**20:.1f} MiB, "
+          f"launches {counts} [{card}]")
+    return out, dict(seconds=seconds, peak_bytes=peak, launches=counts)
+
+
+def p28_finite(name, tree):
+    """Fail unless every number in ``tree`` (dicts, lists) is finite."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            p28_finite(name, v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            p28_finite(name, v)
+    elif isinstance(tree, float) and not math.isfinite(tree):
+        fail(f"({name}) a number is not finite: {tree}")
+
+
+def phase_measure_scripts(torch, seed, card, kernels, work: Path):
+    """Phase 28 (module docstring), in a working directory of its own."""
+    from unittest import mock
+
+    from ssgvc_tpu_torch.experiments import (bench_coded, bench_rans,
+                                             bench_sweep, probe_int8,
+                                             profile_stages, smoke_128px,
+                                             trace_bench)
+
+    t0 = time.perf_counter()
+    reset, read = launch_counts()
+    bf16 = ("dcb", "dcb_chain")
+    runs, res = {}, {}
+    old = os.getcwd()
+    os.chdir(work)
+    try:
+        # (a) every stage of the 1080p P-frame, the whole frame
+        res["a"], runs["a"] = p28_run(
+            torch, card, "a profile_stages",
+            lambda: profile_stages.main(P28_STAGE_ITERS + ["--seed",
+                                                          str(seed)]),
+            reset, read, bf16)
+        fl = res["a"]["flops"]
+        if fl["full"] != P28_FRAME_FLOPS or \
+                sum(fl[s] for s in profile_stages.STAGES) != fl["full"]:
+            fail(f"(a) FLOP {fl}: the frame should count {P28_FRAME_FLOPS}, "
+                 "the stages summing to it")
+        p28_finite("a", res["a"])
+        # (b), (c) the batched GOP and its trace, cut to P28_FRAMES frames
+        with mock.patch.dict(os.environ, SSGVC_PACKED="1",
+                             SSGVC_FRAMES=str(P28_FRAMES)):
+            res["b"], runs["b"] = p28_run(
+                torch, card, "b bench_sweep",
+                lambda: bench_sweep.main(P28_SWEEP + ["--seed", str(seed)]),
+                reset, read, bf16)
+            res["c"], runs["c"] = p28_run(
+                torch, card, "c trace_bench",
+                lambda: trace_bench.main(["trace", "--seed", str(seed)]),
+                reset, read, bf16)
+        p28_finite("b", res["b"])
+        if res["b"]["flops_per_frame"] != P28_FRAME_FLOPS:
+            fail(f"(b) {res['b']['flops_per_frame']} FLOP a frame")
+        traced = res["c"]["kernels"]
+        for k, per in P28_PFRAME_LAUNCHES.items():
+            want = per * P28_FRAMES * res["c"]["reps"]
+            got = traced.get(k, {}).get("count", 0)
+            if not 0 < got <= want:
+                fail(f"(c) {k}: the trace holds {traced.get(k)}, want "
+                     f"1 to {want} launches")
+        if not 0.0 < res["c"]["busy_share"] <= 1.0:
+            fail(f"(c) busy share {res['c']['busy_share']}")
+        # (d) the coded path, bf16, packed, decoded bit for bit
+        res["d"], runs["d"] = p28_run(
+            torch, card, "d bench_coded",
+            lambda: bench_coded.main(P28_CODED + [
+                "--seed", str(seed), "--json",
+                "artifacts/torch/bench_coded.json"]),
+            reset, read, bf16)
+        if set(res["d"]) != P28_CODED_KEYS or not res["d"]["bit_exact"]:
+            fail(f"(d) {res['d']}")
+        p28_finite("d", res["d"])
+        # (e) the host coder: no device work
+        res["e"], runs["e"] = p28_run(
+            torch, card, "e bench_rans", lambda: bench_rans.main(P28_RANS),
+            reset, read, ())
+        if not os.path.isfile("artifacts/torch/bench_rans.json"):
+            fail("(e) no artifacts/torch/bench_rans.json")
+        # (f) two mega-steps at rd-mid fp32, crop 128, batch 16: writes
+        # nothing
+        before = sorted(p.name for p in Path(".").rglob("*"))
+        res["f"], runs["f"] = p28_run(
+            torch, card, "f smoke_128px",
+            lambda: smoke_128px.main(P28_SMOKE + ["--seed", str(seed)]),
+            reset, read, P27_FORWARD + tuple(BWD_REPLACES),
+            allow=("dcb_tf32", "dcb_chain_tf32"))
+        if sorted(p.name for p in Path(".").rglob("*")) != before:
+            fail("(f) smoke_128px wrote a file")
+        p28_finite("f", res["f"])
+        # (g) bf16 against int8 convs, short chains
+        res["g"], runs["g"] = p28_run(
+            torch, card, "g probe_int8",
+            lambda: probe_int8.main(P28_PROBE + ["--seed", str(seed)]),
+            reset, read, ("qconv",))
+        p28_finite("g", res["g"])
+    finally:
+        os.chdir(old)
+    bounds = {e["name"]: e["bound_ms"] for e in kernels
+              if e["name"] in bf16}
+    seconds = time.perf_counter() - t0
+    print(f"measure scripts: phase 28 in {seconds:.1f} s; "
+          f"{fl['full'] / 1e9:.2f} GFLOP a P-frame ({fl['full']} FLOP), "
+          f"{res['a']['full']['tflops']:.2f} TFLOP/s; the kernels' P-frame "
+          f"bounds from utils/flops.dcb_flops: dcb {bounds['dcb']:.4f} ms, "
+          f"chain {bounds['dcb_chain']:.4f} ms [{card}]")
+    counts = {}
+    for r in runs.values():
+        for k, n in r["launches"].items():
+            counts[k] = counts.get(k, 0) + n
+    return dict(runs=runs, profile_stages=res["a"], bench_sweep=res["b"],
+                trace_bench={k: v for k, v in res["c"].items()
+                             if k != "trace"},
+                bench_coded=res["d"], bench_rans=res["e"],
+                smoke_128px=res["f"], probe_int8=res["g"], bounds=bounds,
+                seconds=seconds), counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6695,6 +6886,10 @@ def main() -> int:
         diagnostics, diag_counts = phase_diagnostics(torch, args.seed, card,
                                                      Path(rd_work))
         lap("27 diagnostics")
+    with tempfile.TemporaryDirectory() as work:
+        measure, measure_counts = phase_measure_scripts(
+            torch, args.seed, card, kernels, Path(work))
+        lap("28 measure scripts")
     next(e for e in kernels if e["name"] == "dcb")["image_step"] = \
         image_cli.pop("dcb")
     for entry in backward:
@@ -6738,6 +6933,13 @@ def main() -> int:
                 per="launches in phase 27's runs (a)-(d) (rd-tiny fp32: "
                     "rd_tpu for performance and plain, diag_pframe on "
                     "both, the two probes' steps and tables)")
+        if measure_counts.get(entry["name"]):
+            entry["measure_scripts"] = dict(
+                launches=measure_counts[entry["name"]],
+                per="launches in phase 28's script runs (a)-(g) "
+                    "(profile_stages, bench_sweep, trace_bench and "
+                    "bench_coded in bf16 at 1088x1920; smoke_128px at "
+                    "rd-mid fp32; probe_int8)")
         if entry["name"] in rd_counts:
             entry["rd_harness"] = dict(
                 launches=rd_counts[entry["name"]],
@@ -6796,6 +6998,7 @@ def main() -> int:
     print(json.dumps({"rd_harness": {**rd_harness, "card": card}}))
     print(json.dumps({"mask_experiments": {**mask_exp, "card": card}}))
     print(json.dumps({"diagnostics": {**diagnostics, "card": card}}))
+    print(json.dumps({"measure_scripts": {**measure, "card": card}}))
     print(json.dumps({"phase_seconds": {**clock, "card": card}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

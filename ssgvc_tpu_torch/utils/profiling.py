@@ -3,7 +3,7 @@ on ``torch.profiler`` and ``torch.cuda``.
 
   * ``trace``: a context manager around ``torch.profiler.profile`` that
     exports a Chrome trace (``chrome://tracing``, Perfetto) into a
-    directory;
+    directory; ``profiled`` the same, yielding the profiler itself;
   * ``device_memory_stats``: bytes in use, peak and limit per CUDA device;
   * ``timed``: median seconds per call, between synchronised CUDA events
     on the card, by the host clock on the CPU;
@@ -27,10 +27,13 @@ from .debug import named_leaves, tensor_leaves
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = os.path.join(tempfile.gettempdir(), "torch_trace")):
+def profiled(log_dir: str = os.path.join(tempfile.gettempdir(),
+                                         "torch_trace")):
     """Profile the block: CPU activity, and CUDA activity where a card is
     present. On exit the trace is written to ``log_dir`` as
-    ``<pid>.<time in ns>.pt.trace.json``. Yields ``log_dir``."""
+    ``<pid>.<time in ns>.pt.trace.json``. Yields the
+    ``torch.profiler.profile``, whose ``key_averages()`` and ``events()``
+    hold the block's ops once it has exited."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -40,13 +43,21 @@ def trace(log_dir: str = os.path.join(tempfile.gettempdir(), "torch_trace")):
     prof = profile(activities=activities)
     prof.start()
     try:
-        yield log_dir
+        yield prof
     finally:
         if torch.cuda.is_available():
             torch.cuda.synchronize()
         prof.stop()
         prof.export_chrome_trace(os.path.join(
             log_dir, f"{os.getpid()}.{time.time_ns()}.pt.trace.json"))
+
+
+@contextlib.contextmanager
+def trace(log_dir: str = os.path.join(tempfile.gettempdir(), "torch_trace")):
+    """:func:`profiled`, yielding ``log_dir`` as the JAX package's
+    ``trace`` does."""
+    with profiled(log_dir):
+        yield log_dir
 
 
 def device_memory_stats() -> Dict[str, Dict]:

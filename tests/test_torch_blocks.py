@@ -14,6 +14,7 @@ from ssgvc_tpu.layers import blocks as jb
 from ssgvc_tpu_torch.layers import blocks as tb
 from ssgvc_tpu_torch.utils.weights import load_flax_params
 from torch_port_helpers import perturbed
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 ATOL = 2e-5
 

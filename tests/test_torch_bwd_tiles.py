@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from chip_smoke import BWD_SHAPES, TRAIN_B
 from ssgvc_tpu_torch.ops import dcb as dcb_ops
 from ssgvc_tpu_torch.ops import dcb_grad as dg
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 F32_TOL = 1e-5
 CSRC = Path(dg.__file__).resolve().parent.parent / "csrc"

@@ -60,6 +60,7 @@ from ssgvc_tpu_torch.training import evaluate as tev
 from ssgvc_tpu_torch.utils.weights import load_flax_params
 from chip_smoke import DMC_HEADS, DMCI_HEADS
 from torch_port_helpers import DMCI_TINY, TINY, drawn_params
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 HW = 64
 

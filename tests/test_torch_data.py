@@ -26,6 +26,7 @@ from ssgvc_tpu_torch.data import tfrecord as ttf
 from ssgvc_tpu_torch.data import video_transform as tvt
 from ssgvc_tpu_torch.data import vimeo as tvimeo
 from ssgvc_tpu_torch.data import waymo_proto as twp
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 
 def equal_clips(a, b):

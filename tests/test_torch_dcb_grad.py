@@ -28,6 +28,7 @@ from ssgvc_tpu_torch.ops.dcb_chain import dcb_chain_plain
 from ssgvc_tpu_torch.utils.weights import flax_from_state_dict, flatten
 from ssgvc_tpu_torch.utils.weights import load_flax_params
 from torch_port_helpers import perturbed
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 FP32_TOL = 1e-4
 BF16_TOL = 2e-2

@@ -22,6 +22,7 @@ from ssgvc_tpu.ops.pallas_dcb_chain import dcb_chain_fused
 from ssgvc_tpu_torch.ops import dcb as dcb_ops
 from ssgvc_tpu_torch.ops import dcb_chain as chain_ops
 from torch_port_helpers import perturbed
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 NAMES = ("dc_0", "dc_2", "dc_3", "ffn_0", "ffn_2")
 # the full profile's widths: every single-block and chain site of the

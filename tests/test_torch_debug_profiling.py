@@ -32,6 +32,7 @@ from ssgvc_tpu_torch.utils import profiling as tprof
 from ssgvc_tpu_torch.utils.weights import flax_from_state_dict
 
 from torch_port_helpers import TINY, tiny_params
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 
 @lru_cache(maxsize=1)

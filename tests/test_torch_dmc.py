@@ -28,6 +28,7 @@ from ssgvc_tpu_torch.models.dmc import DMC
 from ssgvc_tpu_torch.models.inference_api import StreamingDMC
 from ssgvc_tpu_torch.utils.weights import load_flax_params
 from torch_port_helpers import FULL, RD_TINY, jax_dmc_params
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 HW = 64
 QP = 30

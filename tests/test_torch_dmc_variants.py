@@ -26,6 +26,7 @@ from ssgvc_tpu_torch.config import DMCConfig
 from ssgvc_tpu_torch.models.dmc import DMC, MaskPredictor
 from ssgvc_tpu_torch.utils.weights import load_flax_params
 from torch_port_helpers import RD_TINY, jax_dmc_params, perturbed
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 HW = 64
 QP = 30

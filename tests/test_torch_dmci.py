@@ -25,6 +25,7 @@ from ssgvc_tpu_torch.models import common as tc
 from ssgvc_tpu_torch.models.dmci import DMCI
 from ssgvc_tpu_torch.utils.weights import load_flax_params
 from torch_port_helpers import DMCI_FULL, DMCI_RD_TINY, jax_dmci_params
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 QP = 30
 BPP_RTOL = 5e-3

@@ -27,6 +27,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 K = 10.0

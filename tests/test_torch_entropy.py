@@ -20,6 +20,7 @@ from ssgvc_tpu.models import entropy as je
 from ssgvc_tpu_torch.models import common as tc
 from ssgvc_tpu_torch.models import entropy as te
 from torch_port_helpers import perturbed
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

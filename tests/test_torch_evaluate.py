@@ -30,6 +30,7 @@ from ssgvc_tpu_torch.utils import transforms as ttr
 from ssgvc_tpu_torch.utils.weights import load_flax_params
 from torch_port_helpers import (DMCI_RD_TINY, RD_TINY, jax_dmc_params,
                                 jax_dmci_params)
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 
 def _pair(seed, shape):

@@ -34,6 +34,7 @@ from ssgvc_tpu_torch.training import evaluate as tev
 from ssgvc_tpu_torch.utils.weights import load_flax_params
 from torch_port_helpers import (DMCI_TINY, TINY, jax_dmc_params,
                                 jax_dmci_params)
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 HW, T_LEN, QPS = 64, 3, (8, 32)
 INDEX_MAP, QP_SHIFT = (0, 1, 2), (0, 8, 4)

@@ -49,6 +49,7 @@ from ssgvc_tpu_torch.ops import qconv as Q
 from ssgvc_tpu_torch.parallel import spatial
 from ssgvc_tpu_torch.utils.weights import load_flax_params
 from torch_port_helpers import DMCI_TINY, TINY, drawn_params
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 HW = 64
 QP = 32

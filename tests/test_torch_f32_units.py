@@ -20,6 +20,7 @@ import torch
 
 from ssgvc_tpu_torch.ops import dcb as dcb_ops
 from ssgvc_tpu_torch.ops import dcb_chain as chain_ops
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 F32_TOL = 1e-5
 SOURCE = (Path(dcb_ops.__file__).resolve().parent.parent / "csrc"

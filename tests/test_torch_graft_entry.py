@@ -31,6 +31,7 @@ import jax.numpy as jnp
 from ssgvc_tpu_torch import graft_entry
 from ssgvc_tpu_torch.utils.debug import keyed_leaves
 from ssgvc_tpu_torch.utils.weights import params_from_flax
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 
 @lru_cache(maxsize=1)

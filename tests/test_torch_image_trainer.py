@@ -44,6 +44,7 @@ from ssgvc_tpu_torch.utils.checkpoint import (load_pretrained,
 from ssgvc_tpu_torch.utils.weights import flatten, flax_from_state_dict
 from test_torch_training import GRAD_TENSOR_TOL
 from torch_port_helpers import DMCI_TINY, drawn_params
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 TINY_DMCI = functools.partial(tcfg.DMCIConfig, **DMCI_TINY)
 # 4 synthetic clips of T=4, 4 for training at B=2: 2 steps an epoch

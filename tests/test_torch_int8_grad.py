@@ -37,6 +37,7 @@ from ssgvc_tpu_torch.training.trainer import Trainer
 from ssgvc_tpu_torch.utils.weights import flatten, flax_from_state_dict
 from test_torch_training import GRAD_TENSOR_TOL
 from torch_port_helpers import drawn_params
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 REL = 1e-5
 #: (kernel, stride, padding) of the sites: 1x1, 3x3, 3x3 stride 2

@@ -9,6 +9,7 @@ from pathlib import Path
 
 import pytest
 import torch
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ssgvc_tpu")
@@ -47,7 +48,8 @@ DATA_MODULES = ("utils.transforms", "data.tfrecord", "data.waymo_proto",
 CLI_MODULES = ("trainer_image_model", "utils.video_io", "scripts.encode",
                "scripts.decode")
 #: the debug and profiling tools and the graft entry
-TOOL_MODULES = ("utils.debug", "utils.profiling", "graft_entry")
+TOOL_MODULES = ("utils.debug", "utils.profiling", "utils.flops",
+                "graft_entry")
 #: data-parallel training and the row-sharded P-frame
 PARALLEL_MODULES = ("parallel.mesh", "parallel.spatial")
 #: the opt-in experiments: the int8 conv, the patch convs, the blocks
@@ -61,30 +63,61 @@ RD_MODULES = ("experiments.rd_keep_best", "experiments.rd_full",
               "experiments.e2e_waymo_format", "experiments.diag_pframe",
               "experiments.probes.probe_latent_liveness",
               "experiments.probes.probe_dist_only")
+#: the measuring scripts
+MEASURE_MODULES = ("experiments.profile_stages", "experiments.bench_sweep",
+                   "experiments.trace_bench", "experiments.bench_coded",
+                   "experiments.bench_rans", "experiments.smoke_128px",
+                   "experiments.probe_int8")
 
 
-@pytest.mark.parametrize("module", TRAINING_MODULES + DATA_MODULES
-                         + CLI_MODULES + TOOL_MODULES + PARALLEL_MODULES
-                         + EXPERIMENT_MODULES + RD_MODULES)
-def test_training_modules_import_without_jax(module):
-    """Each module of the training path imports, in a fresh interpreter,
-    with JAX, flax, optax and the JAX package made unimportable."""
+ALL_MODULES = (TRAINING_MODULES + DATA_MODULES + CLI_MODULES + TOOL_MODULES
+               + PARALLEL_MODULES + EXPERIMENT_MODULES + RD_MODULES
+               + MEASURE_MODULES)
+
+
+@pytest.fixture(scope="module")
+def imports_without_jax():
+    """{module: "" or the error its import raised}: every module of
+    ALL_MODULES imported in turn in one fresh interpreter, with JAX, flax,
+    optax and the JAX package made unimportable; then any of them found in
+    sys.modules. A blocked import raises inside the module that tried it,
+    whichever module imported it first, so one interpreter judges each
+    module as one of its own would (and starts torch once, not once a
+    module)."""
+    import json
     import subprocess
     import sys
 
     code = (
-        "import importlib, importlib.abc, sys\n"
+        "import importlib, importlib.abc, json, sys, traceback\n"
         f"BAD = {FORBIDDEN!r}\n"
         "class Block(importlib.abc.MetaPathFinder):\n"
         "    def find_spec(self, name, path, target=None):\n"
         "        if name.split('.')[0] in BAD:\n"
         "            raise ImportError('blocked: ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
-        f"importlib.import_module('ssgvc_tpu_torch.{module}')\n"
-        "assert not [m for m in sys.modules if m.split('.')[0] in BAD]\n")
+        "out = {}\n"
+        f"for m in {list(ALL_MODULES)!r}:\n"
+        "    try:\n"
+        "        importlib.import_module('ssgvc_tpu_torch.' + m)\n"
+        "        out[m] = ''\n"
+        "    except Exception:\n"
+        "        out[m] = traceback.format_exc()\n"
+        "    bad = [k for k in sys.modules if k.split('.')[0] in BAD]\n"
+        "    if bad:\n"
+        "        out[m] += 'loaded: %s' % bad\n"
+        "print(json.dumps(out))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                          capture_output=True, text=True, timeout=120)
+                          capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("module", ALL_MODULES)
+def test_training_modules_import_without_jax(module, imports_without_jax):
+    """Each module of the training path imports with JAX, flax, optax and
+    the JAX package made unimportable, and loads none of them."""
+    assert imports_without_jax[module] == "", imports_without_jax[module]
 
 
 def test_port_never_reaches_the_jax_packages_coder():
@@ -289,3 +322,31 @@ def test_rd_harness_mains_default_to_the_card(name, tmp_path, monkeypatch):
         return
     with pytest.raises(RuntimeError, match="CUDA"):
         mod.main(list(RD_MAINS[name]))
+
+
+#: each measuring script with device work, with the least arguments that
+#: reach a model or a tensor on the device
+MEASURE_MAINS = {"profile_stages": [], "bench_sweep": ["1"],
+                 "trace_bench": [], "bench_coded": ["2"],
+                 "smoke_128px": ["--k", "1"], "probe_int8": ["--chain", "1"]}
+
+
+@pytest.mark.parametrize("name", sorted(MEASURE_MAINS))
+def test_measure_scripts_default_to_the_card(name, tmp_path, monkeypatch):
+    """Without --device=cpu every measuring script with device work puts
+    its model or its operands on the card: a host with no card raises
+    there, before any file is written."""
+    import importlib
+
+    from ssgvc_tpu_torch.experiments import rd_full
+
+    mod = importlib.import_module(f"ssgvc_tpu_torch.experiments.{name}")
+    monkeypatch.setattr(rd_full, "DEVICE", rd_full.DEVICE)
+    monkeypatch.chdir(tmp_path)
+    assert rd_full.split_device(MEASURE_MAINS[name]) == (
+        "cuda", MEASURE_MAINS[name])
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main(list(MEASURE_MAINS[name]))
+    assert list(tmp_path.iterdir()) == []

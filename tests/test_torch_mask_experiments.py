@@ -51,6 +51,7 @@ sys.path.insert(0, str(ROOT / "experiments"))
 import e2e_waymo_format as jax_e2e  # noqa: E402
 import mask_prop_value as jax_mpv  # noqa: E402
 import mask_train_phase as jax_mtp  # noqa: E402
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 GLOBALS = ("MID_DMC", "MID_DMCI", "PROFILE", "RECON_SKIP", "CKPT_EXTRA",
            "DEVICE")

@@ -11,6 +11,7 @@ import jax.numpy as jnp
 
 from ssgvc_tpu.ops import pixel as jpix
 from ssgvc_tpu_torch.ops import pixel as tpix
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("r,c", [(2, 5), (8, 3)])

@@ -53,6 +53,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent
 
 import rd_full as jax_rd_full  # noqa: E402
 import rd_keep_best as jax_keep_best  # noqa: E402
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 #: the JAX runner's JSON keys, experiments/rd_tpu.py:482-540
 JAX_RD_TPU_KEYS = {"runner", "budget_min", "k", "crop", "batch", "profile",

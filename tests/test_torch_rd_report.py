@@ -27,6 +27,7 @@ sys.path.insert(0, str(ROOT / "experiments"))
 
 import rd_report as jax_report  # noqa: E402
 import rd_trajectory as jax_trajectory  # noqa: E402
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 LOG = """\
 === marathon start 2026-01-01T00:00 (recipe a) ===

@@ -36,6 +36,7 @@ from ssgvc_tpu_torch.scripts import decode, encode
 from ssgvc_tpu_torch.utils import video_io as tvio
 from ssgvc_tpu_torch.utils.transforms import rgb2ycbcr_np, ycbcr2rgb_np
 from torch_port_helpers import drawn_params
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 HW, FRAMES, GOP, QP = 64, 5, 4, 30
 

@@ -22,6 +22,7 @@ from ssgvc_tpu_torch.utils.checkpoint import (load_pretrained,
                                               restore_checkpoint)
 from ssgvc_tpu_torch.utils.weights import params_from_flax
 from torch_port_helpers import reference_state_dict, tiny_params
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 # 8 clips, 6 for training: 3 steps of B=2 in one epoch, validation every 2
 ARGV = ["--device=cpu", "model_profile=tiny", "precision=fp32",

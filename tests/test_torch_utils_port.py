@@ -30,6 +30,7 @@ from ssgvc_tpu_torch.utils import visualize as tvis
 from ssgvc_tpu_torch.utils.weights import load_flax_params, params_from_flax
 from torch_port_helpers import (DMCI_TINY, TINY, tiny_params,
                                 reference_state_dict)
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 HW = 64
 QP = 30

@@ -13,6 +13,7 @@ from ssgvc_tpu_torch.config import DMCConfig
 from ssgvc_tpu_torch.models.dmc import DMC
 from ssgvc_tpu_torch.utils import weights
 from torch_port_helpers import RD_TINY, jax_dmc_params
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -28,6 +28,7 @@ from ssgvc_tpu_torch.models.dmc import DMC
 from ssgvc_tpu_torch.models.dmci import DMCI
 from ssgvc_tpu_torch.ops import dcb as dcb_ops
 from ssgvc_tpu_torch.ops import dcb_chain as chain_ops
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 PROFILES = ("tiny", "rd-tiny", "rd-mid", "rd-half")
 VARIANTS = ("performance", "plain", "old", "fast", "mask_prop")

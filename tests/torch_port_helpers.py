@@ -2,9 +2,24 @@
 on the CPU, their params perturbed and handed to the port as numpy."""
 
 import numpy as np
+import pytest
 
 import jax
 import jax.numpy as jnp
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for a test module's tests, restored after them: the
+    suite runs six test processes on eight cores, where torch's ops on a
+    thread per core wait on each other (a test of many small ops ran
+    several times slower). Imported by each CPU test module of the port."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 RD_TINY = dict(ch_d=32, ch_y=16, ch_z=16, ch_recon=32)
 FULL = dict(ch_d=256, ch_y=128, ch_z=128, ch_recon=320)
