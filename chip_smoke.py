@@ -231,11 +231,11 @@ Phases (any failure exits non-zero and prints no result line):
  23. parallel: (a) graft_entry.dryrun_multichip(1) on the card (NCCL,
      world 1, one spawned rank): its ok line; (b) the default TrainConfig
      (full, bf16-mixed) on phase 13's batches and weights, P23_STEPS
-     micro-steps (one update at the accumulation boundary) twice without a
-     process group and once through Trainer(mesh=make_mesh(1)) in an NCCL
-     group of 1: bit for bit where the two plain runs are, else within
-     their spread; ms per micro-step of each; (c) two ranks sharing cuda:0
-     over gloo (NCCL takes no two ranks on one device): the row-sharded
+     micro-steps (one update at the accumulation boundary) without a
+     process group and through Trainer(mesh=make_mesh(1)) in an NCCL
+     group of 1: bit for bit; ms per micro-step of each; (c) two ranks
+     sharing cuda:0 over gloo (NCCL takes no two ranks on one device): the
+     row-sharded
      performance P-frame at full width (bf16, packed io, the main path's
      1088 x 1920 frames handed out in even slabs of 544 rows and worked
      on slabs of whole 64-row units, 576 and 512; phase 5's weights) over
@@ -246,12 +246,14 @@ Phases (any failure exits non-zero and prints no result line):
      launches (those of the unsharded frame, 18 + 5); one frame again in
      fp32 (the 3xTF32 and the SIMT kernels) at tests/test_mesh.py's
      tolerances; then the bf16 frame over 4 ranks (P23_WIDE; largest
-     slab 320 rows); the H the JAX package takes beyond
+     slab 320 rows: the middle ranks exchange halos both ways); the H the
+     JAX package takes beyond
      whole 64-row units (P23_RAGGED): bf16 GOPs of 2 against the
      unsharded frame, the DPB bit for bit and the bpp within P23_SUM, at
      1280 x 720 over 2 ranks (the fast variant; the
      last slab holds the partial unit) and 1920 x 128 over 4 (two ranks
-     with an empty slab that launch nothing), and 2560 x 1440 over 2 and
+     with an empty slab that launch nothing, the members with rows not
+     adjacent), and 2560 x 1440 over 2 and
      4 one bf16 frame at the bf16 gate and over 2 one fp32 (3xTF32) frame
      at tests/test_mesh.py's tolerances; ms per frame, each rank's unit slab,
      the halo bytes and the redistribution bytes (even slabs to units and
@@ -259,8 +261,9 @@ Phases (any failure exits non-zero and prints no result line):
      it held before the GOP, beside the unsharded ones, not gated (the
      ranks share one card and the halos cross host memory: not a latency
      result); (e) mask_prop's full-width frame over 2 ranks the same way
-     (its predictor resizes across the slabs); (d) two ranks on cuda:0
-     over gloo, the full-width
+     (its predictor resizes across the slabs); (d) in the same two ranks
+     (one 2-rank spawn for (c), (e), (d) and phase 24 (f), one 4-rank
+     spawn for the rest of (c)), the full-width
      data-parallel micro-step (accumulation 1, train=False, phase 13's
      cross-check weights) with B=1 a rank against the world-1 step on the
      same B=2 batch: the loss within
@@ -299,7 +302,8 @@ Phases (any failure exits non-zero and prints no result line):
      1088 x 1920 frame against the unsharded int8 frame on the card (mode
      1's abs-max the frame's over both slabs; mode 2 on scales calibrated
      unsharded), within P24_SHARD_GATE, qconv's launches on each rank
-     those of the unsharded frame. (g) The int8 gradient: the tiny
+     those of the unsharded frame (run in phase 23 (c)'s spawn, printed
+     there under "(f)", reported here). (g) The int8 gradient: the tiny
      profile's int8 micro-step records every qconv call, and each shape
      the backward launched (the int32 sums recomputed from x's int8
      values, unit scales, zero bias, fp32 out) runs against qconv_plain
@@ -387,6 +391,21 @@ Phases (any failure exits non-zero and prints no result line):
      probe_int8.main on short chains: qconv launched. Every number each
      returns finite; the bf16 kernels' P-frame bounds (phase 3, from
      utils/flops.dcb_flops) printed beside the frame's count.
+ 29. the bench (ssgvc_tpu_torch/bench.py): (a) python3 -m
+     ssgvc_tpu_torch.bench as a user runs it (a subprocess: the
+     orchestrator, its lock and its worker; 48 frames of 1088x1920, B = 1,
+     performance, batched ingest, bf16): one JSON line, printed here, with
+     no error, value > 0, value x ms_per_frame / 1000 within 1% of 1,
+     mfu_pct_h100 from P28_FRAME_FLOPS and the card's nvidia-smi line;
+     (b) bench.measure in process at P29_FRAMES frames a GOP for each of
+     P29_RUNS (batched, scan, B = 2, plain, SSGVC_INT8=2), every launch
+     count set to 0 just before each and read just after, each frame's
+     dcb / dcb_chain / qconv launches counted (18, 5, 0 a performance
+     frame; 15, 5, 0 a plain one; under int8 qconv only, the blocks as
+     convs), every GOP's sums finite, and scan's bpp and frame sums equal
+     to batched's bit for bit at the same seed and QPs; (c)
+     SSGVC_BENCH_DEADLINE=P29_DEADLINE: one error line naming the
+     worker's last breadcrumb, a non-zero exit.
 
 The last lines are JSON objects: {"main_path": ...}, {"variants": ...},
 {"coded": ...}, {"training": ...}, {"cross_check": ...}, {"fp32": ...},
@@ -394,7 +413,7 @@ The last lines are JSON objects: {"main_path": ...}, {"variants": ...},
 {"train_cli": ...}, {"image_cli": ...}, {"scripts": ...}, {"tools": ...},
 {"parallel": ...}, {"experiments": ...}, {"rd_harness": ...},
 {"mask_experiments": ...}, {"diagnostics": ...}, {"measure_scripts":
-...}, {"phase_seconds": ...}
+...}, {"bench": ...}, {"phase_seconds": ...}
 (each phase's seconds, also printed as it ends), {"kernels": [...]}, and
 last {"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
 ...}}.
@@ -4293,7 +4312,10 @@ def p23_world1(torch, seed, card, tmp: Path):
     """(b) the default TrainConfig through Trainer(mesh=make_mesh(1)) in an
     NCCL group of 1 against the trainer with no group, phase 13's batch
     and weights: P23_STEPS micro-steps (one update at the accumulation
-    boundary) twice without a group, once in the group."""
+    boundary) once without a group, once in the group, bit for bit. (A
+    second run without a group, whose spread the gate allowed where the
+    plain runs differed, equalled the first bit for bit in every run on
+    the H100 and went for the smoke's time.)"""
     import torch.distributed as dist
 
     from ssgvc_tpu_torch.config import TrainConfig
@@ -4308,8 +4330,7 @@ def p23_world1(torch, seed, card, tmp: Path):
     plain.init_state(torch.Generator().manual_seed(seed), batches[0])
     params = tuple({k: v.detach().clone() for k, v in m.state_dict().items()}
                    for m in (plain.dmc, plain.dmci))
-    runs = [p23_micro_steps(torch, plain, seed, batches, params)
-            for _ in range(2)]
+    runs = [p23_micro_steps(torch, plain, seed, batches, params)]
     torch.cuda.set_device(0)
     dist.init_process_group("nccl", init_method=f"file://{tmp / 'rdzv_b'}",
                             rank=0, world_size=1)
@@ -4322,36 +4343,26 @@ def p23_world1(torch, seed, card, tmp: Path):
     finally:
         dist.destroy_process_group()
 
-    def gap(a, b):
-        """(max |loss diff|, max |param diff|) of two runs."""
-        lg = max(abs(x - y) for x, y in zip(a[0], b[0]))
-        pg = max(float((a[2][k].float() - b[2][k].float()).abs().max())
-                 for k in a[2])
-        return lg, pg
-
-    spread, dp = gap(runs[0], runs[1]), gap(runs[0], runs[2])
-    exact = spread == (0.0, 0.0)
-    moved = sum(not torch.equal(runs[2][2][k], params[0][k])
+    lg = max(abs(x - y) for x, y in zip(runs[0][0], runs[1][0]))
+    pg = max(float((runs[0][2][k].float() - runs[1][2][k].float()).abs()
+                   .max()) for k in runs[0][2])
+    moved = sum(not torch.equal(runs[1][2][k], params[0][k])
                 for k in params[0])
     ms = [float(np.median(r[1][1:])) for r in runs]
     print(f"  (b) world-1 data-parallel step: default TrainConfig, "
           f"{P23_STEPS} micro-steps of B={TRAIN_B} {TRAIN_HW}x{TRAIN_HW} "
-          f"T={TRAIN_T} (one update); two plain runs differ by loss "
-          f"{spread[0]:.3g}, parameters {spread[1]:.3g}; the NCCL world-1 "
-          f"run from the first by {dp[0]:.3g} / {dp[1]:.3g} ("
-          f"{'bit for bit required' if exact else 'within the spread'}); "
-          f"{moved} parameters moved; ms per micro-step (median of steps "
-          f"2-{P23_STEPS}) plain {ms[0]:.1f} / {ms[1]:.1f}, NCCL world 1 "
-          f"{ms[2]:.1f} [{card}]")
+          f"T={TRAIN_T} (one update); the NCCL world-1 run from the plain "
+          f"one by loss {lg:.3g}, parameters {pg:.3g} (bit for bit "
+          f"required); {moved} parameters moved; ms per micro-step (median "
+          f"of steps 2-{P23_STEPS}) plain {ms[0]:.1f}, NCCL world 1 "
+          f"{ms[1]:.1f} [{card}]")
     if not moved:
         fail("(b): no parameter moved at the accumulation boundary")
-    if exact and dp != (0.0, 0.0) or not exact and (
-            dp[0] > spread[0] or dp[1] > spread[1]):
+    if (lg, pg) != (0.0, 0.0):
         fail(f"(b): the NCCL world-1 step differs from the plain one by "
-             f"{dp}; two plain runs by {spread}")
-    return dict(plain_deterministic=exact, plain_spread=list(spread),
-                world1_vs_plain=list(dp), ms_per_micro_step_plain=ms[:2],
-                ms_per_micro_step_world1=ms[2], losses=runs[2][0],
+             f"loss {lg}, parameters {pg}")
+    return dict(world1_vs_plain=[lg, pg], ms_per_micro_step_plain=ms[0],
+                ms_per_micro_step_world1=ms[1], losses=runs[1][0],
                 parameters_moved=moved)
 
 
@@ -4426,11 +4437,13 @@ def p23_compare(torch, full, bpp, ref):
     return row
 
 
-def p23_rows_rank(rank, world, rdzv, path, tag):
+def p23_rows_rank(rank, world, rdzv, path, tag, dp=False):
     """One rank of a row-sharded spawn on cuda:0 over gloo, every run of
     rows_<tag>_case.pt: the parent's weights (from the seed) and inputs;
     writes rows_<tag><r>.json (rank 0 with the comparisons against the
-    parent's unsharded outputs)."""
+    parent's unsharded outputs). With ``dp`` the same process then runs
+    (d)'s rank in a group of its own (:func:`p23_dp_rank`): one spawn,
+    one start of torch and the card, for both."""
     import torch
     import torch.distributed as dist
 
@@ -4485,6 +4498,8 @@ def p23_rows_rank(rank, world, rdzv, path, tag):
         (Path(path) / f"rows_{tag}{rank}.json").write_text(json.dumps(out))
     finally:
         dist.destroy_process_group()
+    if dp:
+        p23_dp_rank(rank, world, str(Path(path) / "rdzv_d"), path)
 
 
 def p23_refs(torch, seed, runs):
@@ -4554,9 +4569,11 @@ def p23_refs(torch, seed, runs):
     return out
 
 
-def p23_spawn_rows(torch, seed, card, tmp: Path, runs, world, tag):
+def p23_spawn_rows(torch, seed, card, tmp: Path, runs, world, tag,
+                   dp=False):
     """``runs`` (from :func:`p23_refs`) row-sharded over ``world`` ranks
-    sharing cuda:0 over gloo, each against its unsharded P-frames: printed
+    sharing cuda:0 over gloo (with ``dp`` (d)'s ranks after them, in the
+    same processes), each against its unsharded P-frames: printed
     per frame with each rank's launches (those of the unsharded frame),
     unit slab, halo and redistribution bytes and ms; gated per run by
     dtype (bf16: P23_REL / P23_BPP_REL; fp32: tests/test_mesh.py's; int8:
@@ -4567,7 +4584,7 @@ def p23_spawn_rows(torch, seed, card, tmp: Path, runs, world, tag):
     torch.save(case, tmp / f"rows_{tag}_case.pt")
     t0 = time.perf_counter()
     mp.spawn(p23_rows_rank, args=(world, str(tmp / f"rdzv_{tag}"),
-                                  str(tmp), tag),
+                                  str(tmp), tag, dp),
              nprocs=world, join=True)
     spawn_s = time.perf_counter() - t0
     ranks = [json.loads((tmp / f"rows_{tag}{r}.json").read_text())
@@ -4644,27 +4661,38 @@ def p23_spawn_rows(torch, seed, card, tmp: Path, runs, world, tag):
 
 def p23_rows(torch, seed, card, tmp: Path):
     """(c) the row-sharded P-frame on two ranks sharing cuda:0 over gloo,
-    each of P23_RUNS ((e): mask_prop's among them) against the unsharded
-    P-frame on the card on the same inputs; then the bf16 run's first
-    frame over each of P23_WIDE ranks."""
-    runs = p23_refs(torch, seed, P23_RUNS + p23_ragged(2))
-    out, spawn_s = p23_spawn_rows(torch, seed, card, tmp, runs, 2, "c")
+    each of P23_RUNS ((e): mask_prop's among them), the 2-rank
+    P23_RAGGED runs and phase 24 (f)'s int8 runs against the unsharded
+    P-frame on the card on the same inputs; the same two processes then
+    run (d)'s ranks (its case written first by :func:`p23_dp_case`). Then
+    the bf16 run's first frame and the 4-rank P23_RAGGED runs over each of
+    P23_WIDE ranks. (f)'s records are returned apart, under "int8", for
+    phase 24."""
+    from ssgvc_tpu_torch.layers import blocks
+
+    saved = dict(blocks._INT8_SCALES)
+    runs = p23_refs(torch, seed,
+                    P23_RUNS + p23_ragged(2) + p24_shard_runs())
+    blocks.set_int8_scales(saved)
+    out, spawn_s = p23_spawn_rows(torch, seed, card, tmp, runs, 2, "c",
+                                  dp=True)
     wide = {}
     first = dict(runs[0], frames=runs[0]["frames"][:1],
                  masks=runs[0]["masks"][:1], ref=runs[0]["ref"][:1],
                  ms=runs[0]["ms"][:1], launches=runs[0]["launches"][:1])
-    ragged = {}
+    names = {x["name"] for x in p23_ragged(2)}
+    ragged = {f"{r['name']} over 2 ranks": r for r in out
+              if r["name"] in names}
     for n in P23_WIDE:
         extra = p23_refs(torch, seed, p23_ragged(n))
         rec, secs = p23_spawn_rows(torch, seed, card, tmp, [first] + extra,
                                    n, f"c{n}")
         wide[n] = dict(run=rec[0], spawn_s=secs)
         ragged.update({f"{r['name']} over {n} ranks": r for r in rec[1:]})
-    names = {x["name"] for x in p23_ragged(2)}
-    ragged.update({f"{r['name']} over 2 ranks": r for r in out
-                   if r["name"] in names})
-    return dict(runs=[r for r in out if r["name"] not in names],
-                spawn_s=spawn_s, wide=wide, ragged=ragged)
+    return dict(runs=[r for r in out if r["name"] not in names
+                      and r["int8"] == "0"],
+                spawn_s=spawn_s, wide=wide, ragged=ragged,
+                int8=[r for r in out if r["int8"] != "0"])
 
 
 def p23_dp_rank(rank, world, rdzv, path):
@@ -4737,7 +4765,7 @@ def p23_dp_rank(rank, world, rdzv, path):
         dist.destroy_process_group()
 
 
-def p23_dp(torch, seed, card, tmp: Path):
+def p23_dp_case(torch, seed, tmp: Path):
     """(d) the full-width data-parallel micro-step on two ranks sharing
     cuda:0 over gloo, B=1 a rank, against the world-1 step on the same
     B=2 batch (the default TrainConfig at accumulation 1, train=False:
@@ -4745,9 +4773,9 @@ def p23_dp(torch, seed, card, tmp: Path):
     weights (recon_residual, TRAIN_HEADS): a fresh init's reconstruction
     sits on the [0, 1] clamp, and its bf16 gradient turns with each
     rounding (cosine 0.004 between the two in the tiny CPU rehearsal,
-    0.99925 on these weights)."""
-    import torch.multiprocessing as mp
-
+    0.99925 on these weights). Writes the ranks' case; returns the world-1
+    step's (loss, gradient) for :func:`p23_dp`, after (c)'s spawn has run
+    the ranks."""
     from ssgvc_tpu_torch.config import TrainConfig
     from ssgvc_tpu_torch.data.device_synth import synth_batch
     from ssgvc_tpu_torch.training.trainer import Trainer
@@ -4775,10 +4803,12 @@ def p23_dp(torch, seed, card, tmp: Path):
     del tr
     torch.save({"batch": {k: v.cpu() for k, v in batch.items()},
                 "params": params}, tmp / "dp_case.pt")
-    t0 = time.perf_counter()
-    mp.spawn(p23_dp_rank, args=(2, str(tmp / "rdzv_d"), str(tmp)), nprocs=2,
-             join=True)
-    spawn_s = time.perf_counter() - t0
+    return loss, ref
+
+
+def p23_dp(torch, card, tmp: Path, world1):
+    """(d)'s check of the ranks' files against the world-1 step."""
+    loss, ref = world1
     ranks = [json.loads((tmp / f"dp{r}.json").read_text()) for r in range(2)]
     dp = torch.load(tmp / "dp_grad.pt")
     cos = float(torch.dot(dp, ref) / (torch.linalg.vector_norm(dp)
@@ -4798,12 +4828,12 @@ def p23_dp(torch, seed, card, tmp: Path):
           f"ms on the two ranks, the gradient's all-reduce alone "
           f"({ranks[0]['grad_bytes'] / 2**20:.1f} MiB, through host memory) "
           f"{ranks[0]['all_reduce_ms']:.1f} / {ranks[1]['all_reduce_ms']:.1f}"
-          f" ms; spawn and all {spawn_s:.1f} s [{card}]")
+          f" ms; in (c)'s spawn [{card}]")
     if not (rel <= P23_DP_LOSS and cos >= P23_DP_COSINE and same):
         fail(f"(d) data-parallel micro-step: loss rel {rel}, cosine {cos}, "
              f"ranks equal {same}: {ranks}")
     return dict(loss=ranks[0]["loss"], world1_loss=loss, loss_rel=rel,
-                grad_cosine=cos, ranks_equal=same, spawn_s=spawn_s,
+                grad_cosine=cos, ranks_equal=same,
                 step_ms=[r["step_ms"] for r in ranks],
                 all_reduce_ms=[r["all_reduce_ms"] for r in ranks],
                 grad_bytes=ranks[0]["grad_bytes"])
@@ -4817,8 +4847,9 @@ def phase_parallel(torch, seed, card):
         tmp = Path(tmp)
         out = {"dryrun": p23_dryrun()}
         out["world1"] = p23_world1(torch, seed, card, tmp)
+        world1 = p23_dp_case(torch, seed, tmp)
         out["rows"] = p23_rows(torch, seed, card, tmp)
-        out["data_parallel"] = p23_dp(torch, seed, card, tmp)
+        out["data_parallel"] = p23_dp(torch, card, tmp, world1)
     out["seconds"] = time.perf_counter() - t0
     print(f"parallel: phase 23 in {out['seconds']:.1f} s [{card}]")
     return out
@@ -5425,22 +5456,27 @@ def p24_fused(torch, card, main):
     return out
 
 
-def p24_rows(torch, seed, card, tmp: Path):
+def p24_shard_runs():
     """(f) SSGVC_INT8 modes 1 and 2 under the 2-rank row shard: one
     full-width 1088 x 1920 performance P-frame (bf16, packed io; mode 2 on
     scales calibrated on the unsharded frame), against the unsharded int8
     frame on the card (P24_SHARD_GATE), qconv's launches on each rank
-    those of the unsharded frame."""
+    those of the unsharded frame. The runs go to phase 23 (c)'s spawn
+    (a spawn costs ~20 s of start); :func:`p24_rows` reads their records."""
     base = dict(P23_RUNS[0], frames=1, gate=P24_SHARD_GATE, label="f")
-    runs = p23_refs(torch, seed, [dict(base, name=f"int8 mode {m}", int8=m)
-                                  for m in ("1", "2")])
-    out, spawn_s = p23_spawn_rows(torch, seed, card, tmp, runs, 2, "f")
-    for r in out:
+    return tuple(dict(base, name=f"int8 mode {m}", int8=m)
+                 for m in ("1", "2"))
+
+
+def p24_rows(records):
+    """(f)'s records from phase 23 (c)'s spawn, each marked bit for bit or
+    not."""
+    for r in records:
         f = r["ranks"][0]["frames"][0]
         r["bit_for_bit"] = (f["frame"]["max_abs"] == 0
                             and f["feature"]["max_abs"] == 0
                             and f["bpp_rel"] == 0)
-    return dict(runs=out, spawn_s=spawn_s)
+    return dict(runs=records)
 
 
 @contextlib.contextmanager
@@ -5624,8 +5660,10 @@ def p24_train(torch, seed, card):
     return out
 
 
-def phase_experiments(torch, seed, card, iframe, main, variant_states):
-    """The opt-in experiments on the card (module docstring, phase 24)."""
+def phase_experiments(torch, seed, card, iframe, main, variant_states,
+                      shard_records):
+    """The opt-in experiments on the card (module docstring, phase 24);
+    ``shard_records``: (f)'s runs from phase 23 (c)'s spawn."""
     from ssgvc_tpu_torch.layers import blocks
 
     t0 = time.perf_counter()
@@ -5638,7 +5676,7 @@ def phase_experiments(torch, seed, card, iframe, main, variant_states):
         coded = p24_coded(torch, card, iframe, main)
         shiftadd = p24_shiftadd(torch, card, main, scales)
         fused = p24_fused(torch, card, main)
-        sharded = p24_rows(torch, seed, card, Path(tmp))
+        sharded = p24_rows(shard_records)
         train = p24_train(torch, seed, card)
     blocks.set_int8_scales(saved)
     # the kernels-line entry: per mode-1 P-frame (after the first) and per
@@ -6759,6 +6797,160 @@ def phase_measure_scripts(torch, seed, card, kernels, work: Path):
                 seconds=seconds), counts
 
 
+# ---- phase 29: the bench (python3 -m ssgvc_tpu_torch.bench) -------------
+
+P29_FRAMES = 8               # (b): the in-process GOPs' frames
+P29_REPS = 2                 # (b): timed GOPs each
+P29_DEADLINE = "5"           # (c): SSGVC_BENCH_DEADLINE, seconds
+P29_TIMEOUT = 600            # (a), (c): the smoke's bound on the orchestrator
+#: (b)'s runs: measure's keywords beside the defaults (performance, B = 1,
+#: batched, bf16) and the (dcb, dcb_chain) launches of each after_i=False
+#: frame (phase 9: the plain variant has no mask_sft, 3 blocks fewer;
+#: None: int8, whose blocks run as convs on qconv); "batched" is the run
+#: "scan" is held equal to
+P29_RUNS = (("batched", {}, (18, 5)), ("scan", dict(ingest="scan"), (18, 5)),
+            ("b2", dict(batch=2), (18, 5)),
+            ("plain", dict(variant="plain"), (15, 5)),
+            ("int8", dict(int8=True), None))
+#: the worker's breadcrumbs (ssgvc_tpu_torch/bench.py), in order
+P29_CRUMBS = ("init: importing torch", "init: device probe",
+              "build: kernels", "data: generating frames",
+              "calib: int8 static-scale calibration", "warmup: ",
+              "measure: rep ")
+
+
+def p29_bench(env):
+    """``python3 -m ssgvc_tpu_torch.bench`` from the checkout's root with
+    ``env`` added: (exit code, the JSON lines it printed, its stdout,
+    seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ssgvc_tpu_torch.bench"],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+        env={**{k: v for k, v in os.environ.items()
+                if not k.startswith("SSGVC_")}, **env},
+        timeout=P29_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    sys.stderr.write(proc.stderr[-4000:])
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines()
+             if ln.startswith("{")]
+    return proc.returncode, lines, proc.stdout, seconds
+
+
+def p29_counted(per_frame):
+    """A patch of ``DMC.forward`` that appends each frame's (dcb,
+    dcb_chain, qconv) launches to ``per_frame``: the counts before and
+    after the frame, as phase 10's ``counted`` takes them. Frames on the
+    meta device (``pframe_flops``' count) run nothing and are left out."""
+    from unittest import mock
+
+    from ssgvc_tpu_torch.models.dmc import DMC
+    from ssgvc_tpu_torch.ops import dcb as dcb_ops
+    from ssgvc_tpu_torch.ops import dcb_chain as chain_ops
+    from ssgvc_tpu_torch.ops import qconv as Q
+
+    forward = DMC.forward
+
+    def now():
+        return (dcb_ops.launches, chain_ops.launches, Q.launches)
+
+    def counted(self, *args, **kw):
+        before = now()
+        out = forward(self, *args, **kw)
+        if not next(self.parameters()).is_meta:
+            per_frame.append(tuple(a - b for a, b in zip(now(), before)))
+        return out
+
+    return mock.patch.object(DMC, "forward", counted)
+
+
+def phase_bench(torch, seed, card):
+    """Phase 29 (module docstring). Returns the numbers and the launches
+    of (b)'s runs by kernel."""
+    from ssgvc_tpu_torch import bench
+    from ssgvc_tpu_torch.ops import qconv as Q
+
+    t0 = time.perf_counter()
+    out = {}
+    # (a) the bench at its defaults, as a user runs it
+    rc, lines, text, secs = p29_bench({})
+    print(f"  (a) python3 -m ssgvc_tpu_torch.bench: rc {rc}, {secs:.1f} s; "
+          f"its stdout:\n" + text.rstrip())
+    if rc != 0 or len(lines) != 1 or "error" in lines[0]:
+        fail(f"(a) the bench: rc {rc}, lines {lines}")
+    line = lines[0]
+    want_mfu = P28_FRAME_FLOPS * line["value"] / H100_BF16_FLOPS * 100
+    if not (line["value"] > 0
+            and abs(line["value"] * line["ms_per_frame"] / 1e3 - 1) <= 0.01
+            and math.isclose(line["mfu_pct_h100"], want_mfu, rel_tol=1e-9)
+            and "(performance variant, bf16)" in line["metric"]
+            and line["device"] == card):
+        fail(f"(a) the bench's line {line}: want value > 0, value x "
+             f"ms_per_frame / 1000 within 1%, mfu_pct_h100 {want_mfu} from "
+             f"{P28_FRAME_FLOPS} FLOP a frame, the card {card!r}")
+    out["default"] = dict(line=line, seconds=secs)
+    # (b) in process, P29_FRAMES frames a GOP, launches per frame counted
+    reset, read = launch_counts()
+    res = {}
+    launches = {}
+    for name, kw, want in P29_RUNS:
+        per_frame, details = [], {}
+        torch.cuda.synchronize()
+        reset()
+        Q.launches = 0
+        with p29_counted(per_frame):
+            line = bench.measure(n_frames=P29_FRAMES, reps=P29_REPS,
+                                 seed=seed, details=details, **kw)
+        torch.cuda.synchronize()
+        counts = {**read(), "qconv": Q.launches}
+        for k, n in counts.items():
+            if n:
+                launches[k] = launches.get(k, 0) + n
+        sums = details["sums"]
+        if not all(math.isfinite(x) for s in sums for x in s):
+            fail(f"(b) {name}: a GOP's sums are not finite: {sums}")
+        if want is None:
+            bad = [c for c in per_frame if c[:2] != (0, 0) or not c[2]]
+        else:
+            bad = [c for c in per_frame if c != want + (0,)]
+        # the warm-up GOP, the timed ones, int8's calibration frame
+        frames = P29_FRAMES * (1 + P29_REPS) + (want is None)
+        if bad or len(per_frame) != frames:
+            fail(f"(b) {name}: launches per frame {per_frame}: want "
+                 f"{frames} frames of " + ("qconv only" if want is None
+                                           else f"{want} and no qconv"))
+        res[name] = dict(line=line, sums=sums, launches=counts,
+                         per_frame=sorted(set(per_frame)),
+                         warmup_s=details["warmup_s"])
+        print(f"  (b) {name}: {line['value']:.2f} fps, "
+              f"{line['ms_per_frame']:.3f} ms a frame, "
+              f"{line['model_tflops']:.2f} TFLOP/s (mfu_pct_h100 "
+              f"{line['mfu_pct_h100']}), {P29_FRAMES} frames x "
+              f"{kw.get('batch', 1)}, min of {P29_REPS}; (dcb, dcb_chain, "
+              f"qconv) a frame {sorted(set(per_frame))}; bpp sums "
+              f"{[s[0] for s in sums]} [{card}]")
+    if res["scan"]["sums"] != res["batched"]["sums"]:
+        fail(f"(b) scan {res['scan']['sums']} != batched "
+             f"{res['batched']['sums']} at the same seed and QPs")
+    out["runs"] = res
+    # (c) the deadline: the worker stopped, its last breadcrumb named
+    rc, lines, text, secs = p29_bench({"SSGVC_BENCH_DEADLINE": P29_DEADLINE})
+    phase = lines[0].get("last_phase", "") if len(lines) == 1 else ""
+    crumb = phase.split(" ", 1)[-1]
+    if rc == 0 or len(lines) != 1 or \
+            lines[0].get("error") != f"worker exceeded {P29_DEADLINE}s " \
+                                     "deadline" or \
+            not crumb.startswith(P29_CRUMBS):
+        fail(f"(c) SSGVC_BENCH_DEADLINE={P29_DEADLINE}: rc {rc}, stdout "
+             f"{text!r}")
+    print(f"  (c) SSGVC_BENCH_DEADLINE={P29_DEADLINE}: rc {rc} in "
+          f"{secs:.1f} s, last phase {phase!r} [{card}]")
+    out["deadline"] = dict(line=lines[0], rc=rc, seconds=secs)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"bench: phase 29 in {out['seconds']:.1f} s [{card}]")
+    return out, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6873,7 +7065,8 @@ def main() -> int:
     parallel = phase_parallel(torch, args.seed, card)
     lap("23 parallel")
     experiments, qconv_entry = phase_experiments(
-        torch, args.seed, card, iframe, main_path, variant_states)
+        torch, args.seed, card, iframe, main_path, variant_states,
+        parallel["rows"].pop("int8"))
     lap("24 experiments")
     # phase 26 continues in phase 25's working directory
     with tempfile.TemporaryDirectory() as rd_work:
@@ -6890,6 +7083,8 @@ def main() -> int:
         measure, measure_counts = phase_measure_scripts(
             torch, args.seed, card, kernels, Path(work))
         lap("28 measure scripts")
+    bench_out, bench_counts = phase_bench(torch, args.seed, card)
+    lap("29 bench")
     next(e for e in kernels if e["name"] == "dcb")["image_step"] = \
         image_cli.pop("dcb")
     for entry in backward:
@@ -6940,6 +7135,12 @@ def main() -> int:
                     "(profile_stages, bench_sweep, trace_bench and "
                     "bench_coded in bf16 at 1088x1920; smoke_128px at "
                     "rd-mid fp32; probe_int8)")
+        if bench_counts.get(entry["name"]):
+            entry["bench"] = dict(
+                launches=bench_counts[entry["name"]],
+                per="launches in phase 29 (b)'s in-process bench.measure "
+                    "runs (1088x1920 bf16 packed: batched, scan, B = 2, "
+                    "plain, int8 mode 2), warm-up and timed GOPs")
         if entry["name"] in rd_counts:
             entry["rd_harness"] = dict(
                 launches=rd_counts[entry["name"]],
@@ -6965,7 +7166,7 @@ def main() -> int:
             entry["parallel"] = dict(
                 launches=runs,
                 per="row-sharded P-frame, per run of phase 23 (c) and (e), "
-                    "per rank (2, 4 or 8 ranks on one card), per frame")
+                    "per rank (2 or 4 ranks on one card), per frame")
     print(json.dumps({"main_path": {
         "ms_per_frame": main_path["ms_per_frame"],
         "ms_per_frame_runs": main_path["ms_runs"],
@@ -6999,6 +7200,7 @@ def main() -> int:
     print(json.dumps({"mask_experiments": {**mask_exp, "card": card}}))
     print(json.dumps({"diagnostics": {**diagnostics, "card": card}}))
     print(json.dumps({"measure_scripts": {**measure, "card": card}}))
+    print(json.dumps({"bench": {**bench_out, "card": card}}))
     print(json.dumps({"phase_seconds": {**clock, "card": card}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -103,10 +103,6 @@ def stub_card(torch, cs, hw):
         self.model_profile = "tiny"
 
     config.TrainConfig.__init__ = tiny_train
-    # (f) spawns ranks that share cuda:0 over gloo: the card's alone (the
-    # row shard's CPU runs are tests/test_torch_parallel.py's)
-    cs.p24_rows = lambda torch, seed, card, tmp: {"runs": [],
-                                                  "skipped": "no card"}
 
 
 def earlier_phases(torch, cs, hw, seed=0):
@@ -152,8 +148,10 @@ def main() -> int:
     torch.set_num_threads(args.threads)
     stub_card(torch, cs, args.hw)
     iframe, main_path, variant_states = earlier_phases(torch, cs, args.hw)
+    # (f) runs in phase 23's spawn of ranks sharing cuda:0 over gloo: the
+    # card's alone (the row shard's CPU runs are tests/test_torch_parallel.py's)
     out, entry = cs.phase_experiments(torch, 0, "CPU, plain versions",
-                                      iframe, main_path, variant_states)
+                                      iframe, main_path, variant_states, [])
     entry.pop("shapes")
     print(json.dumps({"experiments": out, "qconv": entry}))
     return 0

@@ -1,6 +1,7 @@
 """Throughput sweep over batch size for the 1080p P-frame loop.
 
-The harness of ``bench.py``: a GOP of frames with the DPB carried from
+The harness of ``bench.py`` (``ssgvc_tpu_torch.bench.measure``, bf16,
+``SSGVC_INT8`` held at 0): a GOP of frames with the DPB carried from
 frame to frame, the packed ingest (``SSGVC_PACKED=1``) inside the timed
 window, each rep ended by reading the GOP's bpp sum on the host. Reports
 fps per card = batch * n_frames / time for each batch, ms a step (a frame
@@ -24,7 +25,6 @@ from __future__ import annotations
 
 import os
 import sys
-import time
 from typing import Dict, Tuple
 
 import torch
@@ -53,67 +53,35 @@ def make_gop_inputs(cfg, b: int, h: int, w: int, n_frames: int,
     return frames, masks, dpb
 
 
-def run_gop(model, frames, masks, qp: int, dpb, packed: bool):
-    """The JAX script's ``gop``: with ``packed`` one batched ingest
-    permutation of every frame, mask and the DPB frame first; then the
-    P-frames in order (``after_i=False``), the DPB carried. Returns (the
-    GOP's bpp summed over frames and batch, the last DPB frame's sum), on
-    the model's device."""
-    from ..ops.pixel import pixel_unshuffle
-
-    n, b, h, w = frames.shape[:4]
-    with torch.no_grad():
-        if packed:
-            r = model.cfg.patch_size
-            frames = pixel_unshuffle(frames.reshape((n * b, h, w, -1)), r
-                                     ).reshape((n, b, h // r, w // r, -1))
-            masks = pixel_unshuffle(masks.reshape((n * b, h, w, -1)), r
-                                    ).reshape((n, b, h // r, w // r, -1))
-            dpb = dict(dpb, frame=pixel_unshuffle(dpb["frame"], r))
-        bpps = []
-        for t in range(n):
-            out = model(frames[t], qp, dpb, after_i=False, mask=masks[t])
-            dpb = out["dpb"]
-            bpps.append(out["bpp"])
-        return torch.stack(bpps).sum(), dpb["frame"].float().sum()
-
-
 def pframe_flops(cfg, b: int, h: int, w: int) -> int:
-    """Products of one P-frame of ``b`` images at h x w
-    (``utils/flops.py`` on the meta device)."""
-    from .profile_stages import count_flops
+    """Products of one P-frame of ``b`` images at h x w, any variant
+    (``utils/flops.py`` on the meta device): for the performance variant
+    ``profile_stages.count_flops``' "full"."""
+    from ..models.dmc import DMC
+    from ..utils.flops import count_products
+    from .profile_stages import full_frame, make_inputs
 
-    return count_flops(cfg, b, h, w)["full"]
+    with count_products() as c:
+        full_frame(DMC(cfg, device="meta"), make_inputs(cfg, b, h, w, 0,
+                                                        "meta"))
+    return c.total
 
 
 def bench_batch(b, h=1088, w=1920, n_frames=16, variant="performance",
                 reps=3, *, seed: int = 0, device="cuda"):
-    """(fps, ms a step) of a GOP of ``n_frames`` at batch ``b``: the min of
-    ``reps`` timed GOPs after one warm-up, each at ``qp = 33 + rep``."""
+    """(fps, ms a step) of a GOP of ``n_frames`` at batch ``b``:
+    :func:`ssgvc_tpu_torch.bench.measure` in bf16 (batched ingest, the
+    min of ``reps`` timed GOPs after one warm-up, each at ``qp = 33 +
+    rep``), packed as ``SSGVC_PACKED`` says."""
+    from ..bench import measure
     from ..config import DMCConfig
-    from ..models.dmc import DMC
 
     packed = os.environ.get("SSGVC_PACKED", "0") == "1"
     n_frames = int(os.environ.get("SSGVC_FRAMES", n_frames))
     cfg = DMCConfig.variant(variant, dtype="bfloat16", packed_io=packed)
-    model = DMC(cfg, device=device).init_(
-        torch.Generator().manual_seed(seed + 4)).eval()
-    g = torch.Generator(device=device).manual_seed(seed)
-    frames, masks, dpb0 = make_gop_inputs(cfg, b, h, w, n_frames, g, device)
-
-    out = run_gop(model, frames, masks, 32, dpb0, packed)
-    float(out[0])
-
-    times = []
-    for r in range(reps):
-        start = time.perf_counter()
-        out = run_gop(model, frames, masks, 33 + r, dpb0, packed)
-        float(out[0])
-        times.append(time.perf_counter() - start)
-    t = min(times)
-    fps = n_frames * b / t
-    ms_per_frame = t / n_frames * 1e3
-    return fps, ms_per_frame
+    line = measure(variant, b, cfg=cfg, h=h, w=w, n_frames=n_frames,
+                   reps=reps, seed=seed, device=device)
+    return line["value"], line["ms_per_frame"] * b
 
 
 def main(argv=None) -> dict:

@@ -67,7 +67,7 @@ RD_MODULES = ("experiments.rd_keep_best", "experiments.rd_full",
 MEASURE_MODULES = ("experiments.profile_stages", "experiments.bench_sweep",
                    "experiments.trace_bench", "experiments.bench_coded",
                    "experiments.bench_rans", "experiments.smoke_128px",
-                   "experiments.probe_int8")
+                   "experiments.probe_int8", "bench")
 
 
 ALL_MODULES = (TRAINING_MODULES + DATA_MODULES + CLI_MODULES + TOOL_MODULES
@@ -350,3 +350,22 @@ def test_measure_scripts_default_to_the_card(name, tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         mod.main(list(MEASURE_MAINS[name]))
     assert list(tmp_path.iterdir()) == []
+
+
+def test_bench_worker_defaults_to_the_card(tmp_path, monkeypatch):
+    """The bench's worker (``python3 -m ssgvc_tpu_torch.bench``'s
+    measurement) wants the card: a host with no card raises at its device
+    probe, before any kernel build or file, its breadcrumbs saying so."""
+    from ssgvc_tpu_torch import bench
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the worker would measure on it")
+    status = tmp_path / "status"
+    monkeypatch.setenv(bench.STATUS_ENV, str(status))
+    monkeypatch.delenv("SSGVC_INT8", raising=False)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench.worker()
+    crumbs = [ln.split(" ", 1)[1] for ln in status.read_text().splitlines()]
+    assert crumbs == ["init: importing torch", "init: device probe"]
+    assert list(tmp_path.iterdir()) == [status]

@@ -38,6 +38,7 @@ from jax.extend import core as jcore
 from ssgvc_tpu.config import DMCConfig as JaxDMCConfig
 from ssgvc_tpu.models.dmc import DMC as JaxDMC
 from ssgvc_tpu.ops.pixel import pixel_unshuffle as jax_unshuffle
+from ssgvc_tpu_torch import bench
 from ssgvc_tpu_torch.config import DMCConfig
 from ssgvc_tpu_torch.experiments import (bench_coded, bench_rans,
                                          bench_sweep, probe_int8,
@@ -190,9 +191,10 @@ def test_stage_counts_sum_to_the_frames():
 
 
 def test_bench_sweep_gop_matches_the_jax_scan():
-    """bench_sweep's GOP (packed ingest, DPB carried) at B = 2 and the
-    JAX script's ``gop`` (one ingest permutation, ``lax.scan`` over the
-    frames) on the same weights and inputs, rd-tiny fp32."""
+    """bench_sweep's GOP (``bench.gop``: packed ingest, DPB carried) at
+    B = 2 and the JAX script's ``gop`` (one ingest permutation,
+    ``lax.scan`` over the frames) on the same weights and inputs, rd-tiny
+    fp32."""
     b, n, hw = 2, 2, 64
     jm = JaxDMC(JaxDMCConfig.variant("performance", packed_io=True,
                                      **RD_TINY))
@@ -227,8 +229,8 @@ def test_bench_sweep_gop_matches_the_jax_scan():
                jnp.int32(QP), {"frame": jnp.asarray(prev),
                                "feature": jnp.asarray(feat)})
     t = torch.from_numpy
-    got = bench_sweep.run_gop(model, t(frames), t(masks), QP,
-                              {"frame": t(prev), "feature": t(feat)}, True)
+    got = bench.gop(model, t(frames), t(masks), QP,
+                    {"frame": t(prev), "feature": t(feat)})
     np.testing.assert_allclose(float(got[0]), float(want[0]), rtol=BPP_RTOL)
     np.testing.assert_allclose(float(got[1]), float(want[1]), rtol=1e-4)
 
