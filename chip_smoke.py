@@ -276,17 +276,23 @@ Phases (any failure exits non-zero and prints no result line):
      int8 conv csrc/qconv.cu at every int8 site shape of the full-width
      P-frame (packed io, both feature adaptors) and I-frame, and the
      small-Cin sites of the fast and mask_prop P-frames, recorded from
-     their SSGVC_INT8=1 forwards: equal to qconv_plain bit for bit in bf16
-     and fp32 with mode 1's and mode 2's scales; timed (bf16) beside the
+     their SSGVC_INT8=1 forwards, and the 1x1 route's stress shapes
+     (experiments/qconv_turns.STRESS: ragged rows, O under and off the N
+     tile, unaligned output rows, Cin 16 to 4096): equal to qconv_plain
+     bit for bit in bf16 and fp32 with mode 1's and mode 2's scales; each
+     site's route (the 1x1 route on s8 wgmma or the gemm route) printed
+     and timed (bf16, the 1x1 route on its packed weights) beside the
      plain version, the bf16 route the port takes with int8 off and, at
      the 1x1 sites, quantize + torch._int_mm + dequant (equal to the
      kernel bit for bit), with its bound (int8 products at 1979 TOP/s or
-     the bytes, the larger). (b) Phase 5's P-frame GOP (P24_FRAMES
+     the bytes, the larger), and with --prev-port the other checkout's
+     kernel in turns. (b) Phase 5's P-frame GOP (P24_FRAMES
      frames) under mode 2 (scales calibrated on two frames, saved and
      loaded into a fresh model: its frames equal bit for bit), mode 1 and
      mode 2 at scope 3x3 (dcb / dcb_chain 19 + 5 then 18 + 5 a frame),
-     each beside the bf16 GOP: ms per frame, qconv launches per frame,
-     PSNR against the bf16 recon and bpp, every frame finite and bpp in
+     each beside the bf16 GOP: ms per frame, qconv launches per frame
+     (and by route), PSNR against the bf16 recon and bpp, every frame
+     finite and bpp in
      P24_BPP. (c) Phase 10's codec on I + 2 P under mode 2 with scales
      calibrated through the encoder and loaded on both sides: the decoded
      frames equal the encoder's bit for bit. (d) SSGVC_DW=shiftadd in the
@@ -309,9 +315,10 @@ Phases (any failure exits non-zero and prints no result line):
      values, unit scales, zero bias, fp32 out) runs against qconv_plain
      bit for bit; then one default-TrainConfig micro-step under
      SSGVC_INT8=1 at full width: finite loss and gradients, ms, peak
-     memory, qconv's launches forward and backward, and each recorded
-     shape timed (the kernels line's qconv "training", beside its bound:
-     each shape's int8 products or bytes, p24_bound, x its launches).
+     memory, qconv's launches forward and backward (and by route), and
+     each recorded shape timed (the kernels line's qconv "training",
+     beside its bound: each shape's int8 products or bytes, p24_bound, x
+     its launches).
  25. the RD harness (ssgvc_tpu_torch/experiments/) in a temporary working
      directory. (a) rd_tpu.main at rd-half (ch_d 128, enc_dec 184), fp32,
      the committed marathon recipe (--lnorm --recon-skip, B=32 64x64 T=4),
@@ -4393,7 +4400,7 @@ def p23_zero_counts():
 
     for m in (dcb_ops, chain_ops):
         m.launches = m.launches_f32 = m.launches_tf32 = 0
-    Q.launches = 0
+    Q.launches = Q.launches_1x1 = Q.launches_gemm = 0
 
 
 def p23_counts(run):
@@ -4918,11 +4925,13 @@ def p24_sites(torch, iframe, main, variant_states):
     sites, where = {}, [None]
     real = blocks.qconv
 
-    def record(x, wq, s_w, bias, s_x, kernel, stride, pads, out_dtype=None):
+    def record(x, wq, s_w, bias, s_x, kernel, stride, pads, out_dtype=None,
+               packed=None):
         key = (*x.shape, wq.shape[0], kernel, stride, tuple(pads))
         row = sites.setdefault(key, {})
         row[where[0]] = row.get(where[0], 0) + 1
-        return real(x, wq, s_w, bias, s_x, kernel, stride, pads, out_dtype)
+        return real(x, wq, s_w, bias, s_x, kernel, stride, pads, out_dtype,
+                    packed=packed)
 
     bf16 = torch.bfloat16
     frame = pixel_unshuffle(main["frames"][0].to(bf16), 8)
@@ -4978,20 +4987,82 @@ def p24_bound(key, size):
                                     else "bytes")
 
 
-def p24_kernel_rows(torch, seed, card, sites):
-    """(a) qconv against qconv_plain bit for bit at every site shape, in
-    bf16 and fp32, with mode 1's and mode 2's scales; timed in bf16 beside
-    the plain version, the bf16 route the port takes with int8 off
-    (F.linear / cuDNN) and, at the 1x1 sites, the library route (torch ops
-    quantize, torch._int_mm, dequant), which must equal the kernel."""
+def p24_bit_for_bit(torch, Q, key, x32, wq, s_w, bias, packed):
+    """The kernel against qconv_plain bit for bit at one shape, in bf16 and
+    fp32 with mode 1's and mode 2's scales; returns (the route it took, the
+    largest |difference|: 0)."""
+    b, h, w, cin, o, k, s, pads = key
+    worst, routes = 0.0, set()
+    for dt in (torch.bfloat16, torch.float32):
+        x = x32.to(dt)
+        absmax = 1.25 * float(x.float().abs().max())
+        for mode, s_x in (("1", Q.dynamic_scale(x)),
+                          ("2", torch.tensor(Q.static_scale(absmax),
+                                             device=DEVICE))):
+            before = Q.launches_1x1
+            out = Q.qconv_cuda(x, wq, s_w, bias, s_x, k, s, pads, dt,
+                               packed)
+            routes.add("1x1" if Q.launches_1x1 > before else "gemm")
+            ref = Q.qconv_plain(x, wq, s_w, bias, s_x, k, s, pads, dt)
+            torch.cuda.synchronize()
+            d = float((out.float() - ref.float()).abs().max())
+            worst = max(worst, d)
+            if not torch.isfinite(out.float()).all() or \
+                    not torch.equal(out, ref):
+                fail(f"qconv {key} {dt} mode {mode}: kernel != plain "
+                     f"(max |d| {d})")
+    if len(routes) != 1:
+        fail(f"qconv {key}: routes {routes} for one shape")
+    return routes.pop(), worst
+
+
+def p24_library(torch, key, kernel, x, wq, s_w, bias, s_x, out_dtype):
+    """The library route at a 1x1 site: the torch ops quantize,
+    torch._int_mm, dequant; it must equal ``kernel()`` bit for bit. Returns
+    {"library_ms": its time} or, where _int_mm's shape rules refuse the
+    shape, {"library_ms": None, "library_refused": why}."""
+    cin, o = x.shape[-1], wq.shape[0]
+    wt_k = wq[:, :cin].contiguous().t()
+
+    def library():
+        xq = torch.clamp(torch.round(x.float() / s_x), -127,
+                         127).to(torch.int8).reshape(-1, cin)
+        acc = torch._int_mm(xq, wt_k)
+        y = acc.float() * (s_x * s_w) + bias
+        return y.to(out_dtype).reshape(*x.shape[:-1], o)
+    try:
+        lib_out = library()
+    except RuntimeError as e:               # _int_mm's shape rules
+        return dict(library_ms=None,
+                    library_refused=str(e).splitlines()[0][:120])
+    out = kernel()
+    torch.cuda.synchronize()
+    if not torch.equal(lib_out, out):
+        fail(f"qconv {key}: the library route (_int_mm) != the kernel")
+    return dict(library_ms=cuda_ms(torch, library, P24_REPS))
+
+
+def p24_kernel_rows(torch, seed, card, sites, prev=None):
+    """(a) qconv against qconv_plain bit for bit at every site shape and
+    every stress shape, in bf16 and fp32, with mode 1's and mode 2's
+    scales; each site timed in bf16 (the 1x1 route on its packed weights,
+    as layers.blocks.Conv caches them) beside the plain version, the bf16
+    route the port takes with int8 off (F.linear / cuDNN), at the 1x1
+    sites the library route (torch ops quantize, torch._int_mm, dequant),
+    which must equal the kernel, and with ``prev`` (--prev-port's
+    layers.blocks) the other checkout's kernel in turns."""
+    import importlib
+
     import torch.nn.functional as F
 
+    from ssgvc_tpu_torch.experiments.qconv_turns import STRESS
     from ssgvc_tpu_torch.ops import qconv as Q
 
+    prev_q = importlib.import_module("prev_port.ops.qconv") if prev else None
     rng = np.random.default_rng(seed + 24)
-    rows, worst = [], 0.0
-    for key, per in sorted(sites.items()):
-        b, h, w, cin, o, k, s, pads = key
+
+    def operands(key):
+        b, h, w, cin, o, k = key[:6]
         x32 = torch.tensor(rng.standard_normal((b, h, w, cin)),
                            dtype=torch.float32, device=DEVICE)
         wt = torch.tensor(rng.standard_normal((o, cin, k, k))
@@ -4999,28 +5070,47 @@ def p24_kernel_rows(torch, seed, card, sites):
                           device=DEVICE)
         bias = torch.tensor(rng.standard_normal(o) * 0.1,
                             dtype=torch.float32, device=DEVICE)
+        return x32, wt, bias
+
+    rows, worst, stress = [], 0.0, []
+    for shape, o, k, s, pads in STRESS:
+        key = (*shape, o, k, s, pads)
+        x32, wt, bias = operands(key)
         wq, s_w = Q.quantize_weight(wt)
+        route, d = p24_bit_for_bit(torch, Q, key, x32, wq, s_w, bias, None)
+        worst = max(worst, d)
+        stress.append(dict(key=[list(shape), o, k, s, list(pads)],
+                           route=route))
+    print(f"  qconv stress shapes: {len(STRESS)} bit for bit in bf16 and "
+          f"fp32, modes 1 and 2, routes "
+          f"{[r['route'] for r in stress]} [{card}]")
+    for key, per in sorted(sites.items()):
+        b, h, w, cin, o, k, s, pads = key
+        x32, wt, bias = operands(key)
+        wq, s_w = Q.quantize_weight(wt)
+        packed = Q.pack_weight(wq) if k == 1 else None
+        route, d = p24_bit_for_bit(torch, Q, key, x32, wq, s_w, bias,
+                                   packed)
+        worst = max(worst, d)
         row = dict(shape=list(key[:4]), out_ch=o, kernel=k, stride=s,
-                   pads=list(pads), per_frame=per)
-        for dt in (torch.bfloat16, torch.float32):
-            x = x32.to(dt)
-            absmax = 1.25 * float(x.float().abs().max())
-            for mode, s_x in (("1", Q.dynamic_scale(x)),
-                              ("2", torch.tensor(Q.static_scale(absmax),
-                                                 device=DEVICE))):
-                out = Q.qconv_cuda(x, wq, s_w, bias, s_x, k, s, pads, dt)
-                ref = Q.qconv_plain(x, wq, s_w, bias, s_x, k, s, pads, dt)
-                torch.cuda.synchronize()
-                d = float((out.float() - ref.float()).abs().max())
-                worst = max(worst, d)
-                if not torch.isfinite(out.float()).all() or \
-                        not torch.equal(out, ref):
-                    fail(f"qconv {key} {dt} mode {mode}: kernel != plain "
-                         f"(max |d| {d})")
+                   pads=list(pads), per_frame=per, route=route)
+        if route == "1x1":
+            plan = Q.route_of((b, h, w, cin), o, k, s, pads, True, 2)[1]
+            row["plan"] = {f: plan[f] for f in ("bm", "ng", "stages")}
         x = x32.to(torch.bfloat16)
         s_x = Q.dynamic_scale(x)
-        row["kernel_ms"] = cuda_ms(torch, lambda: Q.qconv_cuda(
-            x, wq, s_w, bias, s_x, k, s, pads, torch.bfloat16), P24_REPS)
+        new = lambda: Q.qconv_cuda(x, wq, s_w, bias, s_x, k, s, pads,
+                                   torch.bfloat16, packed)
+        if prev_q is not None:
+            old = lambda: prev_q.qconv_cuda(x, wq, s_w, bias, s_x, k, s,
+                                            pads, torch.bfloat16)
+            if not torch.equal(old(), new()):
+                fail(f"qconv {key}: --prev-port's kernel != this one")
+            means, _ = timed_turns(torch, {"new": new, "prev": old},
+                                   P24_REPS)
+            row["kernel_ms"], row["prev_ms"] = means["new"], means["prev"]
+        else:
+            row["kernel_ms"] = cuda_ms(torch, new, P24_REPS)
         row["plain_ms"] = cuda_ms(torch, lambda: Q.qconv_plain(
             x, wq, s_w, bias, s_x, k, s, pads, torch.bfloat16), 3, 1)
         wb, bb = wt.to(torch.bfloat16), bias.to(torch.bfloat16)
@@ -5032,41 +5122,28 @@ def p24_kernel_rows(torch, seed, card, sites):
                                               pads[1])), wb, bb,
                 s).permute(0, 2, 3, 1).contiguous()
         row["bf16_ms"] = cuda_ms(torch, bf16, P24_REPS)
-        row["library_ms"] = None
         if k == 1 and s == 1:
-            kk = cin
-            wt_k = wq[:, :kk].contiguous().t()
-
-            def library():
-                xq = torch.clamp(torch.round(x.float() / s_x), -127,
-                                 127).to(torch.int8).reshape(-1, kk)
-                acc = torch._int_mm(xq, wt_k)
-                y = acc.float() * (s_x * s_w) + bias
-                return y.to(torch.bfloat16).reshape(b, h, w, o)
-            try:
-                lib_out = library()
-            except RuntimeError as e:       # _int_mm's shape rules
-                row["library_refused"] = str(e).splitlines()[0][:120]
-            else:
-                out = Q.qconv_cuda(x, wq, s_w, bias, s_x, k, s, pads,
-                                   torch.bfloat16)
-                torch.cuda.synchronize()
-                if not torch.equal(lib_out, out):
-                    fail(f"qconv {key}: the library route (_int_mm) != the "
-                         "kernel")
-                row["library_ms"] = cuda_ms(torch, library, P24_REPS)
+            row.update(p24_library(torch, key, new, x, wq, s_w, bias, s_x,
+                                   torch.bfloat16))
+        else:
+            row["library_ms"] = None
         row["bound_ms"], row["bound_by"] = p24_bound(key, 2)
         row["share"] = row["bound_ms"] / row["kernel_ms"]
         rows.append(row)
         lib = (f"{row['library_ms']:.4f}" if row["library_ms"] is not None
                else row.get("library_refused", "n/a"))
+        prev_txt = (f", parent {row['prev_ms']:.4f} in turns"
+                    if "prev_ms" in row else "")
+        plan_txt = (" {bm}x{ng} s{stages}".format(**row["plan"])
+                    if "plan" in row else "")
         print(f"  qconv {b}x{h}x{w}x{cin} -> {o} k{k} s{s} pads {pads} "
-              f"{per}: kernel {row['kernel_ms']:.4f} ms, plain "
+              f"{per}: {route} route{plan_txt}, kernel "
+              f"{row['kernel_ms']:.4f} ms{prev_txt}, plain "
               f"{row['plain_ms']:.4f}, bf16 route {row['bf16_ms']:.4f}, "
               f"library (_int_mm) {lib}, bound {row['bound_ms']:.4f} "
               f"({row['bound_by']}, share {row['share']:.3f}); bit for bit "
               f"in bf16 and fp32, modes 1 and 2 [{card}]")
-    return rows, worst
+    return rows, worst, stress
 
 
 def p24_gop(torch, model, frames, masks, dpb, counters=None):
@@ -5128,7 +5205,8 @@ def p24_pframe(torch, card, main, tmp: Path):
            "feature": torch.zeros((1, H // 8, W // 8, cfg.ch_d), dtype=bf16,
                                   device=DEVICE)}
     counters = ((Q, "launches"), (dcb_ops, "launches"),
-                (chain_ops, "launches"))
+                (chain_ops, "launches"), (Q, "launches_1x1"),
+                (Q, "launches_gemm"))
     model = fresh()
     raw = lambda f: pixel_shuffle(f, 8)
     out = {}
@@ -5180,7 +5258,11 @@ def p24_pframe(torch, card, main, tmp: Path):
             fail(f"(b) {name}: bpp {b} outside {P24_BPP}")
         psnr = [p24_psnr(torch, raw(a), raw(r)) for a, r in zip(recons, ref)]
         qc = [c[0] for c in counts]
-        fused = [c[1:] for c in counts]
+        fused = [c[1:3] for c in counts]
+        routes = [c[3:] for c in counts]
+        if any(sum(r) != q for r, q in zip(routes, qc)):
+            fail(f"(b) {name}: qconv launches by route {routes} do not sum "
+                 f"to {qc}")
         if not all(qc):
             fail(f"(b) {name}: a frame launched no qconv: {qc}")
         if name == "mode2_3x3":
@@ -5192,6 +5274,7 @@ def p24_pframe(torch, card, main, tmp: Path):
             fail(f"(b) {name}: the fused kernels ran under scope all: "
                  f"{fused}")
         out[name] = dict(ms_per_frame=ms / n, qconv_per_frame=qc,
+                         qconv_routes_per_frame=routes,
                          fused_per_frame=fused, psnr_vs_bf16=psnr,
                          bpp=b.tolist(),
                          bpp_rel_vs_bf16=(b / ref_bpp.cpu().numpy()
@@ -5199,7 +5282,8 @@ def p24_pframe(torch, card, main, tmp: Path):
         print(f"  (b) {name}: {n} P-frames {H}x{W} packed io bf16, "
               f"{ms / n:.2f} ms/frame (bf16 default "
               f"{out['bf16']['ms_per_frame']:.2f}; median of {P24_RUNS}), "
-              f"qconv launches per frame {qc}, dcb/dcb_chain {fused}, PSNR "
+              f"qconv launches per frame {qc} (1x1 / gemm route "
+              f"{routes}), dcb/dcb_chain {fused}, PSNR "
               f"of the recon vs bf16's {[round(p, 2) for p in psnr]} dB, "
               f"bpp {np.round(b, 4).tolist()} (rel vs bf16 "
               f"{np.round(out[name]['bpp_rel_vs_bf16'], 4).tolist()}) "
@@ -5208,7 +5292,8 @@ def p24_pframe(torch, card, main, tmp: Path):
     out["sites_calibrated"] = len(scales)
     print(f"  (b) mode 2: {len(scales)} sites calibrated on 2 frames, "
           f"saved, loaded into a fresh model: its GOP equal bit for bit")
-    out["qconv_launches"] = runs["mode1"][1][2]
+    out["qconv_launches"] = [c[0] for c in runs["mode1"][1][2]]
+    out["qconv_route_launches"] = [c[3:] for c in runs["mode1"][1][2]]
     return out, scales
 
 
@@ -5490,12 +5575,14 @@ def p24_qconv_calls():
     calls, where = {}, ["fwd"]
     real, real_bwd = Q.qconv, Q._QConvGrad.backward
 
-    def record(x, wq, s_w, bias, s_x, kernel, stride, pads, out_dtype=None):
+    def record(x, wq, s_w, bias, s_x, kernel, stride, pads, out_dtype=None,
+               packed=None):
         out_dtype = out_dtype or x.dtype
         key = (tuple(x.shape), wq.shape[0], kernel, stride, tuple(pads),
                str(x.dtype), str(out_dtype), where[0])
         calls[key] = calls.get(key, 0) + 1
-        return real(x, wq, s_w, bias, s_x, kernel, stride, pads, out_dtype)
+        return real(x, wq, s_w, bias, s_x, kernel, stride, pads, out_dtype,
+                    packed=packed)
 
     def backward(ctx, g):
         where[0] = "bwd"
@@ -5536,7 +5623,7 @@ def p24_call_inputs(torch, rng, key):
     return x, wq, s_w, bias, Q.dynamic_scale(x)
 
 
-def p24_train(torch, seed, card):
+def p24_train(torch, seed, card, prev=None):
     """(g) the int8 gradient on the card: the tiny profile's int8 micro-
     step (SSGVC_INT8=1) records every qconv call; each backward call's
     shape (the recomputed int32 sums: x's int8 values, unit scales, zero
@@ -5544,7 +5631,11 @@ def p24_train(torch, seed, card):
     default-TrainConfig micro-step under SSGVC_INT8=1 at full width (B=4
     128x128 T=4, after one untimed): finite loss and gradients, ms, peak
     memory, qconv's launches forward and backward, and each recorded
-    shape timed (kernel, plain), summed per micro-step."""
+    shape timed (kernel, plain, at the 1x1 shapes the library route, and
+    with ``prev`` (--prev-port's layers.blocks) the other checkout's
+    kernel in turns), summed per micro-step."""
+    import importlib
+
     from ssgvc_tpu_torch.config import TrainConfig
     from ssgvc_tpu_torch.data.device_synth import synth_batch
     from ssgvc_tpu_torch.ops import qconv as Q
@@ -5600,7 +5691,7 @@ def p24_train(torch, seed, card):
         micro_step(tr, batch, torch.Generator().manual_seed(seed))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        Q.launches = 0
+        Q.launches = Q.launches_1x1 = Q.launches_gemm = 0
         with p24_qconv_calls() as calls:
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
@@ -5612,38 +5703,63 @@ def p24_train(torch, seed, card):
         ms = e0.elapsed_time(e1)
         peak = torch.cuda.max_memory_allocated()
         launches = Q.launches
+        route_launches = [Q.launches_1x1, Q.launches_gemm]
         finite = all(bool(torch.isfinite(x).all()) for x in grads)
         nonzero = sum(bool((x != 0).any()) for x in grads)
         if not (math.isfinite(float(loss)) and finite and nonzero
-                and launches == sum(calls.values())):
+                and launches == sum(calls.values()) == sum(route_launches)):
             fail(f"(g) full-width int8 micro-step: loss {float(loss)}, "
                  f"gradients finite {finite}, {nonzero} nonzero, qconv "
                  f"launches {launches} for {sum(calls.values())} calls")
+        prev_q = (importlib.import_module("prev_port.ops.qconv") if prev
+                  else None)
         rows = []
         for key, n in sorted(calls.items()):
             x, wq, s_w, bias, s_x = p24_call_inputs(torch, rng, key)
             shape, o, k, s, pads, _, odt, where = key
             odt = getattr(torch, odt.split(".")[-1])
-            rows.append(dict(
+            packed = Q.pack_weight(wq) if k == 1 else None
+            new = lambda: Q.qconv_cuda(x, wq, s_w, bias, s_x, k, s, pads,
+                                       odt, packed)
+            row = dict(
                 key=[list(shape), o, k, s, list(pads), key[5], key[6],
                      where], launches=n,
                 bound_ms=p24_bound((*shape, o, k, s, tuple(pads)),
                                    x.element_size())[0],
-                kernel_ms=cuda_ms(torch, lambda: Q.qconv_cuda(
-                    x, wq, s_w, bias, s_x, k, s, pads, odt), P24_REPS),
+                route=Q.route_of(shape, o, k, s, pads,
+                                 x.data_ptr() % 16 == 0, 4 if odt ==
+                                 torch.float32 else 2)[0],
                 plain_ms=cuda_ms(torch, lambda: Q.qconv_plain(
-                    x, wq, s_w, bias, s_x, k, s, pads, odt), 3, 1)))
+                    x, wq, s_w, bias, s_x, k, s, pads, odt), 3, 1))
+            if prev_q is not None:
+                old = lambda: prev_q.qconv_cuda(x, wq, s_w, bias, s_x, k,
+                                                s, pads, odt)
+                means, _ = timed_turns(torch, {"new": new, "prev": old},
+                                       P24_REPS)
+                row["kernel_ms"], row["prev_ms"] = means["new"], \
+                    means["prev"]
+            else:
+                row["kernel_ms"] = cuda_ms(torch, new, P24_REPS)
+            if k == 1 and s == 1:
+                row.update(p24_library(torch, key, new, x, wq, s_w, bias,
+                                       s_x, odt))
+            rows.append(row)
     by = lambda w, f: sum(r[f] * r["launches"] for r in rows
                           if w in (None, r["key"][-1]))
     out = dict(ms_per_micro_step=ms, peak_bytes=peak, loss=float(loss),
                grads_nonzero=nonzero, grads=len(grads),
-               launches=launches,
+               launches=launches, route_launches=route_launches,
                forward_launches=sum(r["launches"] for r in rows
                                     if r["key"][-1] == "fwd"),
                backward_launches=sum(r["launches"] for r in rows
                                      if r["key"][-1] == "bwd"),
                qconv_ms=by(None, "kernel_ms"),
                qconv_plain_ms=by(None, "plain_ms"),
+               qconv_library_ms=sum(r["library_ms"] * r["launches"]
+                                    for r in rows if r.get("library_ms")),
+               qconv_library_kernel_ms=sum(
+                   r["kernel_ms"] * r["launches"] for r in rows
+                   if r.get("library_ms")),
                qconv_backward_ms=by("bwd", "kernel_ms"),
                qconv_bound_ms=by(None, "bound_ms"),
                tiny_backward_shapes=len(bwd), shapes=rows)
@@ -5652,18 +5768,26 @@ def p24_train(torch, seed, card):
           f"loss {float(loss):.5f}, {nonzero} of {len(grads)} gradients "
           f"nonzero, all finite; {ms:.1f} ms, peak {peak / 2**20:.1f} MiB; "
           f"qconv launches {launches} ({out['forward_launches']} forward, "
-          f"{out['backward_launches']} backward recomputing the sums) at "
+          f"{out['backward_launches']} backward recomputing the sums; 1x1 / "
+          f"gemm route {route_launches}) at "
           f"{len(rows)} shapes: {out['qconv_ms']:.3f} ms of kernel time per "
           f"micro-step ({out['qconv_backward_ms']:.3f} of it backward), "
           f"plain {out['qconv_plain_ms']:.3f}, bound "
-          f"{out['qconv_bound_ms']:.3f} [{card}]")
+          f"{out['qconv_bound_ms']:.3f}; at the 1x1 shapes _int_mm "
+          f"{out['qconv_library_ms']:.3f} against the kernel's "
+          f"{out['qconv_library_kernel_ms']:.3f} [{card}]")
+    if prev is not None:
+        out["qconv_prev_ms"] = by(None, "prev_ms")
+        print(f"  (g) --prev-port's kernel at the same shapes in turns: "
+              f"{out['qconv_prev_ms']:.3f} ms per micro-step [{card}]")
     return out
 
 
 def phase_experiments(torch, seed, card, iframe, main, variant_states,
-                      shard_records):
+                      shard_records, prev=None):
     """The opt-in experiments on the card (module docstring, phase 24);
-    ``shard_records``: (f)'s runs from phase 23 (c)'s spawn."""
+    ``shard_records``: (f)'s runs from phase 23 (c)'s spawn; ``prev``
+    (--prev-port's layers.blocks): its qconv timed in turns in (a)."""
     from ssgvc_tpu_torch.layers import blocks
 
     t0 = time.perf_counter()
@@ -5671,13 +5795,14 @@ def phase_experiments(torch, seed, card, iframe, main, variant_states,
     with tempfile.TemporaryDirectory() as tmp:
         sites = p24_sites(torch, iframe, main, variant_states)
         with torch.no_grad():
-            rows, worst = p24_kernel_rows(torch, seed, card, sites)
+            rows, worst, stress = p24_kernel_rows(torch, seed, card, sites,
+                                                  prev)
         pframe, scales = p24_pframe(torch, card, main, Path(tmp))
         coded = p24_coded(torch, card, iframe, main)
         shiftadd = p24_shiftadd(torch, card, main, scales)
         fused = p24_fused(torch, card, main)
         sharded = p24_rows(shard_records)
-        train = p24_train(torch, seed, card)
+        train = p24_train(torch, seed, card, prev)
     blocks.set_int8_scales(saved)
     # the kernels-line entry: per mode-1 P-frame (after the first) and per
     # I-frame, each shape's time x its launches there, summed
@@ -5687,11 +5812,17 @@ def phase_experiments(torch, seed, card, iframe, main, variant_states,
     def total(rs, key, frame):
         return sum(r[key] * r["per_frame"][frame] for r in rs)
 
-    launches = [c[0] for c in pframe.pop("qconv_launches")]
+    launches = pframe.pop("qconv_launches")
+    routes = pframe.pop("qconv_route_launches")
     if sum(r["per_frame"]["P"] for r in p_rows) != launches[-1]:
         fail(f"qconv: the site list's launches per P-frame "
              f"{sum(r['per_frame']['P'] for r in p_rows)} != (b)'s "
              f"{launches[-1]}")
+    want = [sum(r["per_frame"]["P"] for r in p_rows if r["route"] == route)
+            for route in ("1x1", "gemm")]
+    if list(routes[-1]) != want:
+        fail(f"qconv: (b)'s P-frame launched the routes {routes[-1]}, the "
+             f"site list's routes say {want}")
     ops_ms = sum(p24_bound(tuple(r["shape"]) + (r["out_ch"], r["kernel"],
                                                 r["stride"],
                                                 tuple(r["pads"])), 2)[0]
@@ -5723,11 +5854,23 @@ def phase_experiments(torch, seed, card, iframe, main, variant_states,
             "total (per frame: launches_per_frame); 'iframe' the same per "
             "DMCI I-frame",
         launches_per_frame=launches,
+        route_launches=dict(
+            zip(("1x1", "gemm"), map(sum, zip(*routes)))),
+        route_launches_per_frame=routes,
+        routes_by_site="each shape's 'route': the 1x1 route (s8 wgmma, x "
+                       "quantized once into shared memory, y stored by "
+                       "whole rows) or the gemm route (x quantized once to "
+                       "int8, implicit GEMM on mma.sync)",
+        stress_shapes=stress,
         training=dict(
             launches=train["launches"],
+            route_launches=dict(zip(("1x1", "gemm"),
+                                    train["route_launches"])),
             forward_launches=train["forward_launches"],
             backward_launches=train["backward_launches"],
             ms=train["qconv_ms"], plain_ms=train["qconv_plain_ms"],
+            library_ms=train["qconv_library_ms"],
+            library_kernel_ms=train["qconv_library_kernel_ms"],
             backward_ms=train["qconv_backward_ms"],
             bound_ms=train["qconv_bound_ms"],
             per="int8 (SSGVC_INT8=1) default-TrainConfig micro-step at full "
@@ -5736,14 +5879,28 @@ def phase_experiments(torch, seed, card, iframe, main, variant_states,
                     ms=total(i_rows, "kernel_ms", "I"),
                     plain_ms=total(i_rows, "plain_ms", "I"),
                     bound_ms=total(i_rows, "bound_ms", "I"),
-                    bf16_route_ms=total(i_rows, "bf16_ms", "I")),
+                    bf16_route_ms=total(i_rows, "bf16_ms", "I"),
+                    library_ms=total([r for r in i_rows
+                                      if r["library_ms"] is not None],
+                                     "library_ms", "I"),
+                    library_1x1_kernel_ms=total(
+                        [r for r in i_rows if r["library_ms"] is not None],
+                        "kernel_ms", "I")),
         shapes=rows)
+    if prev is not None:
+        entry["prev_ms"] = total(p_rows, "prev_ms", "P")
+        entry["iframe"]["prev_ms"] = total(i_rows, "prev_ms", "I")
+        entry["training"]["prev_ms"] = train["qconv_prev_ms"]
     seconds = time.perf_counter() - t0
+    prev_txt = (f", --prev-port's {entry['prev_ms']:.3f} in turns"
+                if prev is not None else "")
     print(f"experiments: phase 24 in {seconds:.1f} s; qconv per int8 "
-          f"P-frame {entry['ms']:.3f} ms (bound {entry['bound_ms']:.3f}, "
-          f"plain {entry['plain_ms']:.3f}, bf16 route "
-          f"{entry['bf16_route_ms']:.3f}, _int_mm at the 1x1 sites "
-          f"{entry['library_ms']}) [{card}]")
+          f"P-frame {entry['ms']:.3f} ms{prev_txt} (bound "
+          f"{entry['bound_ms']:.3f}, plain {entry['plain_ms']:.3f}, bf16 "
+          f"route {entry['bf16_route_ms']:.3f}, _int_mm at the 1x1 sites "
+          f"{entry['library_ms']}; routes 1x1 / gemm per frame "
+          f"{routes[-1]}), per I-frame {entry['iframe']['ms']:.3f}, per "
+          f"int8 micro-step {train['qconv_ms']:.3f} [{card}]")
     return dict(pframe=pframe, coded=coded, shiftadd=shiftadd, fused=fused,
                 sharded=sharded, train=train, sites=len(rows),
                 seconds=seconds), entry
@@ -7066,7 +7223,7 @@ def main() -> int:
     lap("23 parallel")
     experiments, qconv_entry = phase_experiments(
         torch, args.seed, card, iframe, main_path, variant_states,
-        parallel["rows"].pop("int8"))
+        parallel["rows"].pop("int8"), prev)
     lap("24 experiments")
     # phase 26 continues in phase 25's working directory
     with tempfile.TemporaryDirectory() as rd_work:

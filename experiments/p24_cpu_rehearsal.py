@@ -74,9 +74,29 @@ def stub_card(torch, cs, hw):
             return fn(*a, **k)
         return run
 
-    qconv_ops.qconv_cuda = counted(qconv_ops.qconv_plain, qconv_ops)
+    plain = qconv_ops.qconv_plain
+
+    def routed(x, wq, s_w, bias, s_x, kernel, stride, pads, out_dtype,
+               packed=None):
+        """qconv_cuda's counts (the route ops.qconv.route_of picks) on the
+        plain version."""
+        route = qconv_ops.route_of(
+            x.shape, wq.shape[0], kernel, stride, pads,
+            x.data_ptr() % 16 == 0,
+            torch.empty((), dtype=out_dtype).element_size())[0]
+        qconv_ops.launches += 1
+        name = f"launches_{route}"
+        setattr(qconv_ops, name, getattr(qconv_ops, name) + 1)
+        return plain(x, wq, s_w, bias, s_x, kernel, stride, pads, out_dtype)
+
+    def qconv(x, wq, s_w, bias, s_x, kernel, stride, pads, out_dtype=None,
+              packed=None):
+        return routed(x.contiguous(), wq, s_w, bias, s_x, kernel, stride,
+                      pads, out_dtype or x.dtype, packed)
+
+    qconv_ops.qconv_cuda = routed
     # the forward's and the int8 backward's calls alike
-    qconv_ops.qconv = blocks.qconv = counted(qconv_ops.qconv, qconv_ops)
+    qconv_ops.qconv = blocks.qconv = qconv
     blocks.dcb_grad = counted(blocks.dcb_grad, dcb_ops)
     blocks.dcb_chain_grad = counted(blocks.dcb_chain_grad, chain_ops)
 

@@ -80,11 +80,12 @@ def conv_int8(kh: int, wq, s_w, bias, s_x):
     """x (B, H, W, C) bf16 -> the same shape through ``ops.qconv.qconv``:
     x quantised at ``s_x``, int32 sums, scaled back to bf16 plus the
     bias."""
-    from ..ops.qconv import qconv
+    from ..ops.qconv import pack_weight, qconv
 
     p = kh // 2
+    packed = pack_weight(wq) if kh == 1 else None
     return lambda x: qconv(x, wq, s_w, bias, s_x, kh, 1, (p, p, p, p),
-                           torch.bfloat16)
+                           torch.bfloat16, packed=packed)
 
 
 def int_mm_requant(w_t: torch.Tensor, scale: float):

@@ -48,7 +48,7 @@ from ..ops.dcb import pack_kernel, wsilu
 from ..ops.dcb_chain import pack_chain
 from ..ops.dcb_grad import dcb_chain_grad, dcb_grad
 from ..ops.pixel import patch_down_conv, patch_up_conv, pixel_shuffle
-from ..ops.qconv import (dynamic_scale, qconv, qconv_grad,
+from ..ops.qconv import (dynamic_scale, pack_weight, qconv, qconv_grad,
                          quantize_weight, static_scale)
 from ..parallel import spatial
 
@@ -270,17 +270,27 @@ class Conv(nn.Module):
         self.stride, self.padding, self.groups = stride, padding, groups
         self.dtype, self.zero_init = dtype, zero_init
         self.site = None          # the int8 site key (name_int8_sites)
-        self._wq = self._wq_key = None
+        self._wq = self._wq_key = self._wp = None
         self._sx = None           # (abs-max, its s_x tensor) of mode 2
 
     def int8_weight(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """(wq, s_w) of ``ops.qconv.quantize_weight`` from the fp32
-        weight, rebuilt only when it changed (in place or by a move)."""
+        weight, rebuilt only when it changed (in place or by a move); a
+        1x1's ``ops.qconv.pack_weight`` of wq with them
+        (:meth:`int8_packed`)."""
         key = _pack_key(self.weight, (self.weight,))
         if key != self._wq_key:
             self._wq = quantize_weight(self.weight)
+            self._wp = (pack_weight(self._wq[0])
+                        if self.weight.shape[-1] == 1 else None)
             self._wq_key = key
         return self._wq
+
+    def int8_packed(self) -> Optional[torch.Tensor]:
+        """The packed weight the kernel's 1x1 route reads, from
+        :meth:`int8_weight`'s cache; None for a kernel > 1."""
+        self.int8_weight()
+        return self._wp
 
     def _act_scale(self, x: torch.Tensor) -> Tuple[torch.Tensor, bool]:
         """(s_x, whether it is mode 1's abs-max of x) for ``x``."""
@@ -325,6 +335,7 @@ class Conv(nn.Module):
             _CALIB[key] = absmax if prev is None else torch.maximum(prev,
                                                                     absmax)
         wq, s_w = self.int8_weight()
+        wp = self._wp
         s_x, dynamic = self._act_scale(x)
         k, s, p = self.weight.shape[-1], self.stride, self.padding
         x, up, _ = spatial.halo(x, p, max(0, k - s - p), zero_edges=True)
@@ -335,8 +346,10 @@ class Conv(nn.Module):
                                         or self.bias.requires_grad):
             return qconv_grad(x, self.weight, self.bias, wq, s_w, s_x, k, s,
                               pads, self.dtype, dynamic,
-                              spatial.frame_groups() if dynamic else ())
-        return qconv(x, wq, s_w, self.bias, s_x, k, s, pads, self.dtype)
+                              spatial.frame_groups() if dynamic else (),
+                              packed=wp)
+        return qconv(x, wq, s_w, self.bias, s_x, k, s, pads, self.dtype,
+                     packed=wp)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if int8_site(self.weight.shape[-1], self.groups):

@@ -19,7 +19,13 @@ device: PyTorch's CUDA division by a Python number multiplies by its
 reciprocal, which can differ from the division by an ulp.
 
 :func:`qconv` routes by device: a CPU tensor takes :func:`qconv_plain`, a
-CUDA tensor launches the kernel (:func:`qconv_cuda`) or raises.
+CUDA tensor launches the kernel (:func:`qconv_cuda`) or raises. On the card
+:func:`route_of` picks one of two hand-written routes by shape: the 1x1
+route (s8 wgmma, x quantized once into shared memory, weights packed by
+:func:`pack_weight` and copied in by a ring, y stored in whole rows; its
+plan :func:`plan_1x1`) or the gemm route (x quantized once into int8
+scratch, then an implicit GEMM on ``mma.sync``). ``csrc/qconv.cu`` says
+what each computes and what bounds it.
 :func:`qconv_plain` sums the int8 products exactly (a float64 conv on the
 int8 values: |sum| <= K * 127^2 < 2^53, whatever the order), so on the card
 the kernel and the plain version agree bit for bit.
@@ -34,6 +40,7 @@ launch of the same conv.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -43,12 +50,30 @@ import torch.nn.functional as F
 from ..parallel.mesh import all_reduce_max_, all_reduce_sum_
 from . import _build
 
-#: Kernel launches since the count was last set to 0.
+#: Kernel launches since the count was last set to 0 (either route).
 launches = 0
+#: Launches of the 1x1 route and of the gemm route (its quantizing pass
+#: and implicit GEMM count as one), since each was last set to 0.
+launches_1x1 = 0
+launches_gemm = 0
 #: K is padded to a multiple of this (one m16n8k32 step) with zero weights.
 K_STEP = 32
 #: Input and output dtypes the kernel takes.
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+# The 1x1 route's constants (must match csrc/qconv.cu): K bytes of a ring
+# slot (two k32 wgmma steps), rows of a consumer warpgroup, output columns
+# a staging row holds, a ring's most slots.
+KC = 64
+ROWS_WG = 64
+STAGE_COLS = 64
+MAX_STAGES = 8
+#: shared memory one thread block may use; each of two on one SM (the
+#: SM's 228 KB less 1 KB reserved a block)
+SMEM_LIMIT = 232448
+SMEM_PAIR = (233472 - 2 * 1024) // 2
+#: SMs of an H100: 128-row tiles only where they are at least this many
+SMS = 132
 
 
 def _div(t: torch.Tensor, d: float) -> torch.Tensor:
@@ -98,6 +123,105 @@ def out_size(n: int, k: int, stride: int, lo: int, hi: int) -> int:
     return (n + lo + hi - k) // stride + 1
 
 
+def tile_n(o: int) -> int:
+    """The 1x1 route's N tile (the wgmma width) for O output channels."""
+    return 32 if o <= 32 else 64 if o <= 64 else 128
+
+
+def padded_kq(k: int) -> int:
+    """K (the 1x1 route's Cin, or a weight's Kp) rounded up to a ring
+    slot's KC bytes."""
+    return -(-k // KC) * KC
+
+
+def smem_1x1(rg: int, ng: int, bn: int, kq: int, stages: int,
+             out_size: int, o: int) -> int:
+    """Bytes of the 1x1 route's shared memory for ``rg`` row groups of 64
+    and ``ng`` N groups: the quantized rows (64 rg x kq), ng rings of
+    ``stages`` slots of bn x KC, a staging block of 64 rows of (min(bn,
+    STAGE_COLS) + 8) outputs for each of the rg ng consumer warpgroups,
+    scale and bias of every column of O padded to bn (fp32), and a full and
+    an empty mbarrier a slot."""
+    row = (min(bn, STAGE_COLS) + 8) * out_size
+    return (rg * ROWS_WG * kq + ng * stages * bn * KC
+            + rg * ng * ROWS_WG * row + 8 * (-(-o // bn) * bn)
+            + ng * stages * 16)
+
+
+def plan_1x1(m: int, cin: int, o: int, out_size: int) -> Optional[dict]:
+    """The 1x1 route's launch for M = B H W rows, or None where its shared
+    memory does not fit (the gemm route takes the site). A block owns
+    ``bm`` rows and every N tile of ``bn`` columns: two row groups of 64
+    sharing one ring (``rg`` 2, 128 rows) where there are at least
+    :data:`SMS` such blocks and the N tile is 128, else 64 rows, split over
+    two N groups (``ng`` 2: two warpgroups on alternate N tiles, a ring
+    each) where there are two N tiles or more. Ring slots: the most (to
+    :data:`MAX_STAGES`) that keep two blocks on an SM where three or more
+    do, else the most one block can hold."""
+    kq, bn = padded_kq(cin), tile_n(o)
+    nt = -(-o // bn)
+    shapes = [(2, 1)] if bn == 128 and -(-m // 128) >= SMS else []
+    shapes.append((1, 2) if bn == 128 and nt >= 2 else (1, 1))
+    for cap, least in ((SMEM_PAIR, 3), (SMEM_LIMIT, 2)):
+        for rg, ng in shapes:
+            fits = [s for s in range(2, MAX_STAGES + 1)
+                    if smem_1x1(rg, ng, bn, kq, s, out_size, o) <= cap]
+            if fits and max(fits) >= least:
+                stages = max(fits)
+                return dict(rg=rg, ng=ng, bm=rg * ROWS_WG, bn=bn, kq=kq,
+                            stages=stages,
+                            smem=smem_1x1(rg, ng, bn, kq, stages, out_size,
+                                          o),
+                            blocks=-(-m // (rg * ROWS_WG)), n_tiles=nt)
+    return None
+
+
+def route_of(shape: Sequence[int], o: int, kernel: int, stride: int,
+             pads: Sequence[int], x_aligned: bool,
+             out_size: int) -> Tuple[str, Optional[dict]]:
+    """("1x1", its plan) for a 1x1 stride-1 unpadded conv on a 16-byte
+    aligned x with Cin % 16 == 0 whose plan fits, else ("gemm", None).
+    Kept per shape: the host decides once a site, not once a call."""
+    return _route(tuple(shape), o, kernel, stride, tuple(pads), x_aligned,
+                  out_size)
+
+
+@functools.lru_cache(maxsize=4096)
+def _route(shape, o, kernel, stride, pads, x_aligned, out_size):
+    b, h, w, cin = shape
+    if (kernel == 1 and stride == 1 and pads == (0, 0, 0, 0)
+            and cin % 16 == 0 and x_aligned):
+        plan = plan_1x1(b * h * w, cin, o, out_size)
+        if plan is not None:
+            return "1x1", plan
+    return "gemm", None
+
+
+def pack_weight(wq: torch.Tensor) -> torch.Tensor:
+    """A 1x1 weight's ``wq`` (O, Kp) int8 as the 1x1 route's ring copies
+    it: one contiguous slot of BN x KC bytes per (N tile t, K chunk c), in
+    order t then c, O padded to BN and Kp to KQ with zeros; inside a slot
+    element (n, k) lies at (n // 8) * 8 KC + (k // 16) * 128 + (n % 8) * 16
+    + k % 16 (the canonical K-major layout with 16-byte core-matrix rows).
+    Returns a flat int8 tensor on wq's device (no host sync)."""
+    o, kp = wq.shape
+    bn, kq = tile_n(o), padded_kq(kp)
+    nt = -(-o // bn)
+    w = torch.zeros((nt * bn, kq), dtype=torch.int8, device=wq.device)
+    w[:o, :kp] = wq
+    w = w.reshape(nt, bn // 8, 8, kq // KC, KC // 16, 16)
+    return w.permute(0, 3, 1, 4, 2, 5).contiguous().reshape(-1)
+
+
+def unpack_weight(packed: torch.Tensor, o: int, kp: int) -> torch.Tensor:
+    """The inverse of :func:`pack_weight`: the (O, Kp) ``wq``."""
+    bn, kq = tile_n(o), padded_kq(kp)
+    nt = -(-o // bn)
+    w = packed.reshape(nt, kq // KC, bn // 8, KC // 16, 8, 16)
+    w = w.permute(0, 2, 4, 1, 3, 5).reshape(nt * bn, kq)
+    return w[:o, :kp].contiguous()
+
+
 def qconv_plain(x: torch.Tensor, wq: torch.Tensor, s_w: torch.Tensor,
                 bias: torch.Tensor, s_x: torch.Tensor, kernel: int,
                 stride: int, pads: Sequence[int],
@@ -122,23 +246,30 @@ def qconv_plain(x: torch.Tensor, wq: torch.Tensor, s_w: torch.Tensor,
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("qconv")
-    fn = lib.ssgvc_qconv_forward
-    if fn.argtypes is None:
+    if lib.ssgvc_qconv_1x1.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, i, vp, vp, vp, vp, vp, i] + [i] * 13 + [vp]
-        fn.restype = ctypes.c_int
+        lib.ssgvc_qconv_1x1.argtypes = ([vp, i, vp, vp, vp, vp, vp, i]
+                                        + [i] * 9 + [vp])
+        lib.ssgvc_qconv_gemm.argtypes = ([vp, i, vp, vp, vp, vp, vp, vp, i]
+                                         + [i] * 12 + [vp])
+        lib.ssgvc_qconv_smem_1x1.argtypes = [i] * 7
+        for fn in (lib.ssgvc_qconv_1x1, lib.ssgvc_qconv_gemm,
+                   lib.ssgvc_qconv_smem_1x1):
+            fn.restype = ctypes.c_int
     return lib
 
 
 def qconv_cuda(x: torch.Tensor, wq: torch.Tensor, s_w: torch.Tensor,
                bias: torch.Tensor, s_x: torch.Tensor, kernel: int,
-               stride: int, pads: Sequence[int],
-               out_dtype: torch.dtype) -> torch.Tensor:
+               stride: int, pads: Sequence[int], out_dtype: torch.dtype,
+               packed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch ``csrc/qconv.cu`` on checked operands (as
     :func:`qconv_plain`): x contiguous bf16 or fp32 on the card, ``wq``
     (O, Kp) int8, ``s_w`` and ``bias`` (O,) fp32 (``bias`` is cast),
-    ``s_x`` one fp32 on x's device. Returns a new (B, Ho, Wo, O)."""
-    global launches
+    ``s_x`` one fp32 on x's device; ``packed``: ``pack_weight(wq)``, which
+    the 1x1 route reads (packed here when not given). The route is
+    :func:`route_of`'s. Returns a new (B, Ho, Wo, O)."""
+    global launches, launches_1x1, launches_gemm
     what = "qconv"
     if x.device.type != "cuda":
         raise ValueError(f"{what}: kernel needs a CUDA tensor, got "
@@ -158,9 +289,11 @@ def qconv_cuda(x: torch.Tensor, wq: torch.Tensor, s_w: torch.Tensor,
         raise ValueError(f"{what}: weights must be a 16-byte aligned "
                          f"contiguous int8 ({o}, {kp}) on {x.device}, got "
                          f"{wq.dtype} {tuple(wq.shape)} on {wq.device}")
-    bias = bias.detach().float().contiguous()
-    s_w = s_w.float().contiguous()
-    s_x = s_x.float().reshape(1)
+    # fp32 contiguous operands pass as they are (the kernel reads their
+    # data pointers): the host's time a call sets the int8 frame's
+    bias, s_w, s_x = (t if t.dtype == torch.float32 and t.is_contiguous()
+                      else t.detach().float().contiguous()
+                      for t in (bias, s_w, s_x))
     for t, n, nm in ((s_w, o, "s_w"), (bias, o, "bias"), (s_x, 1, "s_x")):
         if t.numel() != n or t.device != x.device:
             raise ValueError(f"{what}: {nm} must hold {n} fp32 on "
@@ -172,33 +305,67 @@ def qconv_cuda(x: torch.Tensor, wq: torch.Tensor, s_w: torch.Tensor,
     if ho < 1 or wo < 1:
         raise ValueError(f"{what}: empty output for {tuple(x.shape)}")
     y = torch.empty((b, ho, wo, o), dtype=out_dtype, device=x.device)
-    vec = int(cin % 16 == 0 and x.data_ptr() % 16 == 0)
+    x_f32, y_f32 = int(x.dtype == torch.float32), int(out_dtype
+                                                     == torch.float32)
+    route, plan = route_of(x.shape, o, kernel, stride, pads,
+                           x.data_ptr() % 16 == 0, y.element_size())
+    if route == "1x1":
+        if packed is None:
+            packed = pack_weight(wq)
+        size = plan["n_tiles"] * plan["bn"] * plan["kq"]
+        if (packed.dtype != torch.int8 or packed.numel() != size
+                or not packed.is_contiguous() or packed.device != x.device
+                or packed.data_ptr() % 16):
+            raise ValueError(f"{what}: the packed weights must be "
+                             f"pack_weight(wq), {size} int8 on {x.device}, "
+                             f"got {packed.dtype} {tuple(packed.shape)} on "
+                             f"{packed.device}")
+    else:
+        xq = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     lib = _lib()
-    with torch.cuda.device(x.device):
+
+    def launch():
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.ssgvc_qconv_forward(
-            x.data_ptr(), int(x.dtype == torch.float32), wq.data_ptr(),
+        if route == "1x1":
+            return lib.ssgvc_qconv_1x1(
+                x.data_ptr(), x_f32, packed.data_ptr(), s_w.data_ptr(),
+                bias.data_ptr(), s_x.data_ptr(), y.data_ptr(), y_f32,
+                b * h * w, cin, o, plan["rg"], plan["ng"], plan["bn"],
+                plan["kq"], plan["stages"], plan["smem"], stream)
+        return lib.ssgvc_qconv_gemm(
+            x.data_ptr(), x_f32, xq.data_ptr(), wq.data_ptr(),
             s_w.data_ptr(), bias.data_ptr(), s_x.data_ptr(), y.data_ptr(),
-            int(out_dtype == torch.float32), b, h, w, cin, o, kernel, kernel,
-            stride, pt, pb, pl, pr, vec, stream)
-    _build.check(lib, rc, "qconv kernel")
+            y_f32, b, h, w, cin, o, kernel, kernel, stride, pt, pb, pl, pr,
+            stream)
+
+    if x.device.index == torch.cuda.current_device():
+        rc = launch()
+    else:
+        with torch.cuda.device(x.device):
+            rc = launch()
+    _build.check(lib, rc, f"qconv kernel ({route} route)")
     launches += 1
+    if route == "1x1":
+        launches_1x1 += 1
+    else:
+        launches_gemm += 1
     return y
 
 
 def qconv(x: torch.Tensor, wq: torch.Tensor, s_w: torch.Tensor,
           bias: torch.Tensor, s_x: torch.Tensor, kernel: int, stride: int,
-          pads: Sequence[int],
-          out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+          pads: Sequence[int], out_dtype: Optional[torch.dtype] = None,
+          packed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The int8 conv: the plain version for a CPU tensor, the kernel for a
     CUDA tensor (which raises on what it does not take). ``out_dtype``
-    defaults to x's."""
+    defaults to x's; ``packed`` (``pack_weight(wq)``, kept by the caller
+    per weight version) feeds the 1x1 route."""
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
         return qconv_plain(x, wq, s_w, bias, s_x, kernel, stride, pads,
                            out_dtype)
     return qconv_cuda(x.contiguous(), wq, s_w, bias, s_x, kernel, stride,
-                      pads, out_dtype)
+                      pads, out_dtype, packed)
 
 
 #: the floor of the abs-max in s_w and s_x (``jnp.maximum(., 1e-12)``)
@@ -236,10 +403,12 @@ class _QConvGrad(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, weight, bias, wq, s_w, s_x, kernel, stride, pads,
-                out_dtype, dynamic, groups):
+                out_dtype, dynamic, groups, packed):
         ctx.save_for_backward(x, weight, wq, s_w, s_x)
         ctx.meta = (kernel, stride, tuple(pads), dynamic, tuple(groups))
-        return qconv(x, wq, s_w, bias, s_x, kernel, stride, pads, out_dtype)
+        ctx.packed = packed
+        return qconv(x, wq, s_w, bias, s_x, kernel, stride, pads, out_dtype,
+                     packed=packed)
 
     @staticmethod
     def backward(ctx, g):
@@ -256,7 +425,7 @@ class _QConvGrad(torch.autograd.Function):
                              127)
             y = qconv(xq, wq, torch.ones_like(s_w), torch.zeros_like(s_w),
                       torch.ones_like(s_x), kernel, stride, pads,
-                      torch.float32)
+                      torch.float32, packed=ctx.packed)
             c = (gf * y).sum(dim=(0, 1, 2))
         if need_w:
             w = weight.detach()
@@ -276,19 +445,21 @@ class _QConvGrad(torch.autograd.Function):
             for grp in groups:
                 all_reduce_sum_([part], grp)
             dx = _absmax_grad(xf, part[0], m, part[1]).to(x.dtype)
-        return (dx, dw, db) + (None,) * 9
+        return (dx, dw, db) + (None,) * 10
 
 
 def qconv_grad(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                wq: torch.Tensor, s_w: torch.Tensor, s_x: torch.Tensor,
                kernel: int, stride: int, pads: Sequence[int],
                out_dtype: torch.dtype, dynamic: bool,
-               groups: Sequence = ()) -> torch.Tensor:
+               groups: Sequence = (),
+               packed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """:func:`qconv` differentiable as ``jax.grad`` differentiates the
     JAX package's QuantConv (:class:`_QConvGrad`): ``weight`` (O, Cin, k,
     k) fp32 is the parameter ``wq`` / ``s_w`` were quantized from,
     ``dynamic`` says s_x is mode 1's abs-max of x (over ``groups``, the
     process groups x is spread over: the tie count and d s_x are theirs
-    too) rather than a constant."""
+    too) rather than a constant; ``packed`` as for :func:`qconv`, for
+    both launches."""
     return _QConvGrad.apply(x, weight, bias, wq, s_w, s_x, kernel, stride,
-                            pads, out_dtype, dynamic, list(groups))
+                            pads, out_dtype, dynamic, list(groups), packed)

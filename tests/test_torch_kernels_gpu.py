@@ -433,6 +433,122 @@ def test_qconv_kernel_matches_plain_bit_for_bit(site, cin, dtype):
         assert torch.equal(out, ref)
 
 
+# The 1x1 route (s8 wgmma; ops.qconv.plan_1x1): M off the 64- and 128-row
+# tiles, O under the N tile, off it and 1024, O whose rows are not 16-byte
+# multiples (element stores), Cin 16 and 1024; 1x2 N groups and 128-row
+# blocks (M >= 132 x 128).
+QCONV_1X1_EDGES = [((2, 7, 9, 16), 8), ((3, 11, 17, 48), 40),
+                   ((1, 13, 21, 64), 72), ((1, 5, 13, 1024), 1024),
+                   ((1, 9, 9, 32), 1), ((1, 20, 20, 64), 514),
+                   ((1, 136, 125, 16), 200), ((1, 70, 33, 1024), 96)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_dtype,out_dtype",
+                         [(torch.bfloat16, torch.bfloat16),
+                          (torch.bfloat16, torch.float32),
+                          (torch.float32, torch.bfloat16),
+                          (torch.float32, torch.float32)],
+                         ids=["bf16-bf16", "bf16-f32", "f32-bf16", "f32-f32"])
+@pytest.mark.parametrize("shape,o", QCONV_1X1_EDGES, ids=lambda v: str(v))
+def test_qconv_1x1_route_edges_bit_for_bit(shape, o, x_dtype, out_dtype):
+    from ssgvc_tpu_torch.ops import qconv as Q
+
+    dev = _card()
+    cin = shape[-1]
+    rng = np.random.default_rng(cin + o)
+    x = torch.tensor(rng.standard_normal(shape), dtype=x_dtype, device=dev)
+    w = torch.tensor(rng.standard_normal((o, cin, 1, 1)) * cin ** -0.5,
+                     dtype=torch.float32, device=dev)
+    b = torch.tensor(rng.standard_normal(o) * 0.1, dtype=torch.float32,
+                     device=dev)
+    wq, s_w = Q.quantize_weight(w)
+    packed = Q.pack_weight(wq)
+    for s_x in (Q.dynamic_scale(x),
+                torch.tensor(Q.static_scale(3.0), device=dev)):
+        before = (Q.launches, Q.launches_1x1, Q.launches_gemm)
+        out = Q.qconv(x, wq, s_w, b, s_x, 1, 1, (0, 0, 0, 0), out_dtype,
+                      packed=packed)
+        ref = Q.qconv_plain(x, wq, s_w, b, s_x, 1, 1, (0, 0, 0, 0),
+                            out_dtype)
+        torch.cuda.synchronize()
+        assert (Q.launches, Q.launches_1x1, Q.launches_gemm) == (
+            before[0] + 1, before[1] + 1, before[2])
+        assert out.shape == ref.shape and out.dtype == out_dtype
+        assert torch.equal(out, ref)
+    # packed here when the caller keeps none: the same output
+    assert torch.equal(Q.qconv(x, wq, s_w, b, s_x, 1, 1, (0, 0, 0, 0),
+                               out_dtype), out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,o,k,s,p", [((1, 68, 120, 256), 256, 1, 1, 0),
+                                           ((2, 17, 30, 128), 512, 1, 1, 0),
+                                           ((1, 34, 60, 128), 128, 2, 2, 0),
+                                           ((2, 16, 16, 64), 32, 3, 1, 1)],
+                         ids=["1x1", "1x1-b2", "k2s2", "k3p1"])
+def test_qconv_backward_call_bit_for_bit(shape, o, k, s, p):
+    """The int8 backward's recomputed sums: x's int8 values in fp32, unit
+    scales, a zero bias, an fp32 output (ops.qconv._QConvGrad)."""
+    from ssgvc_tpu_torch.ops import qconv as Q
+
+    dev = _card()
+    cin = shape[-1]
+    rng = np.random.default_rng(o + k)
+    x = torch.tensor(rng.integers(-127, 128, shape), dtype=torch.float32,
+                     device=dev)
+    w = torch.tensor(rng.standard_normal((o, cin, k, k)),
+                     dtype=torch.float32, device=dev)
+    wq, s_w = Q.quantize_weight(w)
+    ones, zeros = torch.ones_like(s_w), torch.zeros_like(s_w)
+    unit = torch.ones((), device=dev)
+    packed = Q.pack_weight(wq) if k == 1 else None
+    route = "launches_1x1" if k == 1 else "launches_gemm"
+    before = getattr(Q, route)
+    out = Q.qconv(x, wq, ones, zeros, unit, k, s, (p, p, p, p),
+                  torch.float32, packed=packed)
+    ref = Q.qconv_plain(x, wq, ones, zeros, unit, k, s, (p, p, p, p),
+                        torch.float32)
+    torch.cuda.synchronize()
+    assert getattr(Q, route) == before + 1
+    assert torch.equal(out, ref)
+    # the sums are exact integers
+    assert torch.equal(out, torch.round(out))
+
+
+@pytest.mark.gpu
+def test_qconv_1x1_site_takes_the_1x1_route(monkeypatch):
+    """A 1x1 bf16 site of the P-frame's widths, through layers.blocks.Conv
+    under SSGVC_INT8=1: one launch of the 1x1 route on the packed weight
+    Conv keeps, equal to the plain version."""
+    from ssgvc_tpu_torch.layers import blocks
+    from ssgvc_tpu_torch.ops import qconv as Q
+
+    dev = _card()
+    monkeypatch.setenv("SSGVC_INT8", "1")
+    monkeypatch.delenv("SSGVC_INT8_SCOPE", raising=False)
+    conv = blocks.Conv(256, 1024, 1, dtype=torch.bfloat16, device=dev)
+    conv.site = "ffn"
+    rng = np.random.default_rng(5)
+    with torch.no_grad():
+        conv.weight.copy_(torch.tensor(rng.standard_normal((1024, 256, 1, 1))
+                                       / 16, dtype=torch.float32))
+        conv.bias.copy_(torch.tensor(rng.standard_normal(1024) * 0.1,
+                                     dtype=torch.float32))
+    x = torch.tensor(rng.standard_normal((1, 68, 120, 256)),
+                     dtype=torch.bfloat16, device=dev)
+    before = (Q.launches_1x1, Q.launches_gemm)
+    with torch.no_grad():
+        out = conv(x)
+    torch.cuda.synchronize()
+    assert (Q.launches_1x1, Q.launches_gemm) == (before[0] + 1, before[1])
+    wq, s_w = conv.int8_weight()
+    assert torch.equal(conv.int8_packed(), Q.pack_weight(wq))
+    ref = Q.qconv_plain(x, wq, s_w, conv.bias, Q.dynamic_scale(x), 1, 1,
+                        (0, 0, 0, 0), torch.bfloat16)
+    assert torch.equal(out, ref)
+
+
 @pytest.mark.gpu
 def test_qconv_refuses_what_it_does_not_take():
     from ssgvc_tpu_torch.ops import qconv as Q
